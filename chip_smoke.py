@@ -1,0 +1,483 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
+
+Run from the repository root on a machine with one CUDA card:
+
+    python3 chip_smoke.py
+
+It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
+holds each kernel wrapper against its plain PyTorch version (bitwise, f64
+and f32) at the bucket shapes of the production configuration ``prod_3d``
+(``CombinationScheme(3, 9)``: 109 grids, a 511^3 fine grid, 1.07 GB in
+f64) and of a long-axis stack of ``CombinationScheme(2, 15)``, then drives
+the port's main path — ``CTSurrogate`` construction, one ``update`` and
+three query batches of 1024 points — at full size, and checks the result:
+
+* fused and unfused ingest give the same bits;
+* the card's surplus is bitwise the port's CPU run;
+* 16 query points match the CPU eval (rtol 1e-12) and the direct
+  combination of the grids' multilinear interpolants (rtol 1e-9);
+* the surplus checks again for ``CombinationScheme(4, 6)`` (coefficients
+  of +-3, which would expose a fused multiply-add in the scatter) and for
+  ``CombinationScheme(2, 11)`` (buckets in both of the reference's axis
+  orders; every ``prod_3d`` and ``fig7_4d`` bucket takes one order).
+
+The kernel checks and timings replay the wrapper calls that the executor
+itself makes in an ingest (``record_calls``).  Each kernel's ``ms`` is its
+device time from the profiler; ``plain_ms`` and ``library_ms`` (one
+``torch.einsum`` with the dense per-member operators, for the two pass
+kernels) are device times too; ``wrapper_ms`` and ``plain_wrapper_ms``
+are CUDA events around the Python calls, host dispatch included.
+
+It prints the card's name and power limit, the kernels' ``-Xptxas -v``
+report, the timings, a ``{"kernels": [...]}`` JSON line and, last,
+``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is
+then non-zero and no result line is printed.  Without a CUDA device, or
+without the rest of the repository, it exits non-zero at once.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate (data sheet)
+PROD = (3, 9)                    # configs/sparse_grid.py "prod_3d"
+FIG7 = (4, 6)                    # configs/sparse_grid.py "fig7_4d"
+FIG6 = (2, 11)                   # configs/sparse_grid.py "fig6_2d"
+LONG = (2, 15)                   # long-axis stacks: (G, 32767, 1), (G, 255, 255)
+QUERY_BATCH, QUERY_BATCHES, CHECK_POINTS = 1024, 3, 16
+TIMING_REPS = 20
+
+KERNELS = {  # wrapper -> (CUDA source, TPU kernel it replaces)
+    "hier_tail_batched": (
+        "src/repro_torch/kernels/csrc/axis_pass_fwd.cu",
+        "src/repro/kernels/hierarchize.py:509"),
+    "hier_axis0_batched": (
+        "src/repro_torch/kernels/csrc/axis_pass_fwd.cu",
+        "src/repro/kernels/hierarchize.py:602"),
+    "hier_axis0_scatter_batched": (
+        "src/repro_torch/kernels/csrc/axis_pass_scatter_fwd.cu",
+        "src/repro/kernels/hierarchize.py:657"),
+}
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def smi() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return out.stdout.strip()
+
+
+def bump(*xs):
+    """Smooth test function vanishing on the boundary of [0,1]^d."""
+    out = 1.0
+    for x in xs:
+        out = out * 4.0 * x * (1.0 - x)
+    return out * (1.0 + 0.5 * xs[0] - 0.25 * xs[-1] ** 2)
+
+
+def main() -> int:
+    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+        print("chip_smoke: the port's sources (src/repro_torch) are not "
+              "beside this script", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.core import executor as E
+    from repro_torch.core.combination import combined_interpolant_points
+    from repro_torch.core.interpolation import (interpolate_hierarchical,
+                                                sample_function)
+    from repro_torch.core.levels import CombinationScheme, grid_shape
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import hierarchize as H
+    from repro_torch.launch.serve import CTSurrogate
+
+    card = smi()
+    cuda = torch.device("cuda")
+    print(f"card: {card}  ({torch.cuda.get_device_name(0)}, "
+          f"torch {torch.__version__}, CUDA {torch.version.cuda})")
+
+    t0 = time.perf_counter()
+    _build.load_all()
+    print(f"kernels built in {time.perf_counter() - t0:.1f} s")
+    for name, log in _build.PTXAS_LOG.items():
+        if name in _build.CACHED:
+            print(f"[{name}] already built; the ptxas report of that build:")
+        for line in log.splitlines():
+            if "ptxas" in line:
+                print(f"[{name}] {line.strip()}")
+
+    bits = {torch.float64: torch.int64, torch.float32: torch.int32}
+
+    def same(a, b) -> bool:
+        a, b = a.contiguous(), b.to(a.device).contiguous()
+        return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+            a.view(bits[a.dtype]), b.view(bits[b.dtype]))
+
+    def max_err(a, b) -> float:
+        return float((a.double() - b.to(a.device).double()).abs().max())
+
+    err = {k: 0.0 for k in KERNELS}
+    rng = np.random.default_rng(0)
+
+    # ------------------------------------------------------------------
+    # Kernels vs their plain versions at the main path's shapes
+    # ------------------------------------------------------------------
+    def record_ingest(plan, grids):
+        """One fused ingest through the executor's own dispatch; returns
+        its wrapper calls ``(wrapper, arguments)`` in launch order."""
+        with H.record_calls() as calls:
+            E.ct_transform_with_plan(grids, plan, device=cuda)
+        return list(calls)
+
+    def replay(call, acc, *, plain=False, cpu=False):
+        """Repeat a recorded wrapper call (or its plain version), with
+        ``acc`` as the fine buffer and, if ``cpu``, CPU copies of the
+        other tensors."""
+        wrapper, args = call
+        args = {k: acc if k == "acc" else
+                v.cpu() if cpu and torch.is_tensor(v) else v
+                for k, v in args.items()}
+        return (wrapper.plain if plain else wrapper)(**args)
+
+    def check_kernels(plan, grids, dtype, label):
+        calls = record_ingest(plan, grids)
+        acc_card = torch.zeros(plan.fine_size + 1, dtype=dtype, device=cuda)
+        acc_cpu = torch.zeros(plan.fine_size + 1, dtype=dtype)
+        counts = {}
+        for call in calls:
+            name = call[0].__name__
+            counts[name] = counts.get(name, 0) + 1
+            got = replay(call, acc_card)
+            want = replay(call, acc_cpu, plain=True, cpu=True)
+            if name == "hier_axis0_scatter_batched":
+                continue
+            err[name] = max(err[name], max_err(got, want))
+            if not same(got, want):
+                fail(f"{name} differs from its plain version ({label})")
+        torch.cuda.synchronize()
+        e = max_err(acc_card, acc_cpu)
+        err["hier_axis0_scatter_batched"] = max(
+            err["hier_axis0_scatter_batched"], e)
+        if not same(acc_card, acc_cpu):
+            fail(f"hier_axis0_scatter_batched differs from its plain "
+                 f"version ({label}, max err {e})")
+        print(f"kernel check {label}: bitwise equal to the plain versions "
+              f"over {counts} wrapper calls")
+
+    def random_grids(scheme, dtype):
+        return {ell: torch.from_numpy(rng.standard_normal(grid_shape(ell)))
+                .to(dtype=dtype, device=cuda) for ell, _ in scheme.grids}
+
+    prod = CombinationScheme(*PROD)
+    prod_plan = E.build_plan(prod)
+    for dtype in (torch.float64, torch.float32):
+        check_kernels(prod_plan, random_grids(prod, dtype), dtype,
+                      f"prod_3d {str(dtype)[6:]}")
+
+    # long-axis stacks: every wrapper on every axis, compact index maps
+    long_plan = E.build_plan(CombinationScheme(*LONG))
+    square = (1 << ((LONG[1] + 1) // 2)) - 1
+    wanted = (((1 << LONG[1]) - 1, 1), (square, square))
+    stacks = [b for b in long_plan.buckets if b.shape in wanted]
+    if len(stacks) != 2:
+        fail(f"expected the {wanted} buckets, got "
+             f"{[b.shape for b in long_plan.buckets]}")
+    for b in stacks:
+        for dtype in (torch.float64, torch.float32):
+            g = len(b.ells)
+            x = torch.from_numpy(rng.standard_normal((g,) + b.shape)).to(
+                dtype=dtype, device=cuda)
+            for name, got, want in [
+                    ("hier_tail_batched", H.hier_tail_batched(x, b.levels),
+                     H.hier_tail_batched(x.cpu(), b.levels)),
+                    ("hier_axis0_batched",
+                     H.hier_axis0_batched(x, [lv[0] for lv in b.levels]),
+                     H.hier_axis0_batched(x.cpu(),
+                                          [lv[0] for lv in b.levels]))]:
+                err[name] = max(err[name], max_err(got, want))
+                if not same(got, want):
+                    fail(f"{name} differs on {b.shape} {dtype}")
+            p = x[0].numel()
+            index = torch.from_numpy(np.stack(
+                [rng.permutation(2 * p)[:p] for _ in range(g)])
+                .astype(np.int32))
+            cs = torch.from_numpy(rng.choice([-3.0, -1.0, 1.0, 3.0], g)).to(
+                dtype)
+            for axis in range(len(b.shape)):
+                lv = [l[axis] for l in b.levels]
+                acc = torch.from_numpy(rng.standard_normal(2 * p + 1)).to(
+                    dtype)
+                want = H.hier_axis0_scatter_batched(x.cpu(), lv, cs, index,
+                                                    acc.clone(), axis=axis)
+                got = H.hier_axis0_scatter_batched(
+                    x, lv, cs.to(cuda), index.to(cuda), acc.to(cuda),
+                    axis=axis)
+                err["hier_axis0_scatter_batched"] = max(
+                    err["hier_axis0_scatter_batched"], max_err(got, want))
+                if not same(got, want):
+                    fail(f"scatter differs on {b.shape} axis {axis} {dtype}")
+        print(f"kernel check long-axis stack {(len(b.ells),) + b.shape}: "
+              f"bitwise equal in f64 and f32")
+
+    # ------------------------------------------------------------------
+    # The main path at full size: CTSurrogate on prod_3d, f64
+    # ------------------------------------------------------------------
+    grids = {ell: sample_function(bump, ell, device=cuda)
+             for ell, _ in prod.grids}
+    points = [torch.from_numpy(np.random.default_rng(100 + i).random(
+        (QUERY_BATCH, 3))) for i in range(QUERY_BATCHES)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in H.WRAPPERS:
+        w.launches = 0
+    t0 = time.perf_counter()
+    srv = CTSurrogate(prod, grids, device=cuda)
+    torch.cuda.synchronize()
+    construct_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    with H.record_calls() as main_calls:     # replayed by the timings
+        srv.update(grids)
+    torch.cuda.synchronize()
+    ingest_ms = (time.perf_counter() - t0) * 1e3
+    query_ms, answers = [], []
+    for pts in points:
+        t0 = time.perf_counter()
+        answers.append(srv.query(pts.numpy()))   # returns host numpy
+        torch.cuda.synchronize()
+        query_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {w.__name__: w.launches for w in H.WRAPPERS}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"main path prod_3d: launches per 2 ingests {launches}")
+    for name, n in launches.items():
+        if n == 0:
+            fail(f"{name} was not launched on the main path")
+
+    surplus = srv.surplus
+    if surplus.shape != grid_shape((PROD[1],) * PROD[0]) or \
+            not bool(torch.isfinite(surplus).all()):
+        fail(f"prod_3d surplus is not finite of the fine grid's shape")
+    if not all(a.shape == (QUERY_BATCH,) and np.isfinite(a).all()
+               for a in answers):
+        fail("query answers are not finite of shape (1024,)")
+
+    def check_surplus(scheme, grids, card_surplus, label):
+        plan = E.build_plan(scheme)
+        unfused = E.ct_transform_with_plan(grids, plan, fused=False,
+                                           device=cuda)
+        if not same(card_surplus, unfused):
+            fail(f"{label}: fused and unfused ingest differ")
+        del unfused
+        cpu = E.ct_transform_with_plan({k: v.cpu() for k, v in
+                                        grids.items()}, plan, device="cpu")
+        if not same(cpu, card_surplus.cpu()):
+            fail(f"{label}: card surplus differs from the CPU run "
+                 f"(max err {max_err(card_surplus, cpu)})")
+        print(f"{label}: surplus {tuple(card_surplus.shape)} bitwise equal "
+              f"fused/unfused and card/CPU")
+        return cpu
+
+    cpu_surplus = check_surplus(prod, grids, surplus, "prod_3d")
+    pts = points[0][:CHECK_POINTS]
+    want = interpolate_hierarchical(cpu_surplus, pts).numpy()
+    got = answers[0][:CHECK_POINTS]
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-15)
+    direct = combined_interpolant_points(
+        {k: v.cpu() for k, v in grids.items()}, prod, pts).numpy()
+    np.testing.assert_allclose(got, direct, rtol=1e-9, atol=1e-12)
+    print(f"prod_3d: {CHECK_POINTS} query points match the CPU eval "
+          f"(max rel err {float(np.max(np.abs(got - want) / np.abs(want)))})"
+          f" and the direct combination "
+          f"(max abs err {float(np.max(np.abs(got - direct)))})")
+    del cpu_surplus
+
+    for label, config in (("fig7_4d", FIG7), ("fig6_2d", FIG6)):
+        scheme = CombinationScheme(*config)
+        g = {ell: sample_function(bump, ell, device=cuda)
+             for ell, _ in scheme.grids}
+        check_surplus(scheme, g, CTSurrogate(scheme, g, device=cuda).surplus,
+                      label)
+
+    # ------------------------------------------------------------------
+    # Kernel timings: the main path's own wrapper calls (prod_3d, f64)
+    # ------------------------------------------------------------------
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.ref import operator_matrix
+
+    def wall_ms(fn) -> float:
+        """CUDA events around ``fn``: device time plus the host work the
+        device waits on (Python dispatch of each call)."""
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(TIMING_REPS):
+            fn()
+        stop.record()
+        stop.synchronize()
+        return start.elapsed_time(stop) / TIMING_REPS
+
+    def device_ms(fn, only=None) -> float:
+        """Device time of ``fn``: the profiler's device activity (kernels,
+        copies, fills) summed over TIMING_REPS calls.  With ``only``, every
+        device op must have that in its name."""
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(TIMING_REPS):
+                fn()
+            torch.cuda.synchronize()
+        ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if not ops:
+            fail("the profiler recorded no device activity")
+        if only and any(only not in e.name for e in ops):
+            fail(f"device ops other than {only}: "
+                 f"{sorted({e.name for e in ops if only not in e.name})}")
+        us = sum(e.time_range.end - e.time_range.start for e in ops)
+        return us / TIMING_REPS / 1e3
+
+    def live_axes(wrapper, args):
+        """The axes a call passes over, each of extent > 1."""
+        x = args["x"]
+        if wrapper is H.hier_tail_batched:
+            axes = args["axes"] or range(1, x.ndim - 1)
+        else:
+            axes = (args.get("axis", 0),)
+        return [k for k in axes if x.shape[k + 1] > 1]
+
+    def dense_pass(wrapper, args):
+        """One ``torch.einsum`` computing a pass call with the dense
+        per-member 1-D operators (identity on a member's pad rows):
+        ``(spec, operands)``, or None for a call with no live axis."""
+        x = args["x"]
+        levels = (args["member_levels"] if wrapper is H.hier_tail_batched
+                  else [(l,) for l in args["levels0"]])   # axis 0 only
+        axes = live_axes(wrapper, args)
+        if not axes:
+            return None
+        src = "z" + "abcdefgh"[:x.ndim - 1]
+        out, subs, ops = list(src), [], []
+        for k in axes:
+            n = x.shape[k + 1]
+            h = torch.zeros((x.shape[0], n, n), dtype=torch.float64)
+            for g, lv in enumerate(levels):
+                m = (1 << lv[k]) - 1
+                h[g] = torch.eye(n, dtype=torch.float64)
+                h[g, :m, :m] = torch.from_numpy(operator_matrix(lv[k]))
+            subs.append("z" + "ABCDEFGH"[k] + src[k + 1])
+            out[k + 1] = "ABCDEFGH"[k]
+            ops.append(h.to(x))
+        return ",".join(subs + [src]) + "->" + "".join(out), ops + [x]
+
+    acc = torch.zeros(srv._plan.fine_size + 1, dtype=torch.float64,
+                      device=cuda)
+    rows = []
+    for name, (source, replaces) in KERNELS.items():
+        mine = [c for c in main_calls if c[0].__name__ == name]
+        nbytes = 0
+        for wrapper, args in mine:
+            x = args["x"]
+            item = x.element_size()
+            if name == "hier_axis0_scatter_batched":
+                live = int((args["index"] != srv._plan.fine_size).sum())
+                # x and the index read once, each touched slot read+written
+                nbytes += x.numel() * (item + 4) + 2 * live * item
+            else:
+                # each pass reads its input and writes its output once
+                nbytes += 2 * len(live_axes(wrapper, args)) * x.numel() * item
+        kernel = lambda: [replay(c, acc) for c in mine]
+        plain = lambda: [replay(c, acc, plain=True) for c in mine]
+        ms = device_ms(kernel, only="axis_pass")
+        library_ms = None
+        if name != "hier_axis0_scatter_batched":
+            dense = [(c, dense_pass(*c)) for c in mine]
+            dense = [(c, d) for c, d in dense if d is not None]
+            for c, (spec, ops) in dense:      # the same function?
+                want = replay(c, acc)
+                e = max_err(torch.einsum(spec, *ops), want)
+                if e > 1e-12 * max(1.0, float(want.abs().max())):
+                    fail(f"einsum {spec} differs from {name} by {e}")
+            library_ms = device_ms(
+                lambda: [torch.einsum(spec, *ops) for _, (spec, ops) in dense])
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": err[name], "ms": ms,
+            "plain_ms": device_ms(plain),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": library_ms,
+            "wrapper_ms": wall_ms(kernel), "plain_wrapper_ms": wall_ms(plain)})
+        r = rows[-1]
+        print(f"{name}: device {ms:.4f} ms per ingest ({len(mine)} calls, "
+              f"{launches[name] // 2} launches), bound {r['bound_ms']:.6f} ms "
+              f"({nbytes} B at 3.35 TB/s); plain {r['plain_ms']:.4f} ms; "
+              f"library (einsum) {library_ms} ms; with host dispatch: "
+              f"kernel {r['wrapper_ms']:.4f} ms, plain "
+              f"{r['plain_wrapper_ms']:.4f} ms  [{card}]")
+
+    # ------------------------------------------------------------------
+    # Where the time goes: one ingest and one query under the profiler
+    # ------------------------------------------------------------------
+    def profiled(label, fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        spans, by_name = [], {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                a, b = e.time_range.start, e.time_range.end
+                spans.append((a, b))
+                n, t = by_name.get(e.name, (0, 0.0))
+                by_name[e.name] = (n + 1, t + (b - a))
+        busy_us, end = 0.0, float("-inf")
+        for a, b in sorted(spans):        # union of device intervals
+            if b > end:
+                busy_us += b - max(a, end)
+                end = b
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+        print(f"profile {label}: wall {wall_us / 1e3:.3f} ms, device busy "
+              f"{busy_us / 1e3:.3f} ms (idle share "
+              f"{1.0 - busy_us / wall_us:.3f}), {len(spans)} device ops; "
+              f"top: " + "; ".join(f"{k[:48]} x{n} {t / 1e3:.3f} ms"
+                                   for k, (n, t) in top) + f"  [{card}]")
+
+    profiled("prod_3d ingest (update)", lambda: srv.update(grids))
+    profiled(f"prod_3d query ({QUERY_BATCH} points)",
+             lambda: srv.query(points[1].numpy()))
+
+    print(f"prod_3d CTSurrogate: construct {construct_ms:.1f} ms, ingest "
+          f"(update) {ingest_ms:.2f} ms, query per batch of {QUERY_BATCH} "
+          f"{', '.join(f'{q:.2f}' for q in query_ms)} ms; peak device "
+          f"memory {peak} B  [{card}]")
+    print(card)
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,32 @@
+"""PyTorch/CUDA port of the sparse-grid combination-technique system.
+
+The JAX package ``repro`` is the reference; this package keeps its module
+and public function names so each counterpart is easy to find.  It
+imports ``torch`` and numpy only — never JAX, never ``repro``.
+
+Ported so far: the CT ingest-and-query path (``core.executor.ct_transform``,
+``core.interpolation.interpolate_hierarchical``, ``launch.serve.CTSurrogate``)
+with the three batched forward hierarchization kernels written by hand in
+CUDA for Hopper (``kernels/csrc``).  Entry points run on the CUDA device
+unless the caller passes ``device="cpu"``; with no card and no
+``device="cpu"`` they raise — there is no silent CPU fallback.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["resolve_device"]
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``device`` when given, else CUDA.
+
+    Raises ``RuntimeError`` when CUDA is asked for (explicitly or by
+    default) and no card is present, instead of falling back to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on CUDA by default but no CUDA device is "
+            "available; pass device='cpu' to run on the CPU")
+    return dev

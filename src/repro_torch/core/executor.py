@@ -1,0 +1,442 @@
+"""Batched combination-technique executor (CT ingest).
+
+Port of the planning and gather halves of ``repro.core.executor``:
+
+  1. **Bucketing** — component grids are grouped by canonical
+     (descending-level) shape; every axis permutation of one level
+     multiset shares a bucket.
+  2. **Cost-model bucket merging** (opt-in, ``merge=MergeConfig(...)``) —
+     near-shape buckets merge into padded super-buckets by the optimal
+     contiguous partition of the descending-sorted shape sequence, priced
+     with the reference's TPU model so that plans are array-equal to the
+     reference's.
+  3. **Batched hierarchization** — one batched forward transform per
+     bucket (``repro_torch.kernels.hierarchize``), axes in the reference's
+     per-shape order.
+  4. **Static index plan + scatter-add** — a per-bucket (G, P) int32 map
+     into the flat common fine grid (+1 dump slot for pad positions).
+
+Execution rule of the port: every bucket, on every device, takes the
+FUSED epilogue by default — the bucket's last forward pass writes the
+coefficient-weighted surpluses straight into the fine grid
+(``hier_axis0_scatter_batched``), so the compact (G, P) surplus stack is
+never stored.  The reference gates its fused path on a TPU VMEM budget
+and on its Pallas path; on Hopper the fine grid stays in device memory
+and the pass axis is a kernel parameter, so no gate is needed.
+``fused=False`` runs the full transform and then one ordered
+``index_add_`` per member.  Both accumulate each fine slot as a left fold
+in member order, so they give the same bits.
+"""
+
+from __future__ import annotations
+
+import collections
+import threading
+from dataclasses import dataclass
+from typing import Dict, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.levels import (LevelVector, SchemeLike,
+                                     canonical_levels, fine_levels,
+                                     grid_shape)
+from repro_torch.kernels.hierarchize import (axis_order, batched_method,
+                                             forward_passes,
+                                             hier_axis0_scatter_batched,
+                                             hier_tail_batched,
+                                             hierarchize_batched,
+                                             tile_volume)
+
+__all__ = ["ExecutorPlan", "Bucket", "MergeConfig", "build_plan",
+           "ct_transform", "ct_transform_with_plan", "bucket_surpluses",
+           "bucket_tail_surpluses", "clear_plan_cache"]
+
+
+@dataclass(frozen=True)
+class Bucket:
+    """One batch of component grids sharing a canonical (padded) shape."""
+
+    ells: Tuple[LevelVector, ...]        # original level vectors
+    perms: Tuple[Tuple[int, ...], ...]   # canon axis k <- original axis perm[k]
+    levels: Tuple[LevelVector, ...]      # canonicalized member level vectors
+    target: LevelVector                  # componentwise max over members
+    coeffs: np.ndarray                   # (G,) combination coefficients
+    index: np.ndarray                    # (G, P) int32 flat fine indices
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return grid_shape(self.target)
+
+
+@dataclass(frozen=True)
+class ExecutorPlan:
+    """Precomputed static execution plan for one scheme's gather phase;
+    ``merge`` is the bucket-merging cost model it was built with."""
+
+    dim: int
+    full_levels: LevelVector
+    fine_shape: Tuple[int, ...]
+    buckets: Tuple[Bucket, ...]
+    merge: Optional["MergeConfig"] = None
+
+    @property
+    def fine_size(self) -> int:
+        return int(np.prod(self.fine_shape))
+
+    @property
+    def num_grids(self) -> int:
+        return sum(len(b.ells) for b in self.buckets)
+
+
+@dataclass(frozen=True)
+class MergeConfig:
+    """Static cost model for merging near-shape buckets into padded
+    super-buckets, in bytes: ``launch_cost_bytes`` per kernel launch
+    against ``round_trips`` copies of each member's padded volume.  Kept
+    exactly as the reference prices it (TPU tile volumes and its fused
+    VMEM gate), so merged plans equal the reference's.  ``max_members``
+    caps a super-bucket.  Hashable: it is part of the plan cache key."""
+
+    launch_cost_bytes: int = 1 << 20
+    round_trips: int = 4
+    dtype_bytes: int = 8
+    max_members: Optional[int] = None
+
+
+#: The reference's fused-epilogue budget (a TPU VMEM figure).  Read ONLY
+#: by the merge cost model, so merge partitions match the reference; the
+#: port's execution rule fuses every bucket.
+_REFERENCE_FUSED_OUT_BUDGET_BYTES = 8 * 1024 * 1024
+
+
+def _bucket_cost(target: LevelVector, n_members: int, merge: MergeConfig,
+                 out_elems: int) -> float:
+    """Modelled cost of one bucket, as the reference prices it: launch
+    overhead plus member traffic, plus the standalone scatter and the
+    compact-stack round trip for buckets it would not fuse."""
+    shape = grid_shape(target)
+    p = int(np.prod(shape, dtype=np.int64))
+    fused = False
+    if batched_method(shape) == "pallas":
+        launches, vol = (1 if len(shape) == 1 else 2), tile_volume(shape)
+        fused = (out_elems * merge.dtype_bytes
+                 <= _REFERENCE_FUSED_OUT_BUDGET_BYTES)
+    else:
+        launches, vol = len(shape), p
+    cost = (launches * merge.launch_cost_bytes
+            + merge.round_trips * n_members * vol * merge.dtype_bytes)
+    if not fused:
+        cost += (merge.launch_cost_bytes
+                 + 2 * n_members * p * merge.dtype_bytes)
+    return cost
+
+
+def _merge_partition(keys: Sequence[LevelVector], sizes: Sequence[int],
+                     merge: MergeConfig,
+                     out_elems: int) -> Tuple[Tuple[int, int], ...]:
+    """Optimal contiguous partition of the descending-sorted canonical
+    keys into super-buckets, as half-open segments ``(i, j)`` (interval
+    DP, exact under the cost model).  Contiguity keeps the global member
+    order, and with it the bits of the per-slot left fold."""
+    n = len(keys)
+    d = len(keys[0]) if n else 0
+    best = [0.0] * (n + 1)
+    cut = [0] * (n + 1)
+    for j in range(1, n + 1):
+        best[j] = float("inf")
+        target = list(keys[j - 1])
+        members = 0
+        for i in range(j - 1, -1, -1):
+            for k in range(d):
+                if keys[i][k] > target[k]:
+                    target[k] = keys[i][k]
+            members += sizes[i]
+            if merge.max_members is not None and members > merge.max_members \
+                    and j - i > 1:
+                break
+            c = best[i] + _bucket_cost(tuple(target), members, merge,
+                                       out_elems)
+            if c < best[j]:
+                best[j], cut[j] = c, i
+    segments = []
+    j = n
+    while j > 0:
+        segments.append((cut[j], j))
+        j = cut[j]
+    return tuple(reversed(segments))
+
+
+def _member_index_map(ell: LevelVector, perm: Tuple[int, ...],
+                      target: LevelVector, full_levels: LevelVector,
+                      fine_strides: np.ndarray, dump: int) -> np.ndarray:
+    """Flat fine-grid index of every position of the padded canonical
+    member array; pad positions map to the dump slot.  Node j (0-based)
+    of a level-l axis embeds at fine index ``(j + 1) * 2**(L - l) - 1``."""
+    d = len(target)
+    shape = grid_shape(target)
+    idx = np.zeros(shape, np.int64)
+    bad = np.zeros(shape, bool)
+    for k in range(d):
+        a = perm[k]
+        l, big = ell[a], full_levels[a]
+        n = (1 << l) - 1
+        j = np.arange(shape[k])
+        v = np.where(j < n, (j + 1) * (1 << (big - l)) - 1, 0)
+        bc = [1] * d
+        bc[k] = shape[k]
+        idx += (v * fine_strides[a]).reshape(bc)
+        bad |= (j >= n).reshape(bc)
+    return np.where(bad, dump, idx).astype(np.int32).ravel()
+
+
+def _fine_strides(fine_shape: Tuple[int, ...]) -> np.ndarray:
+    strides = np.ones(len(fine_shape), np.int64)
+    for a in range(len(fine_shape) - 2, -1, -1):
+        strides[a] = strides[a + 1] * fine_shape[a + 1]
+    return strides
+
+
+def _group_members(scheme: SchemeLike) -> Dict[LevelVector, list]:
+    """Group (ell, perm, canon, coeff) member records by canonical key."""
+    groups: Dict[LevelVector, list] = {}
+    for ell, c in scheme.grids:
+        canon, perm = canonical_levels(ell)
+        groups.setdefault(canon, []).append((ell, perm, canon, c))
+    return groups
+
+
+def _make_bucket(members: list, full_levels: LevelVector,
+                 fine_strides: np.ndarray, fine_size: int) -> Bucket:
+    """Build one bucket from its member records."""
+    target = tuple(max(lv[k] for _, _, lv, _ in members)
+                   for k in range(len(full_levels)))
+    index = np.stack([
+        _member_index_map(ell, perm, target, full_levels, fine_strides,
+                          dump=fine_size)
+        for ell, perm, _, _ in members])
+    return Bucket(
+        ells=tuple(m[0] for m in members),
+        perms=tuple(m[1] for m in members),
+        levels=tuple(m[2] for m in members),
+        target=target,
+        coeffs=np.asarray([float(m[3]) for m in members]),
+        index=index)
+
+
+def build_plan(scheme: SchemeLike,
+               full_levels: Optional[Sequence[int]] = None, *,
+               merge: Optional[MergeConfig] = None) -> ExecutorPlan:
+    """Bucket (and optionally merge-plan) the scheme's grids and
+    precompute the embed index plan.  Cached per ``(scheme, full_levels,
+    merge)``, with ``full_levels`` normalized first."""
+    if full_levels is None:
+        full_levels = fine_levels(scheme)
+    key = (scheme, tuple(int(l) for l in full_levels), merge)
+    plan = _PLAN_CACHE.get(key)
+    if plan is not None:
+        return plan
+    return _PLAN_CACHE.put(key, _build_plan_uncached(*key))
+
+
+class _PlanCache:
+    """Thread-safe LRU cache of host-side plans (numpy index maps only).
+    Concurrent misses on one key may both build; the first insert wins,
+    so callers always get one object per key."""
+
+    def __init__(self, maxsize: int):
+        self._data: "collections.OrderedDict" = collections.OrderedDict()
+        self._lock = threading.Lock()
+        self._maxsize = maxsize
+
+    def get(self, key):
+        with self._lock:
+            val = self._data.get(key)
+            if val is not None:
+                self._data.move_to_end(key)
+            return val
+
+    def put(self, key, value):
+        """Insert-if-absent; returns the winning (cached) value."""
+        with self._lock:
+            have = self._data.get(key)
+            if have is not None:
+                self._data.move_to_end(key)
+                return have
+            self._data[key] = value
+            while len(self._data) > self._maxsize:
+                self._data.popitem(last=False)
+            return value
+
+    def clear(self) -> None:
+        with self._lock:
+            self._data.clear()
+
+
+_PLAN_CACHE = _PlanCache(maxsize=64)
+
+
+def clear_plan_cache() -> None:
+    """Drop every cached executor plan (tests / benchmarks)."""
+    _PLAN_CACHE.clear()
+
+
+def _build_plan_uncached(scheme: SchemeLike, full_levels: LevelVector,
+                         merge: Optional[MergeConfig]) -> ExecutorPlan:
+    fine_shape = grid_shape(full_levels)
+    fine_size = int(np.prod(fine_shape))
+    fine_strides = _fine_strides(fine_shape)
+    groups = _group_members(scheme)
+    keys = sorted(groups, reverse=True)
+    if merge is None:
+        member_lists = [list(groups[k]) for k in keys]
+    else:
+        segments = _merge_partition(keys, [len(groups[k]) for k in keys],
+                                    merge, fine_size + 1)
+        member_lists = [[m for k in keys[i:j] for m in groups[k]]
+                        for i, j in segments]
+    buckets = tuple(_make_bucket(members, full_levels, fine_strides,
+                                 fine_size)
+                    for members in member_lists)
+    return ExecutorPlan(dim=scheme.dim, full_levels=full_levels,
+                        fine_shape=fine_shape, buckets=buckets, merge=merge)
+
+
+# ---------------------------------------------------------------------------
+# Gather phase
+# ---------------------------------------------------------------------------
+
+def _check_nodal_grids(nodal_grids: Mapping[LevelVector, torch.Tensor],
+                       plan: ExecutorPlan) -> None:
+    """Name the missing level vector(s) instead of failing deep inside."""
+    if not nodal_grids:
+        raise ValueError(
+            f"nodal_grids is empty: the scheme has {plan.num_grids} "
+            f"combination grids (one nodal array per level vector required)")
+    missing = [ell for b in plan.buckets for ell in b.ells
+               if ell not in nodal_grids]
+    if missing:
+        shown = ", ".join(map(str, missing[:5]))
+        more = f" (+{len(missing) - 5} more)" if len(missing) > 5 else ""
+        raise ValueError(
+            f"nodal_grids is missing {len(missing)} scheme grid(s): "
+            f"level vector(s) {shown}{more}")
+
+
+def _grids_on(nodal_grids, plan: ExecutorPlan, device: torch.device
+              ) -> Tuple[Dict[LevelVector, torch.Tensor], torch.dtype]:
+    """The plan's grids as tensors on ``device`` and their common dtype."""
+    _check_nodal_grids(nodal_grids, plan)
+    grids = {ell: torch.as_tensor(nodal_grids[ell], device=device)
+             for b in plan.buckets for ell in b.ells}
+    dtype = None
+    for g in grids.values():
+        dtype = g.dtype if dtype is None else torch.promote_types(dtype,
+                                                                  g.dtype)
+    return grids, dtype
+
+
+def _assemble_members(parts: Sequence[torch.Tensor],
+                      perms: Sequence[Tuple[int, ...]],
+                      shape: Tuple[int, ...],
+                      dtype: torch.dtype) -> torch.Tensor:
+    """Stack one bucket's member grids: each transposed to canonical axis
+    order and zero-padded to the bucket target shape (pad values never
+    reach the fine buffer — the index plan routes them to the dump slot)."""
+    x = torch.zeros((len(parts),) + tuple(shape), dtype=dtype,
+                    device=parts[0].device)
+    for g, (part, perm) in enumerate(zip(parts, perms)):
+        p = part.permute(perm)
+        x[(g,) + tuple(slice(0, s) for s in p.shape)] = p
+    return x
+
+
+def _assemble_bucket(grids: Mapping[LevelVector, torch.Tensor],
+                     bucket: Bucket, dtype: torch.dtype) -> torch.Tensor:
+    return _assemble_members([grids[ell] for ell in bucket.ells],
+                             bucket.perms, bucket.shape, dtype)
+
+
+def _gather_one_bucket(full: torch.Tensor, x: torch.Tensor,
+                       member_levels: Tuple[LevelVector, ...],
+                       idx: torch.Tensor, cs: torch.Tensor, *,
+                       fused: bool) -> torch.Tensor:
+    """Accumulate one assembled bucket stack ``x`` (G members, canonical
+    padded shape) into the flat fine buffer ``full`` (+1 dump slot), IN
+    PLACE.  ``idx`` is the (G, P) embed map, ``cs`` the (G,)
+    coefficients in ``full.dtype``."""
+    if fused:
+        order = axis_order(x.shape[1:])
+        last = order[-1]
+        y = forward_passes(x, member_levels, order[:-1])
+        return hier_axis0_scatter_batched(
+            y, [lv[last] for lv in member_levels], cs, idx, full, axis=last)
+    g = len(member_levels)
+    alpha = hierarchize_batched(x, member_levels).reshape(g, -1)
+    for m in range(g):
+        full.index_add_(0, idx[m], cs[m] * alpha[m])
+    return full
+
+
+def ct_transform_with_plan(nodal_grids: Mapping[LevelVector, torch.Tensor],
+                           plan: ExecutorPlan, *,
+                           fused: Optional[bool] = None,
+                           device=None) -> torch.Tensor:
+    """``ct_transform`` against an explicit plan: nodal component grids
+    -> sparse-grid surplus on the common fine grid, on ``device``.
+
+    ``fused=None`` takes the port's default, the fused epilogue on every
+    bucket; ``fused=False`` the unfused scatter (same bits)."""
+    device = resolve_device(device)
+    grids, dtype = _grids_on(nodal_grids, plan, device)
+    full = torch.zeros(plan.fine_size + 1, dtype=dtype, device=device)
+    for bucket in plan.buckets:
+        _gather_one_bucket(
+            full, _assemble_bucket(grids, bucket, dtype), bucket.levels,
+            torch.from_numpy(bucket.index).to(device),
+            torch.as_tensor(bucket.coeffs, dtype=dtype, device=device),
+            fused=fused is not False)
+    return full[:-1].reshape(plan.fine_shape)
+
+
+def ct_transform(nodal_grids: Mapping[LevelVector, torch.Tensor],
+                 scheme: SchemeLike, *,
+                 full_levels: Optional[Sequence[int]] = None,
+                 merge: Optional[MergeConfig] = None,
+                 fused: Optional[bool] = None,
+                 device=None) -> torch.Tensor:
+    """Gather phase, batched: nodal component grids -> sparse-grid surplus
+    on the common fine grid (hierarchize-per-grid + ``combine_full``, in
+    one pass over the plan).  ``merge`` opts into bucket merging (same
+    bits, fewer launches)."""
+    return ct_transform_with_plan(
+        nodal_grids, build_plan(scheme, full_levels, merge=merge),
+        fused=fused, device=device)
+
+
+def bucket_surpluses(nodal_grids: Mapping[LevelVector, torch.Tensor],
+                     plan: ExecutorPlan, *,
+                     device=None) -> Tuple[torch.Tensor, ...]:
+    """Per-bucket COMPACT hierarchical surpluses ``[(G_b, P_b), ...]`` —
+    the batched hierarchization without the embed."""
+    device = resolve_device(device)
+    grids, dtype = _grids_on(nodal_grids, plan, device)
+    return tuple(
+        hierarchize_batched(_assemble_bucket(grids, b, dtype), b.levels)
+        .reshape(len(b.ells), -1)
+        for b in plan.buckets)
+
+
+def bucket_tail_surpluses(nodal_grids: Mapping[LevelVector, torch.Tensor],
+                          plan: ExecutorPlan, *,
+                          device=None) -> Tuple[torch.Tensor, ...]:
+    """Per-bucket TAIL-transformed stacks ``[(G_b, N0, B_b), ...]``: axes
+    1..d-1 transformed, axis 0 still nodal."""
+    device = resolve_device(device)
+    grids, dtype = _grids_on(nodal_grids, plan, device)
+    out = []
+    for b in plan.buckets:
+        y = hier_tail_batched(_assemble_bucket(grids, b, dtype), b.levels)
+        out.append(y.reshape(len(b.ells), y.shape[1], -1))
+    return tuple(out)

@@ -1,0 +1,449 @@
+"""Batched forward hierarchization of CT bucket stacks: planning data, the
+three kernel wrappers and their plain PyTorch versions.
+
+Port of the batched half of ``repro.kernels.hierarchize``.  A bucket stack
+is a ``(G, *shape)`` tensor of G component grids zero-padded to one
+canonical shape; member g carries its own level vector, so members below
+the bucket target transform exactly as their unpadded selves.
+
+Forward hierarchization along one axis is the 3-term update ``_hier3``,
+``x - 0.5*x[lp] - 0.5*x[rp]`` with masked (boundary / pad) ancestors
+selected to zero.  Its evaluation order is fixed, so every path of this
+module gives the same bits per axis ORDER.  The reference applies the
+axes in an order fixed by ``batched_method(shape)``: tail axes 1..d-1 and
+then axis 0 on its Pallas path, axes 0..d-1 on its jnp path, and the two
+orders differ by an ulp.  ``axis_order`` keeps that rule, so this port
+matches the reference bitwise on every bucket.
+
+Wrappers (each the port of one TPU kernel of the reference):
+
+* ``hier_tail_batched``  — ``hier_tail_batched_pallas`` (forward): passes
+  along tail axes, one ``axis_pass_fwd`` launch per axis;
+* ``hier_axis0_batched`` — ``hier_axis0_batched_pallas`` (forward): one
+  ``axis_pass_fwd`` launch along axis 0;
+* ``hier_axis0_scatter_batched`` — ``hier_axis0_scatter_batched_pallas``:
+  the last pass fused with the coefficient-weighted scatter-add into the
+  flat fine grid, one ``axis_pass_scatter_fwd`` launch per member.
+
+A wrapper given a CPU tensor runs its plain PyTorch version (the oracle
+the tests compare with the reference); given a CUDA tensor it launches
+its kernel or raises.  ``<wrapper>.plain`` is that plain version, with the
+wrapper's signature, on any device; ``<wrapper>.launches`` counts kernel
+launches; ``record_calls`` records every wrapper call with its arguments.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import functools
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import _build
+
+__all__ = [
+    "hier_tail_batched",
+    "hier_axis0_batched",
+    "hier_axis0_scatter_batched",
+    "hierarchize_batched",
+    "axis_order",
+    "forward_passes",
+    "member_pred_arrays",
+    "count_launches",
+    "record_calls",
+    "pad_blowup",
+    "tile_volume",
+    "batched_method",
+    "hier_flops",
+]
+
+# The reference's TPU tiling, kept ONLY so that ``tile_volume`` /
+# ``batched_method`` price buckets exactly as the reference does: the
+# executor's merge cost model then builds the same plans, and
+# ``axis_order`` picks the same axis order per bucket (and so the same
+# bits).  The CUDA kernels themselves work at the true extents.
+_LANE = 128
+_SUBLANE = 8
+_PALLAS_MAX_BLOWUP = 8.0
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def tile_volume(shape: Sequence[int]) -> int:
+    """Padded-tile element count of one grid under the reference's TPU
+    sublane/lane tiling (the merge cost model prices buckets with it)."""
+    pads = [_round_up(s, _SUBLANE if i < len(shape) - 1 else _LANE)
+            for i, s in enumerate(shape)]
+    return int(np.prod(pads, dtype=np.int64))
+
+
+def pad_blowup(shape: Sequence[int]) -> float:
+    """Padded-tile volume over true volume under the TPU tiling."""
+    return float(tile_volume(shape)) / max(1.0, float(np.prod(shape)))
+
+
+def batched_method(shape: Sequence[int]) -> str:
+    """The reference's ``method="auto"`` rule: ``"pallas"`` unless TPU
+    tile padding would inflate the block more than 8x or an axis exceeds
+    2047.  Here it only decides the axis order (``axis_order``)."""
+    return ("jnp" if pad_blowup(shape) > _PALLAS_MAX_BLOWUP
+            or max(shape) > 2047 else "pallas")
+
+
+def axis_order(shape: Sequence[int]) -> Tuple[int, ...]:
+    """Order of the forward passes over a bucket of ``shape``: axes
+    1..d-1 then 0 where the reference runs its Pallas path, 0..d-1 where
+    it runs its jnp path."""
+    d = len(shape)
+    if batched_method(shape) == "pallas":
+        return tuple(range(1, d)) + (0,)
+    return tuple(range(d))
+
+
+def hier_flops(shape: Sequence[int], g: int = 1) -> int:
+    """Forward-hierarchization flop count of a ``(g, *shape)`` stack: 4
+    flops per point per axis (two halvings, two subtracts)."""
+    return 4 * g * len(shape) * int(np.prod(shape, dtype=np.int64))
+
+
+# ---------------------------------------------------------------------------
+# Per-member predecessor data
+# ---------------------------------------------------------------------------
+
+def _pred_index_1d(level: int, npad: int) -> tuple:
+    """Left/right hierarchical-predecessor 0-based index vectors (npad,)
+    plus validity masks, for a level-``level`` pole at the head of an axis
+    of extent ``npad >= 2**level - 1``.  Boundary ancestors and pad
+    positions get a False mask and a self index."""
+    n = (1 << level) - 1
+    if n > npad:
+        raise ValueError(f"level {level} pole ({n}) exceeds extent {npad}")
+    j = np.arange(1, npad + 1)
+    s = j & -j
+    real = j <= n
+    lm = real & (j - s >= 1)
+    rm = real & (j + s <= n)
+    lp = np.where(lm, j - s, j) - 1
+    rp = np.where(rm, j + s, j) - 1
+    return (lp.astype(np.int32), rp.astype(np.int32), lm, rm)
+
+
+def _pred_stack(member_levels: Sequence[int], npad: int) -> tuple:
+    """Per-member predecessor stacks: ``(idx (2, G, npad) int32,
+    mask (2, G, npad) bool)`` — left then right."""
+    parts = [_pred_index_1d(l, npad) for l in member_levels]
+    idx = np.stack([np.stack([p[0] for p in parts]),
+                    np.stack([p[1] for p in parts])])
+    mask = np.stack([np.stack([p[2] for p in parts]),
+                     np.stack([p[3] for p in parts])])
+    return idx, mask
+
+
+def member_pred_arrays(member_levels: Sequence[Sequence[int]],
+                       shape: Sequence[int]) -> tuple:
+    """Per-member forward-transform data of a bucket stack: for each axis
+    ``k`` in order, ``lp, rp`` int32 and ``lm, rm`` bool of shape
+    ``(G, shape[k])`` — ``4 * d`` numpy arrays."""
+    member_levels = [tuple(ml) for ml in member_levels]
+    out = []
+    for k, n in enumerate(shape):
+        idx, mask = _pred_stack([ml[k] for ml in member_levels], n)
+        out += [idx[0], idx[1], mask[0], mask[1]]
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=1024)
+def _pred_tensors(levels: Tuple[int, ...], n: int,
+                  device: torch.device) -> Tuple[torch.Tensor, ...]:
+    """``(lp, rp, lm, rm)`` of one axis on ``device``: int32 indices and
+    bool masks of shape (G, n).  Cached: the data depends on the member
+    levels alone and is reused by every ingest of a plan."""
+    idx, mask = _pred_stack(levels, n)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in (idx[0], idx[1], mask[0], mask[1]))
+
+
+def _axis_pred(levels: Sequence[int], axis: int, x: torch.Tensor):
+    """Predecessor tensors of bucket axis ``axis`` of the stack ``x``;
+    ``levels[g]`` is member g's level along that axis."""
+    return _pred_tensors(tuple(int(l) for l in levels), x.shape[axis + 1],
+                         x.device)
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions (the CPU path and the kernels' oracle)
+# ---------------------------------------------------------------------------
+
+def _hier3(x: torch.Tensor, xl: torch.Tensor, xr: torch.Tensor,
+           lm: torch.Tensor, rm: torch.Tensor) -> torch.Tensor:
+    """THE forward update, in the reference's evaluation order: masked
+    ancestors contribute an exact ``+0.0`` whatever the gathered value."""
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    return x - 0.5 * torch.where(lm, xl, zero) - 0.5 * torch.where(rm, xr, zero)
+
+
+def _axis_pass_plain(x: torch.Tensor, axis: int, pred) -> torch.Tensor:
+    """One forward pass along bucket axis ``axis`` of a (G, *shape) stack."""
+    lp, rp, lm, rm = pred
+    bshape = [1] * x.ndim
+    bshape[0], bshape[axis + 1] = x.shape[0], x.shape[axis + 1]
+    take = lambda i: torch.take_along_dim(x, i.long().reshape(bshape),
+                                          axis + 1)
+    return _hier3(x, take(lp), take(rp), lm.reshape(bshape),
+                  rm.reshape(bshape))
+
+
+def _axis_scatter_plain(x: torch.Tensor, axis: int, pred,
+                        coeffs: torch.Tensor, index: torch.Tensor,
+                        acc: torch.Tensor) -> torch.Tensor:
+    """Last pass + weighted scatter-add, member by member in member order;
+    pad positions (index == dump slot) are skipped, as in the kernel."""
+    g = x.shape[0]
+    alpha = _axis_pass_plain(x, axis, pred).reshape(g, -1)
+    idx = index.reshape(g, -1).long()
+    dump = acc.shape[0] - 1
+    for m in range(g):
+        keep = idx[m] != dump
+        acc.index_add_(0, idx[m][keep], (coeffs[m] * alpha[m])[keep])
+    return acc
+
+
+def _tail_plain(x: torch.Tensor, member_levels: Sequence[Sequence[int]], *,
+                axes: Sequence[int] | None = None) -> torch.Tensor:
+    for k in _live_axes(x, axes):
+        x = _axis_pass_plain(
+            x, k, _axis_pred([ml[k] for ml in member_levels], k, x))
+    return x
+
+
+def _axis0_plain(x: torch.Tensor, levels0: Sequence[int]) -> torch.Tensor:
+    if x.shape[1] == 1:
+        return x
+    return _axis_pass_plain(x, 0, _axis_pred(levels0, 0, x))
+
+
+def _axis0_scatter_plain(x: torch.Tensor, levels: Sequence[int],
+                         coeffs: torch.Tensor, index: torch.Tensor,
+                         acc: torch.Tensor, *, axis: int = 0) -> torch.Tensor:
+    return _axis_scatter_plain(x, axis, _axis_pred(levels, axis, x), coeffs,
+                               index, acc)
+
+
+# ---------------------------------------------------------------------------
+# Kernel launches
+# ---------------------------------------------------------------------------
+
+_DTYPE_TAG = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def _cuda_operand(t: torch.Tensor, what: str) -> torch.Tensor:
+    if t.device.type != "cuda":
+        raise ValueError(f"{what} must lie on the CUDA device with the "
+                         f"stack, got {t.device}")
+    return t.contiguous()
+
+
+def _check_stack(x: torch.Tensor) -> torch.Tensor:
+    if x.device.type != "cuda":
+        raise ValueError(f"the kernels take CPU or CUDA tensors, got "
+                         f"{x.device}")
+    if x.dtype not in _DTYPE_TAG:
+        raise TypeError(f"the kernels take float32 or float64, got {x.dtype}")
+    return x.contiguous()
+
+
+def _view(shape: Sequence[int], axis: int) -> Tuple[int, int, int]:
+    """(outer, n, inner) extents of a pass along ``axis`` of ``shape``."""
+    return (int(np.prod(shape[:axis], dtype=np.int64)), int(shape[axis]),
+            int(np.prod(shape[axis + 1:], dtype=np.int64)))
+
+
+def _live_axes(x: torch.Tensor, axes: Sequence[int] | None) -> list:
+    """The tail ``axes`` (default 1..d-1) of the stack ``x`` with extent
+    > 1: a level-1 axis is the identity."""
+    axes = range(1, x.ndim - 1) if axes is None else axes
+    return [k for k in axes if x.shape[k + 1] > 1]
+
+
+_RECORDING: list | None = None
+
+
+def _record(wrapper, **arguments) -> None:
+    if _RECORDING is not None:
+        _RECORDING.append((wrapper, arguments))
+
+
+@contextlib.contextmanager
+def record_calls():
+    """Record every wrapper call inside the block.
+
+    Yields a list, filled as the calls happen, of ``(wrapper, arguments)``
+    pairs, ``arguments`` the call's keyword arguments: replaying
+    ``wrapper(**arguments)`` (or ``wrapper.plain(**arguments)``) repeats
+    the call.  Not thread-safe: record from one thread."""
+    global _RECORDING
+    saved, _RECORDING = _RECORDING, []
+    try:
+        yield _RECORDING
+    finally:
+        _RECORDING = saved
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error "
+                           f"{err}")
+
+
+def _launch_axis_pass(src: torch.Tensor, dst: torch.Tensor, axis: int,
+                      pred) -> None:
+    outer, n, inner = _view(src.shape[1:], axis)
+    lp, rp, lm, rm = pred
+    fn = _build.kernel("axis_pass_fwd", _DTYPE_TAG[src.dtype])
+    _raise_on(fn(src.data_ptr(), dst.data_ptr(), lp.data_ptr(),
+                 rp.data_ptr(), lm.data_ptr(), rm.data_ptr(), src.shape[0],
+                 outer, n, inner, _stream(src)), "axis_pass_fwd")
+
+
+# ---------------------------------------------------------------------------
+# The wrappers
+# ---------------------------------------------------------------------------
+
+def hier_tail_batched(x: torch.Tensor,
+                      member_levels: Sequence[Sequence[int]], *,
+                      axes: Sequence[int] | None = None) -> torch.Tensor:
+    """Forward-hierarchize tail axes of a (G, N1, ..., Nd) bucket stack,
+    in the order given (default 1..d-1).
+
+    ``member_levels[g]`` is member g's level vector in bucket axis order.
+    On CUDA: one ``axis_pass_fwd`` launch per axis of extent > 1 (a
+    level-1 axis is the identity), ping-ponging two fresh buffers; ``x``
+    itself is never written."""
+    _record(hier_tail_batched, x=x, member_levels=member_levels, axes=axes)
+    if x.device.type == "cpu":
+        return _tail_plain(x, member_levels, axes=axes)
+    live = _live_axes(x, axes)
+    x = _check_stack(x)
+    bufs = [torch.empty_like(x) for _ in range(min(2, len(live)))]
+    for i, k in enumerate(live):
+        _launch_axis_pass(x, bufs[i % 2], k,
+                          _axis_pred([ml[k] for ml in member_levels], k, x))
+        hier_tail_batched.launches += 1
+        x = bufs[i % 2]
+    return x
+
+
+def hier_axis0_batched(x: torch.Tensor,
+                       levels0: Sequence[int]) -> torch.Tensor:
+    """Forward-hierarchize axis 0 of a (G, N, ...) bucket stack;
+    ``levels0[g]`` is member g's level along it.  On CUDA: one
+    ``axis_pass_fwd`` launch into a fresh buffer."""
+    _record(hier_axis0_batched, x=x, levels0=levels0)
+    if x.shape[1] == 1:
+        return x
+    if x.device.type == "cpu":
+        return _axis0_plain(x, levels0)
+    x = _check_stack(x)
+    out = torch.empty_like(x)
+    _launch_axis_pass(x, out, 0, _axis_pred(levels0, 0, x))
+    hier_axis0_batched.launches += 1
+    return out
+
+
+def hier_axis0_scatter_batched(x: torch.Tensor, levels: Sequence[int],
+                               coeffs: torch.Tensor, index: torch.Tensor,
+                               acc: torch.Tensor, *,
+                               axis: int = 0) -> torch.Tensor:
+    """Fused epilogue of the CT gather: forward-hierarchize bucket axis
+    ``axis`` of the (G, *shape) stack ``x`` (every other axis already
+    transformed) and add ``coeffs[g]`` times member g's surpluses into the
+    flat fine buffer ``acc`` through the (G, P) index map ``index``.
+
+    ``levels[g]`` is member g's level along ``axis``.  ``acc`` holds the
+    fine grid plus one dump slot at its end, where every pad position of
+    ``index`` points; pad positions are skipped.  ``acc`` is updated IN
+    PLACE (it is the whole fine grid) and returned.  Per fine slot the
+    adds happen once per member, in member order — the left fold of the
+    unfused scatter, so fused and unfused give the same bits.  On CUDA:
+    one ``axis_pass_scatter_fwd`` launch per member, in order, on the
+    current stream."""
+    _record(hier_axis0_scatter_batched, x=x, levels=levels, coeffs=coeffs,
+            index=index, acc=acc, axis=axis)
+    g = x.shape[0]
+    if acc.dtype != x.dtype or coeffs.dtype != x.dtype:
+        raise TypeError("acc and coeffs must have the stack's dtype")
+    if acc.ndim != 1 or not acc.is_contiguous():
+        raise ValueError("acc must be a contiguous 1-D fine buffer")
+    if index.dtype != torch.int32 or index.numel() != x.numel():
+        raise ValueError("index must be an int32 (G, P) map of the stack")
+    if x.device.type == "cpu":
+        return _axis0_scatter_plain(x, levels, coeffs, index, acc, axis=axis)
+    pred = _axis_pred(levels, axis, x)
+    x = _check_stack(x)
+    index = _cuda_operand(index, "index")
+    coeffs = _cuda_operand(coeffs, "coeffs")
+    _cuda_operand(acc, "acc")
+    outer, n, inner = _view(x.shape[1:], axis)
+    lp, rp, lm, rm = pred
+    fn = _build.kernel("axis_pass_scatter_fwd", _DTYPE_TAG[x.dtype])
+    _raise_on(fn(x.data_ptr(), index.data_ptr(), coeffs.data_ptr(),
+                 acc.data_ptr(), acc.shape[0] - 1, lp.data_ptr(),
+                 rp.data_ptr(), lm.data_ptr(), rm.data_ptr(), g, outer, n,
+                 inner, _stream(x)), "axis_pass_scatter_fwd")
+    hier_axis0_scatter_batched.launches += g
+    return acc
+
+
+WRAPPERS = (hier_tail_batched, hier_axis0_batched, hier_axis0_scatter_batched)
+for _w, _plain in zip(WRAPPERS, (_tail_plain, _axis0_plain,
+                                 _axis0_scatter_plain)):
+    _w.launches = 0
+    _w.plain = _plain
+
+
+@contextlib.contextmanager
+def count_launches():
+    """Count kernel launches inside the block.
+
+    Yields a dict, filled when the block EXITS, mapping each wrapper's
+    name to the launches it made inside the block."""
+    saved = {w: w.launches for w in WRAPPERS}
+    result: dict = {}
+    try:
+        yield result
+    finally:
+        result.update({w.__name__: w.launches - saved[w] for w in WRAPPERS})
+
+
+def forward_passes(x: torch.Tensor, member_levels: Sequence[Sequence[int]],
+                   axes: Sequence[int]) -> torch.Tensor:
+    """Forward passes along bucket ``axes`` in the order given: each run
+    of tail axes goes through ``hier_tail_batched``, axis 0 through
+    ``hier_axis0_batched``."""
+    run: list = []
+    for k in list(axes) + [None]:
+        if k is not None and k > 0:
+            run.append(k)
+            continue
+        if run:
+            x = hier_tail_batched(x, member_levels, axes=run)
+            run = []
+        if k == 0:
+            x = hier_axis0_batched(x, [ml[0] for ml in member_levels])
+    return x
+
+
+def hierarchize_batched(x: torch.Tensor,
+                        member_levels: Sequence[Sequence[int]]
+                        ) -> torch.Tensor:
+    """Full forward d-dim hierarchization of a (G, *bucket_shape) stack,
+    axes in the reference's order for that shape (``axis_order``)."""
+    return forward_passes(x, member_levels, axis_order(x.shape[1:]))
