@@ -22,12 +22,41 @@ three query batches of 1024 points — at full size, and checks the result:
   ``CombinationScheme(2, 11)`` (buckets in both of the reference's axis
   orders; every ``prod_3d`` and ``fig7_4d`` bucket takes one order).
 
+Then the second path, the per-grid (de)hierarchization of
+``kernels.ops`` and the iterated combination round that drives it:
+
+* the four per-grid kernels against their plain versions in f64 and f32
+  (bf16 too for the two operator kernels, against the f64 brute force):
+  pole bundles of level 1 (the identity, no launch), 1 and 33 columns,
+  fused tails of 2 to 10 dimensions; the pole kernels bitwise, the
+  operator kernels to the reference's tolerances (f64 rtol 1e-11 / atol
+  1e-12, f32 2e-5, bf16 an error below 0.15 against the brute force and
+  within one bf16 ulp plus 2**-12 of the plain version, which also sums
+  in f32);
+* hierarchize-then-dehierarchize round trips at real size: a 511^3 f64
+  grid (1.07 GB) with ``pole``, ``matmul`` and ``auto`` (= ``fused``), and
+  a 16383 x 8191 f64 grid (levels (14, 13), 1.07 GB) with ``pole``; every
+  recorded kernel call held against its plain version on the same input,
+  and each round trip back to its input within 1e-12 of its largest value;
+* ``run_iterated_heat(3, 9, rounds=2, t_steps=4)`` (the ``prod_3d``
+  scheme) with ``auto`` and with ``pole``, the card against the port on
+  the CPU (rtol 1e-12), with its error against the exact solution.
+
 The kernel checks and timings replay the wrapper calls that the executor
 itself makes in an ingest (``record_calls``).  Each kernel's ``ms`` is its
 device time from the profiler; ``plain_ms`` and ``library_ms`` (one
 ``torch.einsum`` with the dense per-member operators, for the two pass
 kernels) are device times too; ``wrapper_ms`` and ``plain_wrapper_ms``
-are CUDA events around the Python calls, host dispatch included.
+are CUDA events around the Python calls, host dispatch included.  The
+per-grid kernels are timed per call on the 511^3 f64 grid (axis 0 for the
+bundle kernels, both tail axes for the fused tail), their ``library_ms``
+being one ``torch.matmul`` with the dense operator (one ``torch.einsum``
+over both tail operators for the fused tail); their ``launches`` are those
+of the iterated round (``pole`` for the pole kernels, ``auto`` for the
+operator kernels).  Their ``bound_ms`` is the function's own, whatever the
+kernel's formulation: the grid read once and written once (the 3-term
+update's flops are far below it); the operator kernels' line also carries
+``dense_flop_ms``, the dense operators' flops at the card's peak.
 
 It prints the card's name and power limit, the kernels' ``-Xptxas -v``
 report, the timings, a ``{"kernels": [...]}`` JSON line and, last,
@@ -46,12 +75,16 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate (data sheet)
+FLOP_PER_S = 67e12               # H100 SXM f64 (tensor core) and f32 peak
 PROD = (3, 9)                    # configs/sparse_grid.py "prod_3d"
 FIG7 = (4, 6)                    # configs/sparse_grid.py "fig7_4d"
 FIG6 = (2, 11)                   # configs/sparse_grid.py "fig6_2d"
 LONG = (2, 15)                   # long-axis stacks: (G, 32767, 1), (G, 255, 255)
 QUERY_BATCH, QUERY_BATCHES, CHECK_POINTS = 1024, 3, 16
 TIMING_REPS = 20
+CUBE = (9, 9, 9)                 # 511^3 f64: the paper's 1 GB data set
+PLANE = (14, 13)                 # 16383 x 8191 f64, 1.07 GB
+ITERATED = dict(rounds=2, t_steps=4)
 
 KERNELS = {  # wrapper -> (CUDA source, TPU kernel it replaces)
     "hier_tail_batched": (
@@ -64,6 +97,21 @@ KERNELS = {  # wrapper -> (CUDA source, TPU kernel it replaces)
         "src/repro_torch/kernels/csrc/axis_pass_scatter_fwd.cu",
         "src/repro/kernels/hierarchize.py:657"),
 }
+GRID_KERNELS = {  # the per-grid path: wrapper -> (source, TPU kernel)
+    "hier_pole": (
+        "src/repro_torch/kernels/csrc/pole_fwd.cu",
+        "src/repro/kernels/hierarchize.py:152"),
+    "dehier_pole": (
+        "src/repro_torch/kernels/csrc/pole_inv.cu",
+        "src/repro/kernels/hierarchize.py:206"),
+    "apply_axis_matmul": (
+        "src/repro_torch/kernels/csrc/axis_operator.cu",
+        "src/repro/kernels/hierarchize.py:254"),
+    "hier_fused_tail": (
+        "src/repro_torch/kernels/csrc/fused_tail.cu",
+        "src/repro/kernels/hierarchize.py:293"),
+}
+POLE_KERNELS = ("hier_pole", "dehier_pole")
 
 
 def fail(msg: str) -> None:
@@ -131,7 +179,18 @@ def main() -> int:
     def max_err(a, b) -> float:
         return float((a.double() - b.to(a.device).double()).abs().max())
 
-    err = {k: 0.0 for k in KERNELS}
+    def wall_clock_ms(fn, reps=TIMING_REPS // 4) -> float:
+        """Host clock around ``reps`` calls of ``fn`` ending in a
+        synchronise, per call: end to end, host work included."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    err = {k: 0.0 for k in (*KERNELS, *GRID_KERNELS)}
     rng = np.random.default_rng(0)
 
     # ------------------------------------------------------------------
@@ -260,7 +319,7 @@ def main() -> int:
         answers.append(srv.query(pts.numpy()))   # returns host numpy
         torch.cuda.synchronize()
         query_ms.append((time.perf_counter() - t0) * 1e3)
-    launches = {w.__name__: w.launches for w in H.WRAPPERS}
+    launches = {name: getattr(H, name).launches for name in KERNELS}
     peak = torch.cuda.max_memory_allocated()
     print(f"main path prod_3d: launches per 2 ingests {launches}")
     for name, n in launches.items():
@@ -311,6 +370,219 @@ def main() -> int:
              for ell, _ in scheme.grids}
         check_surplus(scheme, g, CTSurrogate(scheme, g, device=cuda).surplus,
                       label)
+
+    # ------------------------------------------------------------------
+    # Second path: per-grid (de)hierarchization (rows 1-4 of the table)
+    # ------------------------------------------------------------------
+    from repro_torch.core.iterated import run_iterated_heat
+    from repro_torch.core.pde import heat_exact_factor
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import (dehierarchize_1d_bruteforce,
+                                         hierarchize_1d_bruteforce)
+
+    op_tol = {torch.float64: (1e-11, 1e-12), torch.float32: (2e-5, 2e-5)}
+    bf16_err, bf16_plain_err = {}, {}
+
+    def bf16_ulp(t):
+        """One bf16 unit in the last place of each entry of ``t`` (8
+        significant bits: t = m * 2**e with 0.5 <= |m| < 1 has ulp
+        2**(e - 8))."""
+        return torch.exp2((torch.frexp(t.float()).exponent - 8).float())
+
+    def hold(name, got, want, label):
+        """A kernel's output against its plain version's on the same input:
+        bitwise for the pole kernels, the reference's tolerances for the
+        operator kernels."""
+        want = want.to(got.device)
+        if got.shape != want.shape or got.dtype != want.dtype:
+            fail(f"{name} ({label}): {got.dtype}{tuple(got.shape)} against "
+                 f"{want.dtype}{tuple(want.shape)}")
+        e = max_err(got, want) if got.numel() else 0.0
+        err[name] = max(err[name], e)
+        if name in POLE_KERNELS:
+            ok = same(got, want)
+        else:
+            rtol, atol = op_tol[got.dtype]
+            ok = bool(((got - want).abs() <= atol + rtol * want.abs()).all())
+        if not ok:
+            fail(f"{name} differs from its plain version ({label}, max err "
+                 f"{e})")
+
+    def hold_calls(calls, label):
+        """Replay recorded wrapper calls, kernel against plain version."""
+        counts = {}
+        for wrapper, args in calls:
+            name = wrapper.__name__
+            counts[name] = counts.get(name, 0) + 1
+            hold(name, wrapper(**args), wrapper.plain(**args), label)
+        return counts
+
+    def brute(x, axes, inverse):
+        """The f64 brute force (numpy) along ``axes`` of ``x``."""
+        fn = dehierarchize_1d_bruteforce if inverse else \
+            hierarchize_1d_bruteforce
+        out = x.double().cpu().numpy()
+        for axis in axes:
+            out = fn(out, axis)
+        return out
+
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(2)
+
+    def randn(shape, dtype=torch.float64):
+        return torch.randn(shape, generator=gen, device=cuda,
+                           dtype=torch.float64).to(dtype)
+
+    bundle_calls = [(H.hier_pole, {"reduced_op": True}),
+                    (H.hier_pole, {"reduced_op": False}),
+                    (H.dehier_pole, {}),
+                    (H.apply_axis_matmul, {"inverse": False}),
+                    (H.apply_axis_matmul, {"inverse": True})]
+    tail_shapes = [(7, 7), (31, 63, 127), (15, 7, 31, 3), (3,) * 10,
+                   (7, 3, 3, 1, 3, 3, 7, 3, 3, 3)]
+    for dtype in (torch.float64, torch.float32):
+        with H.count_launches() as n:
+            x = randn((1, 8), dtype)
+            for wrapper, kw in bundle_calls:
+                if wrapper(x, **kw) is not x:
+                    fail(f"{wrapper.__name__}: level 1 is not the identity")
+            x = randn((7, 1, 1), dtype)
+            if H.hier_fused_tail(x) is not x:
+                fail("hier_fused_tail: level-1 tail axes are not the identity")
+        if any(n.values()):
+            fail(f"the identity launched kernels: {n}")
+        for level, cols in ((2, 1), (5, 33), (9, 1000)):
+            x = randn(((1 << level) - 1, cols), dtype)
+            for wrapper, kw in bundle_calls:
+                hold(wrapper.__name__, wrapper(x, **kw),
+                     wrapper.plain(x, **kw), f"({x.shape[0]}, {cols}) {dtype}")
+        for shape in tail_shapes:
+            x = randn(shape, dtype)
+            for inverse in (False, True):
+                hold("hier_fused_tail", H.hier_fused_tail(x, inverse=inverse),
+                     H.hier_fused_tail.plain(x, inverse=inverse),
+                     f"{shape} {dtype}")
+    for inverse in (False, True):          # bf16: summed in f32
+        x = randn((511, 1000), torch.bfloat16)
+        cases = [("apply_axis_matmul", x,
+                  H.apply_axis_matmul(x, inverse=inverse), (0,))]
+        for shape in ((31, 63, 127), (15, 7, 31, 3)):
+            y = randn(shape, torch.bfloat16)
+            cases.append(("hier_fused_tail", y,
+                          H.hier_fused_tail(y, inverse=inverse),
+                          range(1, len(shape))))
+        for name, x_in, got, axes in cases:
+            if got.dtype != torch.bfloat16:
+                fail(f"{name} bf16 returned {got.dtype}")
+            e = float(np.max(np.abs(got.double().cpu().numpy()
+                                    - brute(x_in, axes, inverse))))
+            bf16_err[name] = max(bf16_err.get(name, 0.0), e)
+            if not e < 0.15:
+                fail(f"{name} bf16 is {e} from the f64 brute force")
+            # Both sum in f32 and round to bf16 once: within one bf16 ulp
+            # of the plain version, plus the f32 sums' order (2**-12).
+            want = getattr(H, name).plain(x_in, inverse=inverse)
+            diff = (got.float() - want.float()).abs()
+            bf16_plain_err[name] = max(bf16_plain_err.get(name, 0.0),
+                                       float(diff.max()))
+            if not bool((diff <= bf16_ulp(want) + 2.0 ** -12).all()):
+                fail(f"{name} bf16 is more than one bf16 ulp from its plain "
+                     f"version (max err {float(diff.max())})")
+    print(f"per-grid kernel checks: pole kernels bitwise, operator kernels "
+          f"within the reference's tolerances in f64 and f32 (max abs err "
+          f"{ {k: err[k] for k in GRID_KERNELS} }); bf16 against the f64 "
+          f"brute force {bf16_err} (< 0.15), against the plain version "
+          f"{bf16_plain_err} (<= 1 bf16 ulp + 2**-12)")
+
+    # Real-size round trips through kernels.ops
+    def round_trip(x, method, label, expect):
+        for w in H.WRAPPERS:
+            w.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with H.record_calls() as calls:
+            alpha = ops.hierarchize(x, method)
+            back = ops.dehierarchize(alpha, method)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        got = {w.__name__: w.launches for w in H.WRAPPERS if w.launches}
+        if set(got) != set(expect):
+            fail(f"{label} {method}: launched {got}, expected {expect}")
+        del alpha
+        scale = float(x.abs().max())
+        e = max_err(back, x)
+        del back
+        if not e <= 1e-12 * scale:
+            fail(f"{label} {method}: round trip error {e} > 1e-12 * {scale}")
+        counts = hold_calls(calls, f"{label} {method}")
+        print(f"{label} {method}: hierarchize + dehierarchize "
+              f"{wall:.1f} ms (first call), launches {got}, round trip max "
+              f"err {e} (max |x| {scale}); each of {counts} calls held "
+              f"against its plain version  [{card}]")
+        return wall
+
+    cube = randn(grid_shape(CUBE))
+    rt_ms = {}
+    for method, expect in (("pole", POLE_KERNELS),
+                           ("matmul", ("apply_axis_matmul",)),
+                           ("auto", ("apply_axis_matmul", "hier_fused_tail"))):
+        round_trip(cube, method, "511^3 f64", expect)
+        rt_ms[method] = wall_clock_ms(
+            lambda: ops.dehierarchize(ops.hierarchize(cube, method), method))
+    plane = randn(grid_shape(PLANE))
+    round_trip(plane, "pole", f"{PLANE} f64", POLE_KERNELS)
+    rt_ms[f"{PLANE} pole"] = wall_clock_ms(
+        lambda: ops.dehierarchize(ops.hierarchize(plane, "pole"), "pole"))
+    del plane
+
+    # The iterated combination round at prod_3d, card against CPU
+    it_launches, it_ms = {}, {}
+    pts = np.random.default_rng(3).random((256, 3)) * 0.8 + 0.1
+    u0 = np.prod(np.sin(np.pi * pts), axis=1)
+    for method, mine in (("auto", ("apply_axis_matmul", "hier_fused_tail")),
+                         ("pole", POLE_KERNELS)):
+        for w in H.WRAPPERS:
+            w.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with H.record_calls() as calls:
+            it, t_end = run_iterated_heat(*PROD, hier_method=method,
+                                          device=cuda, **ITERATED)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        got = {w.__name__: w.launches for w in H.WRAPPERS if w.launches}
+        if set(got) != set(mine):
+            fail(f"iterated {method}: launched {got}, expected {mine}")
+        it_launches.update({k: got[k] for k in mine})
+        counts = hold_calls(calls, f"iterated prod_3d {method}")
+        cpu_it, _ = run_iterated_heat(*PROD, hier_method=method,
+                                      device="cpu", **ITERATED)
+        worst = 0.0
+        for ell, u in cpu_it.grids.items():
+            card_u = it.grids[ell].cpu()
+            if not bool(torch.isfinite(card_u).all()):
+                fail(f"iterated {method}: grid {ell} is not finite")
+            worst = max(worst, float(((card_u - u).abs()
+                                      / u.abs().clamp_min(1e-300)).max()))
+            if not torch.allclose(card_u, u, rtol=1e-12, atol=1e-15):
+                fail(f"iterated {method}: grid {ell} differs from the CPU "
+                     f"run (max err {max_err(card_u, u)})")
+        exact = heat_exact_factor(PROD[0], 0.05, t_end) * u0
+        ex_err = float(np.max(np.abs(
+            it.evaluate(torch.from_numpy(pts)).cpu().numpy() - exact)))
+        round_ms = wall_clock_ms(lambda: it.round(ITERATED["t_steps"]),
+                                 reps=3)
+        comm_ms = wall_clock_ms(it.communication_phase, reps=3)
+        it_ms[method] = (round_ms, comm_ms)
+        print(f"iterated prod_3d {method}: run_iterated_heat{PROD} "
+              f"{ITERATED} {wall:.1f} ms (first call), one round "
+              f"{round_ms:.2f} ms of which communication phase "
+              f"{comm_ms:.2f} ms; launches {got}; card vs CPU max rel err "
+              f"{worst} (rtol 1e-12); error against the exact solution at "
+              f"256 points {ex_err}; each of {counts} calls held against its "
+              f"plain version  [{card}]")
+        if method == "auto":
+            iterated = it
 
     # ------------------------------------------------------------------
     # Kernel timings: the main path's own wrapper calls (prod_3d, f64)
@@ -433,6 +705,81 @@ def main() -> int:
               f"kernel {r['wrapper_ms']:.4f} ms, plain "
               f"{r['plain_wrapper_ms']:.4f} ms  [{card}]")
 
+    # The per-grid kernels, one call each on the 511^3 f64 grid
+    n0 = cube.shape[0]
+    bundle = cube.reshape(n0, -1)           # axis 0 of the cube, a view
+    item = cube.element_size()
+    ops_f64 = {inv: H._operator(CUBE[0], inv, torch.float64, cuda)
+               for inv in (False, True)}
+    tail_dense_flops = 2 * sum(cube.shape[1:]) * cube.numel()
+    grid_cases = {
+        # name: (kernel call, plain call, library call, axes transformed,
+        #        flops of the dense operators or None, kernel op)
+        "hier_pole": (lambda: H.hier_pole(bundle),
+                      lambda: H.hier_pole.plain(bundle),
+                      lambda: torch.matmul(ops_f64[False], bundle),
+                      1, None, "pole_fwd"),
+        "dehier_pole": (lambda: H.dehier_pole(bundle),
+                        lambda: H.dehier_pole.plain(bundle),
+                        lambda: torch.matmul(ops_f64[True], bundle),
+                        1, None, "pole_inv"),
+        "apply_axis_matmul": (
+            lambda: H.apply_axis_matmul(bundle),
+            lambda: H.apply_axis_matmul.plain(bundle),
+            lambda: torch.matmul(ops_f64[False], bundle),
+            1, 2 * n0 * bundle.numel(), "axis_operator"),
+        "hier_fused_tail": (
+            lambda: H.hier_fused_tail(cube),
+            lambda: H.hier_fused_tail.plain(cube),
+            lambda: torch.einsum("rjl,ij,kl->rik", cube, ops_f64[False],
+                                 ops_f64[False]),
+            cube.ndim - 1, tail_dense_flops, "fused_tail"),
+    }
+    for name, (kernel, plain, library, axes, dense_flops,
+               op) in grid_cases.items():
+        got, lib = kernel(), library().reshape(cube.shape[0], -1)
+        e = max_err(got.reshape(lib.shape), lib)
+        if not e <= 1e-11 * float(lib.abs().max()):   # the same function?
+            fail(f"the library call differs from {name} by {e}")
+        del got, lib
+        ms = device_ms(kernel, only=op)
+        # The function's own bound, whatever the kernel's formulation: the
+        # grid read once and written once, and the 3-term update (3 flops)
+        # per point and axis.  The dense operators' flops are kept apart.
+        flops = 3 * axes * cube.numel()
+        bytes_ms = 2 * cube.numel() * item / HBM_BYTES_PER_S * 1e3
+        flops_ms = flops / FLOP_PER_S * 1e3
+        source, replaces = GRID_KERNELS[name]
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": it_launches[name],
+            "max_abs_err": err[name], "ms": ms,
+            "plain_ms": device_ms(plain),
+            "bound_ms": max(bytes_ms, flops_ms),
+            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+            "library_ms": device_ms(library),
+            "wrapper_ms": wall_ms(kernel), "plain_wrapper_ms": wall_ms(plain),
+            "dense_flop_ms": (None if dense_flops is None
+                              else dense_flops / FLOP_PER_S * 1e3)})
+        r = rows[-1]
+        dense = ("" if dense_flops is None else
+                 f"; the dense operators' {dense_flops} flop alone "
+                 f"{r['dense_flop_ms']:.4f} ms")
+        print(f"{name}: device {ms:.4f} ms per call on 511^3 f64 (1 launch), "
+              f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
+              f"({2 * cube.numel() * item} B at 3.35 TB/s, {flops} flop at "
+              f"67 TFLOP/s){dense}; plain {r['plain_ms']:.4f} ms; library "
+              f"{r['library_ms']:.4f} ms; with host dispatch: kernel "
+              f"{r['wrapper_ms']:.4f} ms, plain {r['plain_wrapper_ms']:.4f} "
+              f"ms; launches in the iterated round {it_launches[name]}  "
+              f"[{card}]")
+    print(f"round trips end to end (host clock; 511^3 f64 unless named): "
+          + ", ".join(f"{m} {v:.2f} ms" for m, v in rt_ms.items())
+          + f"; iterated prod_3d round (auto, pole): "
+          + ", ".join(f"{m} {r:.2f} ms (communication {c:.2f} ms)"
+                      for m, (r, c) in it_ms.items()) + f"  [{card}]")
+    del cube, bundle
+
     # ------------------------------------------------------------------
     # Where the time goes: one ingest and one query under the profiler
     # ------------------------------------------------------------------
@@ -464,6 +811,8 @@ def main() -> int:
                                    for k, (n, t) in top) + f"  [{card}]")
 
     profiled("prod_3d ingest (update)", lambda: srv.update(grids))
+    profiled("prod_3d iterated round (auto)",
+             lambda: iterated.round(ITERATED["t_steps"]))
     profiled(f"prod_3d query ({QUERY_BATCH} points)",
              lambda: srv.query(points[1].numpy()))
 

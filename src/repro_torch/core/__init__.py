@@ -1,1 +1,3 @@
-"""Core of the CT port: levels, the batched executor, interpolation."""
+"""Core of the CT port: levels, the batched executor, interpolation, the
+per-grid hierarchization facade, the heat solver and the iterated
+combination technique."""

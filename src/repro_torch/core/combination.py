@@ -1,21 +1,58 @@
-"""The combination technique's embedded gather as a dict loop — the
-readable oracle the tests hold ``core.executor.ct_transform`` to.
+"""The combination technique communication phase, as dict loops.
 
-Port of the embedded half of ``repro.core.combination``: every grid's
-surpluses are scattered into the common fine grid with one strided write
-and summed with their combination coefficients.
+Port of ``repro.core.combination``.  In the hierarchical basis a
+combination grid ``ell`` carries exactly the subspaces ``m <= ell``, so
+
+  * ``gather_subspaces``  — the sparse-grid surplus on subspace ``m`` is
+    the coefficient-weighted sum over all combination grids containing it;
+  * ``scatter_subspaces`` — projecting it back onto a combination grid
+    truncates to the subspaces ``m <= ell`` (plain copies);
+  * ``combine_full``      — the embedded spelling: every grid's surpluses
+    scattered into the common fine grid with one strided write and summed
+    with their coefficients, the readable oracle the tests hold
+    ``core.executor.ct_transform`` to.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Sequence, Tuple
+from typing import Dict, Mapping, Sequence, Tuple
 
 import torch
 
-from repro_torch.core.levels import LevelVector, SchemeLike, fine_levels, \
-    grid_shape
+from repro_torch.core.levels import (LevelVector, SchemeLike, fine_levels,
+                                     grid_shape, subspace_slices,
+                                     subspaces_of_grid)
 
-__all__ = ["embed_to_full", "combine_full", "combined_interpolant_points"]
+__all__ = ["gather_subspaces", "scatter_subspaces", "embed_to_full",
+           "extract_from_full", "combine_full", "combined_interpolant_points"]
+
+
+def gather_subspaces(hier_grids: Mapping[LevelVector, torch.Tensor],
+                     scheme: SchemeLike) -> Dict[LevelVector, torch.Tensor]:
+    """Gather step: combined surplus per sparse-grid subspace."""
+    combined: Dict[LevelVector, torch.Tensor] = {}
+    coeffs = dict(scheme.grids)
+    for ell, alpha in hier_grids.items():
+        c = coeffs[ell]
+        for m in subspaces_of_grid(ell):
+            block = c * alpha[subspace_slices(m, ell)]
+            combined[m] = combined[m] + block if m in combined else block
+    return combined
+
+
+def scatter_subspaces(combined: Mapping[LevelVector, torch.Tensor],
+                      scheme: SchemeLike) -> Dict[LevelVector, torch.Tensor]:
+    """Scatter step: project the sparse-grid surplus onto every grid.  The
+    grids take the type and device of the combined blocks."""
+    block = next(iter(combined.values()))
+    out: Dict[LevelVector, torch.Tensor] = {}
+    for ell, _ in scheme.grids:
+        alpha = torch.zeros(grid_shape(ell), dtype=block.dtype,
+                            device=block.device)
+        for m in subspaces_of_grid(ell):
+            alpha[subspace_slices(m, ell)] = combined[m]
+        out[ell] = alpha
+    return out
 
 
 def _embed_slices(ell: Sequence[int], full_levels: Sequence[int]):
@@ -31,6 +68,12 @@ def embed_to_full(alpha: torch.Tensor, ell: Sequence[int],
                        device=alpha.device)
     full[_embed_slices(ell, full_levels)] = alpha
     return full
+
+
+def extract_from_full(full: torch.Tensor, ell: Sequence[int],
+                      full_levels: Sequence[int]) -> torch.Tensor:
+    """Truncating projection: read back the nodes grid ``ell`` owns."""
+    return full[_embed_slices(ell, full_levels)]
 
 
 def combine_full(hier_grids: Mapping[LevelVector, torch.Tensor],

@@ -28,17 +28,10 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.kernels.ref import level_of_position
+from repro_torch.kernels.ref import _level_of_length, level_of_position
 
 __all__ = ["interpolate_nodal", "interpolate_hierarchical",
            "interpolate_hierarchical_batched", "sample_function"]
-
-
-def _axis_level(n: int) -> int:
-    level = int(np.log2(n + 1))
-    if (1 << level) - 1 != n:
-        raise ValueError(f"axis length {n} is not 2**l - 1")
-    return level
 
 
 def sample_function(fn, levels: Sequence[int], *, device=None,
@@ -61,7 +54,7 @@ def interpolate_nodal(u: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     up = torch.nn.functional.pad(u, [1, 1] * d)
     idxs, weights = [], []
     for ax in range(d):
-        level = _axis_level(u.shape[ax])
+        level = _level_of_length(u.shape[ax])
         h = 2.0 ** -level
         t = torch.clamp(points[:, ax] / h, 0.0, (1 << level) - 1e-9)
         i0 = torch.floor(t).to(torch.int64)
@@ -107,7 +100,7 @@ def interpolate_hierarchical_batched(alpha: torch.Tensor,
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         return _contract_axes(
-            acc, points, [_axis_level(n) for n in alpha.shape[1:]])
+            acc, points, [_level_of_length(n) for n in alpha.shape[1:]])
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved_tf32
 

@@ -1,10 +1,32 @@
-"""Batched forward hierarchization of CT bucket stacks: planning data, the
-three kernel wrappers and their plain PyTorch versions.
+"""(De)hierarchization kernels: the per-grid transforms of the paper and the
+batched forward transforms of CT bucket stacks, each kernel wrapper with
+its plain PyTorch version beside it.
 
-Port of the batched half of ``repro.kernels.hierarchize``.  A bucket stack
-is a ``(G, *shape)`` tensor of G component grids zero-padded to one
-canonical shape; member g carries its own level vector, so members below
-the bucket target transform exactly as their unpadded selves.
+Port of ``repro.kernels.hierarchize``.
+
+Per-grid wrappers (``kernels.ops`` dispatches to them), each transforming
+axis 0 of an ``(N, B)`` pole bundle or the tail axes of a d-dim grid:
+
+* ``hier_pole``        — ``hier_pole_pallas``: the paper's fine-to-coarse
+  level loop, one ``pole_fwd`` launch (bitwise the reference);
+* ``dehier_pole``      — ``dehier_pole_pallas``: the coarse-to-fine
+  inverse, one ``pole_inv`` launch (bitwise the reference);
+* ``apply_axis_matmul`` — ``apply_axis_matmul_pallas``: the dense operator
+  ``H`` (or ``H^-1``) along axis 0, one ``axis_operator`` launch;
+* ``hier_fused_tail``  — ``hier_fused_tail_pallas``: the dense operators
+  along every tail axis 1..d-1 in one ``fused_tail`` launch.
+
+``hier_axis0`` and ``hierarchize_nd_fused`` / ``dehierarchize_nd_fused``
+compose the last two, as the reference does.  A level-1 axis (extent 1) is
+the identity and launches nothing.  The two operator kernels sum in
+another order than the reference's dot, so they are held to its
+tolerances (f64 rtol 1e-11, f32 2e-5); bf16 input takes an f32 operator,
+sums in f32 and is rounded to bf16 once.
+
+The batched half transforms CT bucket stacks.  A bucket stack is a
+``(G, *shape)`` tensor of G component grids zero-padded to one canonical
+shape; member g carries its own level vector, so members below the
+bucket target transform exactly as their unpadded selves.
 
 Forward hierarchization along one axis is the 3-term update ``_hier3``,
 ``x - 0.5*x[lp] - 0.5*x[rp]`` with masked (boundary / pad) ancestors
@@ -15,7 +37,7 @@ then axis 0 on its Pallas path, axes 0..d-1 on its jnp path, and the two
 orders differ by an ulp.  ``axis_order`` keeps that rule, so this port
 matches the reference bitwise on every bucket.
 
-Wrappers (each the port of one TPU kernel of the reference):
+Batched wrappers (each the port of one TPU kernel of the reference):
 
 * ``hier_tail_batched``  — ``hier_tail_batched_pallas`` (forward): passes
   along tail axes, one ``axis_pass_fwd`` launch per axis;
@@ -35,15 +57,23 @@ launches; ``record_calls`` records every wrapper call with its arguments.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import functools
 from typing import Sequence, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, ref
 
 __all__ = [
+    "hier_pole",
+    "dehier_pole",
+    "apply_axis_matmul",
+    "hier_fused_tail",
+    "hier_axis0",
+    "hierarchize_nd_fused",
+    "dehierarchize_nd_fused",
     "hier_tail_batched",
     "hier_axis0_batched",
     "hier_axis0_scatter_batched",
@@ -247,12 +277,15 @@ def _cuda_operand(t: torch.Tensor, what: str) -> torch.Tensor:
     return t.contiguous()
 
 
-def _check_stack(x: torch.Tensor) -> torch.Tensor:
+def _check_stack(x: torch.Tensor, tags=_DTYPE_TAG) -> torch.Tensor:
+    """``x`` made contiguous, or raise unless it is a CUDA tensor of one of
+    the types in ``tags`` (the kernels' dtype tags)."""
     if x.device.type != "cuda":
         raise ValueError(f"the kernels take CPU or CUDA tensors, got "
                          f"{x.device}")
-    if x.dtype not in _DTYPE_TAG:
-        raise TypeError(f"the kernels take float32 or float64, got {x.dtype}")
+    if x.dtype not in tags:
+        names = " or ".join(str(t).removeprefix("torch.") for t in tags)
+        raise TypeError(f"the kernels take {names}, got {x.dtype}")
     return x.contiguous()
 
 
@@ -402,9 +435,197 @@ def hier_axis0_scatter_batched(x: torch.Tensor, levels: Sequence[int],
     return acc
 
 
-WRAPPERS = (hier_tail_batched, hier_axis0_batched, hier_axis0_scatter_batched)
+# ---------------------------------------------------------------------------
+# Per-grid transforms: pole bundles and dense per-axis operators
+# ---------------------------------------------------------------------------
+
+_GRID_TAG = {torch.float32: "f32", torch.float64: "f64",
+             torch.bfloat16: "bf16"}
+_MAX_TAIL_AXES = 9       # fused_tail.cu's kMaxTail: grids of up to 10 dims
+
+
+def _bundle_level(x: torch.Tensor) -> int:
+    if x.ndim != 2:
+        raise ValueError(f"expected an (N, B) pole bundle, got shape "
+                         f"{tuple(x.shape)}")
+    return ref._level_of_length(x.shape[0])
+
+
+def _op_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The operators' type: the grid's, but float32 for bf16 input (whose
+    products are summed in float32), as in the reference."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
+
+
+@functools.lru_cache(maxsize=256)
+def _operator(level: int, inverse: bool, dtype: torch.dtype,
+              device: torch.device) -> torch.Tensor:
+    """The dense (N, N) 1-D operator H (or H^-1) at the true N = 2**level
+    - 1.  Its entries are dyadic rationals, exact in every type used."""
+    h = (ref.dehier_operator_matrix(level) if inverse
+         else ref.operator_matrix(level))
+    return torch.from_numpy(h).to(dtype=dtype, device=device).contiguous()
+
+
+def _pole_plain(x: torch.Tensor, *, reduced_op: bool = True) -> torch.Tensor:
+    return ref.hierarchize_1d_ref(x, 0, reduced_op=reduced_op)
+
+
+def _dehier_pole_plain(a: torch.Tensor) -> torch.Tensor:
+    return ref.dehierarchize_1d_ref(a, 0)
+
+
+def _contract(x: torch.Tensor, axis: int, inverse: bool) -> torch.Tensor:
+    """``x`` with axis ``axis`` contracted with its dense operator (one
+    tensordot), in the operators' type."""
+    h = _operator(ref._level_of_length(x.shape[axis]), inverse,
+                  _op_dtype(x.dtype), x.device)
+    return torch.movedim(torch.tensordot(h, x, dims=([1], [axis])), 0, axis)
+
+
+def _axis_matmul_plain(x: torch.Tensor, *,
+                       inverse: bool = False) -> torch.Tensor:
+    _bundle_level(x)
+    return _contract(x.to(_op_dtype(x.dtype)), 0, inverse).to(x.dtype)
+
+
+def _fused_tail_plain(x: torch.Tensor, *,
+                      inverse: bool = False) -> torch.Tensor:
+    y = x.to(_op_dtype(x.dtype))
+    for axis in range(1, x.ndim):
+        if x.shape[axis] > 1:
+            y = _contract(y, axis, inverse)
+    return y.to(x.dtype)
+
+
+def hier_pole(x: torch.Tensor, *, reduced_op: bool = True) -> torch.Tensor:
+    """Hierarchize along axis 0 of an (N, B) pole bundle, N = 2**l - 1: the
+    paper's fine-to-coarse level loop.  ``reduced_op=False`` spells the
+    update ``odd - 0.5*l - 0.5*r`` (the paper's ablation).  On CUDA: one
+    ``pole_fwd`` launch, one thread per pole, into a fresh buffer; bitwise
+    the plain version."""
+    _record(hier_pole, x=x, reduced_op=reduced_op)
+    level = _bundle_level(x)
+    if level == 1:
+        return x
+    if x.device.type == "cpu":
+        return _pole_plain(x, reduced_op=reduced_op)
+    x = _check_stack(x)
+    out = torch.empty_like(x)
+    _raise_on(_build.kernel("pole_fwd", _DTYPE_TAG[x.dtype])(
+        x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], level,
+        int(reduced_op), _stream(x)), "pole_fwd")
+    hier_pole.launches += 1
+    return out
+
+
+def dehier_pole(a: torch.Tensor) -> torch.Tensor:
+    """Dehierarchize along axis 0 of an (N, B) pole bundle: the
+    coarse-to-fine level loop, the inverse of ``hier_pole``.  On CUDA: one
+    ``pole_inv`` launch into a fresh buffer; bitwise the plain version."""
+    _record(dehier_pole, a=a)
+    level = _bundle_level(a)
+    if level == 1:
+        return a
+    if a.device.type == "cpu":
+        return _dehier_pole_plain(a)
+    a = _check_stack(a)
+    out = torch.empty_like(a)
+    _raise_on(_build.kernel("pole_inv", _DTYPE_TAG[a.dtype])(
+        a.data_ptr(), out.data_ptr(), a.shape[0], a.shape[1], level,
+        _stream(a)), "pole_inv")
+    dehier_pole.launches += 1
+    return out
+
+
+def apply_axis_matmul(x: torch.Tensor, *,
+                      inverse: bool = False) -> torch.Tensor:
+    """(De)hierarchize along axis 0 of an (N, B) bundle as one dense
+    operator product ``H . x`` (``H^-1 . x`` with ``inverse``).  On CUDA:
+    one ``axis_operator`` launch (f64, f32, or bf16 summed in f32)."""
+    _record(apply_axis_matmul, x=x, inverse=inverse)
+    level = _bundle_level(x)
+    if level == 1:
+        return x
+    if x.device.type == "cpu":
+        return _axis_matmul_plain(x, inverse=inverse)
+    x = _check_stack(x, _GRID_TAG)
+    h = _operator(level, inverse, _op_dtype(x.dtype), x.device)
+    out = torch.empty_like(x)
+    _raise_on(_build.kernel("axis_operator", _GRID_TAG[x.dtype])(
+        h.data_ptr(), x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1],
+        _stream(x)), "axis_operator")
+    apply_axis_matmul.launches += 1
+    return out
+
+
+def hier_fused_tail(x: torch.Tensor, *, inverse: bool = False) -> torch.Tensor:
+    """(De)hierarchize every tail axis 1..d-1 of a (N1, ..., Nd) grid with
+    the dense per-axis operators.  On CUDA: ONE ``fused_tail`` launch for
+    all tail axes of extent > 1 (d <= 10), one block per axis-0 row; none
+    when every tail axis has extent 1."""
+    _record(hier_fused_tail, x=x, inverse=inverse)
+    if x.ndim < 2:
+        raise ValueError("need >= 2 dims; use apply_axis_matmul for 1-D")
+    for n in x.shape:
+        ref._level_of_length(n)
+    live = [k for k in range(1, x.ndim) if x.shape[k] > 1]
+    if not live:
+        return x
+    if x.device.type == "cpu":
+        return _fused_tail_plain(x, inverse=inverse)
+    if len(live) > _MAX_TAIL_AXES:
+        raise ValueError(f"the fused_tail kernel takes at most "
+                         f"{_MAX_TAIL_AXES} tail axes, got {len(live)}")
+    x = _check_stack(x, _GRID_TAG)
+    acc = _op_dtype(x.dtype)
+    ws = [torch.empty(x.shape, dtype=acc, device=x.device)
+          for _ in range(min(2, len(live) - 1))]     # the ping-pong buffers
+    ws_ptrs = [w.data_ptr() for w in ws] + [None] * (2 - len(ws))
+    ops = [_operator(ref._level_of_length(x.shape[k]), inverse, acc,
+                     x.device) for k in live]
+    outer, n, inner = zip(*[_view(x.shape[1:], k - 1) for k in live])
+    ints = lambda v: (ctypes.c_int64 * len(v))(*v)
+    out = torch.empty_like(x)
+    _raise_on(_build.kernel("fused_tail", _GRID_TAG[x.dtype])(
+        x.data_ptr(), ws_ptrs[0], ws_ptrs[1], out.data_ptr(),
+        x.shape[0], x[0].numel(), len(live), ints(outer), ints(n),
+        ints(inner),
+        (ctypes.c_void_p * len(ops))(*[h.data_ptr() for h in ops]),
+        _stream(x)), "fused_tail")
+    hier_fused_tail.launches += 1
+    return out
+
+
+def hier_axis0(x: torch.Tensor, *, inverse: bool = False) -> torch.Tensor:
+    """(De)hierarchize axis 0 only of a d-dim grid, its trailing axes
+    flattened onto the bundle's columns (``apply_axis_matmul``)."""
+    shape = x.shape
+    out = apply_axis_matmul(x.reshape(shape[0], -1), inverse=inverse)
+    return out.reshape(shape)
+
+
+def hierarchize_nd_fused(x: torch.Tensor) -> torch.Tensor:
+    """Full d-dim hierarchization in two passes: every tail axis in one
+    ``hier_fused_tail`` pass, then axis 0 (one pass if d == 1)."""
+    if x.ndim == 1:
+        return apply_axis_matmul(x[:, None])[:, 0]
+    return hier_axis0(hier_fused_tail(x))
+
+
+def dehierarchize_nd_fused(a: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``hierarchize_nd_fused``, in the same two passes."""
+    if a.ndim == 1:
+        return apply_axis_matmul(a[:, None], inverse=True)[:, 0]
+    return hier_axis0(hier_fused_tail(a, inverse=True), inverse=True)
+
+
+WRAPPERS = (hier_tail_batched, hier_axis0_batched, hier_axis0_scatter_batched,
+            hier_pole, dehier_pole, apply_axis_matmul, hier_fused_tail)
 for _w, _plain in zip(WRAPPERS, (_tail_plain, _axis0_plain,
-                                 _axis0_scatter_plain)):
+                                 _axis0_scatter_plain, _pole_plain,
+                                 _dehier_pole_plain, _axis_matmul_plain,
+                                 _fused_tail_plain)):
     _w.launches = 0
     _w.plain = _plain
 

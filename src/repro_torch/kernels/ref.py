@@ -37,6 +37,9 @@ __all__ = [
     "hierarchize_1d_ref",
     "dehierarchize_1d_ref",
     "hierarchize_nd_ref",
+    "dehierarchize_nd_ref",
+    "hierarchize_1d_gather",
+    "bfs_permutation",
 ]
 
 
@@ -106,6 +109,18 @@ def dehier_operator_matrix(level: int) -> np.ndarray:
         cj = p * h_fine
         e[:, j] = np.maximum(0.0, 1.0 - np.abs(xs - cj) / hj)
     return e
+
+
+def bfs_permutation(level: int) -> np.ndarray:
+    """Permutation mapping nodal order -> BFS (level-major) order.
+
+    ``perm[k]`` is the nodal 0-based index of the k-th point in BFS order
+    (root first, then level 2 left to right, ...).  Paper Fig. 3 middle."""
+    out = []
+    for lam in range(1, level + 1):
+        s = 1 << (level - lam)
+        out.extend(range(s - 1, (1 << level) - 1, 2 * s))
+    return np.asarray(out, dtype=np.int64)
 
 
 def _level_of_length(n: int) -> int:
@@ -191,3 +206,27 @@ def hierarchize_nd_ref(x: torch.Tensor, *,
     for axis in range(x.ndim):
         x = hierarchize_1d_ref(x, axis, reduced_op=reduced_op)
     return x
+
+
+def dehierarchize_nd_ref(a: torch.Tensor) -> torch.Tensor:
+    """Full d-dimensional dehierarchization: one 1-D pass per axis."""
+    for axis in range(a.ndim):
+        a = dehierarchize_1d_ref(a, axis)
+    return a
+
+
+# ---------------------------------------------------------------------------
+# 3. One-shot gather formulation (torch)
+# ---------------------------------------------------------------------------
+
+def hierarchize_1d_gather(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """hier(x) = x - 0.5*(maskL*x[L] + maskR*x[R]) — single fused pass."""
+    n = x.shape[axis]
+    li, ri, ml, mr = predecessor_indices(_level_of_length(n))
+    shape = [1] * x.ndim
+    shape[axis] = n
+    ml = torch.as_tensor(ml, dtype=x.dtype, device=x.device).reshape(shape)
+    mr = torch.as_tensor(mr, dtype=x.dtype, device=x.device).reshape(shape)
+    xl = torch.index_select(x, axis, torch.as_tensor(li, device=x.device))
+    xr = torch.index_select(x, axis, torch.as_tensor(ri, device=x.device))
+    return x - 0.5 * (ml * xl + mr * xr)

@@ -9,8 +9,13 @@ the port is installed:
     PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_cuda.py
 
 (``--noconftest`` skips ``tests/conftest.py``, which configures JAX for the
-reference's tests.)  Inputs are made with numpy from a seed.  The kernels
-round every product and sum separately, so each comparison is bitwise.
+reference's tests.)  Inputs are made with numpy from a seed.  The batched and pole kernels
+round every product and sum separately, so their comparisons are bitwise;
+the dense-operator kernels (``apply_axis_matmul``, ``hier_fused_tail``)
+sum in another order than the plain version's tensordot and are held to
+the reference's tolerances (f64 rtol 1e-11 / atol 1e-12, f32 2e-5, bf16
+a max abs error below 0.15 against the f64 brute force and one bf16 ulp
+plus 2**-12 against the plain version, which also sums in f32).
 """
 
 import numpy as np
@@ -20,7 +25,11 @@ import torch
 from repro_torch.core.executor import build_plan, ct_transform_with_plan
 from repro_torch.core.levels import (CombinationScheme, GeneralScheme,
                                      grid_shape)
+from repro_torch.core.iterated import run_iterated_heat
 from repro_torch.kernels import hierarchize as H
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import (dehierarchize_1d_bruteforce,
+                                     hierarchize_1d_bruteforce)
 from repro_torch.launch.serve import CTSurrogate
 
 pytestmark = pytest.mark.gpu
@@ -122,7 +131,9 @@ def test_wrappers_count_launches(cuda):
     with H.count_launches() as n:
         H.hierarchize_batched(x, levels)
     assert n == {"hier_tail_batched": 2, "hier_axis0_batched": 1,
-                 "hier_axis0_scatter_batched": 0}
+                 "hier_axis0_scatter_batched": 0, "hier_pole": 0,
+                 "dehier_pole": 0, "apply_axis_matmul": 0,
+                 "hier_fused_tail": 0}
 
 
 
@@ -166,3 +177,111 @@ def test_surrogate_card_matches_cpu(cuda):
     assert _same(card.surplus, cpu.surplus)
     np.testing.assert_allclose(card.query(pts), cpu.query(pts), rtol=1e-12,
                                atol=1e-14)
+
+
+# ---------------------------------------------------------------------------
+# The per-grid kernels (rows 1-4 of the TPU-kernel table)
+# ---------------------------------------------------------------------------
+
+OP_TOL = {torch.float64: dict(rtol=1e-11, atol=1e-12),
+          torch.float32: dict(rtol=2e-5, atol=2e-5)}
+BUNDLES = [(1, 8), (2, 1), (5, 33), (8, 200), (9, 1000)]   # (level, cols)
+
+
+def _bundle(level, cols, seed):
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        ((1 << level) - 1, cols)))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("level,cols", BUNDLES)
+def test_pole_kernels_match_plain(cuda, dtype, level, cols):
+    x = _bundle(level, cols, 11).to(dtype)
+    for reduced_op in (True, False):
+        got = H.hier_pole(x.to(cuda), reduced_op=reduced_op)
+        assert _same(got, H.hier_pole.plain(x, reduced_op=reduced_op))
+    assert _same(H.dehier_pole(x.to(cuda)), H.dehier_pole.plain(x))
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("level,cols", BUNDLES)
+def test_axis_operator_kernel_matches_plain(cuda, dtype, level, cols,
+                                            inverse):
+    x = _bundle(level, cols, 12).to(dtype)
+    got = H.apply_axis_matmul(x.to(cuda), inverse=inverse)
+    want = H.apply_axis_matmul.plain(x, inverse=inverse)
+    assert got.dtype == dtype and got.shape == x.shape
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                               **OP_TOL[dtype])
+
+
+TAIL_SHAPES = [(7, 7), (15, 3), (3, 7, 15), (7, 3, 3, 7), (3, 1, 7),
+               (31, 63, 127), (3,) * 10]
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", TAIL_SHAPES, ids=str)
+def test_fused_tail_kernel_matches_plain(cuda, dtype, shape, inverse):
+    x = torch.from_numpy(np.random.default_rng(13).standard_normal(
+        shape)).to(dtype)
+    got = H.hier_fused_tail(x.to(cuda), inverse=inverse)
+    want = H.hier_fused_tail.plain(x, inverse=inverse)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                               **OP_TOL[dtype])
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("row", ["matmul", "fused_tail"])
+def test_operator_kernels_bf16(cuda, row, inverse):
+    x = torch.from_numpy(np.random.default_rng(14).standard_normal(
+        (127, 63))).to(torch.bfloat16)
+    brute = (dehierarchize_1d_bruteforce if inverse
+             else hierarchize_1d_bruteforce)
+    wrapper, axis = ((H.apply_axis_matmul, 0) if row == "matmul"
+                     else (H.hier_fused_tail, 1))
+    got = wrapper(x.to(cuda), inverse=inverse)
+    want = brute(x.double().numpy(), axis=axis)
+    assert got.dtype == torch.bfloat16
+    assert np.max(np.abs(got.double().cpu().numpy() - want)) < 0.15
+    # Kernel and plain version both sum in f32 and round to bf16 once: one
+    # bf16 ulp (2**(e - 8) for |t| = m * 2**e, 0.5 <= m < 1) apart at most,
+    # plus the f32 sums' order.
+    plain = wrapper.plain(x, inverse=inverse).float()
+    ulp = torch.exp2((torch.frexp(plain).exponent - 8).float())
+    assert bool(((got.cpu().float() - plain).abs()
+                 <= ulp + 2.0 ** -12).all())
+
+
+@pytest.mark.parametrize("method", ["pole", "matmul", "fused", "auto"])
+def test_ops_round_trip_on_the_card(cuda, method):
+    x = torch.from_numpy(np.random.default_rng(15).standard_normal(
+        (31, 15, 63)))
+    with H.count_launches() as n:
+        alpha = ops.hierarchize(x.to(cuda), method)
+        back = ops.dehierarchize(alpha, method)
+    want = ops.hierarchize(x, method)
+    if method == "pole":
+        assert _same(alpha, want)
+    else:
+        np.testing.assert_allclose(alpha.cpu().numpy(), want.numpy(),
+                                   rtol=1e-11, atol=1e-12)
+    np.testing.assert_allclose(back.cpu().numpy(), x.numpy(), rtol=0,
+                               atol=1e-12 * float(x.abs().max()))
+    launched = {k for k, v in n.items() if v}
+    assert launched == {"pole": {"hier_pole", "dehier_pole"},
+                        "matmul": {"apply_axis_matmul"}}.get(
+        method, {"apply_axis_matmul", "hier_fused_tail"})
+
+
+def test_iterated_round_card_matches_cpu(cuda):
+    for method in ("auto", "pole"):
+        card, t = run_iterated_heat(2, 5, rounds=1, t_steps=2,
+                                    hier_method=method, device=cuda)
+        cpu, _ = run_iterated_heat(2, 5, rounds=1, t_steps=2,
+                                   hier_method=method, device="cpu")
+        for ell in cpu.grids:
+            np.testing.assert_allclose(card.grids[ell].cpu().numpy(),
+                                       cpu.grids[ell].numpy(), rtol=1e-12,
+                                       atol=1e-15)

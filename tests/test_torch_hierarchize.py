@@ -139,7 +139,9 @@ def test_cpu_path_launches_no_kernel():
     with th.count_launches() as n:
         th.hierarchize_batched(x, levels)
     assert n == {"hier_tail_batched": 0, "hier_axis0_batched": 0,
-                 "hier_axis0_scatter_batched": 0}
+                 "hier_axis0_scatter_batched": 0, "hier_pole": 0,
+                 "dehier_pole": 0, "apply_axis_matmul": 0,
+                 "hier_fused_tail": 0}
 
 
 def test_non_cuda_accelerator_tensor_raises():

@@ -225,7 +225,8 @@ def test_port_imports_neither_jax_nor_reference(path):
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.launch.serve, repro_torch.convert, "
-            "repro_torch.launch.steps, repro_torch.core.combination; "
+            "repro_torch.launch.steps, repro_torch.core.combination, "
+            "repro_torch.core.iterated, repro_torch.kernels.ops; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); assert not bad")
     env = {**os.environ, "PYTHONPATH": str(REPO / "src")}
