@@ -42,21 +42,52 @@ Then the second path, the per-grid (de)hierarchization of
   scheme) with ``auto`` and with ``pole``, the card against the port on
   the CPU (rtol 1e-12), with its error against the exact solution.
 
-The kernel checks and timings replay the wrapper calls that the executor
-itself makes in an ingest (``record_calls``).  Each kernel's ``ms`` is its
-device time from the profiler; ``plain_ms`` and ``library_ms`` (one
-``torch.einsum`` with the dense per-member operators, for the two pass
-kernels) are device times too; ``wrapper_ms`` and ``plain_wrapper_ms``
-are CUDA events around the Python calls, host dispatch included.  The
-per-grid kernels are timed per call on the 511^3 f64 grid (axis 0 for the
-bundle kernels, both tail axes for the fused tail), their ``library_ms``
-being one ``torch.matmul`` with the dense operator (one ``torch.einsum``
-over both tail operators for the fused tail); their ``launches`` are those
-of the iterated round (``pole`` for the pole kernels, ``auto`` for the
-operator kernels).  Their ``bound_ms`` is the function's own, whatever the
-kernel's formulation: the grid read once and written once (the 3-term
-update's flops are far below it); the operator kernels' line also carries
-``dense_flop_ms``, the dense operators' flops at the card's peak.
+Then the third path, the CT scatter phase and adaptivity (rows 6 and 8,
+the batched inverse kernel ``axis_pass_inv``), with the launch counts set
+to 0 just before it and read just after:
+
+* ``prod_3d`` round trip: the surrogate's surplus scattered back onto its
+  109 grids (``ct_scatter_with_plan``) with the default plan and a merged
+  plan (``MergeConfig()``, members below their bucket target), each
+  bitwise equal to the port's CPU run of the same surplus, without a copy
+  of the fine grid;
+* the scatter oracle at ``fig6_2d`` and ``fig7_4d``: the scattered grids
+  against ``gather_subspaces`` -> ``scatter_subspaces`` ->
+  ``dehierarchize(..., "ref")`` at rtol 1e-11 / atol 1e-12, and
+  ``ct_embedded`` at ``fig6_2d`` bitwise equal to the CPU run;
+* adaptivity: ``AdaptiveDriver`` on ``aniso_6d`` until its error at the
+  config's probe points is at most the regular scheme's, with at least 3x
+  fewer points and the axes ranked by importance; then ``ct_scatter`` of
+  the final general scheme, bitwise the CPU run and within rtol 1e-11 of
+  the interpolant at every grid's nodes;
+* fault recovery: ``CTSurrogate.drop_grid`` at ``prod_3d`` on the
+  coefficient-only path and on the ``extend_plan`` fallback that
+  activates a coefficient-0 grid (a missing grid raises and leaves the
+  surrogate untouched), queries within rtol 1e-12 of a surrogate built
+  from scratch on the reduced scheme;
+* every recorded inverse kernel call held against its plain version,
+  bitwise, in f64 and f32, plus one call of each row on the 511^3 cube.
+
+The configurations come from ``repro_torch.configs.sparse_grid``.  The
+kernel checks and timings replay the wrapper calls that the executor
+itself makes in an ingest or a scatter (``record_calls``).  Each
+kernel's ``ms`` is its device time from the profiler; ``plain_ms`` and
+``library_ms`` (one ``torch.einsum`` with the dense per-member operators,
+for the pass kernels) are device times too; a pass row's ``bound_ms``
+counts each call's input read once and output written once;
+``wrapper_ms`` and ``plain_wrapper_ms`` are CUDA events around the Python
+calls, host dispatch included.  The inverse rows are timed per
+``ct_scatter`` at ``prod_3d`` and per call on the 511^3 cube (``cube_*``
+keys).  The per-grid kernels are timed per call on the 511^3 f64 grid
+(axis 0 for the bundle kernels, both tail axes for the fused tail), their
+``library_ms`` being one ``torch.matmul`` with the dense operator (one
+``torch.einsum`` over both tail operators for the fused tail); their
+``launches`` are those of the iterated round (``pole`` for the pole
+kernels, ``auto`` for the operator kernels).  Their ``bound_ms`` is the
+function's own, whatever the kernel's formulation: the grid read once and
+written once (the 3-term update's flops are far below it); the operator
+kernels' line also carries ``dense_flop_ms``, the dense operators' flops
+at the card's peak.
 
 It prints the card's name and power limit, the kernels' ``-Xptxas -v``
 report, the timings, a ``{"kernels": [...]}`` JSON line and, last,
@@ -76,9 +107,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate (data sheet)
 FLOP_PER_S = 67e12               # H100 SXM f64 (tensor core) and f32 peak
-PROD = (3, 9)                    # configs/sparse_grid.py "prod_3d"
-FIG7 = (4, 6)                    # configs/sparse_grid.py "fig7_4d"
-FIG6 = (2, 11)                   # configs/sparse_grid.py "fig6_2d"
 LONG = (2, 15)                   # long-axis stacks: (G, 32767, 1), (G, 255, 255)
 QUERY_BATCH, QUERY_BATCHES, CHECK_POINTS = 1024, 3, 16
 TIMING_REPS = 20
@@ -97,6 +125,18 @@ KERNELS = {  # wrapper -> (CUDA source, TPU kernel it replaces)
         "src/repro_torch/kernels/csrc/axis_pass_scatter_fwd.cu",
         "src/repro/kernels/hierarchize.py:657"),
 }
+SCATTER_KERNELS = {  # the scatter path: wrapper -> (source, TPU kernel)
+    "dehier_tail_batched": (
+        "src/repro_torch/kernels/csrc/axis_pass_inv.cu",
+        "src/repro/kernels/hierarchize.py:494"),
+    "dehier_axis0_batched": (
+        "src/repro_torch/kernels/csrc/axis_pass_inv.cu",
+        "src/repro/kernels/hierarchize.py:597"),
+}
+ROW = {"hier_pole": 1, "dehier_pole": 2, "apply_axis_matmul": 3,
+       "hier_fused_tail": 4, "hier_tail_batched": 5,
+       "dehier_tail_batched": 6, "hier_axis0_batched": 7,
+       "dehier_axis0_batched": 8, "hier_axis0_scatter_batched": 9}
 GRID_KERNELS = {  # the per-grid path: wrapper -> (source, TPU kernel)
     "hier_pole": (
         "src/repro_torch/kernels/csrc/pole_fwd.cu",
@@ -145,6 +185,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.sparse_grid import (CT_ADAPTIVE_CONFIGS,
+                                                 CT_CONFIGS)
     from repro_torch.core import executor as E
     from repro_torch.core.combination import combined_interpolant_points
     from repro_torch.core.interpolation import (interpolate_hierarchical,
@@ -154,6 +199,8 @@ def main() -> int:
     from repro_torch.kernels import hierarchize as H
     from repro_torch.launch.serve import CTSurrogate
 
+    PROD, FIG7, FIG6 = ((CT_CONFIGS[n].dim, CT_CONFIGS[n].level)
+                        for n in ("prod_3d", "fig7_4d", "fig6_2d"))
     card = smi()
     cuda = torch.device("cuda")
     print(f"card: {card}  ({torch.cuda.get_device_name(0)}, "
@@ -190,7 +237,38 @@ def main() -> int:
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3 / reps
 
-    err = {k: 0.0 for k in (*KERNELS, *GRID_KERNELS)}
+    def profiled(label, fn):
+        """``fn`` once under the profiler: prints the host clock around it
+        (ending in a synchronise), the device's busy time and idle share
+        and its top device ops; returns the host-clock ms."""
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        spans, by_name = [], {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                a, b = e.time_range.start, e.time_range.end
+                spans.append((a, b))
+                n, t = by_name.get(e.name, (0, 0.0))
+                by_name[e.name] = (n + 1, t + (b - a))
+        busy_us, end = 0.0, float("-inf")
+        for a, b in sorted(spans):        # union of device intervals
+            if b > end:
+                busy_us += b - max(a, end)
+                end = b
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+        print(f"profile {label}: wall {wall_us / 1e3:.3f} ms, device busy "
+              f"{busy_us / 1e3:.3f} ms (idle share "
+              f"{1.0 - busy_us / wall_us:.3f}), {len(spans)} device ops; "
+              f"top: " + "; ".join(f"{k[:48]} x{n} {t / 1e3:.3f} ms"
+                                   for k, (n, t) in top) + f"  [{card}]")
+        return wall_us / 1e3
+
+    err = {k: 0.0 for k in ROW}
     rng = np.random.default_rng(0)
 
     # ------------------------------------------------------------------
@@ -372,11 +450,253 @@ def main() -> int:
                       label)
 
     # ------------------------------------------------------------------
+    # Third path: the scatter phase and adaptivity (rows 6 and 8)
+    # ------------------------------------------------------------------
+    from repro_torch.core import adaptive as A
+    from repro_torch.core.combination import (gather_subspaces,
+                                              scatter_subspaces)
+    from repro_torch.kernels import ops
+
+    def same_grids(got, want, label):
+        if set(got) != set(want):
+            fail(f"{label}: scattered onto {len(got)} grids, expected "
+                 f"{len(want)}")
+        for ell, u in want.items():
+            if not same(got[ell], u):
+                fail(f"{label}: grid {ell} differs from the CPU run (max err "
+                     f"{max_err(got[ell], u)})")
+
+    inverse_calls = []      # every inverse wrapper call, replayed in (e)
+    # (a) prod_3d: the served surplus scattered back, counts set to 0 first
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for w in H.WRAPPERS:
+        w.launches = 0
+    t0 = time.perf_counter()
+    with H.record_calls() as scatter_calls:
+        scattered = E.ct_scatter_with_plan(srv.surplus, srv._plan,
+                                           device=cuda)
+    torch.cuda.synchronize()
+    scatter_first_ms = (time.perf_counter() - t0) * 1e3
+    scatter_launches = {name: getattr(H, name).launches
+                        for name in SCATTER_KERNELS}
+    scatter_extra = torch.cuda.max_memory_allocated() - base_mem
+    print(f"scatter path prod_3d: launches per ct_scatter {scatter_launches}"
+          f", {len(scatter_calls)} wrapper calls; peak memory above the "
+          f"served state {scatter_extra} B")
+    for name, n in scatter_launches.items():
+        if n == 0:
+            fail(f"{name} was not launched on the scatter path")
+    if scatter_extra >= srv.surplus.numel() * srv.surplus.element_size() // 2:
+        fail(f"ct_scatter allocated {scatter_extra} B: the fine grid was "
+             f"copied")
+    inverse_calls += scatter_calls
+    surplus_cpu = srv.surplus.cpu()
+    same_grids(scattered, E.ct_scatter_with_plan(surplus_cpu, srv._plan,
+                                                 device="cpu"),
+               "prod_3d ct_scatter")
+    merged_plan = E.build_plan(prod, merge=E.MergeConfig())
+    if not any(len(set(b.levels)) > 1 for b in merged_plan.buckets):
+        fail("the merged prod_3d plan has no member below its target")
+    with H.record_calls() as calls:
+        merged = E.ct_scatter_with_plan(srv.surplus, merged_plan, device=cuda)
+    inverse_calls += calls
+    same_grids(merged, E.ct_scatter_with_plan(surplus_cpu, merged_plan,
+                                              device="cpu"),
+               "prod_3d merged ct_scatter")
+    for ell, u in scattered.items():
+        if not torch.allclose(merged[ell], u, rtol=1e-12, atol=1e-15):
+            fail(f"merged and default scatter differ on {ell}")
+    if not all(bool(torch.isfinite(u).all()) and tuple(u.shape) ==
+               grid_shape(ell) for ell, u in scattered.items()):
+        fail("scattered grids are not finite of their grids' shapes")
+    del surplus_cpu, merged
+    stack = sum(b.index.size for b in srv._plan.buckets)
+    print(f"prod_3d ct_scatter: {len(scattered)} grids from "
+          f"{len(srv._plan.buckets)} buckets ({stack} values), default and "
+          f"merged ({len(merged_plan.buckets)} buckets) plans bitwise equal "
+          f"to the CPU run; first call {scatter_first_ms:.2f} ms  [{card}]")
+
+    # (b) the scatter oracle at fig6_2d and fig7_4d, ct_embedded at fig6_2d
+    for label in ("fig6_2d", "fig7_4d"):
+        scheme = CT_CONFIGS[label].scheme
+        g = {ell: sample_function(bump, ell, device=cuda)
+             for ell, _ in scheme.grids}
+        with H.record_calls() as calls:
+            nodal = E.ct_scatter(E.ct_transform(g, scheme, device=cuda),
+                                 scheme, device=cuda)
+        inverse_calls += [c for c in calls if c[0].__name__ in SCATTER_KERNELS]
+        gc = {k: v.cpu() for k, v in g.items()}
+        oracle = scatter_subspaces(gather_subspaces(
+            {ell: ops.hierarchize(u, "ref") for ell, u in gc.items()},
+            scheme), scheme)
+        worst = 0.0
+        for ell, alpha in oracle.items():
+            want = ops.dehierarchize(alpha, "ref")
+            got = nodal[ell].cpu()
+            worst = max(worst, max_err(got, want))
+            if not torch.allclose(got, want, rtol=1e-11, atol=1e-12):
+                fail(f"{label}: scattered grid {ell} is {max_err(got, want)} "
+                     f"from the subspace oracle")
+        print(f"{label}: ct_scatter onto {len(nodal)} grids within rtol "
+              f"1e-11 / atol 1e-12 of the subspace oracle (max abs err "
+              f"{worst})")
+        if label == "fig6_2d":
+            emb, coeffs, order = E.ct_embedded(g, scheme, device=cuda)
+            if tuple(emb.shape) != (len(order),) + grid_shape(
+                    (FIG6[1],) * FIG6[0]) or not bool(
+                    torch.isfinite(emb).all()):
+                fail(f"fig6_2d ct_embedded has shape {tuple(emb.shape)}")
+            combined = torch.einsum("g,g...->...", coeffs, emb)
+            full = E.ct_transform(g, scheme, device=cuda)
+            if not torch.allclose(combined, full, rtol=1e-12, atol=1e-13):
+                fail("fig6_2d: coeffs @ ct_embedded differs from the gather")
+            cpu_emb, cpu_coeffs, cpu_order = E.ct_embedded(gc, scheme,
+                                                           device="cpu")
+            if cpu_order != order or not same(emb, cpu_emb) or \
+                    not same(coeffs, cpu_coeffs):
+                fail("fig6_2d: ct_embedded differs from the CPU run")
+            print(f"fig6_2d ct_embedded {tuple(emb.shape)}: bitwise equal to "
+                  f"the CPU run, coeffs @ embedded = the gather (max abs err "
+                  f"{max_err(combined, full)})")
+            del emb, cpu_emb, combined, full
+
+    # (c) adaptivity on aniso_6d
+    acfg = CT_ADAPTIVE_CONFIGS["aniso_6d"]
+    target = A.make_anisotropic_target(acfg.dim, acfg.decay)
+    probe = np.random.default_rng(acfg.eval_seed).random(
+        (acfg.eval_points, acfg.dim))
+    sample = A.nodal_sampler(target)
+    regular = CombinationScheme(acfg.dim, acfg.baseline_level)
+    err_regular = A.interpolation_error(E.ct_transform(
+        {ell: torch.from_numpy(sample(ell)).to(cuda)
+         for ell, _ in regular.grids}, regular, device=cuda), target, probe)
+    drv = A.AdaptiveDriver(sample, dim=acfg.dim, config=A.AdaptiveConfig(
+        max_points=acfg.max_points, max_level=acfg.max_level, device=cuda))
+    step_ms = []
+    while A.interpolation_error(drv.surplus, target, probe) > err_regular:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if drv.step() is None:
+            fail(f"aniso_6d: AdaptiveDriver stopped ({drv.stop_reason}) "
+                 f"above the regular scheme's error {err_regular}")
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    err_adaptive = A.interpolation_error(drv.surplus, target, probe)
+    ratio = regular.total_points() / drv.scheme.total_points()
+    maxlev = [max(ell[i] for ell in drv.scheme.index_set)
+              for i in range(acfg.dim)]
+    if ratio < 3.0:
+        fail(f"aniso_6d: only {ratio:.2f}x fewer points than the regular "
+             f"scheme")
+    if maxlev != sorted(maxlev, reverse=True):
+        fail(f"aniso_6d: axes not ranked by importance: {maxlev}")
+    with H.record_calls() as calls:
+        adaptive_nodal = E.ct_scatter(drv.surplus, drv.scheme, device=cuda)
+    inverse_calls += calls
+    same_grids(adaptive_nodal, E.ct_scatter(drv.surplus.cpu(), drv.scheme,
+                                            device="cpu"),
+               "aniso_6d ct_scatter")
+    node_err = 0.0
+    for ell, u in adaptive_nodal.items():     # the interpolant at the nodes
+        axes = [torch.arange(1, 1 << l, dtype=torch.float64, device=cuda)
+                * 2.0 ** -l for l in ell]
+        nodes = torch.stack([a.reshape(-1) for a in torch.meshgrid(
+            *axes, indexing="ij")], dim=1)
+        want = interpolate_hierarchical(drv.surplus, nodes).reshape(u.shape)
+        node_err = max(node_err, max_err(u, want))
+        if not torch.allclose(u, want, rtol=1e-11, atol=1e-12):
+            fail(f"aniso_6d: scattered grid {ell} is {max_err(u, want)} from "
+                 f"the interpolant at its nodes")
+    print(f"aniso_6d adaptive: {len(drv.history)} steps to error "
+          f"{err_adaptive} <= regular {acfg.baseline_level} error "
+          f"{err_regular} with {drv.scheme.total_points()} points against "
+          f"{regular.total_points()} ({ratio:.2f}x fewer); per-axis max "
+          f"levels {maxlev}; ct_scatter onto {len(adaptive_nodal)} grids "
+          f"bitwise the CPU run, max err {node_err} against the interpolant "
+          f"at the nodes; host ms per step (median "
+          f"{float(np.median(step_ms)):.2f}, max {max(step_ms):.2f})  "
+          f"[{card}]")
+    adaptive_step_ms = profiled("aniso_6d one adaptive step", drv.step)
+    if len(drv.history) == len(step_ms):
+        fail(f"aniso_6d: the profiled step did not step ({drv.stop_reason})")
+    del drv, adaptive_nodal
+
+    # (d) fault recovery at prod_3d: both paths of drop_grid
+    pts = points[2].numpy()
+    dropped = (PROD[1],) + (1,) * (PROD[0] - 1)
+    after = dict(grids)
+    after[dropped] = torch.zeros_like(grids[dropped])      # stale, finite
+    faulty = CTSurrogate(prod, grids, device=cuda)
+    plan_before = faulty._plan
+    drop_ms = {"coefficient-only": profiled(
+        "prod_3d drop_grid (coefficient-only)",
+        lambda: faulty.drop_grid([dropped], after))}
+    reduced = prod.as_general().without_levels([dropped])
+    if faulty.scheme != reduced or not all(
+            a.index is b.index for a, b in zip(faulty._plan.buckets,
+                                               plan_before.buckets)):
+        fail("drop_grid did not take the coefficient-only path")
+    fresh = CTSurrogate(reduced, {k: grids[k] for k, _ in reduced.grids},
+                        device=cuda)
+    np.testing.assert_allclose(faulty.query(pts), fresh.query(pts),
+                               rtol=1e-12, atol=1e-15)
+    del faulty, fresh
+    dropped = (2, 2, PROD[1] - 2)          # activates (1, 1, PROD[1] - 3)
+    activated = (1, 1, PROD[1] - 3)
+    reduced = prod.as_general().without_levels([dropped])
+    if set(dict(reduced.grids)) - set(dict(prod.grids)) != {activated}:
+        fail(f"dropping {dropped} does not activate exactly {activated}")
+    faulty = CTSurrogate(prod, grids, device=cuda)
+    state = (faulty.scheme, faulty._plan, faulty.surplus)
+    try:
+        faulty.drop_grid([dropped], grids)
+        fail(f"drop_grid without the data of {activated} did not raise")
+    except ValueError as e:
+        if str(activated) not in str(e):
+            fail(f"drop_grid's error does not name {activated}: {e}")
+    if any(a is not b for a, b in zip(state, (faulty.scheme, faulty._plan,
+                                              faulty.surplus))):
+        fail("a failed drop_grid changed the surrogate")
+    full_grids = dict(grids)
+    full_grids[activated] = sample_function(bump, activated, device=cuda)
+    drop_ms["extend_plan fallback"] = profiled(
+        "prod_3d drop_grid (extend_plan fallback)",
+        lambda: faulty.drop_grid([dropped], full_grids))
+    if faulty.scheme != reduced:
+        fail("drop_grid (fallback) serves the wrong scheme")
+    fresh = CTSurrogate(reduced, {k: full_grids[k] for k, _ in reduced.grids},
+                        device=cuda)
+    np.testing.assert_allclose(faulty.query(pts), fresh.query(pts),
+                               rtol=1e-12, atol=1e-15)
+    del faulty, fresh, state
+    print(f"prod_3d drop_grid: coefficient-only and extend_plan fallback "
+          f"(activating {activated}) both answer {len(pts)} queries within "
+          f"rtol 1e-12 of a surrogate built on the reduced scheme; a "
+          f"missing grid raises and changes nothing  [{card}]")
+
+    # (e) every inverse call of (a)-(d), kernel against plain, f64 and f32
+    counts = {}
+    for wrapper, args in inverse_calls:
+        name = wrapper.__name__
+        counts[name] = counts.get(name, 0) + 1
+        for dtype in (torch.float64, torch.float32):
+            a = {**args, "x": args["x"].to(dtype)}
+            got = wrapper(**a)
+            want = wrapper.plain(**{**a, "x": a["x"].cpu()})
+            err[name] = max(err[name], max_err(got, want))
+            if not same(got, want):
+                fail(f"{name} differs from its plain version ({dtype}, "
+                     f"{tuple(a['x'].shape)})")
+    print(f"inverse kernel checks: {counts} calls of (a)-(d) bitwise equal "
+          f"to their plain versions in f64 and f32")
+
+    # ------------------------------------------------------------------
     # Second path: per-grid (de)hierarchization (rows 1-4 of the table)
     # ------------------------------------------------------------------
     from repro_torch.core.iterated import run_iterated_heat
     from repro_torch.core.pde import heat_exact_factor
-    from repro_torch.kernels import ops
     from repro_torch.kernels.ref import (dehierarchize_1d_bruteforce,
                                          hierarchize_1d_bruteforce)
 
@@ -587,10 +907,7 @@ def main() -> int:
     # ------------------------------------------------------------------
     # Kernel timings: the main path's own wrapper calls (prod_3d, f64)
     # ------------------------------------------------------------------
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.kernels.ref import operator_matrix
+    from repro_torch.kernels.ref import dehier_operator_matrix, operator_matrix
 
     def wall_ms(fn) -> float:
         """CUDA events around ``fn``: device time plus the host work the
@@ -626,10 +943,12 @@ def main() -> int:
         us = sum(e.time_range.end - e.time_range.start for e in ops)
         return us / TIMING_REPS / 1e3
 
+    tail_wrappers = (H.hier_tail_batched, H.dehier_tail_batched)
+
     def live_axes(wrapper, args):
         """The axes a call passes over, each of extent > 1."""
         x = args["x"]
-        if wrapper is H.hier_tail_batched:
+        if wrapper in tail_wrappers:
             axes = args["axes"] or range(1, x.ndim - 1)
         else:
             axes = (args.get("axis", 0),)
@@ -637,33 +956,53 @@ def main() -> int:
 
     def dense_pass(wrapper, args):
         """One ``torch.einsum`` computing a pass call with the dense
-        per-member 1-D operators (identity on a member's pad rows):
-        ``(spec, operands)``, or None for a call with no live axis."""
+        per-member 1-D operators (``H``, or ``H^-1`` for the inverse rows;
+        identity on a member's pad rows): ``(spec, operands)``, the stack
+        first, or None for a call with no live axis."""
         x = args["x"]
-        levels = (args["member_levels"] if wrapper is H.hier_tail_batched
+        levels = (args["member_levels"] if wrapper in tail_wrappers
                   else [(l,) for l in args["levels0"]])   # axis 0 only
+        matrix = (dehier_operator_matrix if wrapper.__name__ in
+                  SCATTER_KERNELS else operator_matrix)
         axes = live_axes(wrapper, args)
         if not axes:
             return None
         src = "z" + "abcdefgh"[:x.ndim - 1]
-        out, subs, ops = list(src), [], []
+        out, subs, operands = list(src), [], []
         for k in axes:
             n = x.shape[k + 1]
             h = torch.zeros((x.shape[0], n, n), dtype=torch.float64)
             for g, lv in enumerate(levels):
                 m = (1 << lv[k]) - 1
                 h[g] = torch.eye(n, dtype=torch.float64)
-                h[g, :m, :m] = torch.from_numpy(operator_matrix(lv[k]))
+                h[g, :m, :m] = torch.from_numpy(matrix(lv[k]))
             subs.append("z" + "ABCDEFGH"[k] + src[k + 1])
             out[k + 1] = "ABCDEFGH"[k]
-            ops.append(h.to(x))
-        return ",".join(subs + [src]) + "->" + "".join(out), ops + [x]
+            operands.append(h.to(x))
+        return ",".join([src] + subs) + "->" + "".join(out), [x] + operands
+
+    def library_call(calls, name):
+        """The dense einsum of every call, each checked to compute the
+        same function, as one callable."""
+        dense = [(c, dense_pass(*c)) for c in calls]
+        dense = [(c, d) for c, d in dense if d is not None]
+        for c, (spec, operands) in dense:      # the same function?
+            want = replay(c, acc)
+            e = max_err(torch.einsum(spec, *operands), want)
+            if e > 1e-12 * max(1.0, float(want.abs().max())):
+                fail(f"einsum {spec} differs from {name} by {e}")
+        return lambda: [torch.einsum(spec, *operands)
+                        for _, (spec, operands) in dense]
 
     acc = torch.zeros(srv._plan.fine_size + 1, dtype=torch.float64,
                       device=cuda)
     rows = []
-    for name, (source, replaces) in KERNELS.items():
-        mine = [c for c in main_calls if c[0].__name__ == name]
+    pass_rows = [(name, src, rep, main_calls, launches, "ingest", 2)
+                 for name, (src, rep) in KERNELS.items()] + [
+        (name, src, rep, scatter_calls, scatter_launches, "ct_scatter", 1)
+        for name, (src, rep) in SCATTER_KERNELS.items()]
+    for name, source, replaces, calls, counted, per, runs in pass_rows:
+        mine = [c for c in calls if c[0].__name__ == name]
         nbytes = 0
         for wrapper, args in mine:
             x = args["x"]
@@ -672,38 +1011,66 @@ def main() -> int:
                 live = int((args["index"] != srv._plan.fine_size).sum())
                 # x and the index read once, each touched slot read+written
                 nbytes += x.numel() * (item + 4) + 2 * live * item
-            else:
-                # each pass reads its input and writes its output once
-                nbytes += 2 * len(live_axes(wrapper, args)) * x.numel() * item
+            elif live_axes(wrapper, args):
+                # the call's input read once and its output written once
+                nbytes += 2 * x.numel() * item
         kernel = lambda: [replay(c, acc) for c in mine]
         plain = lambda: [replay(c, acc, plain=True) for c in mine]
         ms = device_ms(kernel, only="axis_pass")
-        library_ms = None
-        if name != "hier_axis0_scatter_batched":
-            dense = [(c, dense_pass(*c)) for c in mine]
-            dense = [(c, d) for c, d in dense if d is not None]
-            for c, (spec, ops) in dense:      # the same function?
-                want = replay(c, acc)
-                e = max_err(torch.einsum(spec, *ops), want)
-                if e > 1e-12 * max(1.0, float(want.abs().max())):
-                    fail(f"einsum {spec} differs from {name} by {e}")
-            library_ms = device_ms(
-                lambda: [torch.einsum(spec, *ops) for _, (spec, ops) in dense])
+        library_ms = (None if name == "hier_axis0_scatter_batched"
+                      else device_ms(library_call(mine, name)))
         rows.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": counted[name],
             "max_abs_err": err[name], "ms": ms,
             "plain_ms": device_ms(plain),
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "library_ms": library_ms,
             "wrapper_ms": wall_ms(kernel), "plain_wrapper_ms": wall_ms(plain)})
         r = rows[-1]
-        print(f"{name}: device {ms:.4f} ms per ingest ({len(mine)} calls, "
-              f"{launches[name] // 2} launches), bound {r['bound_ms']:.6f} ms "
-              f"({nbytes} B at 3.35 TB/s); plain {r['plain_ms']:.4f} ms; "
+        print(f"{name}: device {ms:.4f} ms per {per} ({len(mine)} calls, "
+              f"{counted[name] // runs} launches), bound {r['bound_ms']:.6f} "
+              f"ms ({nbytes} B at 3.35 TB/s); plain {r['plain_ms']:.4f} ms; "
               f"library (einsum) {library_ms} ms; with host dispatch: "
               f"kernel {r['wrapper_ms']:.4f} ms, plain "
               f"{r['plain_wrapper_ms']:.4f} ms  [{card}]")
+
+    # Rows 6 and 8, one call each on the 511^3 f64 cube (G = 1)
+    cube_calls = {
+        "dehier_tail_batched": (H.dehier_tail_batched, {
+            "x": cube[None], "member_levels": [CUBE], "axes": None}),
+        "dehier_axis0_batched": (H.dehier_axis0_batched, {
+            "x": cube[None], "levels0": [CUBE[0]]})}
+    for r in rows:
+        call = cube_calls.get(r["name"])
+        if call is None:
+            continue
+        with H.count_launches() as counted:
+            got = replay(call, acc)
+        want = replay(call, acc, plain=True)
+        cube_launches = counted[r["name"]]
+        if cube_launches != len(live_axes(*call)):
+            fail(f"{r['name']} made {cube_launches} launches on the cube, "
+                 f"one per live axis is {len(live_axes(*call))}")
+        err[r["name"]] = max(err[r["name"]], max_err(got, want))
+        if not same(got, want):
+            fail(f"{r['name']} differs from its plain version on the cube")
+        del got, want
+        library = library_call([call], r["name"])
+        r["max_abs_err"] = err[r["name"]]
+        r.update(cube_ms=device_ms(lambda: replay(call, acc),
+                                   only="axis_pass_inv"),
+                 cube_plain_ms=device_ms(lambda: replay(call, acc,
+                                                        plain=True)),
+                 cube_library_ms=device_ms(library),
+                 cube_bound_ms=(2 * cube.numel() * cube.element_size()
+                                / HBM_BYTES_PER_S * 1e3),
+                 cube_launches=cube_launches)
+        print(f"{r['name']}: device {r['cube_ms']:.4f} ms per call on 511^3 "
+              f"f64 ({r['cube_launches']} launches, bitwise its plain "
+              f"version), bound {r['cube_bound_ms']:.4f} ms; plain "
+              f"{r['cube_plain_ms']:.4f} ms; library (einsum) "
+              f"{r['cube_library_ms']:.4f} ms  [{card}]")
 
     # The per-grid kernels, one call each on the 511^3 f64 grid
     n0 = cube.shape[0]
@@ -781,36 +1148,14 @@ def main() -> int:
     del cube, bundle
 
     # ------------------------------------------------------------------
-    # Where the time goes: one ingest and one query under the profiler
+    # Where the time goes: ingest, query and scatter under the profiler
     # ------------------------------------------------------------------
-    def profiled(label, fn):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        spans, by_name = [], {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                a, b = e.time_range.start, e.time_range.end
-                spans.append((a, b))
-                n, t = by_name.get(e.name, (0, 0.0))
-                by_name[e.name] = (n + 1, t + (b - a))
-        busy_us, end = 0.0, float("-inf")
-        for a, b in sorted(spans):        # union of device intervals
-            if b > end:
-                busy_us += b - max(a, end)
-                end = b
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
-        print(f"profile {label}: wall {wall_us / 1e3:.3f} ms, device busy "
-              f"{busy_us / 1e3:.3f} ms (idle share "
-              f"{1.0 - busy_us / wall_us:.3f}), {len(spans)} device ops; "
-              f"top: " + "; ".join(f"{k[:48]} x{n} {t / 1e3:.3f} ms"
-                                   for k, (n, t) in top) + f"  [{card}]")
-
     profiled("prod_3d ingest (update)", lambda: srv.update(grids))
+    scatter_ms = wall_clock_ms(
+        lambda: E.ct_scatter_with_plan(srv.surplus, srv._plan, device=cuda))
+    profiled("prod_3d ct_scatter",
+             lambda: E.ct_scatter_with_plan(srv.surplus, srv._plan,
+                                            device=cuda))
     profiled("prod_3d iterated round (auto)",
              lambda: iterated.round(ITERATED["t_steps"]))
     profiled(f"prod_3d query ({QUERY_BATCH} points)",
@@ -820,6 +1165,13 @@ def main() -> int:
           f"(update) {ingest_ms:.2f} ms, query per batch of {QUERY_BATCH} "
           f"{', '.join(f'{q:.2f}' for q in query_ms)} ms; peak device "
           f"memory {peak} B  [{card}]")
+    print(f"scatter path: prod_3d ct_scatter {scatter_ms:.2f} ms (host clock, "
+          f"warm; first call {scatter_first_ms:.2f} ms); aniso_6d adaptive "
+          f"step {adaptive_step_ms:.2f} ms profiled (median unprofiled "
+          f"{float(np.median(step_ms)):.2f} ms); prod_3d drop_grid "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in drop_ms.items())
+          + f" profiled  [{card}]")
+    rows.sort(key=lambda r: ROW[r["name"]])
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

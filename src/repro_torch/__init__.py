@@ -5,9 +5,12 @@ and public function names so each counterpart is easy to find.  It
 imports ``torch`` and numpy only — never JAX, never ``repro``.
 
 Ported so far: the CT ingest-and-query path (``core.executor.ct_transform``,
-``core.interpolation.interpolate_hierarchical``, ``launch.serve.CTSurrogate``)
-with the three batched forward hierarchization kernels written by hand in
-CUDA for Hopper (``kernels/csrc``).  Entry points run on the CUDA device
+``core.interpolation.interpolate_hierarchical``, ``launch.serve.CTSurrogate``),
+the per-grid transforms (``kernels.ops``) and the iterated combination
+technique (``core.iterated``), and the scatter phase with adaptivity
+(``core.executor.ct_scatter``, ``core.adaptive``,
+``runtime.fault_tolerance``), with every hierarchization kernel of the
+reference written by hand in CUDA for Hopper (``kernels/csrc``).  Entry points run on the CUDA device
 unless the caller passes ``device="cpu"``; with no card and no
 ``device="cpu"`` they raise — there is no silent CPU fallback.
 """

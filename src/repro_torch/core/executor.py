@@ -1,6 +1,6 @@
-"""Batched combination-technique executor (CT ingest).
+"""Batched combination-technique executor (CT ingest and scatter).
 
-Port of the planning and gather halves of ``repro.core.executor``:
+Port of ``repro.core.executor`` on plain (unsharded) plans:
 
   1. **Bucketing** — component grids are grouped by canonical
      (descending-level) shape; every axis permutation of one level
@@ -15,6 +15,18 @@ Port of the planning and gather halves of ``repro.core.executor``:
      per-shape order.
   4. **Static index plan + scatter-add** — a per-bucket (G, P) int32 map
      into the flat common fine grid (+1 dump slot for pad positions).
+  5. **Scatter phase** (``ct_scatter``) — the same map read in reverse:
+     each bucket's surpluses are read off the fine grid and dehierarchized
+     batched (``dehierarchize_batched``), back onto every component grid.
+  6. **Incremental rebuilds** (``extend_plan``,
+     ``update_plan_coefficients``) — the adaptive and fault-recovery
+     paths: unchanged buckets are returned by object identity, buckets
+     whose coefficients alone moved keep their ``index`` by identity, and
+     the result is array-equal to a from-scratch ``build_plan``.
+
+The reference's ``ShardedPlan`` waits for the multi-GPU port: every entry
+point here takes an ``ExecutorPlan`` and raises ``TypeError`` on anything
+else.
 
 Execution rule of the port: every bucket, on every device, takes the
 FUSED epilogue by default — the bucket's last forward pass writes the
@@ -31,6 +43,7 @@ in member order, so they give the same bits.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import threading
 from dataclasses import dataclass
 from typing import Dict, Mapping, Optional, Sequence, Tuple
@@ -43,6 +56,7 @@ from repro_torch.core.levels import (LevelVector, SchemeLike,
                                      canonical_levels, fine_levels,
                                      grid_shape)
 from repro_torch.kernels.hierarchize import (axis_order, batched_method,
+                                             dehierarchize_batched,
                                              forward_passes,
                                              hier_axis0_scatter_batched,
                                              hier_tail_batched,
@@ -50,8 +64,11 @@ from repro_torch.kernels.hierarchize import (axis_order, batched_method,
                                              tile_volume)
 
 __all__ = ["ExecutorPlan", "Bucket", "MergeConfig", "build_plan",
-           "ct_transform", "ct_transform_with_plan", "bucket_surpluses",
-           "bucket_tail_surpluses", "clear_plan_cache"]
+           "extend_plan", "update_plan_coefficients", "ct_transform",
+           "ct_transform_with_plan", "ct_scatter", "ct_scatter_with_plan",
+           "ct_embedded", "ct_embedded_with_plan", "bucket_surpluses",
+           "bucket_tail_surpluses", "bucket_nodal_stacks",
+           "clear_plan_cache"]
 
 
 @dataclass(frozen=True)
@@ -207,12 +224,33 @@ def _group_members(scheme: SchemeLike) -> Dict[LevelVector, list]:
     return groups
 
 
+def _segment_member_lists(groups: Dict[LevelVector, list],
+                          merge: Optional[MergeConfig],
+                          fine_size: int) -> list:
+    """Bucket member lists: canonical groups in descending key order,
+    merged into contiguous super-bucket segments under ``merge``.  The
+    one construction site of ``build_plan`` and ``extend_plan``, so the
+    same groups, ``merge`` and fine grid give the same partition."""
+    keys = sorted(groups, reverse=True)
+    if merge is None:
+        return [list(groups[k]) for k in keys]
+    segments = _merge_partition(keys, [len(groups[k]) for k in keys],
+                                merge, fine_size + 1)
+    return [[m for k in keys[i:j] for m in groups[k]] for i, j in segments]
+
+
 def _make_bucket(members: list, full_levels: LevelVector,
-                 fine_strides: np.ndarray, fine_size: int) -> Bucket:
-    """Build one bucket from its member records."""
+                 fine_strides: np.ndarray, fine_size: int,
+                 old_rows: Optional[Dict[LevelVector, np.ndarray]] = None
+                 ) -> Bucket:
+    """Build one bucket from its member records; ``old_rows`` maps level
+    vectors to index-map rows built for THIS bucket's target, which an
+    incremental rebuild reuses instead of recomputing."""
     target = tuple(max(lv[k] for _, _, lv, _ in members)
                    for k in range(len(full_levels)))
+    old_rows = old_rows or {}
     index = np.stack([
+        old_rows[ell] if ell in old_rows else
         _member_index_map(ell, perm, target, full_levels, fine_strides,
                           dump=fine_size)
         for ell, perm, _, _ in members])
@@ -287,20 +325,84 @@ def _build_plan_uncached(scheme: SchemeLike, full_levels: LevelVector,
     fine_shape = grid_shape(full_levels)
     fine_size = int(np.prod(fine_shape))
     fine_strides = _fine_strides(fine_shape)
-    groups = _group_members(scheme)
-    keys = sorted(groups, reverse=True)
-    if merge is None:
-        member_lists = [list(groups[k]) for k in keys]
-    else:
-        segments = _merge_partition(keys, [len(groups[k]) for k in keys],
-                                    merge, fine_size + 1)
-        member_lists = [[m for k in keys[i:j] for m in groups[k]]
-                        for i, j in segments]
     buckets = tuple(_make_bucket(members, full_levels, fine_strides,
                                  fine_size)
-                    for members in member_lists)
+                    for members in _segment_member_lists(
+                        _group_members(scheme), merge, fine_size))
     return ExecutorPlan(dim=scheme.dim, full_levels=full_levels,
                         fine_shape=fine_shape, buckets=buckets, merge=merge)
+
+
+def _check_plan(plan, fn: str) -> None:
+    if not isinstance(plan, ExecutorPlan):
+        raise TypeError(f"{fn} takes an ExecutorPlan, got "
+                        f"{type(plan).__name__} (sharded plans are not "
+                        f"ported)")
+
+
+def extend_plan(plan: ExecutorPlan, scheme: SchemeLike,
+                full_levels: Optional[Sequence[int]] = None
+                ) -> ExecutorPlan:
+    """Incremental plan rebuild after the scheme's index set changed.
+
+    Gives exactly ``build_plan(scheme, full_levels, merge=plan.merge)``,
+    reusing the old plan: a bucket with unchanged members and coefficients
+    is returned by object identity; one whose coefficients alone moved
+    keeps its ``index`` array by identity; a bucket that gained or lost
+    members recomputes index-map rows only for members no old bucket of
+    its target held.  A changed fine grid makes every embed index stale,
+    so it falls back to a full (cached) ``build_plan``."""
+    _check_plan(plan, "extend_plan")
+    if full_levels is None:
+        full_levels = fine_levels(scheme)
+    full_levels = tuple(int(l) for l in full_levels)
+    if full_levels != plan.full_levels:
+        return build_plan(scheme, full_levels, merge=plan.merge)
+    fine_strides = _fine_strides(plan.fine_shape)
+    # keyed by the member tuple: a merged plan may hold two buckets with
+    # the same target, never two with the same members
+    old_by_ells = {b.ells: b for b in plan.buckets}
+    buckets = []
+    for members in _segment_member_lists(_group_members(scheme), plan.merge,
+                                         plan.fine_size):
+        target = tuple(max(lv[k] for _, _, lv, _ in members)
+                       for k in range(len(full_levels)))
+        coeffs = np.asarray([float(m[3]) for m in members])
+        ob = old_by_ells.get(tuple(m[0] for m in members))
+        if ob is not None and ob.target == target:
+            buckets.append(ob if np.array_equal(ob.coeffs, coeffs)
+                           else dataclasses.replace(ob, coeffs=coeffs))
+            continue
+        old_rows = {ell: row for b in plan.buckets if b.target == target
+                    for ell, row in zip(b.ells, b.index)}
+        buckets.append(_make_bucket(members, full_levels, fine_strides,
+                                    plan.fine_size, old_rows=old_rows))
+    return ExecutorPlan(dim=scheme.dim, full_levels=full_levels,
+                        fine_shape=plan.fine_shape, buckets=tuple(buckets),
+                        merge=plan.merge)
+
+
+def update_plan_coefficients(plan: ExecutorPlan,
+                             scheme: SchemeLike) -> ExecutorPlan:
+    """Coefficient-ONLY plan update: every bucket keeps its members and
+    index map (by identity); coefficients are re-read from ``scheme`` and
+    members no longer in it get coefficient 0 (their stale data must
+    merely be finite).  Raises ``ValueError`` when ``scheme`` activates a
+    grid the plan does not hold: ``extend_plan`` is then needed."""
+    _check_plan(plan, "update_plan_coefficients")
+    coeff = {ell: float(c) for ell, c in scheme.grids}
+    held = {ell for b in plan.buckets for ell in b.ells}
+    missing = sorted(set(coeff) - held)
+    if missing:
+        raise ValueError(
+            f"coefficient-only update impossible: scheme activates grid(s) "
+            f"{missing} not present in the plan; use extend_plan")
+    buckets = []
+    for b in plan.buckets:
+        nc = np.asarray([coeff.get(ell, 0.0) for ell in b.ells])
+        buckets.append(b if np.array_equal(b.coeffs, nc)
+                       else dataclasses.replace(b, coeffs=nc))
+    return dataclasses.replace(plan, buckets=tuple(buckets))
 
 
 # ---------------------------------------------------------------------------
@@ -388,6 +490,7 @@ def ct_transform_with_plan(nodal_grids: Mapping[LevelVector, torch.Tensor],
 
     ``fused=None`` takes the port's default, the fused epilogue on every
     bucket; ``fused=False`` the unfused scatter (same bits)."""
+    _check_plan(plan, "ct_transform_with_plan")
     device = resolve_device(device)
     grids, dtype = _grids_on(nodal_grids, plan, device)
     full = torch.zeros(plan.fine_size + 1, dtype=dtype, device=device)
@@ -420,6 +523,7 @@ def bucket_surpluses(nodal_grids: Mapping[LevelVector, torch.Tensor],
                      device=None) -> Tuple[torch.Tensor, ...]:
     """Per-bucket COMPACT hierarchical surpluses ``[(G_b, P_b), ...]`` —
     the batched hierarchization without the embed."""
+    _check_plan(plan, "bucket_surpluses")
     device = resolve_device(device)
     grids, dtype = _grids_on(nodal_grids, plan, device)
     return tuple(
@@ -433,6 +537,7 @@ def bucket_tail_surpluses(nodal_grids: Mapping[LevelVector, torch.Tensor],
                           device=None) -> Tuple[torch.Tensor, ...]:
     """Per-bucket TAIL-transformed stacks ``[(G_b, N0, B_b), ...]``: axes
     1..d-1 transformed, axis 0 still nodal."""
+    _check_plan(plan, "bucket_tail_surpluses")
     device = resolve_device(device)
     grids, dtype = _grids_on(nodal_grids, plan, device)
     out = []
@@ -440,3 +545,107 @@ def bucket_tail_surpluses(nodal_grids: Mapping[LevelVector, torch.Tensor],
         y = hier_tail_batched(_assemble_bucket(grids, b, dtype), b.levels)
         out.append(y.reshape(len(b.ells), y.shape[1], -1))
     return tuple(out)
+
+
+def bucket_nodal_stacks(nodal_grids: Mapping[LevelVector, torch.Tensor],
+                        plan: ExecutorPlan, *,
+                        device=None) -> Tuple[torch.Tensor, ...]:
+    """Per-bucket assembled NODAL stacks ``[(G_b, P_b), ...]``: assembly
+    only, no transform."""
+    _check_plan(plan, "bucket_nodal_stacks")
+    device = resolve_device(device)
+    grids, dtype = _grids_on(nodal_grids, plan, device)
+    return tuple(_assemble_bucket(grids, b, dtype).reshape(len(b.ells), -1)
+                 for b in plan.buckets)
+
+
+# ---------------------------------------------------------------------------
+# Scatter phase and the per-grid embedding
+# ---------------------------------------------------------------------------
+
+def ct_scatter_with_plan(full: torch.Tensor, plan: ExecutorPlan, *,
+                         device=None) -> Dict[LevelVector, torch.Tensor]:
+    """Scatter phase, batched: sparse-grid surplus on the common fine grid
+    -> nodal values of the combined solution on every component grid of
+    the plan, on ``device``.
+
+    Each bucket's surpluses are read off the fine grid through its index
+    map (pad positions, which point at the dump slot, read +0.0) and
+    dehierarchized batched.  The reference appends a zero dump slot to a
+    copy of the fine grid; here the dump index is masked instead, so the
+    fine grid is never copied."""
+    _check_plan(plan, "ct_scatter_with_plan")
+    device = resolve_device(device)
+    flat = torch.as_tensor(full, device=device).reshape(-1)
+    if flat.numel() != plan.fine_size:
+        raise ValueError(f"the surplus has {flat.numel()} values, the plan's "
+                         f"fine grid {plan.fine_shape} {plan.fine_size}")
+    dump = plan.fine_size
+    out: Dict[LevelVector, torch.Tensor] = {}
+    for bucket in plan.buckets:
+        idx = torch.from_numpy(bucket.index).to(device).reshape(-1)
+        pad = idx == dump
+        alpha = torch.where(pad, 0.0, flat.index_select(0, idx.masked_fill(
+            pad, 0))).reshape((len(bucket.ells),) + bucket.shape)
+        nodal = dehierarchize_batched(alpha, bucket.levels)
+        for i, (ell, perm) in enumerate(zip(bucket.ells, bucket.perms)):
+            sl = tuple(slice(0, s) for s in grid_shape(bucket.levels[i]))
+            inv = tuple(int(a) for a in np.argsort(np.asarray(perm)))
+            out[ell] = nodal[i][sl].permute(inv).contiguous()
+    return out
+
+
+def ct_scatter(full: torch.Tensor, scheme: SchemeLike, *,
+               full_levels: Optional[Sequence[int]] = None,
+               merge: Optional[MergeConfig] = None,
+               device=None) -> Dict[LevelVector, torch.Tensor]:
+    """Scatter phase, batched (``ct_scatter_with_plan`` on the scheme's
+    cached plan): the truncating projection of the surplus onto every
+    component grid, dehierarchized."""
+    return ct_scatter_with_plan(
+        full, build_plan(scheme, full_levels, merge=merge), device=device)
+
+
+def ct_embedded_with_plan(nodal_grids: Mapping[LevelVector, torch.Tensor],
+                          plan: ExecutorPlan, *, device=None
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     Tuple[LevelVector, ...]]:
+    """Per-grid UNWEIGHTED embedded surpluses, batched: ``(embedded (G,
+    *fine_shape), coeffs (G,) float64, grid order)``, in plan order.
+
+    Every member's surpluses are written into its own row of one flat
+    buffer through its index map offset by the row; pad positions all go
+    to one slot past the last row, which the result leaves out.  The
+    result holds G fine grids: it is meant for small fine grids."""
+    _check_plan(plan, "ct_embedded_with_plan")
+    device = resolve_device(device)
+    grids, dtype = _grids_on(nodal_grids, plan, device)
+    fine = plan.fine_size
+    total = plan.num_grids
+    buf = torch.zeros(total * fine + 1, dtype=dtype, device=device)
+    coeffs, order = [], []
+    for bucket in plan.buckets:
+        g = len(bucket.ells)
+        alpha = hierarchize_batched(_assemble_bucket(grids, bucket, dtype),
+                                    bucket.levels)
+        rows = np.arange(len(order), len(order) + g, dtype=np.int64)[:, None]
+        flat = np.where(bucket.index == fine, total * fine,
+                        rows * fine + bucket.index)
+        buf[torch.from_numpy(flat.ravel()).to(device)] = alpha.reshape(-1)
+        coeffs.append(bucket.coeffs)
+        order.extend(bucket.ells)
+    return (buf[:-1].view((total,) + plan.fine_shape),
+            torch.from_numpy(np.concatenate(coeffs)).to(device),
+            tuple(order))
+
+
+def ct_embedded(nodal_grids: Mapping[LevelVector, torch.Tensor],
+                scheme: SchemeLike, *,
+                full_levels: Optional[Sequence[int]] = None,
+                merge: Optional[MergeConfig] = None,
+                device=None) -> Tuple[torch.Tensor, torch.Tensor,
+                                      Tuple[LevelVector, ...]]:
+    """``ct_embedded_with_plan`` on the scheme's cached plan."""
+    return ct_embedded_with_plan(
+        nodal_grids, build_plan(scheme, full_levels, merge=merge),
+        device=device)

@@ -38,6 +38,9 @@ KERNELS: Dict[str, Dict[str, list]] = {
     "axis_pass_fwd": {
         f"axis_pass_fwd_{t}": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
         for t in ("f32", "f64")},
+    "axis_pass_inv": {
+        f"axis_pass_inv_{t}": [_P, _P, _P, _I, _I, _I, _I, _P]
+        for t in ("f32", "f64")},
     "axis_pass_scatter_fwd": {
         f"axis_pass_scatter_fwd_{t}": [_P, _P, _P, _P, _I, _P, _P, _P, _P,
                                        _I, _I, _I, _I, _P]

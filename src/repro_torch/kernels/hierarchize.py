@@ -1,5 +1,5 @@
 """(De)hierarchization kernels: the per-grid transforms of the paper and the
-batched forward transforms of CT bucket stacks, each kernel wrapper with
+batched transforms of CT bucket stacks, each kernel wrapper with
 its plain PyTorch version beside it.
 
 Port of ``repro.kernels.hierarchize``.
@@ -37,15 +37,32 @@ then axis 0 on its Pallas path, axes 0..d-1 on its jnp path, and the two
 orders differ by an ulp.  ``axis_order`` keeps that rule, so this port
 matches the reference bitwise on every bucket.
 
+Dehierarchization along one axis is the coarse-to-fine level loop of
+``ref.dehierarchize_1d_ref`` on each member's own head of ``2**l - 1``
+nodes, the padding copied unchanged (the reference's padded operator
+``H^-1 (+) I``).  The reference applies that operator as a dense matmul;
+the port runs the stencil, so it agrees with the reference to rounding
+(f64 rtol 1e-12), and its kernel and plain version agree bitwise.
+
 Batched wrappers (each the port of one TPU kernel of the reference):
 
 * ``hier_tail_batched``  — ``hier_tail_batched_pallas`` (forward): passes
   along tail axes, one ``axis_pass_fwd`` launch per axis;
+* ``dehier_tail_batched`` — ``hier_tail_batched_pallas(inverse=True)``:
+  one ``axis_pass_inv`` launch per tail axis;
 * ``hier_axis0_batched`` — ``hier_axis0_batched_pallas`` (forward): one
   ``axis_pass_fwd`` launch along axis 0;
+* ``dehier_axis0_batched`` — ``hier_axis0_batched_pallas(inverse=True)``:
+  one ``axis_pass_inv`` launch along axis 0;
 * ``hier_axis0_scatter_batched`` — ``hier_axis0_scatter_batched_pallas``:
   the last pass fused with the coefficient-weighted scatter-add into the
   flat fine grid, one ``axis_pass_scatter_fwd`` launch per member.
+
+``hier_tail_batched`` and ``hier_axis0_batched`` keep the reference's
+signatures: ``inverse=True`` hands the call to the inverse wrapper, which
+counts and records it under its own name (so their ``.plain`` is the
+forward one only), and ``pred=`` (forward only) takes the predecessor
+data as runtime tensors (``member_pred_arrays``).
 
 A wrapper given a CPU tensor runs its plain PyTorch version (the oracle
 the tests compare with the reference); given a CUDA tensor it launches
@@ -75,9 +92,13 @@ __all__ = [
     "hierarchize_nd_fused",
     "dehierarchize_nd_fused",
     "hier_tail_batched",
+    "dehier_tail_batched",
     "hier_axis0_batched",
+    "dehier_axis0_batched",
     "hier_axis0_scatter_batched",
     "hierarchize_batched",
+    "dehierarchize_batched",
+    "hierarchize_batched_data",
     "axis_order",
     "forward_passes",
     "member_pred_arrays",
@@ -124,14 +145,18 @@ def batched_method(shape: Sequence[int]) -> str:
             or max(shape) > 2047 else "pallas")
 
 
-def axis_order(shape: Sequence[int]) -> Tuple[int, ...]:
-    """Order of the forward passes over a bucket of ``shape``: axes
-    1..d-1 then 0 where the reference runs its Pallas path, 0..d-1 where
-    it runs its jnp path."""
+def axis_order(shape: Sequence[int], method: str = "auto") -> Tuple[int, ...]:
+    """Order of the passes over a bucket of ``shape``: axes 1..d-1 then 0
+    on the reference's ``"pallas"`` path, 0..d-1 on its ``"jnp"`` path;
+    ``"auto"`` takes the reference's rule (``batched_method``)."""
+    if method == "auto":
+        method = batched_method(shape)
     d = len(shape)
-    if batched_method(shape) == "pallas":
+    if method == "pallas":
         return tuple(range(1, d)) + (0,)
-    return tuple(range(d))
+    if method == "jnp":
+        return tuple(range(d))
+    raise ValueError(f"unknown method {method!r}")
 
 
 def hier_flops(shape: Sequence[int], g: int = 1) -> int:
@@ -204,6 +229,59 @@ def _axis_pred(levels: Sequence[int], axis: int, x: torch.Tensor):
                          x.device)
 
 
+def _runtime_pred(pred, axis: int, x: torch.Tensor):
+    """Caller-supplied predecessor data ``(lp, rp, lm, rm)`` of bucket axis
+    ``axis`` (numpy arrays or tensors of shape (G, n)) as the kernels'
+    tensors on the stack's device: int32 indices, bool masks."""
+    shape = (x.shape[0], x.shape[axis + 1])
+    out = []
+    for a, dtype in zip(pred, (torch.int32, torch.int32, torch.bool,
+                               torch.bool)):
+        t = torch.as_tensor(a, device=x.device).to(dtype).contiguous()
+        if tuple(t.shape) != shape:
+            raise ValueError(f"predecessor data of axis {axis} has shape "
+                             f"{tuple(t.shape)}, expected {shape}")
+        out.append(t)
+    return tuple(out)
+
+
+def _forward_pred(levels, pred, axis: int, x: torch.Tensor):
+    """Predecessor tensors of bucket axis ``axis``: built from the member
+    ``levels`` along it, or taken from ``pred``, that axis's runtime
+    ``(lp, rp, lm, rm)``."""
+    if pred is None:
+        return _axis_pred(levels, axis, x)
+    return _runtime_pred(pred, axis, x)
+
+
+def _check_levels(levels: Sequence[int], n: int) -> None:
+    for l in levels:
+        if l < 1 or (1 << l) - 1 > n:
+            raise ValueError(f"level {l} pole does not fit extent {n}")
+
+
+@functools.lru_cache(maxsize=1024)
+def _level_tensor(levels: Tuple[int, ...], n: int,
+                  device: torch.device) -> torch.Tensor:
+    """Member levels along one axis of extent ``n`` as an int32 (G,)
+    tensor on ``device`` (the inverse kernel's operand).  Cached."""
+    _check_levels(levels, n)
+    return torch.tensor(levels, dtype=torch.int32, device=device)
+
+
+def _axis_levels(member_levels, axis: int):
+    """Each member's level along bucket ``axis`` (None without levels,
+    when the forward transform takes runtime predecessor data)."""
+    if member_levels is None:
+        return None
+    return tuple(int(ml[axis]) for ml in member_levels)
+
+
+def _tail_pred(pred, axis: int):
+    """Tail axis ``axis``'s slice of the tail predecessor data."""
+    return None if pred is None else pred[4 * (axis - 1):4 * axis]
+
+
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions (the CPU path and the kernels' oracle)
 # ---------------------------------------------------------------------------
@@ -242,18 +320,50 @@ def _axis_scatter_plain(x: torch.Tensor, axis: int, pred,
     return acc
 
 
-def _tail_plain(x: torch.Tensor, member_levels: Sequence[Sequence[int]], *,
+def _inverse_pass_plain(x: torch.Tensor, axis: int,
+                        levels: Sequence[int]) -> torch.Tensor:
+    """One dehierarchization pass along bucket axis ``axis``: for each
+    group of members at one level, the level loop of
+    ``ref.dehierarchize_1d_ref`` on their head slice; the padding copied."""
+    _check_levels(levels, x.shape[axis + 1])
+    out = x.clone()
+    for level in sorted(set(levels)):
+        members = torch.tensor([g for g, l in enumerate(levels)
+                                if l == level], device=x.device)
+        head = x.index_select(0, members).narrow(axis + 1, 0,
+                                                 (1 << level) - 1)
+        out.narrow(axis + 1, 0, (1 << level) - 1)[members] = \
+            ref.dehierarchize_1d_ref(head, axis + 1)
+    return out
+
+
+def _tail_plain(x: torch.Tensor, member_levels, *, pred=None,
                 axes: Sequence[int] | None = None) -> torch.Tensor:
     for k in _live_axes(x, axes):
-        x = _axis_pass_plain(
-            x, k, _axis_pred([ml[k] for ml in member_levels], k, x))
+        x = _axis_pass_plain(x, k, _forward_pred(
+            _axis_levels(member_levels, k), _tail_pred(pred, k), k, x))
     return x
 
 
-def _axis0_plain(x: torch.Tensor, levels0: Sequence[int]) -> torch.Tensor:
+def _dehier_tail_plain(x: torch.Tensor,
+                       member_levels: Sequence[Sequence[int]], *,
+                       axes: Sequence[int] | None = None) -> torch.Tensor:
+    for k in _live_axes(x, axes):
+        x = _inverse_pass_plain(x, k, _axis_levels(member_levels, k))
+    return x
+
+
+def _axis0_plain(x: torch.Tensor, levels0, *, pred=None) -> torch.Tensor:
     if x.shape[1] == 1:
         return x
-    return _axis_pass_plain(x, 0, _axis_pred(levels0, 0, x))
+    return _axis_pass_plain(x, 0, _forward_pred(levels0, pred, 0, x))
+
+
+def _dehier_axis0_plain(x: torch.Tensor,
+                        levels0: Sequence[int]) -> torch.Tensor:
+    if x.shape[1] == 1:
+        return x
+    return _inverse_pass_plain(x, 0, tuple(int(l) for l in levels0))
 
 
 def _axis0_scatter_plain(x: torch.Tensor, levels: Sequence[int],
@@ -287,6 +397,14 @@ def _check_stack(x: torch.Tensor, tags=_DTYPE_TAG) -> torch.Tensor:
         names = " or ".join(str(t).removeprefix("torch.") for t in tags)
         raise TypeError(f"the kernels take {names}, got {x.dtype}")
     return x.contiguous()
+
+
+def _contiguous(x: torch.Tensor) -> torch.Tensor:
+    """``x``, or raise if it is not contiguous: the inverse wrappers refuse
+    a strided stack rather than copy it."""
+    if not x.is_contiguous():
+        raise ValueError("the inverse kernels take a contiguous stack")
+    return x
 
 
 def _view(shape: Sequence[int], axis: int) -> Tuple[int, int, int]:
@@ -346,48 +464,112 @@ def _launch_axis_pass(src: torch.Tensor, dst: torch.Tensor, axis: int,
                  outer, n, inner, _stream(src)), "axis_pass_fwd")
 
 
+def _launch_inverse_pass(src: torch.Tensor, dst: torch.Tensor, axis: int,
+                         levels: Tuple[int, ...]) -> None:
+    outer, n, inner = _view(src.shape[1:], axis)
+    lv = _level_tensor(levels, n, src.device)
+    fn = _build.kernel("axis_pass_inv", _DTYPE_TAG[src.dtype])
+    _raise_on(fn(src.data_ptr(), dst.data_ptr(), lv.data_ptr(), src.shape[0],
+                 outer, n, inner, _stream(src)), "axis_pass_inv")
+
+
 # ---------------------------------------------------------------------------
 # The wrappers
 # ---------------------------------------------------------------------------
 
-def hier_tail_batched(x: torch.Tensor,
-                      member_levels: Sequence[Sequence[int]], *,
+def hier_tail_batched(x: torch.Tensor, member_levels, *,
+                      inverse: bool = False, pred=None,
                       axes: Sequence[int] | None = None) -> torch.Tensor:
     """Forward-hierarchize tail axes of a (G, N1, ..., Nd) bucket stack,
     in the order given (default 1..d-1).
 
     ``member_levels[g]`` is member g's level vector in bucket axis order.
-    On CUDA: one ``axis_pass_fwd`` launch per axis of extent > 1 (a
-    level-1 axis is the identity), ping-ponging two fresh buffers; ``x``
-    itself is never written."""
-    _record(hier_tail_batched, x=x, member_levels=member_levels, axes=axes)
+    ``pred`` (forward only) gives the predecessor data instead, as
+    runtime arrays: ``4 * (d-1)`` arrays ``(lp, rp, lm, rm)`` of shape
+    (G, N_k) for axes 1..d-1 in order (the tail slice of
+    ``member_pred_arrays``); ``member_levels`` is then ignored.
+    ``inverse=True`` is ``dehier_tail_batched``.  On CUDA: one
+    ``axis_pass_fwd`` launch per axis of extent > 1 (a level-1 axis is
+    the identity), ping-ponging two fresh buffers; ``x`` itself is never
+    written."""
+    if inverse:
+        if pred is not None:
+            raise ValueError("pred= is forward only")
+        return dehier_tail_batched(x, member_levels, axes=axes)
+    _record(hier_tail_batched, x=x, member_levels=member_levels, pred=pred,
+            axes=axes)
     if x.device.type == "cpu":
-        return _tail_plain(x, member_levels, axes=axes)
+        return _tail_plain(x, member_levels, pred=pred, axes=axes)
     live = _live_axes(x, axes)
     x = _check_stack(x)
     bufs = [torch.empty_like(x) for _ in range(min(2, len(live)))]
     for i, k in enumerate(live):
-        _launch_axis_pass(x, bufs[i % 2], k,
-                          _axis_pred([ml[k] for ml in member_levels], k, x))
+        _launch_axis_pass(x, bufs[i % 2], k, _forward_pred(
+            _axis_levels(member_levels, k), _tail_pred(pred, k), k, x))
         hier_tail_batched.launches += 1
         x = bufs[i % 2]
     return x
 
 
-def hier_axis0_batched(x: torch.Tensor,
-                       levels0: Sequence[int]) -> torch.Tensor:
+def dehier_tail_batched(x: torch.Tensor,
+                        member_levels: Sequence[Sequence[int]], *,
+                        axes: Sequence[int] | None = None) -> torch.Tensor:
+    """Dehierarchize tail axes of a (G, N1, ..., Nd) bucket stack, in the
+    order given (default 1..d-1): member g along axis k over its own head
+    of ``2**member_levels[g][k] - 1`` nodes, its padding copied.  On CUDA:
+    one ``axis_pass_inv`` launch per axis of extent > 1, ping-ponging two
+    fresh buffers; ``x`` itself is never written."""
+    _record(dehier_tail_batched, x=x, member_levels=member_levels, axes=axes)
+    if x.device.type == "cpu":
+        return _dehier_tail_plain(x, member_levels, axes=axes)
+    live = _live_axes(x, axes)
+    x = _check_stack(_contiguous(x))
+    bufs = [torch.empty_like(x) for _ in range(min(2, len(live)))]
+    for i, k in enumerate(live):
+        _launch_inverse_pass(x, bufs[i % 2], k,
+                             _axis_levels(member_levels, k))
+        dehier_tail_batched.launches += 1
+        x = bufs[i % 2]
+    return x
+
+
+def hier_axis0_batched(x: torch.Tensor, levels0, *, inverse: bool = False,
+                       pred=None) -> torch.Tensor:
     """Forward-hierarchize axis 0 of a (G, N, ...) bucket stack;
-    ``levels0[g]`` is member g's level along it.  On CUDA: one
+    ``levels0[g]`` is member g's level along it, or ``pred`` (forward
+    only) gives its ``(lp, rp, lm, rm)`` arrays of shape (G, N) instead.
+    ``inverse=True`` is ``dehier_axis0_batched``.  On CUDA: one
     ``axis_pass_fwd`` launch into a fresh buffer."""
-    _record(hier_axis0_batched, x=x, levels0=levels0)
+    if inverse:
+        if pred is not None:
+            raise ValueError("pred= is forward only")
+        return dehier_axis0_batched(x, levels0)
+    _record(hier_axis0_batched, x=x, levels0=levels0, pred=pred)
     if x.shape[1] == 1:
         return x
     if x.device.type == "cpu":
-        return _axis0_plain(x, levels0)
+        return _axis0_plain(x, levels0, pred=pred)
     x = _check_stack(x)
     out = torch.empty_like(x)
-    _launch_axis_pass(x, out, 0, _axis_pred(levels0, 0, x))
+    _launch_axis_pass(x, out, 0, _forward_pred(levels0, pred, 0, x))
     hier_axis0_batched.launches += 1
+    return out
+
+
+def dehier_axis0_batched(x: torch.Tensor,
+                         levels0: Sequence[int]) -> torch.Tensor:
+    """Dehierarchize axis 0 of a (G, N, ...) bucket stack; ``levels0[g]``
+    is member g's level along it, its padding copied.  On CUDA: one
+    ``axis_pass_inv`` launch into a fresh buffer."""
+    _record(dehier_axis0_batched, x=x, levels0=levels0)
+    if x.shape[1] == 1:
+        return x
+    if x.device.type == "cpu":
+        return _dehier_axis0_plain(x, levels0)
+    x = _check_stack(_contiguous(x))
+    out = torch.empty_like(x)
+    _launch_inverse_pass(x, out, 0, tuple(int(l) for l in levels0))
+    dehier_axis0_batched.launches += 1
     return out
 
 
@@ -621,9 +803,11 @@ def dehierarchize_nd_fused(a: torch.Tensor) -> torch.Tensor:
 
 
 WRAPPERS = (hier_tail_batched, hier_axis0_batched, hier_axis0_scatter_batched,
+            dehier_tail_batched, dehier_axis0_batched,
             hier_pole, dehier_pole, apply_axis_matmul, hier_fused_tail)
 for _w, _plain in zip(WRAPPERS, (_tail_plain, _axis0_plain,
-                                 _axis0_scatter_plain, _pole_plain,
+                                 _axis0_scatter_plain, _dehier_tail_plain,
+                                 _dehier_axis0_plain, _pole_plain,
                                  _dehier_pole_plain, _axis_matmul_plain,
                                  _fused_tail_plain)):
     _w.launches = 0
@@ -635,7 +819,8 @@ def count_launches():
     """Count kernel launches inside the block.
 
     Yields a dict, filled when the block EXITS, mapping each wrapper's
-    name to the launches it made inside the block."""
+    name to the launches it made inside the block (the inverse wrappers
+    under their own names)."""
     saved = {w: w.launches for w in WRAPPERS}
     result: dict = {}
     try:
@@ -644,27 +829,61 @@ def count_launches():
         result.update({w.__name__: w.launches - saved[w] for w in WRAPPERS})
 
 
-def forward_passes(x: torch.Tensor, member_levels: Sequence[Sequence[int]],
-                   axes: Sequence[int]) -> torch.Tensor:
-    """Forward passes along bucket ``axes`` in the order given: each run
-    of tail axes goes through ``hier_tail_batched``, axis 0 through
-    ``hier_axis0_batched``."""
+def _passes(x: torch.Tensor, member_levels, axes: Sequence[int], *,
+            inverse: bool = False, pred=None) -> torch.Tensor:
+    """Passes along bucket ``axes`` in the order given: each run of tail
+    axes through ``hier_tail_batched``, axis 0 through
+    ``hier_axis0_batched`` (their inverses with ``inverse``; ``pred`` the
+    forward transform's runtime data, ``member_pred_arrays`` layout)."""
     run: list = []
     for k in list(axes) + [None]:
         if k is not None and k > 0:
             run.append(k)
             continue
         if run:
-            x = hier_tail_batched(x, member_levels, axes=run)
+            x = hier_tail_batched(x, member_levels, inverse=inverse,
+                                  pred=None if pred is None else pred[4:],
+                                  axes=run)
             run = []
         if k == 0:
-            x = hier_axis0_batched(x, [ml[0] for ml in member_levels])
+            x = hier_axis0_batched(x, _axis_levels(member_levels, 0),
+                                   inverse=inverse,
+                                   pred=None if pred is None else pred[:4])
     return x
 
 
+def forward_passes(x: torch.Tensor, member_levels: Sequence[Sequence[int]],
+                   axes: Sequence[int]) -> torch.Tensor:
+    """Forward passes along bucket ``axes`` in the order given."""
+    return _passes(x, member_levels, axes)
+
+
 def hierarchize_batched(x: torch.Tensor,
-                        member_levels: Sequence[Sequence[int]]
-                        ) -> torch.Tensor:
-    """Full forward d-dim hierarchization of a (G, *bucket_shape) stack,
-    axes in the reference's order for that shape (``axis_order``)."""
-    return forward_passes(x, member_levels, axis_order(x.shape[1:]))
+                        member_levels: Sequence[Sequence[int]], *,
+                        inverse: bool = False,
+                        method: str = "auto") -> torch.Tensor:
+    """Full d-dim (de)hierarchization of a (G, *bucket_shape) stack.
+
+    ``method`` picks only the axis order (``axis_order``: ``"auto"``
+    takes the reference's rule for the shape), since every bucket runs
+    through the same kernels."""
+    return _passes(x, member_levels, axis_order(x.shape[1:], method),
+                   inverse=inverse)
+
+
+def dehierarchize_batched(a: torch.Tensor,
+                          member_levels: Sequence[Sequence[int]], *,
+                          method: str = "auto") -> torch.Tensor:
+    return hierarchize_batched(a, member_levels, inverse=True, method=method)
+
+
+def hierarchize_batched_data(x: torch.Tensor, pred, *,
+                             method: str = "auto") -> torch.Tensor:
+    """Forward ``hierarchize_batched`` with the per-member predecessor
+    data passed as runtime arrays (``member_pred_arrays(levels, shape)``,
+    ``4 * d`` arrays) instead of member levels.  With that data it equals
+    ``hierarchize_batched(x, levels, method=method)`` bitwise."""
+    if len(pred) != 4 * (x.ndim - 1):
+        raise ValueError(f"expected {4 * (x.ndim - 1)} predecessor arrays "
+                         f"for a {x.ndim - 1}-dim stack, got {len(pred)}")
+    return _passes(x, None, axis_order(x.shape[1:], method), pred=pred)

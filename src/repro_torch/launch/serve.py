@@ -2,7 +2,9 @@
 
 Port of ``repro.launch.serve.CTSurrogate``, single tenant: the reference
 delegates to its multi-tenant ``CTEngine``; here the surrogate owns its
-plan and the served surplus.
+scheme, its plan and the served surplus.  ``refit`` (a refined scheme)
+and ``drop_grid`` (fault recovery) swap all three through the executor's
+incremental plan rebuilds.
 """
 
 from __future__ import annotations
@@ -11,8 +13,10 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.executor import build_plan, ct_transform_with_plan
+from repro_torch.core.executor import (build_plan, ct_transform_with_plan,
+                                       extend_plan)
 from repro_torch.core.interpolation import interpolate_hierarchical
+from repro_torch.runtime.fault_tolerance import recombine_after_fault
 
 __all__ = ["CTSurrogate"]
 
@@ -58,6 +62,31 @@ class CTSurrogate:
         self._surplus = None
         self._surplus = ct_transform_with_plan(
             nodal_grids, self._plan, fused=self._fused, device=self._device)
+
+    def _commit(self, scheme, plan, nodal_grids) -> None:
+        """Ingest ``nodal_grids`` under ``plan``, then swap in scheme, plan
+        and surplus together.  A failing ingest (a grid missing from
+        ``nodal_grids`` raises ``ValueError`` naming it) raises before any
+        state changes; the old surplus is held until the new one exists."""
+        surplus = ct_transform_with_plan(nodal_grids, plan, fused=self._fused,
+                                         device=self._device)
+        self._scheme, self._plan, self._surplus = scheme, plan, surplus
+
+    def refit(self, scheme, nodal_grids) -> None:
+        """Serve a (refined) scheme: the plan is rebuilt incrementally
+        (``extend_plan``) and ``nodal_grids`` ingested under it."""
+        self._commit(scheme, extend_plan(self._plan, scheme), nodal_grids)
+
+    def drop_grid(self, failed, nodal_grids) -> None:
+        """Fault recovery: recombine without grid(s) ``failed``
+        (``recombine_after_fault``: coefficient-only when possible, else an
+        ``extend_plan`` rebuild).  ``nodal_grids`` must hold FINITE data for
+        the dropped grids (their coefficient is 0) and, when the reduction
+        activates a previously coefficient-0 grid, that grid's data too.
+        Later ``update`` calls recombine with the reduced coefficients."""
+        scheme, plan, _ = recombine_after_fault(self._scheme, failed,
+                                                plan=self._plan)
+        self._commit(scheme, plan, nodal_grids)
 
     def query(self, points) -> np.ndarray:
         """points: (Q, d) in [0,1]^d -> combined-interpolant values (Q,)."""

@@ -131,9 +131,14 @@ def test_wrappers_count_launches(cuda):
     with H.count_launches() as n:
         H.hierarchize_batched(x, levels)
     assert n == {"hier_tail_batched": 2, "hier_axis0_batched": 1,
-                 "hier_axis0_scatter_batched": 0, "hier_pole": 0,
+                 "hier_axis0_scatter_batched": 0, "dehier_tail_batched": 0,
+                 "dehier_axis0_batched": 0, "hier_pole": 0,
                  "dehier_pole": 0, "apply_axis_matmul": 0,
                  "hier_fused_tail": 0}
+    with H.count_launches() as n:
+        H.dehierarchize_batched(x, levels)
+    assert {k: v for k, v in n.items() if v} == {"dehier_tail_batched": 2,
+                                                 "dehier_axis0_batched": 1}
 
 
 
@@ -148,6 +153,72 @@ def test_ptxas_report_survives_a_cached_build(cuda):
         assert "ptxas" in path.with_suffix(".ptxas.txt").read_text()
         assert _build.PTXAS_LOG[name] == \
             path.with_suffix(".ptxas.txt").read_text()
+
+# ---------------------------------------------------------------------------
+# The batched inverse kernel (rows 6 and 8 of the TPU-kernel table)
+# ---------------------------------------------------------------------------
+
+INVERSE_STACKS = [
+    ((31,), ((5,), (3,), (1,))),                          # 1 axis
+    ((15, 15), ((4, 4), (1, 4), (4, 1))),
+    ((7, 7, 7), ((3, 3, 3), (3, 2, 1), (1, 3, 2))),
+    ((63, 1, 7), ((6, 1, 3), (2, 1, 1))),                 # a level-1 axis
+    ((15, 7, 3, 3), ((4, 3, 2, 2), (4, 1, 2, 1))),
+    ((255, 31, 3, 1), ((8, 5, 2, 1), (7, 5, 1, 1))),
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,levels", INVERSE_STACKS)
+def test_inverse_kernel_matches_plain(cuda, dtype, shape, levels):
+    x = _stack(np.random.default_rng(7), levels, shape, dtype)
+    xc = x.to(cuda)
+    with H.count_launches() as n:
+        tail = H.dehier_tail_batched(xc, levels)
+        axis0 = H.dehier_axis0_batched(xc, [lv[0] for lv in levels])
+        full = H.dehierarchize_batched(xc, levels)
+    assert _same(tail, H.dehier_tail_batched.plain(x, levels))
+    assert _same(axis0, H.dehier_axis0_batched.plain(
+        x, [lv[0] for lv in levels]))
+    assert _same(full, H.dehierarchize_batched(x, levels))
+    live = sum(1 for k in shape[1:] if k > 1)
+    assert n["dehier_tail_batched"] == 2 * live
+    assert n["dehier_axis0_batched"] == 2 * (shape[0] > 1)
+    back = H.dehierarchize_batched(H.hierarchize_batched(xc, levels), levels)
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    assert float((back.cpu() - x).abs().max()) <= tol
+
+
+def test_inverse_kernel_refuses_what_it_does_not_take(cuda):
+    levels = ((3, 3), (2, 3))
+    x = _stack(np.random.default_rng(8), levels, (7, 7),
+               torch.float64).to(cuda)
+    with pytest.raises(TypeError, match="float"):
+        H.dehier_tail_batched(x.to(torch.float16), levels)
+    with pytest.raises(ValueError, match="contiguous"):
+        H.dehier_tail_batched(x.transpose(1, 2), levels)
+    with pytest.raises(ValueError, match="contiguous"):
+        H.dehier_axis0_batched(x.transpose(1, 2), [3, 2])
+    with pytest.raises(ValueError, match="does not fit"):
+        H.dehier_axis0_batched(x, [4, 2])
+
+
+@pytest.mark.parametrize("merged", [False, True])
+def test_ct_scatter_card_equals_cpu(cuda, merged):
+    from repro_torch.core.executor import MergeConfig, ct_scatter_with_plan
+    scheme = CombinationScheme(3, 5)
+    rng = np.random.default_rng(9)
+    plan = build_plan(scheme, merge=MergeConfig(launch_cost_bytes=1 << 30)
+                      if merged else None)
+    full = torch.from_numpy(rng.standard_normal(plan.fine_shape))
+    with H.count_launches() as n:
+        card = ct_scatter_with_plan(full.to(cuda), plan, device=cuda)
+    cpu = ct_scatter_with_plan(full, plan, device="cpu")
+    assert n["dehier_tail_batched"] > 0 and n["dehier_axis0_batched"] > 0
+    assert set(card) == set(cpu)
+    for ell, u in cpu.items():
+        assert card[ell].is_cuda and _same(card[ell], u)
+
 
 SCHEMES = [CombinationScheme(4, 3), CombinationScheme(3, 4),
            GeneralScheme.from_levels([(6, 5), (5, 6)], close=True)]

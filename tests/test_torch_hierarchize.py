@@ -137,9 +137,10 @@ def test_cpu_path_launches_no_kernel():
     levels = ((3, 3, 3), (3, 2, 1))
     x = torch.from_numpy(_stack(np.random.default_rng(5), levels, (7, 7, 7)))
     with th.count_launches() as n:
-        th.hierarchize_batched(x, levels)
+        th.dehierarchize_batched(th.hierarchize_batched(x, levels), levels)
     assert n == {"hier_tail_batched": 0, "hier_axis0_batched": 0,
-                 "hier_axis0_scatter_batched": 0, "hier_pole": 0,
+                 "hier_axis0_scatter_batched": 0, "dehier_tail_batched": 0,
+                 "dehier_axis0_batched": 0, "hier_pole": 0,
                  "dehier_pole": 0, "apply_axis_matmul": 0,
                  "hier_fused_tail": 0}
 
