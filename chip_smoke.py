@@ -68,7 +68,32 @@ to 0 just before it and read just after:
 * every recorded inverse kernel call held against its plain version,
   bitwise, in f64 and f32, plus one call of each row on the 511^3 cube.
 
-The configurations come from ``repro_torch.configs.sparse_grid``.  The
+Then the fourth path, the dense LM's serving steps at ``smollm_360m``'s
+full width in bf16 (32 layers, d_model 960, 15 query heads over 5 KV
+heads, random weights from a seed), whose attention is row 10, the
+flash-attention kernel, with its launch count set to 0 just before the
+prefill:
+
+* the kernel against its plain version on the cases of the reference's
+  ``tests/test_flash_attention.py`` plus head_dim 128, in f32 and bf16, at
+  the reference's bars (2e-5, 2e-2);
+* ``prefill_step`` on 4 prompts of 2048 tokens: one launch per layer
+  (32), finite logits, warm time (median of 5) and peak device memory;
+  each of its 32 kernel calls replayed against the plain version in bf16
+  and in f32;
+* cache parity: ``prefill_step`` logits against token-by-token
+  ``serve_step`` (``decode_attention``, no kernel) on 2 prompts of 64
+  tokens, within three times the bf16 prefill's own distance from an f32
+  prefill of the same weights;
+* ``generate``: 4 requests of 128 prompt tokens plus 32 greedy new
+  tokens, twice, the two runs equal; ms per step and tokens/s;
+* row 10 timed on one layer's call at the prefill's shape, beside its
+  plain version and ``scaled_dot_product_attention`` (K/V broadcast to
+  the 15 query heads; a yardstick the port never calls), its bound the
+  causal pairs' flops at the bf16 tensor-core peak against q, k, v and o
+  moved once.
+
+The configurations come from ``repro_torch.configs``.  The
 kernel checks and timings replay the wrapper calls that the executor
 itself makes in an ingest or a scatter (``record_calls``).  Each
 kernel's ``ms`` is its device time from the profiler; ``plain_ms`` and
@@ -90,7 +115,8 @@ kernels' line also carries ``dense_flop_ms``, the dense operators' flops
 at the card's peak.
 
 It prints the card's name and power limit, the kernels' ``-Xptxas -v``
-report, the timings, a ``{"kernels": [...]}`` JSON line and, last,
+report, the timings, a ``{"kernels": [...]}`` JSON line (ten rows, in the
+order of ``PERF.md``'s table) and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is
 then non-zero and no result line is printed.  Without a CUDA device, or
 without the rest of the repository, it exits non-zero at once.
@@ -113,6 +139,19 @@ TIMING_REPS = 20
 CUBE = (9, 9, 9)                 # 511^3 f64: the paper's 1 GB data set
 PLANE = (14, 13)                 # 16383 x 8191 f64, 1.07 GB
 ITERATED = dict(rounds=2, t_steps=4)
+BF16_FLOP_PER_S = 989e12         # H100 SXM bf16 tensor cores, dense
+LM_ARCH = "smollm_360m"          # the dense LM, full width, bf16
+PREFILL = (4, 2048)              # prompts x tokens of the timed prefill
+PARITY = (2, 64)                 # prefill against token-by-token decode
+SERVE = dict(requests=4, prompt=128, new_tokens=32)
+PREFILL_REPS = 5
+FLASH_CASES = [  # b, sq, skv, h, kv, hd, causal
+    # tests/test_flash_attention.py's cases, then head_dim 128
+    (2, 16, 16, 4, 2, 8, True), (1, 64, 64, 2, 2, 16, True),
+    (2, 8, 24, 4, 4, 8, False), (1, 33, 33, 2, 1, 8, True),
+    (1, 1, 40, 4, 2, 8, False), (1, 128, 128, 8, 8, 32, True),
+    (1, 300, 300, 4, 2, 128, True), (2, 96, 130, 2, 2, 128, False)]
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the reference's bars
 
 KERNELS = {  # wrapper -> (CUDA source, TPU kernel it replaces)
     "hier_tail_batched": (
@@ -136,7 +175,8 @@ SCATTER_KERNELS = {  # the scatter path: wrapper -> (source, TPU kernel)
 ROW = {"hier_pole": 1, "dehier_pole": 2, "apply_axis_matmul": 3,
        "hier_fused_tail": 4, "hier_tail_batched": 5,
        "dehier_tail_batched": 6, "hier_axis0_batched": 7,
-       "dehier_axis0_batched": 8, "hier_axis0_scatter_batched": 9}
+       "dehier_axis0_batched": 8, "hier_axis0_scatter_batched": 9,
+       "flash_attention": 10}
 GRID_KERNELS = {  # the per-grid path: wrapper -> (source, TPU kernel)
     "hier_pole": (
         "src/repro_torch/kernels/csrc/pole_fwd.cu",
@@ -185,6 +225,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    # The f32 checks hold full-precision products: no TF32 anywhere.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1148,6 +1191,209 @@ def main() -> int:
     del cube, bundle
 
     # ------------------------------------------------------------------
+    # Fourth path: the dense LM's serving steps at smollm_360m's full
+    # width in bf16 (row 10, flash attention), random weights from a seed
+    # ------------------------------------------------------------------
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.serve import ServeConfig, generate
+    from repro_torch.models import model as LM
+    from repro_torch.models.transformer import init_params
+
+    def hold_flash(got, want, label):
+        """The kernel's output against its plain version's, at the
+        reference kernel's bar for the type (abs and rel)."""
+        tol = FLASH_TOL[str(got.dtype).removeprefix("torch.")]
+        if got.shape != want.shape or got.dtype != want.dtype:
+            fail(f"flash_attention ({label}): {got.dtype}{tuple(got.shape)} "
+                 f"against {want.dtype}{tuple(want.shape)}")
+        diff = (got.float() - want.float()).abs()
+        e = float(diff.max()) if diff.numel() else 0.0
+        err["flash_attention"] = max(err["flash_attention"], e)
+        if not bool((diff <= tol + tol * want.float().abs()).all()):
+            fail(f"flash_attention differs from its plain version ({label}, "
+                 f"max err {e}, bar {tol})")
+
+    for case in FLASH_CASES:
+        b, sq, skv, h, kvh, hd, causal = case
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (randn(s, torch.float32).to(dtype) for s in (
+                (b, sq, h, hd), (b, skv, kvh, hd), (b, skv, kvh, hd)))
+            hold_flash(FA.flash_attention(q, k, v, causal=causal),
+                       FA.flash_attention_ref(q, k, v, causal=causal),
+                       f"{case} {dtype}")
+    print(f"flash_attention kernel cases: {len(FLASH_CASES)} shapes in f32 "
+          f"and bf16 within the reference's bars (2e-5, 2e-2) of the plain "
+          f"version; max abs err {err['flash_attention']}")
+
+    cfg = get_config(LM_ARCH)
+    model = init_params(cfg, seed=0, device=cuda)
+    torch.cuda.synchronize()
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    lm_rng = np.random.default_rng(4)
+    tokens = torch.from_numpy(lm_rng.integers(0, cfg.vocab_size,
+                                              PREFILL)).to(cuda)
+    batch = {"tokens": tokens}
+    FA.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    with H.record_calls() as flash_calls:
+        logits = LM.prefill_step(model, cfg, batch)
+    torch.cuda.synchronize()
+    prefill_first_ms = (time.perf_counter() - t0) * 1e3
+    lm_launches = FA.flash_attention.launches
+    if lm_launches != cfg.num_layers or len(flash_calls) != cfg.num_layers:
+        fail(f"prefill_step launched flash_attention {lm_launches} times "
+             f"({len(flash_calls)} calls), one per layer is "
+             f"{cfg.num_layers}")
+    if tuple(logits.shape) != PREFILL + (cfg.vocab_padded,) or \
+            logits.dtype != torch.bfloat16 or \
+            not bool(torch.isfinite(logits).all()):
+        fail(f"prefill logits {logits.dtype}{tuple(logits.shape)} are not "
+             f"finite bf16 of shape {PREFILL + (cfg.vocab_padded,)}")
+    del logits
+    prefill_ms = []
+    resident = torch.cuda.memory_allocated()    # weights and earlier paths
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(PREFILL_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        LM.prefill_step(model, cfg, batch)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    prefill_peak = torch.cuda.max_memory_allocated() - resident
+    print(f"{LM_ARCH} prefill_step {PREFILL}: {lm_launches} flash_attention "
+          f"launches (one per layer); first call {prefill_first_ms:.1f} ms, "
+          f"warm median {float(np.median(prefill_ms)):.2f} ms "
+          f"({', '.join(f'{t:.2f}' for t in prefill_ms)}); peak device "
+          f"memory {prefill_peak} B above the resident state, beside "
+          f"{weight_bytes} B of weights  [{card}]")
+    for _wrapper, args in flash_calls:       # every call of the prefill
+        hold_flash(FA.flash_attention(**args), FA.flash_attention.plain(**args),
+                   "prefill bf16")
+        f32 = {**args, **{n: args[n].float() for n in "qkv"}}
+        hold_flash(FA.flash_attention(**f32), FA.flash_attention.plain(**f32),
+                   "prefill replayed in f32")
+    flash_args = flash_calls[0][1]
+    del flash_calls
+    print(f"flash_attention: the prefill's {cfg.num_layers} calls within "
+          f"2e-2 (bf16) and 2e-5 (f32 replay) of the plain version; max abs "
+          f"err {err['flash_attention']}")
+
+    # Cache parity at full width: prefill (the kernel) against token-by-
+    # token decode (decode_attention, no kernel), both bf16.  Bar: three
+    # times the bf16 prefill's own rounding error, its distance from an f32
+    # prefill of the same weights; a wrong position or a stale cache entry
+    # is far above it.
+    ptoks = torch.from_numpy(lm_rng.integers(0, cfg.vocab_size,
+                                             PARITY)).to(cuda)
+    want = LM.prefill_step(model, cfg, {"tokens": ptoks}).float()
+    exact = LM.prefill_step(model.float(), cfg.replace(dtype="float32"),
+                            {"tokens": ptoks}).float()
+    model = model.bfloat16()       # .float() converted in place
+    cache = LM.init_decode_cache(cfg, PARITY[0], PARITY[1], device=cuda)
+    steps = []
+    for pos in range(PARITY[1]):
+        lg, cache = LM.serve_step(model, cfg, cache,
+                                  {"token": ptoks[:, pos:pos + 1], "pos": pos})
+        steps.append(lg[:, 0].float())
+    got = torch.stack(steps, dim=1)
+    parity_err = float((got - want).abs().max())
+    rounding = float((want - exact).abs().max())
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    if not parity_err <= 3 * rounding:
+        fail(f"decode differs from prefill by {parity_err}, above 3x the "
+             f"bf16 rounding {rounding}")
+    print(f"{LM_ARCH} cache parity {PARITY}: token-by-token serve_step "
+          f"logits within {parity_err} of prefill_step's (bar 3 x {rounding},"
+          f" the bf16 prefill's distance from f32; |logits| up to "
+          f"{float(want.abs().max())}); argmax agrees on {agree:.4f} of "
+          f"positions")
+    del want, exact, got, cache, steps
+
+    # Serving: generate answers a batch of requests, twice from one seed
+    sc = ServeConfig(arch=LM_ARCH, smoke=False,
+                     max_new_tokens=SERVE["new_tokens"])
+    prompts = lm_rng.integers(0, cfg.vocab_size, (
+        SERVE["requests"], SERVE["prompt"])).astype(np.int32)
+    served, serve_ms = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        served.append(generate(sc, prompts, params=model))
+        serve_ms.append((time.perf_counter() - t0) * 1e3)
+    toks, lps = served[0]["tokens"], served[0]["logprobs"]
+    if toks.shape != (SERVE["requests"], SERVE["prompt"] + SERVE[
+            "new_tokens"]) or not (toks[:, :SERVE["prompt"]] == prompts).all()\
+            or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+        fail(f"generate returned tokens {toks.shape} that do not extend the "
+             f"prompts with in-vocabulary tokens")
+    if not (np.isfinite(lps).all() and (lps <= 0).all()):
+        fail("generate's logprobs are not finite and <= 0")
+    if not (np.array_equal(toks, served[1]["tokens"])
+            and np.array_equal(lps, served[1]["logprobs"])):
+        fail("two generate runs from one seed differ")
+    n_steps = SERVE["prompt"] + SERVE["new_tokens"] - 1
+    new_tokens = SERVE["requests"] * SERVE["new_tokens"]
+    decode_cache = LM.init_decode_cache(cfg, SERVE["requests"], n_steps + 1,
+                                        device=cuda)
+    last = torch.from_numpy(toks[:, -1:]).to(cuda)
+    decode_batch = {"token": last, "pos": n_steps}
+    decode_ms = wall_clock_ms(
+        lambda: LM.serve_step(model, cfg, decode_cache, decode_batch))
+    print(f"{LM_ARCH} generate: {SERVE['requests']} requests of "
+          f"{SERVE['prompt']} prompt tokens + {SERVE['new_tokens']} greedy "
+          f"new tokens in {serve_ms[0]:.1f}, {serve_ms[1]:.1f} ms "
+          f"({n_steps} serve_steps each, {serve_ms[1] / n_steps:.2f} ms a "
+          f"step); {new_tokens / serve_ms[1] * 1e3:.1f} generated tokens/s, "
+          f"{serve_ms[1] / SERVE['new_tokens']:.2f} ms per generated token "
+          f"of a request (prompt steps included); one serve_step at position "
+          f"{n_steps}: {decode_ms:.2f} ms; the two runs equal  [{card}]")
+
+    # Row 10 at the prefill's shape: one layer's recorded call
+    q, k, v = (flash_args[n] for n in "qkv")
+    b, sq, h, hd = q.shape
+    groups = h // k.shape[2]
+    kernel = lambda: FA.flash_attention(**flash_args)
+    plain = lambda: FA.flash_attention.plain(**flash_args)
+    qh, kh, vh = (t.transpose(1, 2) for t in (
+        q, k.repeat_interleave(groups, dim=2),
+        v.repeat_interleave(groups, dim=2)))
+    library = lambda: torch.nn.functional.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=True)
+    lib_err = max_err(library().transpose(1, 2), kernel())
+    if not lib_err <= 2e-2 * max(1.0, float(q.abs().max())):
+        fail(f"scaled_dot_product_attention differs from flash_attention by "
+             f"{lib_err}")
+    pairs = sum(min(k.shape[1], i + 1) for i in range(sq))   # causal
+    flops = 4 * b * h * hd * pairs
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flops_ms = flops / BF16_FLOP_PER_S * 1e3
+    ms = device_ms(kernel, only="flash_kernel")
+    rows.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:38",
+        "launches": lm_launches, "max_abs_err": err["flash_attention"],
+        "ms": ms, "plain_ms": device_ms(plain),
+        "bound_ms": max(bytes_ms, flops_ms),
+        "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+        "library_ms": device_ms(library),
+        "wrapper_ms": wall_ms(kernel), "plain_wrapper_ms": wall_ms(plain)})
+    r = rows[-1]
+    print(f"flash_attention: device {ms:.4f} ms per call at ({b}x{h}, {sq}, "
+          f"{hd}) bf16 causal ({lm_launches} launches per prefill_step, "
+          f"{flops / ms / 1e9:.1f} TFLOP/s), bound {r['bound_ms']:.4f} ms by "
+          f"{r['bound_by']} ({flops} flop at 989 TFLOP/s, {nbytes} B at 3.35 "
+          f"TB/s); plain {r['plain_ms']:.4f} ms; library "
+          f"(scaled_dot_product_attention, K/V broadcast to {h} heads) "
+          f"{r['library_ms']:.4f} ms (max abs diff {lib_err}); with host "
+          f"dispatch: kernel {r['wrapper_ms']:.4f} ms, plain "
+          f"{r['plain_wrapper_ms']:.4f} ms  [{card}]")
+    del q, k, v, qh, kh, vh, flash_args
+
+    # ------------------------------------------------------------------
     # Where the time goes: ingest, query and scatter under the profiler
     # ------------------------------------------------------------------
     profiled("prod_3d ingest (update)", lambda: srv.update(grids))
@@ -1160,6 +1406,10 @@ def main() -> int:
              lambda: iterated.round(ITERATED["t_steps"]))
     profiled(f"prod_3d query ({QUERY_BATCH} points)",
              lambda: srv.query(points[1].numpy()))
+    profiled(f"{LM_ARCH} prefill_step {PREFILL}",
+             lambda: LM.prefill_step(model, cfg, batch))
+    profiled(f"{LM_ARCH} serve_step (batch {SERVE['requests']})",
+             lambda: LM.serve_step(model, cfg, decode_cache, decode_batch))
 
     print(f"prod_3d CTSurrogate: construct {construct_ms:.1f} ms, ingest "
           f"(update) {ingest_ms:.2f} ms, query per batch of {QUERY_BATCH} "

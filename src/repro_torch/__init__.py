@@ -7,11 +7,19 @@ imports ``torch`` and numpy only — never JAX, never ``repro``.
 Ported so far: the CT ingest-and-query path (``core.executor.ct_transform``,
 ``core.interpolation.interpolate_hierarchical``, ``launch.serve.CTSurrogate``),
 the per-grid transforms (``kernels.ops``) and the iterated combination
-technique (``core.iterated``), and the scatter phase with adaptivity
+technique (``core.iterated``), the scatter phase with adaptivity
 (``core.executor.ct_scatter``, ``core.adaptive``,
-``runtime.fault_tolerance``), with every hierarchization kernel of the
-reference written by hand in CUDA for Hopper (``kernels/csrc``).  Entry points run on the CUDA device
-unless the caller passes ``device="cpu"``; with no card and no
+``runtime.fault_tolerance``), and the dense LM's serving steps
+(``models``: ``transformer.DenseLM``/``forward``, ``model.prefill_step``/
+``serve_step``, ``launch.serve.generate``; ``convert.lm_params_from_numpy``
+carries the reference's weights across).  Every TPU kernel of the
+reference is written by hand in CUDA for Hopper (``kernels/csrc``): the
+hierarchization kernels and flash attention.  Not ported yet: the CT
+engine, multi-GPU sharding, durability and the cluster, and of the LM
+stack the moe, ssm, hybrid, encdec and vlm families, training
+(``launch/train.py``, ``optim``, ``data``, the loss) and ``make_batch``/
+``input_specs`` (ROADMAP.md, Queue A).  Entry points run on the CUDA
+device unless the caller passes ``device="cpu"``; with no card and no
 ``device="cpu"`` they raise — there is no silent CPU fallback.
 """
 

@@ -1,1 +1,2 @@
-"""Hierarchization kernels (CUDA sources in ``csrc``) and their oracles."""
+"""The port's kernels (CUDA sources in ``csrc``): hierarchization and flash
+attention, each beside its plain version."""

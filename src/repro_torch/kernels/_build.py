@@ -54,6 +54,8 @@ KERNELS: Dict[str, Dict[str, list]] = {
     "fused_tail": {f"fused_tail_{t}": [_P, _P, _P, _P, _I, _I, _I, _P, _P,
                                        _P, _P, _P]
                    for t in ("f32", "f64", "bf16")},
+    "flash_attention": {f"flash_attention_{t}": [_P] * 4 + [_I] * 17 + [_P]
+                        for t in ("f32", "bf16")},
 }
 
 _LOCK = threading.Lock()

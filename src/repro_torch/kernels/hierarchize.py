@@ -430,7 +430,8 @@ def _record(wrapper, **arguments) -> None:
 
 @contextlib.contextmanager
 def record_calls():
-    """Record every wrapper call inside the block.
+    """Record every wrapper call inside the block (this module's and
+    ``flash_attention``'s).
 
     Yields a list, filled as the calls happen, of ``(wrapper, arguments)``
     pairs, ``arguments`` the call's keyword arguments: replaying

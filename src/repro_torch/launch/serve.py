@@ -1,24 +1,94 @@
-"""Sparse-grid surrogate serving on the batched executor.
+"""Serving drivers: the dense LM's token-by-token ``generate``, and
+sparse-grid surrogate serving on the batched executor (``CTSurrogate``).
 
-Port of ``repro.launch.serve.CTSurrogate``, single tenant: the reference
-delegates to its multi-tenant ``CTEngine``; here the surrogate owns its
-scheme, its plan and the served surplus.  ``refit`` (a refined scheme)
-and ``drop_grid`` (fault recovery) swap all three through the executor's
-incremental plan rebuilds.
+Port of ``repro.launch.serve``.  ``generate`` keeps the reference's
+semantics: one batch of prompts is prefilled token by token through
+``serve_step`` and then extended by greedy or temperature sampling, with
+the log-probability of each chosen token.  Two differences: temperature
+sampling draws from a ``torch.Generator`` seeded with ``sc.seed`` (the
+same distribution as the reference's ``jax.random.categorical``, other
+draws), and the log-probabilities are taken in float32 whatever the
+model's type.  Only dense architectures run (``configs.DENSE_ARCH_IDS``).
+
+``CTSurrogate`` is the port of ``repro.launch.serve.CTSurrogate``, single
+tenant: the reference delegates to its multi-tenant ``CTEngine``; here the
+surrogate owns its scheme, its plan and the served surplus.  ``refit`` (a
+refined scheme) and ``drop_grid`` (fault recovery) swap all three through
+the executor's incremental plan rebuilds.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.executor import (build_plan, ct_transform_with_plan,
                                        extend_plan)
 from repro_torch.core.interpolation import interpolate_hierarchical
+from repro_torch.models import model as M
+from repro_torch.models.transformer import DenseLM, init_params
 from repro_torch.runtime.fault_tolerance import recombine_after_fault
 
-__all__ = ["CTSurrogate"]
+__all__ = ["ServeConfig", "generate", "CTSurrogate"]
+
+
+@dataclass(frozen=True)
+class ServeConfig:
+    arch: str = "smollm_360m"
+    smoke: bool = True
+    max_new_tokens: int = 16
+    temperature: float = 0.0          # 0 = greedy
+    seed: int = 0
+
+
+def generate(sc: ServeConfig, prompts, params: DenseLM | None = None, *,
+             device=None) -> Dict[str, np.ndarray]:
+    """prompts: (B, T) int token prompts (right-aligned, no padding).
+
+    Runs on the device of ``params`` or, without them, on ``device``
+    (default CUDA) with weights from ``init_params(seed=sc.seed)``.
+    Returns dict with "tokens" (B, T + max_new) int32 and "logprobs"
+    (B, max_new) float32."""
+    cfg = get_smoke_config(sc.arch) if sc.smoke else get_config(sc.arch)
+    if params is None:
+        params = init_params(cfg, seed=sc.seed, device=device)
+    elif device is not None and resolve_device(device) != params.device:
+        raise ValueError(f"params lie on {params.device}, not on {device}")
+    device = params.device
+    tokens = torch.as_tensor(np.asarray(prompts), device=device).long()
+    b, t = tokens.shape
+    if t == 0:
+        raise ValueError("generate needs at least one prompt token")
+    cache = M.init_decode_cache(cfg, b, t + sc.max_new_tokens, device=device)
+    gen = None
+    if sc.temperature > 0:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(sc.seed)
+    last_logits = None
+    for pos in range(t):        # prefill through the decode path
+        last_logits, cache = M.serve_step(
+            params, cfg, cache, {"token": tokens[:, pos:pos + 1], "pos": pos})
+    out, logprobs = [tokens], []
+    for i in range(sc.max_new_tokens):
+        logits = last_logits[:, 0, :cfg.vocab_size].float()
+        if sc.temperature > 0:
+            cur = torch.multinomial(torch.softmax(logits / sc.temperature, -1),
+                                    1, generator=gen)[:, 0]
+        else:
+            cur = torch.argmax(logits, -1)
+        lp = torch.log_softmax(logits, -1)
+        logprobs.append(lp.gather(1, cur[:, None])[:, 0])
+        out.append(cur[:, None])
+        if i + 1 < sc.max_new_tokens:   # the last token needs no step
+            last_logits, cache = M.serve_step(
+                params, cfg, cache, {"token": cur[:, None], "pos": t + i})
+    return {"tokens": torch.cat(out, dim=1).cpu().numpy().astype(np.int32),
+            "logprobs": torch.stack(logprobs, dim=1).cpu().numpy()}
 
 
 class CTSurrogate:
@@ -104,3 +174,26 @@ class CTSurrogate:
         out = interpolate_hierarchical(
             self._surplus, torch.from_numpy(pts).to(self._device))
         return out.cpu().numpy()
+
+
+def main(argv=None):
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", default="smollm_360m")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=8)
+    ap.add_argument("--max-new-tokens", type=int, default=16)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: CUDA)")
+    args = ap.parse_args(argv)
+    sc = ServeConfig(arch=args.arch, max_new_tokens=args.max_new_tokens)
+    cfg = get_smoke_config(args.arch)
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (args.batch, args.prompt_len)).astype(np.int32)
+    out = generate(sc, prompts, device=args.device)
+    print("generated:", out["tokens"].shape, "mean logprob:",
+          float(out["logprobs"].mean()))
+
+
+if __name__ == "__main__":
+    main()

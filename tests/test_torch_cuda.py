@@ -15,7 +15,10 @@ the dense-operator kernels (``apply_axis_matmul``, ``hier_fused_tail``)
 sum in another order than the plain version's tensordot and are held to
 the reference's tolerances (f64 rtol 1e-11 / atol 1e-12, f32 2e-5, bf16
 a max abs error below 0.15 against the f64 brute force and one bf16 ulp
-plus 2**-12 against the plain version, which also sums in f32).
+plus 2**-12 against the plain version, which also sums in f32).  The
+flash-attention kernel is held to its plain version at the reference
+kernel's bars, 2e-5 in f32 and 2e-2 in bf16 (both keep scores and
+probabilities in f32, and sum in other orders).
 """
 
 import numpy as np
@@ -30,7 +33,11 @@ from repro_torch.kernels import hierarchize as H
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import (dehierarchize_1d_bruteforce,
                                      hierarchize_1d_bruteforce)
-from repro_torch.launch.serve import CTSurrogate
+from repro_torch.configs import get_smoke_config
+from repro_torch.kernels import flash_attention as F
+from repro_torch.launch.serve import CTSurrogate, ServeConfig, generate
+from repro_torch.models import model as M
+from repro_torch.models.transformer import init_params
 
 pytestmark = pytest.mark.gpu
 
@@ -356,3 +363,106 @@ def test_iterated_round_card_matches_cpu(cuda):
             np.testing.assert_allclose(card.grids[ell].cpu().numpy(),
                                        cpu.grids[ell].numpy(), rtol=1e-12,
                                        atol=1e-15)
+
+
+# ---------------------------------------------------------------------------
+# Flash attention (row 10) and the dense LM
+# ---------------------------------------------------------------------------
+
+FLASH_CASES = [
+    # b, sq, skv, h, kv, hd, causal: tests/test_flash_attention.py's cases,
+    # then smollm's smoke and full head widths, head_dim 128, tiles past 64
+    (2, 16, 16, 4, 2, 8, True),
+    (1, 64, 64, 2, 2, 16, True),
+    (2, 8, 24, 4, 4, 8, False),
+    (1, 33, 33, 2, 1, 8, True),
+    (1, 1, 40, 4, 2, 8, False),
+    (1, 128, 128, 8, 8, 32, True),
+    (1, 24, 24, 3, 1, 20, True),
+    (2, 200, 200, 15, 5, 64, True),
+    (1, 130, 70, 2, 1, 128, False),
+    (1, 97, 97, 4, 2, 128, True),
+]
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _qkv(case, dtype, seed=0):
+    b, sq, skv, h, kv, hd, _ = case
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            .to(dtype) for s in ((b, sq, h, hd), (b, skv, kv, hd),
+                                 (b, skv, kv, hd))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernel_matches_plain(cuda, case, dtype):
+    q, k, v = _qkv(case, dtype)
+    before = F.flash_attention.launches
+    got = F.flash_attention(q.to(cuda), k.to(cuda), v.to(cuda),
+                            causal=case[-1])
+    torch.cuda.synchronize()
+    assert F.flash_attention.launches == before + 1
+    assert got.is_cuda and got.dtype == dtype and got.shape == q.shape
+    want = F.flash_attention_ref(q, k, v, causal=case[-1])
+    tol = FLASH_TOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("q_offset", [0, 5, 64])
+def test_flash_kernel_offset_strides_and_bhsd(cuda, q_offset):
+    """A causal mask shifted by ``q_offset``; q, k and v read through the
+    strides of views (no copy); the (BH, S, hd) spelling."""
+    rng = np.random.default_rng(1)
+    qkv = torch.from_numpy(rng.standard_normal(
+        (2, 70, 3, 4, 32)).astype(np.float32)).to(cuda)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1, :2], qkv[:, :, 2, :2]
+    assert not q.is_contiguous()
+    got = F.flash_attention(q, k, v, causal=True, q_offset=q_offset)
+    want = F.flash_attention_ref(q, k, v, causal=True, q_offset=q_offset)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=2e-5, atol=2e-5)
+    qb, kb, vb = (t.permute(0, 2, 1, 3).reshape(-1, 70, 32)
+                  for t in (q[:, :, :2], k, v))
+    got = F.flash_attention_bhsd(qb, kb, vb, causal=True, q_offset=q_offset)
+    want = F.flash_attention_bhsd(qb.cpu(), kb.cpu(), vb.cpu(), causal=True,
+                                  q_offset=q_offset)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=2e-5,
+                               atol=2e-5)
+
+
+def test_flash_kernel_refuses_what_it_does_not_take(cuda):
+    q, k, v = _qkv((1, 8, 8, 2, 1, 160, True), torch.float32)
+    with pytest.raises(ValueError, match="head_dim"):
+        F.flash_attention(q.to(cuda), k.to(cuda), v.to(cuda))
+    q, k, v = _qkv((1, 8, 8, 2, 1, 16, True), torch.float64)
+    with pytest.raises(TypeError):
+        F.flash_attention(q.to(cuda), k.to(cuda), v.to(cuda))
+    q, k, v = _qkv((1, 8, 8, 2, 1, 16, True), torch.float32)
+    with pytest.raises(ValueError, match="device"):
+        F.flash_attention(q.to(cuda), k, v.to(cuda))
+
+
+def test_prefill_launches_once_per_layer_and_matches_cpu(cuda):
+    cfg = get_smoke_config("smollm_360m")
+    model = init_params(cfg, seed=0, device="cpu")
+    tokens = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 70))
+    want = M.prefill_step(model, cfg, {"tokens": tokens})
+    before = F.flash_attention.launches
+    got = M.prefill_step(model.to(cuda), cfg, {"tokens": tokens})
+    assert F.flash_attention.launches == before + cfg.num_layers
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_generate_card_matches_cpu(cuda):
+    cfg = get_smoke_config("smollm_360m")
+    model = init_params(cfg, seed=0, device="cpu")
+    prompts = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 6))
+    sc = ServeConfig(max_new_tokens=6)
+    want = generate(sc, prompts, params=model)
+    got = generate(sc, prompts, params=model.to(cuda))
+    np.testing.assert_array_equal(got["tokens"], want["tokens"])
+    np.testing.assert_allclose(got["logprobs"], want["logprobs"], rtol=1e-4,
+                               atol=1e-4)
