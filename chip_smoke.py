@@ -112,7 +112,9 @@ kernels, ``auto`` for the operator kernels).  Their ``bound_ms`` is the
 function's own, whatever the kernel's formulation: the grid read once and
 written once (the 3-term update's flops are far below it); the operator
 kernels' line also carries ``dense_flop_ms``, the dense operators' flops
-at the card's peak.
+at the card's peak; row 3's printed line also gives the flops of the
+operator tiles its kernel multiplies (only the nonzero ones; its f64
+product runs on DMMA, which the script checks in the library's SASS).
 
 It prints the card's name and power limit, the kernels' ``-Xptxas -v``
 report, the timings, a ``{"kernels": [...]}`` JSON line (ten rows, in the
@@ -258,6 +260,16 @@ def main() -> int:
         for line in log.splitlines():
             if "ptxas" in line:
                 print(f"[{name}] {line.strip()}")
+    # Row 3's f64 product must run on the f64 tensor cores (DMMA).
+    sass = subprocess.run(
+        [str(Path(_build._nvcc()).with_name("cuobjdump")), "-sass",
+         str(_build._library_path("axis_operator"))], capture_output=True,
+        text=True, timeout=120, check=True).stdout
+    dmma = sum("DMMA" in line for line in sass.splitlines())
+    if not dmma:
+        fail("axis_operator's SASS holds no DMMA instruction")
+    print(f"[axis_operator] {dmma} DMMA instructions in the SASS (f64 on "
+          f"the tensor cores)")
 
     bits = {torch.float64: torch.int64, torch.float32: torch.int32}
 
@@ -1175,6 +1187,12 @@ def main() -> int:
         dense = ("" if dense_flops is None else
                  f"; the dense operators' {dense_flops} flop alone "
                  f"{r['dense_flop_ms']:.4f} ms")
+        if name == "apply_axis_matmul":
+            # the kernel multiplies only the operator's nonzero tiles
+            tiles = H._operator_tiles(CUBE[0], False, torch.float64, cuda)[0]
+            slab_flops = 2 * tiles.numel() * bundle.shape[1]
+            dense += (f", the {tiles.shape[0]} nonzero tiles' {slab_flops} "
+                      f"flop {slab_flops / FLOP_PER_S * 1e3:.4f} ms")
         print(f"{name}: device {ms:.4f} ms per call on 511^3 f64 (1 launch), "
               f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
               f"({2 * cube.numel() * item} B at 3.35 TB/s, {flops} flop at "

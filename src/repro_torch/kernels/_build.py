@@ -49,7 +49,7 @@ KERNELS: Dict[str, Dict[str, list]] = {
                  for t in ("f32", "f64")},
     "pole_inv": {f"pole_inv_{t}": [_P, _P, _I, _I, _I, _P]
                  for t in ("f32", "f64")},
-    "axis_operator": {f"axis_operator_{t}": [_P, _P, _P, _I, _I, _P]
+    "axis_operator": {f"axis_operator_{t}": [_P] * 5 + [_I] * 4 + [_P]
                       for t in ("f32", "f64", "bf16")},
     "fused_tail": {f"fused_tail_{t}": [_P, _P, _P, _P, _I, _I, _I, _P, _P,
                                        _P, _P, _P]

@@ -39,9 +39,11 @@ __device__ __forceinline__ T hier3(const T* __restrict__ x, int64_t e,
 // Launch shape shared by both kernels: a grid-stride loop over the
 // elements, capped so a launch never asks for more blocks than useful.
 constexpr int kThreads = 256;
+// Streaming multiprocessors of an H100 SXM, which the launch shapes assume.
+constexpr int64_t kSMs = 132;
 
 inline unsigned int blocks_for(int64_t total) {
   const int64_t want = (total + kThreads - 1) / kThreads;
-  const int64_t cap = 132 * 16;  // 16 blocks of 256 threads on each of 132 SMs
+  const int64_t cap = kSMs * 16;  // 16 blocks of 256 threads on each SM
   return (unsigned int)(want < cap ? want : cap);
 }

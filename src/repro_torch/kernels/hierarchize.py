@@ -11,8 +11,9 @@ axis 0 of an ``(N, B)`` pole bundle or the tail axes of a d-dim grid:
   level loop, one ``pole_fwd`` launch (bitwise the reference);
 * ``dehier_pole``      — ``dehier_pole_pallas``: the coarse-to-fine
   inverse, one ``pole_inv`` launch (bitwise the reference);
-* ``apply_axis_matmul`` — ``apply_axis_matmul_pallas``: the dense operator
-  ``H`` (or ``H^-1``) along axis 0, one ``axis_operator`` launch;
+* ``apply_axis_matmul`` — ``apply_axis_matmul_pallas``: the operator
+  ``H`` (or ``H^-1``) along axis 0, one ``axis_operator`` launch over its
+  nonzero tiles;
 * ``hier_fused_tail``  — ``hier_fused_tail_pallas``: the dense operators
   along every tail axis 1..d-1 in one ``fused_tail`` launch.
 
@@ -640,14 +641,61 @@ def _op_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.float32 if dtype == torch.bfloat16 else dtype
 
 
+def _operator_matrix(level: int, inverse: bool) -> np.ndarray:
+    return (ref.dehier_operator_matrix(level) if inverse
+            else ref.operator_matrix(level))
+
+
 @functools.lru_cache(maxsize=256)
 def _operator(level: int, inverse: bool, dtype: torch.dtype,
               device: torch.device) -> torch.Tensor:
     """The dense (N, N) 1-D operator H (or H^-1) at the true N = 2**level
     - 1.  Its entries are dyadic rationals, exact in every type used."""
-    h = (ref.dehier_operator_matrix(level) if inverse
-         else ref.operator_matrix(level))
-    return torch.from_numpy(h).to(dtype=dtype, device=device).contiguous()
+    return torch.from_numpy(_operator_matrix(level, inverse)).to(
+        dtype=dtype, device=device).contiguous()
+
+
+#: ``axis_operator.cu``'s operator tile: rows of an output tile (kOpM) and
+#: depth of a k-slab (kOpK).  Every launch passes it, and the kernel
+#: refuses a tile that is not its own.
+OPERATOR_TILE = (64, 16)
+
+
+def _operator_slabs(h: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """The k-slabs where each ``OPERATOR_TILE`` row tile of ``h`` has a
+    nonzero, in CSR form: ``(offsets, slabs)``, int32, row tile r's slabs
+    (ascending) being ``slabs[offsets[r]:offsets[r + 1]]``; slab s covers
+    columns ``[s * tile_k, (s + 1) * tile_k)`` and row tile r rows
+    ``[r * tile_m, (r + 1) * tile_m)``."""
+    tile_m, tile_k = OPERATOR_TILE
+    rows, cols = -(-h.shape[0] // tile_m), -(-h.shape[1] // tile_k)
+    nz = np.zeros((rows * tile_m, cols * tile_k), dtype=bool)
+    nz[:h.shape[0], :h.shape[1]] = h != 0
+    live = nz.reshape(rows, tile_m, cols, tile_k).any(axis=(1, 3))
+    offsets = np.concatenate([[0], np.cumsum(live.sum(axis=1))])
+    return offsets.astype(np.int32), np.nonzero(live)[1].astype(np.int32)
+
+
+@functools.lru_cache(maxsize=256)
+def _operator_tiles(level: int, inverse: bool, dtype: torch.dtype,
+                    device: torch.device) -> Tuple[torch.Tensor, ...]:
+    """``axis_operator``'s operand: H (or H^-1) as its nonzero
+    ``OPERATOR_TILE`` tiles, ``(tiles (nnz, tile_m, tile_k), offsets,
+    slabs)`` (``_operator_slabs``), each tile row-major and zero-padded past
+    N.  Built on the host once per key and cached, so a call copies
+    nothing."""
+    h = _operator_matrix(level, inverse)
+    tm, tk = OPERATOR_TILE
+    offsets, slabs = _operator_slabs(h)
+    rows, cols = -(-h.shape[0] // tm), -(-h.shape[1] // tk)
+    padded = np.zeros((rows * tm, cols * tk))
+    padded[:h.shape[0], :h.shape[1]] = h
+    blocks = padded.reshape(rows, tm, cols, tk).transpose(0, 2, 1, 3)
+    tiles = blocks[np.repeat(np.arange(rows), np.diff(offsets)), slabs]
+    return (torch.from_numpy(np.ascontiguousarray(tiles)).to(
+                dtype=dtype, device=device),
+            torch.from_numpy(offsets).to(device),
+            torch.from_numpy(slabs).to(device))
 
 
 def _pole_plain(x: torch.Tensor, *, reduced_op: bool = True) -> torch.Tensor:
@@ -723,9 +771,12 @@ def dehier_pole(a: torch.Tensor) -> torch.Tensor:
 
 def apply_axis_matmul(x: torch.Tensor, *,
                       inverse: bool = False) -> torch.Tensor:
-    """(De)hierarchize along axis 0 of an (N, B) bundle as one dense
-    operator product ``H . x`` (``H^-1 . x`` with ``inverse``).  On CUDA:
-    one ``axis_operator`` launch (f64, f32, or bf16 summed in f32)."""
+    """(De)hierarchize along axis 0 of an (N, B) bundle as one operator
+    product ``H . x`` (``H^-1 . x`` with ``inverse``).  On CUDA: one
+    ``axis_operator`` launch (f64 on the tensor cores, f32, or bf16 summed
+    in f32) that multiplies only the operator's nonzero tiles
+    (``_operator_tiles``); a NaN or Inf in ``x`` then reaches only the row
+    tiles whose operator entries touch it, not its whole column."""
     _record(apply_axis_matmul, x=x, inverse=inverse)
     level = _bundle_level(x)
     if level == 1:
@@ -733,11 +784,13 @@ def apply_axis_matmul(x: torch.Tensor, *,
     if x.device.type == "cpu":
         return _axis_matmul_plain(x, inverse=inverse)
     x = _check_stack(x, _GRID_TAG)
-    h = _operator(level, inverse, _op_dtype(x.dtype), x.device)
+    tiles, offsets, slabs = _operator_tiles(level, inverse,
+                                            _op_dtype(x.dtype), x.device)
     out = torch.empty_like(x)
     _raise_on(_build.kernel("axis_operator", _GRID_TAG[x.dtype])(
-        h.data_ptr(), x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1],
-        _stream(x)), "axis_operator")
+        tiles.data_ptr(), offsets.data_ptr(), slabs.data_ptr(), x.data_ptr(),
+        out.data_ptr(), x.shape[0], x.shape[1], *OPERATOR_TILE, _stream(x)),
+        "axis_operator")
     apply_axis_matmul.launches += 1
     return out
 

@@ -172,6 +172,26 @@ INVERSE_STACKS = [
     ((63, 1, 7), ((6, 1, 3), (2, 1, 1))),                 # a level-1 axis
     ((15, 7, 3, 3), ((4, 3, 2, 2), (4, 1, 2, 1))),
     ((255, 31, 3, 1), ((8, 5, 2, 1), (7, 5, 1, 1))),
+    # prod_3d's extremes: three 511-long columns, one per member
+    ((511, 1, 1), ((9, 1, 1), (9, 1, 1), (8, 1, 1))),
+    # a merged (12, 511, 3, 1) stack, members below the target (padding
+    # copied)
+    ((511, 3, 1), ((9, 2, 1), (8, 2, 1), (7, 1, 1), (9, 1, 1), (6, 2, 1),
+                   (8, 1, 1), (5, 2, 1), (7, 2, 1), (4, 1, 1), (3, 2, 1),
+                   (9, 2, 1), (2, 1, 1))),
+    # one member whose last axis has 511-long rows (inner = 1): tiles of
+    # two whole rows
+    ((1023, 511), ((10, 9),)),
+    # more columns than one block's tile (axis 0: 8 of 2047 per tile; 32
+    # of 8191, 131 KB in f64, as on the 511^3 grid)
+    ((255, 2047), ((8, 11), (7, 10))),
+    ((511, 8191), ((9, 13), (8, 12))),
+    # tiles of whole outer positions of an inner of 3 (axis 1: 21 of them,
+    # 63 columns)
+    ((4095, 7, 3), ((12, 3, 2), (11, 2, 2))),
+    # 32767-long columns: past one block's shared memory in f64 (the
+    # per-thread branch), a 128 KB tile in f32
+    ((32767, 3), ((15, 2), (14, 1))),
 ]
 
 
@@ -263,7 +283,8 @@ def test_surrogate_card_matches_cpu(cuda):
 
 OP_TOL = {torch.float64: dict(rtol=1e-11, atol=1e-12),
           torch.float32: dict(rtol=2e-5, atol=2e-5)}
-BUNDLES = [(1, 8), (2, 1), (5, 33), (8, 200), (9, 1000)]   # (level, cols)
+BUNDLES = [(1, 8), (2, 1), (5, 33), (8, 200), (9, 1000),   # (level, cols)
+           (9, 1001), (10, 77), (11, 130)]      # not multiples of the tile
 
 
 def _bundle(level, cols, seed):
@@ -292,6 +313,32 @@ def test_axis_operator_kernel_matches_plain(cuda, dtype, level, cols,
     assert got.dtype == dtype and got.shape == x.shape
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
                                **OP_TOL[dtype])
+
+
+def test_axis_operator_f64_runs_on_dmma(cuda):
+    """Row 3's f64 product is compiled to the f64 tensor cores' DMMA."""
+    import subprocess
+    from pathlib import Path
+    from repro_torch.kernels import _build
+    _build.load_all()
+    sass = subprocess.run(
+        [str(Path(_build._nvcc()).with_name("cuobjdump")), "-sass",
+         str(_build._library_path("axis_operator"))],
+        capture_output=True, text=True, check=True).stdout
+    assert "DMMA" in sass
+
+
+def test_axis_operator_keeps_a_nan_in_its_row_tiles(cuda):
+    """The kernel skips the operator's zero tiles: an Inf at x[0, 0] (only
+    H[0, 0] touches it) makes rows 0..63 of column 0 non-finite (the first
+    64-row tile, 0 * Inf there) and leaves the rest of the column finite,
+    where the dense product would spread it to the whole column."""
+    x = _bundle(9, 70, 15)
+    x[0, 0] = float("inf")
+    got = H.apply_axis_matmul(x.to(cuda)).cpu()
+    assert not torch.isfinite(got[:64, 0]).any()
+    assert torch.isfinite(got[64:, 0]).all()
+    assert torch.isfinite(got[:, 1:]).all()
 
 
 TAIL_SHAPES = [(7, 7), (15, 3), (3, 7, 15), (7, 3, 3, 7), (3, 1, 7),

@@ -225,6 +225,30 @@ def test_serve_step_matches_reference(arch):
             np.asarray(want_cache["segments"][0][name]), **TOL)
 
 
+@pytest.mark.parametrize("pos", [8, 9])
+def test_serve_step_past_the_cache_raises(pos):
+    """A ``serve_step`` at ``pos >= max_seq`` raises ``IndexError`` and
+    leaves the cache as it was; the reference's ``dynamic_update_slice``
+    clamps the write instead and returns logits without a word (ROADMAP
+    Queue C)."""
+    ref, port, cfg = _params(DENSE_ARCH_IDS[0])
+    rng = np.random.default_rng(7)
+    shape = (cfg.num_layers, 2, 8, cfg.num_kv_heads, cfg.resolved_head_dim)
+    ck, cv = (rng.standard_normal(shape).astype(np.float32) for _ in range(2))
+    token = _tokens(cfg, (2, 1), seed=8)
+    cache = TM.init_decode_cache(cfg, 2, 8, device="cpu")
+    cache["segments"][0]["k"][:] = torch.from_numpy(ck)
+    cache["segments"][0]["v"][:] = torch.from_numpy(cv)
+    with pytest.raises(IndexError, match="do not fit"):
+        TM.serve_step(port, cfg, cache, {"token": token, "pos": pos})
+    assert np.array_equal(cache["segments"][0]["k"].numpy(), ck)
+    assert np.array_equal(cache["segments"][0]["v"].numpy(), cv)
+    logits, _ = RM.serve_step(
+        ref, cfg, {"segments": [{"k": jnp.asarray(ck), "v": jnp.asarray(cv)}]},
+        {"token": jnp.asarray(token), "pos": jnp.asarray(pos, jnp.int32)})
+    assert np.all(np.isfinite(np.asarray(logits)))
+
+
 @pytest.mark.parametrize("arch", DENSE_ARCH_IDS)
 def test_generate_matches_reference(arch):
     ref, port, cfg = _params(arch)
