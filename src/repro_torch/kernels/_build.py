@@ -51,9 +51,8 @@ KERNELS: Dict[str, Dict[str, list]] = {
                  for t in ("f32", "f64")},
     "axis_operator": {f"axis_operator_{t}": [_P] * 5 + [_I] * 4 + [_P]
                       for t in ("f32", "f64", "bf16")},
-    "fused_tail": {f"fused_tail_{t}": [_P, _P, _P, _P, _I, _I, _I, _P, _P,
-                                       _P, _P, _P]
-                   for t in ("f32", "f64", "bf16")},
+    "fused_tail": {f"fused_tail_{t}": [_P] * 4 + [_I] + [_P] * 6
+                   + [_I, _I, _P] for t in ("f32", "f64", "bf16")},
     "flash_attention": {f"flash_attention_{t}": [_P] * 4 + [_I] * 17 + [_P]
                         for t in ("f32", "bf16")},
 }
@@ -130,3 +129,22 @@ def load_all() -> Dict[str, ctypes.CDLL]:
 def kernel(name: str, dtype_tag: str):
     """The bound C entry point ``{name}_{dtype_tag}`` (building on first use)."""
     return getattr(load_all()[name], f"{name}_{dtype_tag}")
+
+
+def sass(name: str) -> Dict[str, str]:
+    """The machine code of library ``name`` (``cuobjdump -sass``, building
+    it first), by kernel: mangled kernel name -> its SASS text."""
+    load_all()
+    text = subprocess.run(
+        [str(Path(_nvcc()).with_name("cuobjdump")), "-sass",
+         str(_library_path(name))], capture_output=True, text=True,
+        timeout=120, check=True).stdout
+    kernels: Dict[str, list] = {}
+    lines: list = []
+    for line in text.splitlines():
+        if "Function : " in line:
+            lines = kernels.setdefault(line.split("Function : ", 1)[1]
+                                       .strip(), [])
+        else:
+            lines.append(line)
+    return {k: "\n".join(v) for k, v in kernels.items()}

@@ -30,10 +30,11 @@ __global__ void __launch_bounds__(kMmaThreads)
                              const double* __restrict__ x,
                              double* __restrict__ out, int64_t n, int64_t b,
                              int64_t row_tiles) {
-  __shared__ __align__(16) MmaSmem sm;
+  __shared__ __align__(16) MmaSmem<false> sm;
   const int64_t r = int64_t(blockIdx.x) % row_tiles;
   const int64_t j0 = int64_t(blockIdx.x) / row_tiles * kOpN;
-  operator_slab_tile_f64(tiles, offsets, slabs, x, out, n, b, r, j0, sm);
+  operator_slab_tile_f64<false>(tiles, offsets, slabs, x, out, n, b, r, j0,
+                                sm);
 }
 
 template <typename T, typename Acc>
@@ -46,19 +47,13 @@ __global__ void __launch_bounds__(kCoreThreads)
   __shared__ CoreSmem<Acc> sm;
   const int64_t r = int64_t(blockIdx.x) % row_tiles;
   const int64_t j0 = int64_t(blockIdx.x) / row_tiles * kOpN;
-  operator_slab_tile_core<T, Acc>(tiles, offsets, slabs, x, out, n, b, r, j0,
-                                  sm);
+  operator_slab_tile_core<T, T, Acc, false>(tiles, offsets, slabs, x, out, n,
+                                            b, r, j0, sm);
 }
 
 static int64_t blocks_of(int64_t n, int64_t b, int64_t* row_tiles) {
   *row_tiles = (n + kOpM - 1) / kOpM;
   return *row_tiles * ((b + kOpN - 1) / kOpN);
-}
-
-// The caller packs the operator in (tile_m, tile_k) tiles; any tile but
-// this kernel's own would be read wrongly, so it is refused.
-static bool tile_is_ours(int64_t tile_m, int64_t tile_k) {
-  return tile_m == kOpM && tile_k == kOpK;
 }
 
 extern "C" int axis_operator_f64(const void* tiles, const void* offsets,

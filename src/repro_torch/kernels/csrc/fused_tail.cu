@@ -1,119 +1,158 @@
 // fused_tail: (de)hierarchization along every tail axis 1..d-1 of a
-// (N1, N2, ..., Nd) grid in ONE launch.
+// (N0, N1, ..., N_{d-1}) grid, one launch per axis of extent > 1.
 //
 // Replaces hier_fused_tail_pallas -> _fused_tail_kernel
 // (repro/kernels/hierarchize.py:315, :293).  The TPU kernel holds a tile
 // of axis-0 rows in VMEM and contracts each tail axis with its dense
 // operator while the tile stays resident.  A 511 x 511 f64 slab (2 MB)
-// does not fit in a block's shared memory, so here one block owns one
-// axis-0 row (its slab of N2 * ... * Nd elements) and contracts the tail
-// axes in turn, each a dense operator product (operator_gemm.cuh),
-// reading one buffer and writing another in device memory:
+// does not fit in a block's shared memory, so that residency is not
+// carried over: each axis is one pass over the whole grid, reading one
+// buffer and writing another in device memory,
 //   x -> ws0 -> ws1 -> ws0 -> ... -> out,
-// with a block-wide barrier between axes.  No block reads another's row,
-// so the axes need no grid-wide synchronisation.  The workspaces hold the
+// and stream order separates the passes.  The workspaces hold the
 // accumulator's type, so a bf16 grid is summed in f32 across all axes and
 // rounded to bf16 once, as the reference's f32 tensordots are.
 //
-// An axis is viewed as (outer, n, inner) inside the slab.  With inner > 1
-// each of the outer blocks is one product H . (n x inner); with inner = 1
-// (the last axis) the whole slab is one product whose operand columns are
-// the slab's rows.  Tail axes of extent 1 are the identity: the wrapper
-// passes only the others.
+// A pass views its axis as (outer, n, inner) of the whole grid and
+// multiplies only the operator's nonzero 64 x 16 tiles, on row 3's slab
+// list and packed tiles (operator_slab_tile.cuh):
+// * inner > 1: C[o] = H . X[o], X[o] an (n, inner) row-major block; one
+//   block per (row tile, 64-column tile, o), the row tile fastest so that
+//   the row tiles of one column strip share its slabs through L2;
+// * inner = 1 (the last axis): C = X . H^T with X (outer, n) row-major, the
+//   same slab list with the operand roles swapped, so that X is read along
+//   its contiguous rows; one block per (H's row tile, 64 rows of X).
+// f64 runs on DMMA, f32 and bf16 on the CUDA cores.  On the 511^3 cube a
+// pass has 8 x 8 x 511 (axis 1) or 8 x 4,080 (axis 2) blocks.  Skipping a
+// zero tile changes what a NaN or Inf in x reaches (see the tile's header).
 //
-// Bound: operations (2 n_k flops per element per axis, above the ridge at
-// n = 511); one block per row leaves 511 blocks for a 511^3 grid, under
-// four per SM.
+// Bound: bytes.  The function reads x once and writes out once (0.637 ms
+// at 511^3 f64 on 3.35 TB/s); each extra axis adds a workspace round trip,
+// and the listed tiles' flops are about a fifth of the dense operators'.
 
-#include "operator_gemm.cuh"
+#include <type_traits>
+
+#include "operator_slab_tile.cuh"
 
 constexpr int kMaxTail = 9;  // d <= 10
 
-struct TailAxes {
-  int64_t outer[kMaxTail];
-  int64_t n[kMaxTail];
-  int64_t inner[kMaxTail];
-  const void* op[kMaxTail];
-  int count;
-};
-
-template <typename Acc, typename TS, typename TD>
-__device__ void apply_axis(const Acc* __restrict__ h, const TS* src, TD* dst,
-                           int64_t outer, int64_t n, int64_t inner,
-                           GemmSmem<Acc>& sm) {
-  if (inner == 1) {
-    for (int64_t i0 = 0; i0 < n; i0 += kTile)
-      for (int64_t j0 = 0; j0 < outer; j0 += kTile)
-        operator_tile<Acc, TS, TD>(h, src, 1, n, dst, 1, n, n, outer, i0, j0,
-                                   sm);
-    return;
-  }
-  for (int64_t o = 0; o < outer; ++o) {
-    const TS* s = src + o * n * inner;
-    TD* d = dst + o * n * inner;
-    for (int64_t i0 = 0; i0 < n; i0 += kTile)
-      for (int64_t j0 = 0; j0 < inner; j0 += kTile)
-        operator_tile<Acc, TS, TD>(h, s, inner, 1, d, inner, 1, n, inner, i0,
-                                   j0, sm);
+template <bool kSwap>
+__global__ void __launch_bounds__(kMmaThreads)
+    fused_tail_f64_kernel(const double* __restrict__ tiles,
+                          const int32_t* __restrict__ offsets,
+                          const int32_t* __restrict__ slabs,
+                          const double* __restrict__ src,
+                          double* __restrict__ dst, int64_t outer, int64_t n,
+                          int64_t inner, int64_t row_tiles,
+                          int64_t col_tiles) {
+  __shared__ __align__(16) MmaSmem<kSwap> sm;
+  const int64_t r = int64_t(blockIdx.x) % row_tiles;
+  const int64_t rest = int64_t(blockIdx.x) / row_tiles;
+  if constexpr (kSwap) {
+    operator_slab_tile_f64<true>(tiles, offsets, slabs, src, dst, n, outer,
+                                 r, rest * kOpN, sm);
+  } else {
+    const int64_t base = rest / col_tiles * n * inner;
+    operator_slab_tile_f64<false>(tiles, offsets, slabs, src + base,
+                                  dst + base, n, inner, r,
+                                  rest % col_tiles * kOpN, sm);
   }
 }
 
-template <typename T, typename Acc>
-__global__ void __launch_bounds__(kGemmThreads)
-    fused_tail_kernel(const T* __restrict__ x, Acc* ws0, Acc* ws1,
-                      T* __restrict__ out, int64_t slab, TailAxes axes) {
-  __shared__ GemmSmem<Acc> sm;
-  const int64_t base = int64_t(blockIdx.x) * slab;
-  Acc* ws[2] = {ws0 ? ws0 + base : nullptr, ws1 ? ws1 + base : nullptr};
-  for (int a = 0; a < axes.count; ++a) {
-    const Acc* h = (const Acc*)axes.op[a];
-    const int64_t outer = axes.outer[a], n = axes.n[a], inner = axes.inner[a];
-    const bool first = a == 0, last = a == axes.count - 1;
-    if (first && last) {
-      apply_axis<Acc, T, T>(h, x + base, out + base, outer, n, inner, sm);
-    } else if (first) {
-      apply_axis<Acc, T, Acc>(h, x + base, ws[0], outer, n, inner, sm);
-    } else if (last) {
-      apply_axis<Acc, Acc, T>(h, ws[(a - 1) % 2], out + base, outer, n, inner,
-                              sm);
-    } else {
-      apply_axis<Acc, Acc, Acc>(h, ws[(a - 1) % 2], ws[a % 2], outer, n,
-                                inner, sm);
-    }
-    __syncthreads();  // this axis's output is the next one's input
+template <typename TS, typename TD, bool kSwap>
+__global__ void __launch_bounds__(kCoreThreads)
+    fused_tail_core_kernel(const float* __restrict__ tiles,
+                           const int32_t* __restrict__ offsets,
+                           const int32_t* __restrict__ slabs,
+                           const TS* __restrict__ src, TD* __restrict__ dst,
+                           int64_t outer, int64_t n, int64_t inner,
+                           int64_t row_tiles, int64_t col_tiles) {
+  __shared__ CoreSmem<float> sm;
+  const int64_t r = int64_t(blockIdx.x) % row_tiles;
+  const int64_t rest = int64_t(blockIdx.x) / row_tiles;
+  if constexpr (kSwap) {
+    operator_slab_tile_core<TS, TD, float, true>(
+        tiles, offsets, slabs, src, dst, n, outer, r, rest * kOpN, sm);
+  } else {
+    const int64_t base = rest / col_tiles * n * inner;
+    operator_slab_tile_core<TS, TD, float, false>(
+        tiles, offsets, slabs, src + base, dst + base, n, inner, r,
+        rest % col_tiles * kOpN, sm);
   }
+}
+
+struct Pass {
+  const void* tiles;
+  const int32_t* offsets;
+  const int32_t* slabs;
+  int64_t outer, n, inner;
+};
+
+// One pass src -> dst; returns the launch's error.
+template <typename TS, typename TD>
+static int launch_pass(const Pass& p, const TS* src, TD* dst,
+                       cudaStream_t stream) {
+  const int64_t row_tiles = (p.n + kOpM - 1) / kOpM;
+  const bool swap = p.inner == 1;
+  const int64_t col_tiles = swap ? 1 : (p.inner + kOpN - 1) / kOpN;
+  const int64_t blocks =
+      row_tiles * (swap ? (p.outer + kOpN - 1) / kOpN : col_tiles * p.outer);
+  if (blocks > INT32_MAX) return (int)cudaErrorInvalidValue;
+  if (blocks == 0) return (int)cudaSuccess;
+  if constexpr (std::is_same<TS, double>::value) {
+    auto kernel = swap ? fused_tail_f64_kernel<true>
+                       : fused_tail_f64_kernel<false>;
+    kernel<<<(unsigned int)blocks, kMmaThreads, 0, stream>>>(
+        (const double*)p.tiles, p.offsets, p.slabs, src, dst, p.outer, p.n,
+        p.inner, row_tiles, col_tiles);
+  } else {
+    auto kernel = swap ? fused_tail_core_kernel<TS, TD, true>
+                       : fused_tail_core_kernel<TS, TD, false>;
+    kernel<<<(unsigned int)blocks, kCoreThreads, 0, stream>>>(
+        (const float*)p.tiles, p.offsets, p.slabs, src, dst, p.outer, p.n,
+        p.inner, row_tiles, col_tiles);
+  }
+  return (int)cudaGetLastError();
 }
 
 template <typename T, typename Acc>
 static int launch(const void* x, void* ws0, void* ws1, void* out,
-                  int64_t rows, int64_t slab, int64_t count,
-                  const int64_t* outer, const int64_t* n,
-                  const int64_t* inner, const void* const* ops,
-                  void* stream) {
-  if (count < 1 || count > kMaxTail) return (int)cudaErrorInvalidValue;
-  TailAxes axes{};
-  axes.count = (int)count;
+                  int64_t count, const int64_t* outer, const int64_t* n,
+                  const int64_t* inner, const void* const* tiles,
+                  const void* const* offsets, const void* const* slabs,
+                  int64_t tile_m, int64_t tile_k, void* stream) {
+  if (count < 1 || count > kMaxTail || !tile_is_ours(tile_m, tile_k))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  Acc* ws[2] = {(Acc*)ws0, (Acc*)ws1};
   for (int a = 0; a < count; ++a) {
-    axes.outer[a] = outer[a];
-    axes.n[a] = n[a];
-    axes.inner[a] = inner[a];
-    axes.op[a] = ops[a];
-  }
-  if (rows > 0 && slab > 0) {
-    fused_tail_kernel<T, Acc><<<(unsigned int)rows, kGemmThreads, 0,
-                                (cudaStream_t)stream>>>(
-        (const T*)x, (Acc*)ws0, (Acc*)ws1, (T*)out, slab, axes);
+    const Pass p{tiles[a], (const int32_t*)offsets[a],
+                 (const int32_t*)slabs[a], outer[a], n[a], inner[a]};
+    const bool first = a == 0, last = a == count - 1;
+    int err;
+    if (first && last) {
+      err = launch_pass<T, T>(p, (const T*)x, (T*)out, st);
+    } else if (first) {
+      err = launch_pass<T, Acc>(p, (const T*)x, ws[0], st);
+    } else if (last) {
+      err = launch_pass<Acc, T>(p, ws[(a - 1) % 2], (T*)out, st);
+    } else {
+      err = launch_pass<Acc, Acc>(p, ws[(a - 1) % 2], ws[a % 2], st);
+    }
+    if (err != 0) return err;
   }
   return (int)cudaGetLastError();
 }
 
 #define FUSED_TAIL_ENTRY(tag, T, Acc)                                        \
   extern "C" int fused_tail_##tag(                                           \
-      const void* x, void* ws0, void* ws1, void* out, int64_t rows,          \
-      int64_t slab, int64_t count, const int64_t* outer, const int64_t* n,   \
-      const int64_t* inner, const void* const* ops, void* stream) {          \
-    return launch<T, Acc>(x, ws0, ws1, out, rows, slab, count, outer, n,     \
-                          inner, ops, stream);                               \
+      const void* x, void* ws0, void* ws1, void* out, int64_t count,         \
+      const int64_t* outer, const int64_t* n, const int64_t* inner,          \
+      const void* const* tiles, const void* const* offsets,                  \
+      const void* const* slabs, int64_t tile_m, int64_t tile_k,              \
+      void* stream) {                                                        \
+    return launch<T, Acc>(x, ws0, ws1, out, count, outer, n, inner, tiles,   \
+                          offsets, slabs, tile_m, tile_k, stream);           \
   }
 
 FUSED_TAIL_ENTRY(f64, double, double)

@@ -1,5 +1,6 @@
-// One output tile of C = H . X that walks only the k-slabs where the tile's
-// rows of H are nonzero, for axis_operator.cu.
+// One 64 x 64 output tile of an operator product that walks only the
+// k-slabs where the operator is nonzero, for axis_operator.cu (row 3) and
+// fused_tail.cu (row 4).
 //
 // H is a 1-D (de)hierarchization operator (m x m): at most 3 nonzeros a
 // row for H, at most `level` for H^-1, so most of its kOpM x kOpK tiles are
@@ -7,64 +8,58 @@
 // H[r*kOpM:, s*kOpK:] has a nonzero, in CSR form (offsets[r] ..
 // offsets[r+1] index `slabs`), and packs those tiles row-major and
 // zero-padded past m, one kOpM x kOpK block each, in the same order
-// (`tiles`).  X is (m, ncols) row-major.
+// (`tiles`).
+//
+// The operand takes one of two roles (kSwap):
+// * kSwap = false, C = H . X with X and C (m x other) row-major: the tile
+//   holds rows r*kOpM.. of C (H's row tile r) and columns start..start+63;
+//   the A operand is H's packed tile, the B operand X's slab rows.
+// * kSwap = true, C = X . H^T with X and C (other x m) row-major, the
+//   transform along the LAST axis: the tile holds rows start..start+63 of C
+//   and columns r*kOpM.. (H's row tile r again, so the same slab list
+//   serves); the A operand is X[rows, k-slab], contiguous along k, and the
+//   B operand H's packed tile read transposed from shared memory.  Every
+//   load and store runs along a contiguous row: no strided gather of X^T.
 //
 // Skipped tiles are exact zeros, so for finite X the sum loses only +0.0
-// terms.  A NaN or Inf in X now stays in the row tiles whose listed slabs
-// cover it: the rows whose operator entries touch it and the rest of their
-// 64-row tiles (0 * Inf is NaN there), where the dense product spreads it
-// to the whole column.
+// terms.  A NaN or Inf in X now stays in the output tiles whose listed
+// slabs cover it: the outputs whose operator entries touch it and the rest
+// of their 64-wide tile (0 * Inf is NaN there), where the dense product
+// spreads it along the whole transformed axis.
 //
 // f64 runs on the tensor cores (DMMA, mma.sync.aligned.m8n8k4 .f64; Hopper
-// keeps them, wgmma has no f64): 128 threads, a 64 x 64 output tile, each
-// warp 32 x 32 as 4 x 4 mma tiles of 8 x 8, K in slabs of 16 (four k-steps
-// of 4).  Both operand tiles are double-buffered in shared memory by
-// cp.async, the operator tile by 16-byte copies (its packed tiles are
-// aligned), X by 8-byte copies zero-filled past the edges; the pitches
-// (kOpK + 4, kOpN + 4 doubles) put the 16 lanes of a half-warp on 16
-// different banks for every fragment load.
+// keeps them, wgmma has no f64): 128 threads, each warp 32 x 32 of the
+// tile as 4 x 4 mma tiles of 8 x 8, K in slabs of 16 (four k-steps of 4).
+// Both operand tiles are double-buffered in shared memory by cp.async, the
+// operator tile by 16-byte copies (its packed tiles are aligned), X by
+// 8-byte copies zero-filled past the edges; the pitches (kOpK + 4, kOpN +
+// 4 doubles) put the 16 lanes of a half-warp on 16 different banks for
+// every fragment load, in both roles.
 //
 // f32 and bf16 run on the CUDA cores over the same slab list: 256 threads,
-// 4 x 4 outputs each, one slab at a time; bf16 is widened on load, summed
-// in f32 and rounded to bf16 once.
+// 4 x 4 outputs each, one slab at a time; bf16 is widened on load and
+// summed in f32.  Input and output types are separate (TS, TD), so a chain
+// of passes can keep f32 sums between them and round to bf16 once.
 #pragma once
 
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-constexpr int kOpM = 64;   // rows of an output tile (and of an H tile)
-constexpr int kOpN = 64;   // columns of an output tile
+#include "cp_async.cuh"
+
+constexpr int kOpM = 64;   // rows of an operator tile (and of an output tile)
+constexpr int kOpN = 64;   // the other side of an output tile
 constexpr int kOpK = 16;   // depth of a slab
 constexpr int kMmaThreads = 128;
 constexpr int kCoreThreads = 256;
 constexpr int kApitch = kOpK + 4;
 constexpr int kBpitch = kOpN + 4;
 
-__device__ __forceinline__ unsigned int smem_addr(const void* p) {
-  return (unsigned int)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_addr(smem)),
-               "l"(gmem));
-}
-
-// 8 bytes, or 8 zero bytes when !valid (src-size 0 reads nothing).
-__device__ __forceinline__ void cp_async8(void* smem, const void* gmem,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
-                   smem_addr(smem)),
-               "l"(gmem), "r"(valid ? 8 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+// The caller packs the operator in (tile_m, tile_k) tiles; any tile but
+// these kernels' own would be read wrongly, so the entry points refuse it.
+inline bool tile_is_ours(int64_t tile_m, int64_t tile_k) {
+  return tile_m == kOpM && tile_k == kOpK;
 }
 
 // d += a . b for one 8 x 8 x 4 f64 product: a = A[lane / 4][lane % 4],
@@ -77,41 +72,60 @@ __device__ __forceinline__ void dmma_8x8x4(double& d0, double& d1, double a,
       : "d"(a), "d"(b));
 }
 
+// a: the A operand's 64 x 16 slab, [row][k].  b: the B operand, [k][col]
+// (16 x 64) for kSwap = false, [col][k] (64 x 16) for kSwap = true.
+template <bool kSwap>
 struct MmaSmem {
   double a[2][kOpM * kApitch];
-  double b[2][kOpK * kBpitch];
+  double b[2][kSwap ? kOpN * kApitch : kOpK * kBpitch];
 };
 
-// C[i0:i0+kOpM, j0:j0+kOpN] in f64 on DMMA.  Every thread of the
-// 128-thread block calls it.
+// One output tile in f64 on DMMA.  `tile` is H's row tile, `other` the
+// extent of X's other axis and `start` the tile's first index along it
+// (see the header for the two roles).  Every thread of the 128-thread
+// block calls it.
+template <bool kSwap>
 __device__ void operator_slab_tile_f64(
     const double* __restrict__ tiles, const int32_t* __restrict__ offsets,
     const int32_t* __restrict__ slabs, const double* __restrict__ x,
-    double* __restrict__ c, int64_t m, int64_t ncols, int64_t row_tile,
-    int64_t j0, MmaSmem& sm) {
+    double* __restrict__ c, int64_t m, int64_t other, int64_t tile,
+    int64_t start, MmaSmem<kSwap>& sm) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
   const int gr = lane >> 2, q = lane & 3;
-  const int begin = offsets[row_tile], end = offsets[row_tile + 1];
-  const int64_t i0 = row_tile * kOpM;
+  const int begin = offsets[tile], end = offsets[tile + 1];
 
   auto load = [&](int slot, int t) {
+    // H's packed tile, row-major (64 x 16): the A operand, or B as [col][k]
+    double* hs = kSwap ? sm.b[slot] : sm.a[slot];
     const double* h = tiles + int64_t(t) * kOpM * kOpK;
 #pragma unroll
     for (int u = 0; u < kOpM * kOpK / 2 / kMmaThreads; ++u) {
       const int e = tid + u * kMmaThreads;        // 16-byte chunk
       const int row = e / (kOpK / 2), col = (e % (kOpK / 2)) * 2;
-      cp_async16(&sm.a[slot][row * kApitch + col], h + row * kOpK + col);
+      cp_async<16>(&hs[row * kApitch + col], h + row * kOpK + col, 16);
     }
     const int64_t k0 = int64_t(slabs[t]) * kOpK;
+    if constexpr (kSwap) {   // X[start + i][k0 + kk], threads along k
 #pragma unroll
-    for (int u = 0; u < kOpK * kOpN / kMmaThreads; ++u) {
-      const int e = tid + u * kMmaThreads;
-      const int kk = e / kOpN, jj = e % kOpN;
-      const int64_t gk = k0 + kk, gj = j0 + jj;
-      const bool valid = gk < m && gj < ncols;
-      cp_async8(&sm.b[slot][kk * kBpitch + jj],
-                valid ? x + gk * ncols + gj : x, valid);
+      for (int u = 0; u < kOpN * kOpK / kMmaThreads; ++u) {
+        const int e = tid + u * kMmaThreads;
+        const int ii = e / kOpK, kk = e % kOpK;
+        const int64_t gi = start + ii, gk = k0 + kk;
+        const bool valid = gi < other && gk < m;
+        cp_async<8>(&sm.a[slot][ii * kApitch + kk],
+                    valid ? x + gi * m + gk : x, valid ? 8 : 0);
+      }
+    } else {                 // X[k0 + kk][start + jj], threads along j
+#pragma unroll
+      for (int u = 0; u < kOpK * kOpN / kMmaThreads; ++u) {
+        const int e = tid + u * kMmaThreads;
+        const int kk = e / kOpN, jj = e % kOpN;
+        const int64_t gk = k0 + kk, gj = start + jj;
+        const bool valid = gk < m && gj < other;
+        cp_async<8>(&sm.b[slot][kk * kBpitch + jj],
+                    valid ? x + gk * other + gj : x, valid ? 8 : 0);
+      }
     }
   };
 
@@ -127,7 +141,7 @@ __device__ void operator_slab_tile_f64(
     const int slot = (t - begin) & 1;
     if (t + 1 < end) load(slot ^ 1, t + 1);
     cp_async_commit();
-    cp_async_wait_one();          // slab t's copies have landed
+    cp_async_wait<1>();           // slab t's copies have landed
     __syncthreads();
     const double* sa = sm.a[slot];
     const double* sb = sm.b[slot];
@@ -139,7 +153,8 @@ __device__ void operator_slab_tile_f64(
         af[u] = sa[(wm + u * 8 + gr) * kApitch + kk + q];
 #pragma unroll
       for (int v = 0; v < 4; ++v)
-        bf[v] = sb[(kk + q) * kBpitch + wn + v * 8 + gr];
+        bf[v] = kSwap ? sb[(wn + v * 8 + gr) * kApitch + kk + q]
+                      : sb[(kk + q) * kBpitch + wn + v * 8 + gr];
 #pragma unroll
       for (int u = 0; u < 4; ++u)
 #pragma unroll
@@ -148,15 +163,19 @@ __device__ void operator_slab_tile_f64(
     }
     __syncthreads();              // the slot is refilled next iteration
   }
+  // C's tile origin, extents and row stride in either role
+  const int64_t i0 = kSwap ? start : tile * kOpM;
+  const int64_t j0 = kSwap ? tile * kOpM : start;
+  const int64_t rows = kSwap ? other : m, cols = kSwap ? m : other;
 #pragma unroll
   for (int u = 0; u < 4; ++u) {
     const int64_t row = i0 + wm + u * 8 + gr;
-    if (row >= m) continue;
+    if (row >= rows) continue;
 #pragma unroll
     for (int v = 0; v < 4; ++v) {
       const int64_t col = j0 + wn + v * 8 + 2 * q;
-      if (col < ncols) c[row * ncols + col] = acc[u][v][0];
-      if (col + 1 < ncols) c[row * ncols + col + 1] = acc[u][v][1];
+      if (col < cols) c[row * cols + col] = acc[u][v][0];
+      if (col + 1 < cols) c[row * cols + col + 1] = acc[u][v][1];
     }
   }
 }
@@ -177,24 +196,25 @@ __device__ __forceinline__ __nv_bfloat16 narrow_to<__nv_bfloat16, float>(
   return __float2bfloat16(v);
 }
 
+// a: the A operand's slab, b: the B operand's, both [k][index].
 template <typename Acc>
 struct CoreSmem {
   Acc a[kOpK][kOpM + 1];
   Acc b[kOpK][kOpN + 1];
 };
 
-// The same tile on the CUDA cores (f32, or bf16 summed in f32).  Every
-// thread of the 256-thread block calls it.
-template <typename T, typename Acc>
+// The same tile on the CUDA cores (f32, or bf16 summed in f32), reading X
+// as TS and writing C as TD.  Every thread of the 256-thread block calls
+// it.
+template <typename TS, typename TD, typename Acc, bool kSwap>
 __device__ void operator_slab_tile_core(
     const Acc* __restrict__ tiles, const int32_t* __restrict__ offsets,
-    const int32_t* __restrict__ slabs, const T* __restrict__ x,
-    T* __restrict__ c, int64_t m, int64_t ncols, int64_t row_tile,
-    int64_t j0, CoreSmem<Acc>& sm) {
+    const int32_t* __restrict__ slabs, const TS* __restrict__ x,
+    TD* __restrict__ c, int64_t m, int64_t other, int64_t tile,
+    int64_t start, CoreSmem<Acc>& sm) {
   const int tid = threadIdx.x;
   const int ri = tid / 16, ci = tid % 16;
-  const int begin = offsets[row_tile], end = offsets[row_tile + 1];
-  const int64_t i0 = row_tile * kOpM;
+  const int begin = offsets[tile], end = offsets[tile + 1];
   Acc acc[4][4];
 #pragma unroll
   for (int u = 0; u < 4; ++u)
@@ -204,18 +224,25 @@ __device__ void operator_slab_tile_core(
   for (int t = begin; t < end; ++t) {
     const Acc* h = tiles + int64_t(t) * kOpM * kOpK;
     const int64_t k0 = int64_t(slabs[t]) * kOpK;
+    Acc(*hs)[kOpM + 1] = kSwap ? sm.b : sm.a;
 #pragma unroll
     for (int u = 0; u < kOpM * kOpK / kCoreThreads; ++u) {
       const int e = tid + u * kCoreThreads;
       {  // operator tile, row-major: consecutive threads along k
         const int kk = e % kOpK, ii = e / kOpK;
-        sm.a[kk][ii] = h[e];
+        hs[kk][ii] = h[e];
       }
-      {  // operand tile: consecutive threads along the columns
+      if constexpr (kSwap) {  // X[start + ii][k0 + kk], threads along k
+        const int kk = e % kOpK, ii = e / kOpK;
+        const int64_t gi = start + ii, gk = k0 + kk;
+        sm.a[kk][ii] = (gi < other && gk < m)
+                           ? widen_to<Acc>(x[gi * m + gk])
+                           : Acc(0);
+      } else {                // X[k0 + kk][start + jj], threads along j
         const int kk = e / kOpN, jj = e % kOpN;
-        const int64_t gk = k0 + kk, gj = j0 + jj;
-        sm.b[kk][jj] = (gk < m && gj < ncols)
-                           ? widen_to<Acc>(x[gk * ncols + gj])
+        const int64_t gk = k0 + kk, gj = start + jj;
+        sm.b[kk][jj] = (gk < m && gj < other)
+                           ? widen_to<Acc>(x[gk * other + gj])
                            : Acc(0);
       }
     }
@@ -234,12 +261,16 @@ __device__ void operator_slab_tile_core(
     }
     __syncthreads();
   }
+  const int64_t i0 = kSwap ? start : tile * kOpM;
+  const int64_t j0 = kSwap ? tile * kOpM : start;
+  const int64_t rows = kSwap ? other : m, cols = kSwap ? m : other;
 #pragma unroll
   for (int u = 0; u < 4; ++u) {
 #pragma unroll
     for (int v = 0; v < 4; ++v) {
       const int64_t gi = i0 + ri + 16 * u, gj = j0 + ci + 16 * v;
-      if (gi < m && gj < ncols) c[gi * ncols + gj] = narrow_to<T>(acc[u][v]);
+      if (gi < rows && gj < cols)
+        c[gi * cols + gj] = narrow_to<TD>(acc[u][v]);
     }
   }
 }

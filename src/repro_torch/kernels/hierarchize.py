@@ -14,8 +14,9 @@ axis 0 of an ``(N, B)`` pole bundle or the tail axes of a d-dim grid:
 * ``apply_axis_matmul`` — ``apply_axis_matmul_pallas``: the operator
   ``H`` (or ``H^-1``) along axis 0, one ``axis_operator`` launch over its
   nonzero tiles;
-* ``hier_fused_tail``  — ``hier_fused_tail_pallas``: the dense operators
-  along every tail axis 1..d-1 in one ``fused_tail`` launch.
+* ``hier_fused_tail``  — ``hier_fused_tail_pallas``: the operators along
+  every tail axis 1..d-1 in one ``fused_tail`` call, one launch per axis
+  over its nonzero tiles.
 
 ``hier_axis0`` and ``hierarchize_nd_fused`` / ``dehierarchize_nd_fused``
 compose the last two, as the reference does.  A level-1 axis (extent 1) is
@@ -655,9 +656,10 @@ def _operator(level: int, inverse: bool, dtype: torch.dtype,
         dtype=dtype, device=device).contiguous()
 
 
-#: ``axis_operator.cu``'s operator tile: rows of an output tile (kOpM) and
-#: depth of a k-slab (kOpK).  Every launch passes it, and the kernel
-#: refuses a tile that is not its own.
+#: The operator tile of ``axis_operator.cu`` and ``fused_tail.cu``
+#: (``operator_slab_tile.cuh``): rows of an operator tile (kOpM) and depth
+#: of a k-slab (kOpK).  Every launch passes it, and the kernels refuse a
+#: tile that is not their own.
 OPERATOR_TILE = (64, 16)
 
 
@@ -679,11 +681,11 @@ def _operator_slabs(h: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
 @functools.lru_cache(maxsize=256)
 def _operator_tiles(level: int, inverse: bool, dtype: torch.dtype,
                     device: torch.device) -> Tuple[torch.Tensor, ...]:
-    """``axis_operator``'s operand: H (or H^-1) as its nonzero
-    ``OPERATOR_TILE`` tiles, ``(tiles (nnz, tile_m, tile_k), offsets,
-    slabs)`` (``_operator_slabs``), each tile row-major and zero-padded past
-    N.  Built on the host once per key and cached, so a call copies
-    nothing."""
+    """The operand of ``axis_operator`` and ``fused_tail``: H (or H^-1) as
+    its nonzero ``OPERATOR_TILE`` tiles, ``(tiles (nnz, tile_m, tile_k),
+    offsets, slabs)`` (``_operator_slabs``), each tile row-major and
+    zero-padded past N.  Built on the host once per key and cached, so a
+    call copies nothing."""
     h = _operator_matrix(level, inverse)
     tm, tk = OPERATOR_TILE
     offsets, slabs = _operator_slabs(h)
@@ -795,41 +797,53 @@ def apply_axis_matmul(x: torch.Tensor, *,
     return out
 
 
+def _tail_passes(shape: Sequence[int]) -> list:
+    """The passes of ``hier_fused_tail`` on a grid of ``shape``: ``(axis,
+    outer, n, inner)`` for each tail axis 1..d-1 of extent > 1, in order,
+    the axis viewed over the whole grid (a level-1 axis is the identity)."""
+    return [(k, *_view(shape, k)) for k in range(1, len(shape))
+            if shape[k] > 1]
+
+
 def hier_fused_tail(x: torch.Tensor, *, inverse: bool = False) -> torch.Tensor:
-    """(De)hierarchize every tail axis 1..d-1 of a (N1, ..., Nd) grid with
-    the dense per-axis operators.  On CUDA: ONE ``fused_tail`` launch for
-    all tail axes of extent > 1 (d <= 10), one block per axis-0 row; none
-    when every tail axis has extent 1."""
+    """(De)hierarchize every tail axis 1..d-1 of a (N0, ..., N_{d-1}) grid
+    with the per-axis operators.  On CUDA: one ``fused_tail`` call (d <=
+    10) that launches one pass per tail axis of extent > 1 (none when every
+    tail axis has extent 1), each multiplying only the operator's nonzero
+    tiles (``_operator_tiles``); a NaN or Inf in ``x`` then reaches only
+    the output tiles whose operator entries touch it, as in
+    ``apply_axis_matmul``.  ``hier_fused_tail.launches`` counts the
+    passes."""
     _record(hier_fused_tail, x=x, inverse=inverse)
     if x.ndim < 2:
         raise ValueError("need >= 2 dims; use apply_axis_matmul for 1-D")
     for n in x.shape:
         ref._level_of_length(n)
-    live = [k for k in range(1, x.ndim) if x.shape[k] > 1]
-    if not live:
+    passes = _tail_passes(x.shape)
+    if not passes:
         return x
     if x.device.type == "cpu":
         return _fused_tail_plain(x, inverse=inverse)
-    if len(live) > _MAX_TAIL_AXES:
+    if len(passes) > _MAX_TAIL_AXES:
         raise ValueError(f"the fused_tail kernel takes at most "
-                         f"{_MAX_TAIL_AXES} tail axes, got {len(live)}")
+                         f"{_MAX_TAIL_AXES} tail axes, got {len(passes)}")
     x = _check_stack(x, _GRID_TAG)
     acc = _op_dtype(x.dtype)
     ws = [torch.empty(x.shape, dtype=acc, device=x.device)
-          for _ in range(min(2, len(live) - 1))]     # the ping-pong buffers
+          for _ in range(min(2, len(passes) - 1))]   # the ping-pong buffers
     ws_ptrs = [w.data_ptr() for w in ws] + [None] * (2 - len(ws))
-    ops = [_operator(ref._level_of_length(x.shape[k]), inverse, acc,
-                     x.device) for k in live]
-    outer, n, inner = zip(*[_view(x.shape[1:], k - 1) for k in live])
+    _, outer, n, inner = zip(*passes)
+    ops = [_operator_tiles(ref._level_of_length(m), inverse, acc, x.device)
+           for m in n]
     ints = lambda v: (ctypes.c_int64 * len(v))(*v)
+    ptrs = lambda ts: (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
+    tiles, offsets, slabs = zip(*ops)
     out = torch.empty_like(x)
     _raise_on(_build.kernel("fused_tail", _GRID_TAG[x.dtype])(
-        x.data_ptr(), ws_ptrs[0], ws_ptrs[1], out.data_ptr(),
-        x.shape[0], x[0].numel(), len(live), ints(outer), ints(n),
-        ints(inner),
-        (ctypes.c_void_p * len(ops))(*[h.data_ptr() for h in ops]),
-        _stream(x)), "fused_tail")
-    hier_fused_tail.launches += 1
+        x.data_ptr(), ws_ptrs[0], ws_ptrs[1], out.data_ptr(), len(passes),
+        ints(outer), ints(n), ints(inner), ptrs(tiles), ptrs(offsets),
+        ptrs(slabs), *OPERATOR_TILE, _stream(x)), "fused_tail")
+    hier_fused_tail.launches += len(passes)
     return out
 
 

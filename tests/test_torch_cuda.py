@@ -17,8 +17,10 @@ the reference's tolerances (f64 rtol 1e-11 / atol 1e-12, f32 2e-5, bf16
 a max abs error below 0.15 against the f64 brute force and one bf16 ulp
 plus 2**-12 against the plain version, which also sums in f32).  The
 flash-attention kernel is held to its plain version at the reference
-kernel's bars, 2e-5 in f32 and 2e-2 in bf16 (both keep scores and
-probabilities in f32, and sum in other orders).
+kernel's bars, 2e-5 in f32 and 2e-2 in bf16 (the f32 kernel keeps scores
+and probabilities in f32 and sums in another order; the bf16 kernel runs
+on the tensor cores and rounds the probabilities to bf16 before the value
+product).
 """
 
 import numpy as np
@@ -315,17 +317,19 @@ def test_axis_operator_kernel_matches_plain(cuda, dtype, level, cols,
                                **OP_TOL[dtype])
 
 
+def _kernels_holding(library, instruction, kernel):
+    """{kernel name: count of ``instruction`` in its SASS} for the kernels
+    of ``library`` whose mangled name contains ``kernel``."""
+    from repro_torch.kernels import _build
+    return {name: text.count(instruction)
+            for name, text in _build.sass(library).items() if kernel in name}
+
+
 def test_axis_operator_f64_runs_on_dmma(cuda):
     """Row 3's f64 product is compiled to the f64 tensor cores' DMMA."""
-    import subprocess
-    from pathlib import Path
-    from repro_torch.kernels import _build
-    _build.load_all()
-    sass = subprocess.run(
-        [str(Path(_build._nvcc()).with_name("cuobjdump")), "-sass",
-         str(_build._library_path("axis_operator"))],
-        capture_output=True, text=True, check=True).stdout
-    assert "DMMA" in sass
+    counts = _kernels_holding("axis_operator", "DMMA",
+                              "axis_operator_f64_kernel")
+    assert len(counts) == 1 and all(counts.values()), counts
 
 
 def test_axis_operator_keeps_a_nan_in_its_row_tiles(cuda):
@@ -355,6 +359,74 @@ def test_fused_tail_kernel_matches_plain(cuda, dtype, shape, inverse):
     want = H.hier_fused_tail.plain(x, inverse=inverse)
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
                                **OP_TOL[dtype])
+
+
+def test_fused_tail_f64_runs_on_dmma(cuda):
+    """Both roles of row 4's f64 pass (inner > 1 and the swapped inner = 1)
+    are compiled to the f64 tensor cores' DMMA."""
+    counts = _kernels_holding("fused_tail", "DMMA", "fused_tail_f64_kernel")
+    assert len(counts) == 2 and all(counts.values()), counts
+
+
+LARGE_TAILS = [(31, 63, 511), (7, 511, 3)]
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES + [torch.bfloat16])
+@pytest.mark.parametrize("shape", LARGE_TAILS, ids=str)
+def test_fused_tail_large_axes(cuda, shape, dtype, inverse):
+    """511-long tail axes as the inner > 1 (axis 1 of (7, 511, 3)) and the
+    swapped inner = 1 pass (the last axis of (31, 63, 511)), 64-row tiles
+    past the grid's edge in both roles (extents 3, 7, 31, 63)."""
+    x = torch.from_numpy(np.random.default_rng(16).standard_normal(
+        shape)).to(dtype)
+    with H.count_launches() as n:
+        got = H.hier_fused_tail(x.to(cuda), inverse=inverse)
+    assert n["hier_fused_tail"] == len(shape) - 1
+    assert got.dtype == dtype and got.shape == x.shape
+    want = H.hier_fused_tail.plain(x, inverse=inverse)
+    if dtype != torch.bfloat16:
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   **OP_TOL[dtype])
+        return
+    brute = (dehierarchize_1d_bruteforce if inverse
+             else hierarchize_1d_bruteforce)
+    exact = x.double().numpy()
+    for axis in range(1, len(shape)):
+        exact = brute(exact, axis=axis)
+    assert np.max(np.abs(got.double().cpu().numpy() - exact)) < 0.15
+    ulp = torch.exp2((torch.frexp(want.float()).exponent - 8).float())
+    assert bool(((got.cpu().float() - want.float()).abs()
+                 <= ulp + 2.0 ** -12).all())
+
+
+def test_fused_tail_launches_once_per_live_axis(cuda):
+    """``hier_fused_tail.launches`` counts passes: one per tail axis of
+    extent > 1, none for a grid whose tail axes are all level 1."""
+    rng = np.random.default_rng(17)
+    for shape, passes in (((7, 7, 7), 2), ((7, 1, 7), 1), ((3,) * 10, 9),
+                          ((7, 1, 1), 0)):
+        x = torch.from_numpy(rng.standard_normal(shape)).to(cuda)
+        with H.count_launches() as n:
+            H.hier_fused_tail(x)
+            H.hier_fused_tail(x, inverse=True)
+        assert n["hier_fused_tail"] == 2 * passes, shape
+
+
+def test_fused_tail_keeps_a_nan_in_its_tiles(cuda):
+    """Row 4 walks only the operator's nonzero tiles, as row 3 does: an
+    Inf at x[0, 0, 0] (only H[0, 0] touches it along either axis, and only
+    the first 64-row tile lists its slab) makes x[0, :64, :64] non-finite
+    and leaves the rest of the grid finite, where the dense products would
+    spread it over the whole of x[0]."""
+    x = torch.from_numpy(np.random.default_rng(18).standard_normal(
+        (3, 127, 127)))
+    x[0, 0, 0] = float("inf")
+    got = H.hier_fused_tail(x.to(cuda)).cpu()
+    assert not torch.isfinite(got[0, :64, :64]).any()
+    assert torch.isfinite(got[0, 64:]).all()
+    assert torch.isfinite(got[0, :, 64:]).all()
+    assert torch.isfinite(got[1:]).all()
 
 
 @pytest.mark.parametrize("inverse", [False, True])
@@ -489,6 +561,41 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
     q, k, v = _qkv((1, 8, 8, 2, 1, 16, True), torch.float32)
     with pytest.raises(ValueError, match="device"):
         F.flash_attention(q.to(cuda), k, v.to(cuda))
+
+
+def test_flash_bf16_runs_on_hmma(cuda):
+    """The bf16 entry's kernels (head_dim 64 and 128) run both products on
+    the bf16 tensor cores (HMMA); the f32 entry's kernels do not."""
+    mma = _kernels_holding("flash_attention", "HMMA", "flash_kernel_mma")
+    assert len(mma) == 2 and all(mma.values()), mma
+    f32 = _kernels_holding("flash_attention", "HMMA", "flash_kernel_f32")
+    assert len(f32) == 2 and not any(f32.values()), f32
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [1, 2, 4])
+@pytest.mark.parametrize("hd", [8, 40])
+def test_flash_kernel_on_unaligned_rows(cuda, hd, offset, dtype):
+    """K and V as slices of a wider cache, ``buf[..., offset:offset + hd]``:
+    row starts 2, 4 or 8 bytes apart from a 16-byte boundary in bf16 take
+    the kernel's narrower copies."""
+    b, s, h, kv = 2, 100, 4, 2
+    rng = np.random.default_rng(19)
+    q = torch.from_numpy(rng.standard_normal((b, s, h, hd)).astype(
+        np.float32)).to(dtype).to(cuda)
+    bufs = [torch.from_numpy(rng.standard_normal(
+        (b, s, kv, hd + offset)).astype(np.float32)).to(dtype).to(cuda)
+        for _ in range(2)]
+    k, v = (t[..., offset:] for t in bufs)
+    assert k.stride(-1) == 1 and k.stride(2) == hd + offset
+    before = F.flash_attention.launches
+    got = F.flash_attention(q, k, v, causal=True)
+    assert F.flash_attention.launches == before + 1
+    want = F.flash_attention_ref(q, k, v, causal=True)
+    tol = FLASH_TOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol,
+                               atol=tol)
 
 
 def test_prefill_launches_once_per_layer_and_matches_cpu(cuda):

@@ -1,13 +1,17 @@
-"""The slab table of row 3's kernel (``axis_operator.cu``), on the CPU.
+"""The slab table of rows 3 and 4 (``axis_operator.cu``, ``fused_tail.cu``),
+on the CPU.
 
-On the card ``apply_axis_matmul`` multiplies only the operator tiles that
-hold a nonzero: ``_operator_slabs`` lists them for each row tile and
-``_operator_tiles`` packs them, both on the host.  For every level 1-12,
-for H and H^-1 of the reference (``repro.kernels.ref``) and for the
-kernel's tile (``OPERATOR_TILE``): the table covers every nonzero and lists
-no zero tile, the packed tiles put back together are the operator exactly,
-and the product restricted to the listed slabs equals the full tensordot
-bitwise in f64 on seeded finite input.
+On the card ``apply_axis_matmul`` and ``hier_fused_tail`` multiply only
+the operator tiles that hold a nonzero: ``_operator_slabs`` lists them for
+each row tile and ``_operator_tiles`` packs them, both on the host.  For
+every level 1-12, for H and H^-1 of the reference (``repro.kernels.ref``)
+and for the kernels' tile (``OPERATOR_TILE``): the table covers every
+nonzero and lists no zero tile, the packed tiles put back together are the
+operator exactly, and the product restricted to the listed slabs equals
+the full tensordot bitwise in f64 on seeded finite input.  Row 4's host
+side: its passes (``_tail_passes``) cover each live tail axis once, and
+the swapped form of its last-axis pass, walked over the same slab list,
+is ``X @ H.T``.
 """
 
 import numpy as np
@@ -100,3 +104,58 @@ def test_packed_tiles_take_the_accumulator_type(dtype):
     assert tiles.dtype == torch.float32
     assert torch.equal(tiles.double(), want[0])     # dyadic: exact in f32
     assert torch.equal(offsets, want[1]) and torch.equal(slabs, want[2])
+
+
+# tests/test_torch_cuda.py's TAIL_SHAPES and LARGE_TAILS, the fused tail's
+# card cases
+TAIL_SHAPES = [(7, 7), (15, 3), (3, 7, 15), (7, 3, 3, 7), (3, 1, 7),
+               (31, 63, 127), (3,) * 10, (31, 63, 511), (7, 511, 3)]
+
+
+@pytest.mark.parametrize("shape", TAIL_SHAPES, ids=str)
+def test_tail_passes_cover_each_live_axis_once(shape):
+    """``hier_fused_tail`` launches one pass per tail axis of extent > 1,
+    in order, each viewing the whole grid as (outer, n, inner); inner = 1
+    (the swapped pass) only where every later axis has extent 1.  Applying
+    the passes to those views is the plain version."""
+    passes = H._tail_passes(shape)
+    assert [a for a, *_ in passes] == [k for k in range(1, len(shape))
+                                       if shape[k] > 1]
+    for axis, outer, n, inner in passes:
+        assert (outer, n, inner) == (int(np.prod(shape[:axis])), shape[axis],
+                                     int(np.prod(shape[axis + 1:])))
+        assert (inner == 1) == all(e == 1 for e in shape[axis + 1:])
+    x = torch.from_numpy(np.random.default_rng(len(shape)).standard_normal(
+        shape))
+    y = x
+    for axis, outer, n, inner in passes:
+        h = torch.from_numpy(_reference(H.ref._level_of_length(n), False))
+        y = torch.einsum("ij,ojk->oik", h, y.reshape(outer, n, inner))
+    want = H.hier_fused_tail.plain(x)
+    np.testing.assert_allclose(y.reshape(shape).numpy(), want.numpy(),
+                               rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["H", "H_inv"])
+@pytest.mark.parametrize("level", [2, 5, 9])
+def test_swapped_walk_over_the_slab_list_is_x_times_h_transposed(level,
+                                                                 inverse):
+    """The last-axis pass, C = X . H^T with X (rows, n) row-major: C's
+    column tile r is H's row tile r, summed over that tile's listed slabs
+    of X's columns, each times the packed tile transposed."""
+    h = _reference(level, inverse)
+    n = h.shape[0]
+    tm, tk = H.OPERATOR_TILE
+    tiles, offsets, slabs = H._operator_tiles(level, inverse, torch.float64,
+                                              CPU)
+    rows = 70                                  # past one 64-row tile
+    x = np.random.default_rng(level).standard_normal((rows, n))
+    xp = np.zeros((rows, -(-n // tk) * tk))
+    xp[:, :n] = x                              # zero past N, as loaded
+    c = np.zeros((rows, -(-n // tm) * tm))
+    for r in range(len(offsets) - 1):
+        for t in range(offsets[r], offsets[r + 1]):
+            s = slabs[t]
+            c[:, r * tm:(r + 1) * tm] += (xp[:, s * tk:(s + 1) * tk]
+                                          @ tiles[t].numpy().T)
+    np.testing.assert_allclose(c[:, :n], x @ h.T, rtol=1e-12, atol=1e-12)
