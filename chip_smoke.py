@@ -7,11 +7,16 @@ Run from the repository root on a machine with one CUDA card:
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds each kernel wrapper against its plain PyTorch version (bitwise, f64
-and f32) at the bucket shapes of the production configuration ``prod_3d``
-(``CombinationScheme(3, 9)``: 109 grids, a 511^3 fine grid, 1.07 GB in
-f64) and of a long-axis stack of ``CombinationScheme(2, 15)``, then drives
-the port's main path — ``CTSurrogate`` construction, one ``update`` and
-three query batches of 1024 points — at full size, and checks the result:
+and f32) on the calls of an ingest of the production configuration
+``prod_3d`` (``CombinationScheme(3, 9)``: 109 grids in 25 buckets, a 511^3
+fine grid, 1.07 GB in f64), which are two: the grouped forward passes
+(rows 5 and 7, one launch) and the grouped ordered scatter (row 9, two
+launches); then on the long-axis stacks of ``CombinationScheme(2, 15)``
+(each per-bucket wrapper, and the grouped kernels over the whole plan,
+whose largest members walk device memory); then drives the port's main
+path — ``CTSurrogate`` construction, one ``update`` and three query
+batches of 1024 points — at full size, fails if an ingest makes more than
+three launches, and checks the result:
 
 * fused and unfused ingest give the same bits;
 * the card's surplus is bitwise the port's CPU run;
@@ -32,7 +37,9 @@ Then the second path, the per-grid (de)hierarchization of
   operator kernels to the reference's tolerances (f64 rtol 1e-11 / atol
   1e-12, f32 2e-5, bf16 an error below 0.15 against the brute force and
   within one bf16 ulp plus 2**-12 of the plain version, which also sums
-  in f32);
+  in f32); on input with NaNs and Infs of both signs (and a NaN line,
+  forward and inverse, and a fully non-finite input) the operator
+  kernels give the plain version's NaN / +Inf / -Inf masks;
 * hierarchize-then-dehierarchize round trips at real size: a 511^3 f64
   grid (1.07 GB) with ``pole``, ``matmul`` and ``auto`` (= ``fused``), and
   a 16383 x 8191 f64 grid (levels (14, 13), 1.07 GB) with ``pole``; every
@@ -99,7 +106,13 @@ itself makes in an ingest or a scatter (``record_calls``).  Each
 kernel's ``ms`` is its device time from the profiler; ``plain_ms`` and
 ``library_ms`` (one ``torch.einsum`` with the dense per-member operators,
 for the pass kernels) are device times too; a pass row's ``bound_ms``
-counts each call's input read once and output written once;
+counts each call's input read once and output written once.  Rows 5 and
+7 share the ingest's one grouped forward launch: each is timed as that
+launch restricted to its own passes (tail axes, axis 0), the whole
+launch's time is their ``ingest_ms``, and their launches are the grouped
+launch's; row 9 is the grouped scatter's two launches per ingest, its
+bound each stack element and its index read once and each listed entry's
+fine slot read and written once;
 ``wrapper_ms`` and ``plain_wrapper_ms`` are CUDA events around the Python
 calls, host dispatch included.  The inverse rows are timed per
 ``ct_scatter`` at ``prod_3d`` and per call on the 511^3 cube (``cube_*``
@@ -115,7 +128,11 @@ kernels' line also carries ``dense_flop_ms``, the dense operators' flops
 at the card's peak; rows 3 and 4's printed lines also give the flops of
 the operator tiles their kernels multiply (only the nonzero ones).  The
 fused tail launches one pass per tail axis, and its launch counts are
-passes.  The script fails unless ``cuobjdump -sass`` finds DMMA in the f64
+passes.  Each tile launch of rows 3 and 4 is followed by its non-finite
+repair launch, which returns at once on finite input: their ``ms`` holds
+both, their launch counts the tile launches, and ``nonfinite_ms`` is a
+call's device time on a fully non-finite input (row 3 on a 511 x 4096
+bundle, row 4 on a 4095 x 511 grid).  The script fails unless ``cuobjdump -sass`` finds DMMA in the f64
 kernels of rows 3 and 4 (row 4's both operand roles) and HMMA in the two
 kernels of row 10's bf16 entry (head_dim 64 and 128): those products run
 on the tensor cores.
@@ -166,17 +183,16 @@ FLASH_CASES = [  # b, sq, skv, h, kv, hd, causal
     (1, 300, 300, 4, 2, 128, True), (2, 96, 130, 2, 2, 128, False)]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the reference's bars
 
-KERNELS = {  # wrapper -> (CUDA source, TPU kernel it replaces)
-    "hier_tail_batched": (
+KERNELS = {  # the main path's wrappers -> (CUDA source, TPU kernels)
+    "hier_forward_grouped": (
         "src/repro_torch/kernels/csrc/axis_pass_fwd.cu",
-        "src/repro/kernels/hierarchize.py:509"),
-    "hier_axis0_batched": (
-        "src/repro_torch/kernels/csrc/axis_pass_fwd.cu",
-        "src/repro/kernels/hierarchize.py:602"),
-    "hier_axis0_scatter_batched": (
+        {"tail": "src/repro/kernels/hierarchize.py:509",      # row 5
+         "axis0": "src/repro/kernels/hierarchize.py:602"}),   # row 7
+    "hier_scatter_grouped": (
         "src/repro_torch/kernels/csrc/axis_pass_scatter_fwd.cu",
-        "src/repro/kernels/hierarchize.py:657"),
+        "src/repro/kernels/hierarchize.py:657"),              # row 9
 }
+MAX_INGEST_LAUNCHES = 3          # rows 5, 7 and 9 together, per ingest
 SCATTER_KERNELS = {  # the scatter path: wrapper -> (source, TPU kernel)
     "dehier_tail_batched": (
         "src/repro_torch/kernels/csrc/axis_pass_inv.cu",
@@ -186,10 +202,15 @@ SCATTER_KERNELS = {  # the scatter path: wrapper -> (source, TPU kernel)
         "src/repro/kernels/hierarchize.py:597"),
 }
 ROW = {"hier_pole": 1, "dehier_pole": 2, "apply_axis_matmul": 3,
-       "hier_fused_tail": 4, "hier_tail_batched": 5,
-       "dehier_tail_batched": 6, "hier_axis0_batched": 7,
-       "dehier_axis0_batched": 8, "hier_axis0_scatter_batched": 9,
+       "hier_fused_tail": 4, "hier_forward_grouped:tail": 5,
+       "dehier_tail_batched": 6, "hier_forward_grouped:axis0": 7,
+       "dehier_axis0_batched": 8, "hier_scatter_grouped": 9,
        "flash_attention": 10}
+#: The per-bucket wrappers of rows 5, 7 and 9 (one-stack calls of the
+#: grouped kernels), checked on the long-axis stacks: row -> wrapper.
+PER_BUCKET = {"hier_forward_grouped:tail": "hier_tail_batched",
+              "hier_forward_grouped:axis0": "hier_axis0_batched",
+              "hier_scatter_grouped": "hier_axis0_scatter_batched"}
 GRID_KERNELS = {  # the per-grid path: wrapper -> (source, TPU kernel)
     "hier_pole": (
         "src/repro_torch/kernels/csrc/pole_fwd.cu",
@@ -352,7 +373,7 @@ def main() -> int:
                                    for k, (n, t) in top) + f"  [{card}]")
         return wall_us / 1e3
 
-    err = {k: 0.0 for k in ROW}
+    err = {k: 0.0 for k in [*ROW, *KERNELS, *PER_BUCKET.values()]}
     rng = np.random.default_rng(0)
 
     # ------------------------------------------------------------------
@@ -385,18 +406,20 @@ def main() -> int:
             counts[name] = counts.get(name, 0) + 1
             got = replay(call, acc_card)
             want = replay(call, acc_cpu, plain=True, cpu=True)
-            if name == "hier_axis0_scatter_batched":
+            if name == "hier_scatter_grouped":
                 continue
             err[name] = max(err[name], max_err(got, want))
             if not same(got, want):
                 fail(f"{name} differs from its plain version ({label})")
+        if set(counts) != set(KERNELS):
+            fail(f"the ingest made the wrapper calls {counts}, expected one "
+                 f"each of {sorted(KERNELS)}")
         torch.cuda.synchronize()
         e = max_err(acc_card, acc_cpu)
-        err["hier_axis0_scatter_batched"] = max(
-            err["hier_axis0_scatter_batched"], e)
+        err["hier_scatter_grouped"] = max(err["hier_scatter_grouped"], e)
         if not same(acc_card, acc_cpu):
-            fail(f"hier_axis0_scatter_batched differs from its plain "
-                 f"version ({label}, max err {e})")
+            fail(f"hier_scatter_grouped differs from its plain version "
+                 f"({label}, max err {e})")
         print(f"kernel check {label}: bitwise equal to the plain versions "
               f"over {counts} wrapper calls")
 
@@ -454,6 +477,38 @@ def main() -> int:
                     fail(f"scatter differs on {b.shape} axis {axis} {dtype}")
         print(f"kernel check long-axis stack {(len(b.ells),) + b.shape}: "
               f"bitwise equal in f64 and f32")
+    # the grouped kernels over the whole long-axis plan: its 32767-long and
+    # 255 x 255 members walk device memory; the scatter on compact maps
+    long_table = E._ingest_table(long_plan)
+    sc = long_table.scatter
+    fine = 2 * sc.size
+    maps = [np.where(b.index != long_plan.fine_size, np.stack([
+        rng.permutation(fine)[:b.index.shape[1]] for _ in b.index]),
+        fine).astype(np.int32) for b in long_plan.buckets]
+    sc = H.scatter_table(sc.stacks, maps, fine)
+    for dtype in (torch.float64, torch.float32):
+        x = torch.from_numpy(rng.standard_normal(sc.size)).to(dtype)
+        got = H.hier_forward_grouped(x.to(cuda), long_table.stacks)
+        want = H.hier_forward_grouped(x, long_table.stacks)
+        err["hier_forward_grouped"] = max(err["hier_forward_grouped"],
+                                          max_err(got, want))
+        if not same(got, want):
+            fail(f"hier_forward_grouped differs on the long-axis plan "
+                 f"({dtype})")
+        cs = torch.from_numpy(rng.choice([-3.0, -1.0, 1.0, 3.0],
+                                         sc.members)).to(dtype)
+        acc = torch.from_numpy(rng.standard_normal(fine + 1)).to(dtype)
+        got = H.hier_scatter_grouped(got, sc, cs.to(cuda), acc.to(cuda))
+        want = H.hier_scatter_grouped(want, sc, cs, acc)
+        err["hier_scatter_grouped"] = max(err["hier_scatter_grouped"],
+                                          max_err(got, want))
+        if not same(got, want):
+            fail(f"hier_scatter_grouped differs on the long-axis plan "
+                 f"({dtype})")
+    biggest = max(int(np.prod(shape)) for shape, _, _ in sc.stacks)
+    print(f"kernel check long-axis plan {LONG}: the grouped kernels over its "
+          f"{len(long_plan.buckets)} buckets ({sc.size} values, members of "
+          f"up to {biggest} values) bitwise equal in f64 and f32")
 
     # ------------------------------------------------------------------
     # The main path at full size: CTSurrogate on prod_3d, f64
@@ -487,6 +542,11 @@ def main() -> int:
     for name, n in launches.items():
         if n == 0:
             fail(f"{name} was not launched on the main path")
+    others = {w.__name__: w.launches for w in H.WRAPPERS
+              if w.launches and w.__name__ not in KERNELS}
+    if others or sum(launches.values()) > 2 * MAX_INGEST_LAUNCHES:
+        fail(f"the two ingests launched {launches} and {others}: at most "
+             f"{MAX_INGEST_LAUNCHES} launches an ingest, of {sorted(KERNELS)}")
 
     surplus = srv.surplus
     if surplus.shape != grid_shape((PROD[1],) * PROD[0]) or \
@@ -1009,8 +1069,9 @@ def main() -> int:
 
     def device_ms(fn, only=None) -> float:
         """Device time of ``fn``: the profiler's device activity (kernels,
-        copies, fills) summed over TIMING_REPS calls.  With ``only``, every
-        device op must have that in its name.  A session that records no
+        copies, fills) summed over TIMING_REPS calls.  With ``only`` (a
+        name or a tuple of names), every device op must have one of them
+        in its name.  A session that records no
         device activity is run again, up to PROFILE_TRIES in all; if none
         records any, the time is ``wall_ms`` (CUDA events) instead."""
         fn()
@@ -1031,9 +1092,11 @@ def main() -> int:
                   + (f"; not checked that only {only} ran" if only else "")
                   + f")  [{card}]")
             return ms
-        if only and any(only not in e.name for e in ops):
-            fail(f"device ops other than {only}: "
-                 f"{sorted({e.name for e in ops if only not in e.name})}")
+        only = (only,) if isinstance(only, str) else only
+        others = sorted({e.name for e in ops
+                         if only and not any(o in e.name for o in only)})
+        if others:
+            fail(f"device ops other than {only}: {others}")
         us = sum(e.time_range.end - e.time_range.start for e in ops)
         return us / TIMING_REPS / 1e3
 
@@ -1048,20 +1111,17 @@ def main() -> int:
             axes = (args.get("axis", 0),)
         return [k for k in axes if x.shape[k + 1] > 1]
 
-    def dense_pass(wrapper, args):
-        """One ``torch.einsum`` computing a pass call with the dense
-        per-member 1-D operators (``H``, or ``H^-1`` for the inverse rows;
-        identity on a member's pad rows): ``(spec, operands)``, the stack
-        first, or None for a call with no live axis."""
-        x = args["x"]
-        levels = (args["member_levels"] if wrapper in tail_wrappers
-                  else [(l,) for l in args["levels0"]])   # axis 0 only
-        matrix = (dehier_operator_matrix if wrapper.__name__ in
-                  SCATTER_KERNELS else operator_matrix)
-        axes = live_axes(wrapper, args)
+    def dense_einsum(x, levels, axes, inverse):
+        """One ``torch.einsum`` computing passes along the live bucket
+        ``axes`` of the (G, *shape) stack ``x`` with the dense per-member
+        1-D operators (``H``, or ``H^-1`` for ``inverse``; identity on a
+        member's pad rows): ``(spec, operands)``, the stack first, or None
+        without a live axis."""
+        matrix = dehier_operator_matrix if inverse else operator_matrix
+        axes = [k for k in axes if x.shape[k + 1] > 1]
         if not axes:
             return None
-        src = "z" + "abcdefgh"[:x.ndim - 1]
+        src = "z" + "abcdefghij"[:x.ndim - 1]
         out, subs, operands = list(src), [], []
         for k in axes:
             n = x.shape[k + 1]
@@ -1070,10 +1130,16 @@ def main() -> int:
                 m = (1 << lv[k]) - 1
                 h[g] = torch.eye(n, dtype=torch.float64)
                 h[g, :m, :m] = torch.from_numpy(matrix(lv[k]))
-            subs.append("z" + "ABCDEFGH"[k] + src[k + 1])
-            out[k + 1] = "ABCDEFGH"[k]
+            subs.append("z" + "ABCDEFGHIJ"[k] + src[k + 1])
+            out[k + 1] = "ABCDEFGHIJ"[k]
             operands.append(h.to(x))
         return ",".join([src] + subs) + "->" + "".join(out), [x] + operands
+
+    def dense_pass(wrapper, args):
+        levels = (args["member_levels"] if wrapper in tail_wrappers
+                  else [(l,) for l in args["levels0"]])   # axis 0 only
+        return dense_einsum(args["x"], levels, live_axes(wrapper, args),
+                            wrapper.__name__ in SCATTER_KERNELS)
 
     def library_call(calls, name):
         """The dense einsum of every call, each checked to compute the
@@ -1088,46 +1154,107 @@ def main() -> int:
         return lambda: [torch.einsum(spec, *operands)
                         for _, (spec, operands) in dense]
 
-    acc = torch.zeros(srv._plan.fine_size + 1, dtype=torch.float64,
-                      device=cuda)
-    rows = []
-    pass_rows = [(name, src, rep, main_calls, launches, "ingest", 2)
-                 for name, (src, rep) in KERNELS.items()] + [
-        (name, src, rep, scatter_calls, scatter_launches, "ct_scatter", 1)
-        for name, (src, rep) in SCATTER_KERNELS.items()]
-    for name, source, replaces, calls, counted, per, runs in pass_rows:
-        mine = [c for c in calls if c[0].__name__ == name]
-        nbytes = 0
-        for wrapper, args in mine:
-            x = args["x"]
-            item = x.element_size()
-            if name == "hier_axis0_scatter_batched":
-                live = int((args["index"] != srv._plan.fine_size).sum())
-                # x and the index read once, each touched slot read+written
-                nbytes += x.numel() * (item + 4) + 2 * live * item
-            elif live_axes(wrapper, args):
-                # the call's input read once and its output written once
-                nbytes += 2 * x.numel() * item
-        kernel = lambda: [replay(c, acc) for c in mine]
-        plain = lambda: [replay(c, acc, plain=True) for c in mine]
-        ms = device_ms(kernel, only="axis_pass")
-        library_ms = (None if name == "hier_axis0_scatter_batched"
-                      else device_ms(library_call(mine, name)))
+    def grouped_library(x, stacks, got, name):
+        """One dense einsum per stack of a grouped forward call, each
+        checked against the call's output ``got``, as one callable."""
+        dense = []
+        sizes = [len(lv) * int(np.prod(shape)) for shape, lv, _ in stacks]
+        ends = np.cumsum([0] + sizes).tolist()
+        for (shape, levels, axes), a, b in zip(stacks, ends, ends[1:]):
+            d = dense_einsum(x[a:b].view((len(levels),) + shape), levels,
+                             axes, False)
+            if d is None:
+                continue
+            spec, operands = d
+            want = got[a:b].view(operands[0].shape)
+            e = max_err(torch.einsum(spec, *operands), want)
+            if e > 1e-12 * max(1.0, float(want.abs().max())):
+                fail(f"einsum {spec} differs from {name} by {e}")
+            dense.append(d)
+        return lambda: [torch.einsum(spec, *operands)
+                        for spec, operands in dense]
+
+    def timed_row(name, source, replaces, kernel, plain, library, counted,
+                  nbytes, per, calls, launches_per, only):
+        ms = device_ms(kernel, only=only)
+        library_ms = None if library is None else device_ms(library)
         rows.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": counted[name],
+            "replaces": replaces, "launches": counted,
             "max_abs_err": err[name], "ms": ms,
             "plain_ms": device_ms(plain),
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "library_ms": library_ms,
             "wrapper_ms": wall_ms(kernel), "plain_wrapper_ms": wall_ms(plain)})
         r = rows[-1]
-        print(f"{name}: device {ms:.4f} ms per {per} ({len(mine)} calls, "
-              f"{counted[name] // runs} launches), bound {r['bound_ms']:.6f} "
+        print(f"{name}: device {ms:.4f} ms per {per} ({calls} calls, "
+              f"{launches_per} launches), bound {r['bound_ms']:.6f} "
               f"ms ({nbytes} B at 3.35 TB/s); plain {r['plain_ms']:.4f} ms; "
               f"library (einsum) {library_ms} ms; with host dispatch: "
               f"kernel {r['wrapper_ms']:.4f} ms, plain "
               f"{r['plain_wrapper_ms']:.4f} ms  [{card}]")
+        return r
+
+    acc = torch.zeros(srv._plan.fine_size + 1, dtype=torch.float64,
+                      device=cuda)
+    rows = []
+    # Rows 5, 7 and 9 per prod_3d ingest: the main path's grouped calls.
+    # Each row's bound is the work of that row whatever implements it:
+    # every stack passed along a row-5 (tail) or row-7 (axis-0) axis read
+    # once and written once; for row 9 each stack element and its index
+    # read once and each listed entry's slot read and written once.
+    (fwd, fwd_args), = [c for c in main_calls
+                        if c[0].__name__ == "hier_forward_grouped"]
+    scatter_call, = [c for c in main_calls
+                     if c[0].__name__ == "hier_scatter_grouped"]
+    item = fwd_args["x"].element_size()
+    ingest_fwd_ms = device_ms(lambda: replay((fwd, fwd_args), acc),
+                              only="axis_pass")
+    print(f"hier_forward_grouped: device {ingest_fwd_ms:.4f} ms per ingest "
+          f"(one launch, rows 5 and 7 together, "
+          f"{len(fwd_args['stacks'])} stacks)  [{card}]")
+    fwd_source, fwd_replaces = KERNELS["hier_forward_grouped"]
+    for kind, keep in (("tail", lambda k: k > 0), ("axis0", lambda k: k == 0)):
+        name = f"hier_forward_grouped:{kind}"
+        stacks = tuple((shape, lv, tuple(k for k in axes if keep(k)))
+                       for shape, lv, axes in fwd_args["stacks"])
+        call = (fwd, {**fwd_args, "stacks": stacks})
+        got = replay(call, acc)
+        err[name] = max(err[name], err["hier_forward_grouped"],
+                        err[PER_BUCKET[name]])
+        if not same(got, replay(call, acc, plain=True)):
+            fail(f"{name} differs from its plain version")
+        nbytes = sum(2 * len(lv) * int(np.prod(shape)) * item
+                     for shape, lv, axes in stacks
+                     if any(shape[k] > 1 for k in axes))
+        r = timed_row(name, fwd_source, fwd_replaces[kind],
+                      lambda: replay(call, acc),
+                      lambda: replay(call, acc, plain=True),
+                      grouped_library(fwd_args["x"], stacks, got, name),
+                      launches["hier_forward_grouped"], nbytes, "ingest",
+                      1, 1, "axis_pass_fwd")
+        r["ingest_ms"] = ingest_fwd_ms
+    table = scatter_call[1]["table"]
+    err["hier_scatter_grouped"] = max(err["hier_scatter_grouped"],
+                                      err["hier_axis0_scatter_batched"])
+    timed_row("hier_scatter_grouped", *KERNELS["hier_scatter_grouped"],
+              lambda: replay(scatter_call, acc),
+              lambda: replay(scatter_call, acc, plain=True), None,
+              launches["hier_scatter_grouped"],
+              table.size * (item + 4) + 2 * len(table.entries) * item,
+              "ingest", 1, launches["hier_scatter_grouped"] // 2,
+              "scatter_")
+    # Rows 6 and 8 per prod_3d ct_scatter: the per-bucket inverse calls
+    for name, (source, replaces) in SCATTER_KERNELS.items():
+        mine = [c for c in scatter_calls if c[0].__name__ == name]
+        nbytes = sum(2 * args["x"].numel() * args["x"].element_size()
+                     for wrapper, args in mine if live_axes(wrapper, args))
+        timed_row(name, source, replaces,
+                  lambda: [replay(c, acc) for c in mine],
+                  lambda: [replay(c, acc, plain=True) for c in mine],
+                  library_call(mine, name), scatter_launches[name], nbytes,
+                  "ct_scatter", len(mine), scatter_launches[name],
+                  "axis_pass")
 
     # Rows 6 and 8, one call each on the 511^3 f64 cube (G = 1)
     cube_calls = {
@@ -1188,13 +1315,15 @@ def main() -> int:
             lambda: H.apply_axis_matmul(bundle),
             lambda: H.apply_axis_matmul.plain(bundle),
             lambda: torch.matmul(ops_f64[False], bundle),
-            1, 2 * n0 * bundle.numel(), "axis_operator"),
+            1, 2 * n0 * bundle.numel(),
+            ("axis_operator", "repair_nonfinite")),
         "hier_fused_tail": (
             lambda: H.hier_fused_tail(cube),
             lambda: H.hier_fused_tail.plain(cube),
             lambda: torch.einsum("rjl,ij,kl->rik", cube, ops_f64[False],
                                  ops_f64[False]),
-            cube.ndim - 1, tail_dense_flops, "fused_tail"),
+            cube.ndim - 1, tail_dense_flops,
+            ("fused_tail", "repair_nonfinite")),
     }
     for name, (kernel, plain, library, axes, dense_flops,
                op) in grid_cases.items():
@@ -1247,6 +1376,64 @@ def main() -> int:
               f"{r['wrapper_ms']:.4f} ms, plain {r['plain_wrapper_ms']:.4f} "
               f"ms; launches in the iterated round {it_launches[name]}  "
               f"[{card}]")
+    # Rows 3 and 4 on non-finite input: the plain version's (the dense
+    # products') NaN / +Inf / -Inf masks, the finite rest at the operator
+    # tolerances; a fully non-finite input of each, timed
+    def hold_masks(name, got, want, label):
+        want = want.to(got.device)
+        for mask in (torch.isnan, torch.isposinf, torch.isneginf):
+            if not torch.equal(mask(got), mask(want)):
+                n = int((mask(got) != mask(want)).sum())
+                fail(f"{name} ({label}): its {mask.__name__} mask differs "
+                     f"from the plain version's in {n} places")
+        fin = torch.isfinite(want)
+        rtol, atol = op_tol[got.dtype]
+        if not bool(((got[fin] - want[fin]).abs()
+                     <= atol + rtol * want[fin].abs()).all()):
+            fail(f"{name} ({label}): finite values differ")
+
+    def spoil(x):
+        """``x`` with ten +Infs, ten -Infs and ten NaNs at seeded
+        places."""
+        x = x.clone()
+        flat = x.view(-1)
+        picks = torch.from_numpy(rng.choice(flat.numel(), 30, replace=False))
+        flat[picks[:10].to(cuda)] = float("inf")
+        flat[picks[10:20].to(cuda)] = float("-inf")
+        flat[picks[20:].to(cuda)] = float("nan")
+        return x
+
+    def all_non_finite(shape):
+        return torch.from_numpy(rng.choice([np.inf, -np.inf, np.nan],
+                                           shape)).to(cuda)
+
+    nf_ms = {}
+    for name, wrapper, shape, full_shape in (
+            ("apply_axis_matmul", H.apply_axis_matmul, (511, 4096),
+             (511, 4096)),
+            ("hier_fused_tail", H.hier_fused_tail, (31, 63, 127),
+             (4095, 511))):
+        x = spoil(randn(shape))
+        if wrapper is H.apply_axis_matmul:
+            x[:, 7] = float("nan")
+        else:
+            x[3, 5, :] = float("nan")
+        for inverse in (False, True):
+            hold_masks(name, wrapper(x, inverse=inverse),
+                       wrapper.plain(x, inverse=inverse),
+                       f"{shape} f64 non-finite, inverse={inverse}")
+        x = all_non_finite(full_shape)
+        hold_masks(name, wrapper(x), wrapper.plain(x),
+                   f"{full_shape} f64 all non-finite")
+        nf_ms[name] = device_ms(lambda: wrapper(x))
+        r = next(r for r in rows if r["name"] == name)
+        r["nonfinite_ms"] = nf_ms[name]
+    print(f"rows 3 and 4 on non-finite input: the plain version's NaN / "
+          f"+Inf / -Inf masks (seeded Infs, NaNs and a NaN line, forward and "
+          f"inverse; and a fully non-finite input); device ms on the fully "
+          f"non-finite input: row 3 (511, 4096) f64 "
+          f"{nf_ms['apply_axis_matmul']:.4f}, row 4 (4095, 511) f64 "
+          f"{nf_ms['hier_fused_tail']:.4f}  [{card}]")
     print(f"round trips end to end (host clock; 511^3 f64 unless named): "
           + ", ".join(f"{m} {v:.2f} ms" for m, v in rt_ms.items())
           + f"; iterated prod_3d round (auto, pole): "

@@ -29,15 +29,20 @@ point here takes an ``ExecutorPlan`` and raises ``TypeError`` on anything
 else.
 
 Execution rule of the port: every bucket, on every device, takes the
-FUSED epilogue by default — the bucket's last forward pass writes the
-coefficient-weighted surpluses straight into the fine grid
-(``hier_axis0_scatter_batched``), so the compact (G, P) surplus stack is
-never stored.  The reference gates its fused path on a TPU VMEM budget
-and on its Pallas path; on Hopper the fine grid stays in device memory
-and the pass axis is a kernel parameter, so no gate is needed.
-``fused=False`` runs the full transform and then one ordered
-``index_add_`` per member.  Both accumulate each fine slot as a left fold
-in member order, so they give the same bits.
+FUSED epilogue by default — each bucket's last forward pass writes the
+coefficient-weighted surpluses straight into the fine grid, so the
+compact (G, P) surplus stack is never stored.  The reference gates its
+fused path on a TPU VMEM budget and on its Pallas path; on Hopper the
+fine grid stays in device memory and the pass axis is a kernel
+parameter, so no gate is needed.  The fused ingest runs every bucket at
+once: the stacks are assembled into one flat buffer, one
+``hier_forward_grouped`` launch applies every bucket's passes before its
+last, and ``hier_scatter_grouped`` (two launches) applies the last passes
+and adds into the fine grid through the plan's slot-owner table
+(``scatter_table``, built once per plan and kept while the plan's index
+maps live).  ``fused=False`` runs the full transform bucket by bucket and
+then one ordered ``index_add_`` per member.  Both accumulate each fine
+slot as a left fold in global member order, so they give the same bits.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import threading
+import weakref
 from dataclasses import dataclass
 from typing import Dict, Mapping, Optional, Sequence, Tuple
 
@@ -55,13 +61,14 @@ from repro_torch import resolve_device
 from repro_torch.core.levels import (LevelVector, SchemeLike,
                                      canonical_levels, fine_levels,
                                      grid_shape)
-from repro_torch.kernels.hierarchize import (axis_order, batched_method,
+from repro_torch.kernels.hierarchize import (ScatterTable, axis_order,
+                                             batched_method,
                                              dehierarchize_batched,
-                                             forward_passes,
-                                             hier_axis0_scatter_batched,
+                                             hier_forward_grouped,
+                                             hier_scatter_grouped,
                                              hier_tail_batched,
                                              hierarchize_batched,
-                                             tile_volume)
+                                             scatter_table, tile_volume)
 
 __all__ = ["ExecutorPlan", "Bucket", "MergeConfig", "build_plan",
            "extend_plan", "update_plan_coefficients", "ct_transform",
@@ -442,12 +449,14 @@ def _grids_on(nodal_grids, plan: ExecutorPlan, device: torch.device
 def _assemble_members(parts: Sequence[torch.Tensor],
                       perms: Sequence[Tuple[int, ...]],
                       shape: Tuple[int, ...],
-                      dtype: torch.dtype) -> torch.Tensor:
+                      dtype: torch.dtype,
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Stack one bucket's member grids: each transposed to canonical axis
     order and zero-padded to the bucket target shape (pad values never
-    reach the fine buffer — the index plan routes them to the dump slot)."""
-    x = torch.zeros((len(parts),) + tuple(shape), dtype=dtype,
-                    device=parts[0].device)
+    reach the fine buffer — the index plan routes them to the dump slot).
+    ``out``, if given, is the zeroed (G, *shape) stack to fill."""
+    x = out if out is not None else torch.zeros(
+        (len(parts),) + tuple(shape), dtype=dtype, device=parts[0].device)
     for g, (part, perm) in enumerate(zip(parts, perms)):
         p = part.permute(perm)
         x[(g,) + tuple(slice(0, s) for s in p.shape)] = p
@@ -455,25 +464,62 @@ def _assemble_members(parts: Sequence[torch.Tensor],
 
 
 def _assemble_bucket(grids: Mapping[LevelVector, torch.Tensor],
-                     bucket: Bucket, dtype: torch.dtype) -> torch.Tensor:
+                     bucket: Bucket, dtype: torch.dtype,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
     return _assemble_members([grids[ell] for ell in bucket.ells],
-                             bucket.perms, bucket.shape, dtype)
+                             bucket.perms, bucket.shape, dtype, out=out)
 
 
-def _gather_one_bucket(full: torch.Tensor, x: torch.Tensor,
-                       member_levels: Tuple[LevelVector, ...],
-                       idx: torch.Tensor, cs: torch.Tensor, *,
-                       fused: bool) -> torch.Tensor:
+@dataclass(frozen=True)
+class _IngestTable:
+    """What a fused ingest of a plan needs besides the data: the passes
+    before each bucket's last (``hier_forward_grouped``'s ``stacks``) and
+    the slot-owner table of the last passes (whose ``spans`` place each
+    bucket in the flat concatenation of the stacks)."""
+
+    stacks: tuple
+    scatter: ScatterTable
+
+
+_INGEST_TABLES: Dict[tuple, _IngestTable] = {}
+_INGEST_LOCK = threading.Lock()
+
+
+def _ingest_table(plan: ExecutorPlan) -> _IngestTable:
+    """The plan's ingest table, built once and cached under the identity of
+    the plan's index arrays: ``update_plan_coefficients`` and the
+    coefficient-only path of ``extend_plan`` keep them, so their plans
+    reuse it.  An entry is dropped when one of its index arrays dies."""
+    key = tuple(id(b.index) for b in plan.buckets)
+    with _INGEST_LOCK:
+        table = _INGEST_TABLES.get(key)
+    if table is not None:
+        return table
+    stacks, last = [], []
+    for b in plan.buckets:
+        order = axis_order(b.shape)
+        stacks.append((b.shape, b.levels, order[:-1]))
+        last.append((b.shape, tuple(lv[order[-1]] for lv in b.levels),
+                     order[-1]))
+    sc = scatter_table(last, [b.index for b in plan.buckets], plan.fine_size)
+    table = _IngestTable(stacks=tuple(stacks), scatter=sc)
+    with _INGEST_LOCK:
+        if key in _INGEST_TABLES:
+            return _INGEST_TABLES[key]
+        _INGEST_TABLES[key] = table
+    for b in plan.buckets:
+        weakref.finalize(b.index, _INGEST_TABLES.pop, key, None)
+    return table
+
+
+def _gather_unfused(full: torch.Tensor, x: torch.Tensor,
+                    member_levels: Tuple[LevelVector, ...],
+                    idx: torch.Tensor, cs: torch.Tensor) -> torch.Tensor:
     """Accumulate one assembled bucket stack ``x`` (G members, canonical
     padded shape) into the flat fine buffer ``full`` (+1 dump slot), IN
-    PLACE.  ``idx`` is the (G, P) embed map, ``cs`` the (G,)
-    coefficients in ``full.dtype``."""
-    if fused:
-        order = axis_order(x.shape[1:])
-        last = order[-1]
-        y = forward_passes(x, member_levels, order[:-1])
-        return hier_axis0_scatter_batched(
-            y, [lv[last] for lv in member_levels], cs, idx, full, axis=last)
+    PLACE: the full transform, then one ordered ``index_add_`` per member
+    through the (G, P) embed map ``idx`` with the (G,) coefficients
+    ``cs``."""
     g = len(member_levels)
     alpha = hierarchize_batched(x, member_levels).reshape(g, -1)
     for m in range(g):
@@ -489,17 +535,28 @@ def ct_transform_with_plan(nodal_grids: Mapping[LevelVector, torch.Tensor],
     -> sparse-grid surplus on the common fine grid, on ``device``.
 
     ``fused=None`` takes the port's default, the fused epilogue on every
-    bucket; ``fused=False`` the unfused scatter (same bits)."""
+    bucket (three kernel launches in all on CUDA); ``fused=False`` the
+    unfused scatter (same bits)."""
     _check_plan(plan, "ct_transform_with_plan")
     device = resolve_device(device)
     grids, dtype = _grids_on(nodal_grids, plan, device)
     full = torch.zeros(plan.fine_size + 1, dtype=dtype, device=device)
-    for bucket in plan.buckets:
-        _gather_one_bucket(
-            full, _assemble_bucket(grids, bucket, dtype), bucket.levels,
-            torch.from_numpy(bucket.index).to(device),
-            torch.as_tensor(bucket.coeffs, dtype=dtype, device=device),
-            fused=fused is not False)
+    if fused is False:
+        for bucket in plan.buckets:
+            _gather_unfused(
+                full, _assemble_bucket(grids, bucket, dtype), bucket.levels,
+                torch.from_numpy(bucket.index).to(device),
+                torch.as_tensor(bucket.coeffs, dtype=dtype, device=device))
+        return full[:-1].reshape(plan.fine_shape)
+    table = _ingest_table(plan)
+    x = torch.zeros(table.scatter.size, dtype=dtype, device=device)
+    for bucket, (a, b) in zip(plan.buckets, table.scatter.spans):
+        _assemble_bucket(grids, bucket, dtype, out=x[a:b].view(
+            (len(bucket.ells),) + bucket.shape))
+    coeffs = torch.from_numpy(np.concatenate(
+        [b.coeffs for b in plan.buckets])).to(device=device, dtype=dtype)
+    hier_scatter_grouped(hier_forward_grouped(x, table.stacks),
+                         table.scatter, coeffs, full)
     return full[:-1].reshape(plan.fine_shape)
 
 

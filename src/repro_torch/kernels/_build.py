@@ -36,22 +36,22 @@ _P, _I = ctypes.c_void_p, ctypes.c_int64
 #: C entry points of each source: name -> argtypes.
 KERNELS: Dict[str, Dict[str, list]] = {
     "axis_pass_fwd": {
-        f"axis_pass_fwd_{t}": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+        f"axis_pass_fwd_{t}": [_P, _P, _I, _P, _P, _P, _I, _P]
         for t in ("f32", "f64")},
     "axis_pass_inv": {
         f"axis_pass_inv_{t}": [_P, _P, _P, _I, _I, _I, _I, _P]
         for t in ("f32", "f64")},
     "axis_pass_scatter_fwd": {
-        f"axis_pass_scatter_fwd_{t}": [_P, _P, _P, _P, _I, _P, _P, _P, _P,
-                                       _I, _I, _I, _I, _P]
+        f"axis_pass_scatter_fwd_{t}": [_P, _I, _P, _I, _P, _P, _I, _I, _P,
+                                       _P, _P, _P, _P]
         for t in ("f32", "f64")},
     "pole_fwd": {f"pole_fwd_{t}": [_P, _P, _I, _I, _I, _I, _P]
                  for t in ("f32", "f64")},
     "pole_inv": {f"pole_inv_{t}": [_P, _P, _I, _I, _I, _P]
                  for t in ("f32", "f64")},
-    "axis_operator": {f"axis_operator_{t}": [_P] * 5 + [_I] * 4 + [_P]
+    "axis_operator": {f"axis_operator_{t}": [_P] * 6 + [_I] * 4 + [_P]
                       for t in ("f32", "f64", "bf16")},
-    "fused_tail": {f"fused_tail_{t}": [_P] * 4 + [_I] + [_P] * 6
+    "fused_tail": {f"fused_tail_{t}": [_P] * 5 + [_I] + [_P] * 6
                    + [_I, _I, _P] for t in ("f32", "f64", "bf16")},
     "flash_attention": {f"flash_attention_{t}": [_P] * 4 + [_I] * 17 + [_P]
                         for t in ("f32", "bf16")},

@@ -12,8 +12,10 @@
 // from the port's ref.operator_matrix / ref.dehier_operator_matrix, in the
 // accumulator's type: f64 for f64 input (summed on the f64 tensor cores,
 // DMMA), f32 for f32 and for bf16 input (CUDA cores; bf16 widened on load,
-// summed in f32 and written back as bf16).  Skipping a zero tile changes
-// what a NaN or Inf in x reaches (see the header).
+// summed in f32 and written back as bf16).  A NaN or Inf in x reaches
+// what the dense product's would: the tile blocks mark the columns that
+// hold one and a repair launch on the same stream gives them the dense
+// product's pattern (see the header).
 //
 // Bound: bytes.  The function reads x once and writes out once; the listed
 // slabs do about 17-19% of the dense product's flops at n = 511, about
@@ -29,12 +31,12 @@ __global__ void __launch_bounds__(kMmaThreads)
                              const int32_t* __restrict__ slabs,
                              const double* __restrict__ x,
                              double* __restrict__ out, int64_t n, int64_t b,
-                             int64_t row_tiles) {
+                             int64_t row_tiles, NonFinite nf) {
   __shared__ __align__(16) MmaSmem<false> sm;
   const int64_t r = int64_t(blockIdx.x) % row_tiles;
   const int64_t j0 = int64_t(blockIdx.x) / row_tiles * kOpN;
   operator_slab_tile_f64<false>(tiles, offsets, slabs, x, out, n, b, r, j0,
-                                sm);
+                                sm, nf, int64_t(blockIdx.x) / row_tiles);
 }
 
 template <typename T, typename Acc>
@@ -43,12 +45,14 @@ __global__ void __launch_bounds__(kCoreThreads)
                          const int32_t* __restrict__ offsets,
                          const int32_t* __restrict__ slabs,
                          const T* __restrict__ x, T* __restrict__ out,
-                         int64_t n, int64_t b, int64_t row_tiles) {
+                         int64_t n, int64_t b, int64_t row_tiles,
+                         NonFinite nf) {
   __shared__ CoreSmem<Acc> sm;
   const int64_t r = int64_t(blockIdx.x) % row_tiles;
   const int64_t j0 = int64_t(blockIdx.x) / row_tiles * kOpN;
   operator_slab_tile_core<T, T, Acc, false>(tiles, offsets, slabs, x, out, n,
-                                            b, r, j0, sm);
+                                            b, r, j0, sm, nf,
+                                            int64_t(blockIdx.x) / row_tiles);
 }
 
 static int64_t blocks_of(int64_t n, int64_t b, int64_t* row_tiles) {
@@ -58,8 +62,9 @@ static int64_t blocks_of(int64_t n, int64_t b, int64_t* row_tiles) {
 
 extern "C" int axis_operator_f64(const void* tiles, const void* offsets,
                                  const void* slabs, const void* x, void* out,
-                                 int64_t n, int64_t b, int64_t tile_m,
-                                 int64_t tile_k, void* stream) {
+                                 void* ws, int64_t n, int64_t b,
+                                 int64_t tile_m, int64_t tile_k,
+                                 void* stream) {
   if (!tile_is_ours(tile_m, tile_k)) return (int)cudaErrorInvalidValue;
   if (n > 0 && b > 0) {
     int64_t row_tiles;
@@ -68,15 +73,20 @@ extern "C" int axis_operator_f64(const void* tiles, const void* offsets,
                                (cudaStream_t)stream>>>(
         (const double*)tiles, (const int32_t*)offsets,
         (const int32_t*)slabs, (const double*)x, (double*)out, n, b,
-        row_tiles);
+        row_tiles, NonFinite{(unsigned int*)ws});
+    const int err = (int)cudaGetLastError();
+    if (err != 0) return err;
+    return launch_repair(NonFinite{(unsigned int*)ws}, (const double*)x,
+                         (double*)out, 1, n, b, (const int32_t*)offsets,
+                         (const int32_t*)slabs, (cudaStream_t)stream);
   }
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 static int launch_core(const void* tiles, const void* offsets,
-                       const void* slabs, const void* x, void* out, int64_t n,
-                       int64_t b, int64_t tile_m, int64_t tile_k,
+                       const void* slabs, const void* x, void* out, void* ws,
+                       int64_t n, int64_t b, int64_t tile_m, int64_t tile_k,
                        void* stream) {
   if (!tile_is_ours(tile_m, tile_k)) return (int)cudaErrorInvalidValue;
   if (n > 0 && b > 0) {
@@ -85,23 +95,30 @@ static int launch_core(const void* tiles, const void* offsets,
     axis_operator_kernel<T, float><<<(unsigned int)blocks, kCoreThreads, 0,
                                      (cudaStream_t)stream>>>(
         (const float*)tiles, (const int32_t*)offsets, (const int32_t*)slabs,
-        (const T*)x, (T*)out, n, b, row_tiles);
+        (const T*)x, (T*)out, n, b, row_tiles, NonFinite{(unsigned int*)ws});
+    const int err = (int)cudaGetLastError();
+    if (err != 0) return err;
+    return launch_repair(NonFinite{(unsigned int*)ws}, (const T*)x, (T*)out,
+                         1, n, b, (const int32_t*)offsets,
+                         (const int32_t*)slabs, (cudaStream_t)stream);
   }
   return (int)cudaGetLastError();
 }
 
 extern "C" int axis_operator_f32(const void* tiles, const void* offsets,
                                  const void* slabs, const void* x, void* out,
-                                 int64_t n, int64_t b, int64_t tile_m,
-                                 int64_t tile_k, void* stream) {
-  return launch_core<float>(tiles, offsets, slabs, x, out, n, b, tile_m,
+                                 void* ws, int64_t n, int64_t b,
+                                 int64_t tile_m, int64_t tile_k,
+                                 void* stream) {
+  return launch_core<float>(tiles, offsets, slabs, x, out, ws, n, b, tile_m,
                             tile_k, stream);
 }
 
 extern "C" int axis_operator_bf16(const void* tiles, const void* offsets,
                                   const void* slabs, const void* x, void* out,
-                                  int64_t n, int64_t b, int64_t tile_m,
-                                  int64_t tile_k, void* stream) {
-  return launch_core<__nv_bfloat16>(tiles, offsets, slabs, x, out, n, b,
+                                  void* ws, int64_t n, int64_t b,
+                                  int64_t tile_m, int64_t tile_k,
+                                  void* stream) {
+  return launch_core<__nv_bfloat16>(tiles, offsets, slabs, x, out, ws, n, b,
                                     tile_m, tile_k, stream);
 }

@@ -1,87 +1,145 @@
-// axis_pass_scatter_fwd: the last forward hierarchization pass of a bucket
-// stack fused with the coefficient-weighted scatter-add into the flat fine
-// grid:  acc[idx[g, p]] = acc[idx[g, p]] + c[g] * alpha[g, p].
+// axis_pass_scatter_fwd: the last forward hierarchization pass of one or
+// more bucket stacks fused with the coefficient-weighted scatter-add into
+// the flat fine grid, acc[slot] = acc[slot] + c[m] * alpha[m, p], for every
+// member of every stack in two launches.
 //
 // Replaces repro/kernels/hierarchize.py: hier_axis0_scatter_batched_pallas
 // -> _axis0_scatter_kernel.  The TPU kernel keeps the whole fine buffer as
-// a VMEM-resident output block; a Hopper SM has no such room, so here the
-// fine buffer stays in device memory and each member's finished surpluses
-// are added straight into it.  The pass axis is a parameter (the stack is
-// viewed as (G, outer, n, inner)), so the same kernel serves axis 0 of
-// buckets the reference runs on its Pallas path and axis d-1 of buckets it
-// runs on its jnp path, and the bits match either way.
+// a VMEM-resident output block and walks the members in order, so the
+// adds into each fine slot are a left fold in member order -- the fold of
+// the reference's unfused `full.at[idx].add(cs * alpha)`, which is why
+// fused and unfused ingest give the same bits.  A Hopper SM has no such
+// room, and launching once per member to keep that order (109 launches at
+// prod_3d, each a few KB of work) made the scatter launch-bound.  Here the
+// order is data instead: a slot-owner table, built on the host once per
+// plan, lists for every fine slot the plan's index maps touch (pad
+// positions excluded) its entries (global member, position) in global
+// member order -- plan bucket order, then member order -- in CSR form, the
+// owners with the longest runs first.  Entries are int32 element offsets
+// into the concatenation of the stacks.
 //
-// Deterministic, with no atomics: the host function launches the kernel
-// once per member, in member order, on one stream.  Stream order makes the
-// adds into each fine slot a left fold in member order -- the fold of the
-// reference's unfused `full.at[idx].add(cs * alpha)`.  Inside one launch a
-// member's index map is injective except at pad positions, which all point
-// at the dump slot; they are skipped, so no two threads of a launch write
-// the same slot and the dump slot is never written.  The product and the
-// sum are rounded separately (mul_rn/add_rn), as in the reference, since a
-// coefficient of +-3 would otherwise show an FMA in the last bit.
+//   Phase 1 (one thread an entry): the entry's last-axis update (hier3) and
+//     its product with the member's coefficient, mul_rn(c[m], alpha),
+//     written in CSR order.
+//   Phase 2 (one thread an owner; one warp an owner whose run is longer
+//     than 32): v = acc[s]; v = add_rn(v, prod[j]) down the run; acc[s] = v.
+//     A warp loads 32 products of its run at once and folds them in order
+//     through shuffles, so the 109-long run of the centre slot is a chain of
+//     dependent adds and not of dependent loads.
 //
-// Bound: bytes.  Each element is read once (plus L1/L2-resident
-// predecessor reads), its index read once, and one fine slot read and
-// written; the fine buffer is touched only at the member's own slots.
+// The result is bitwise the left fold of per-member launches, from any
+// starting acc, in f64 and f32: every product and sum is rounded on its own
+// (a coefficient of +-3 would otherwise show an FMA in the last bit), and
+// every slot's adds run in the same order.  No atomics, and no two threads
+// write one slot.  The per-member bucket data (start, member size, first
+// global member, the last axis's view and predecessor arrays) is a small
+// table that phase 1 searches by an entry's offset.
+//
+// Bound: bytes.  Each stack element is read once, each entry's index and
+// product once, and each touched slot read and written once.
 
 #include "hier3.cuh"
 
+struct ScatterBucket {
+  int64_t start;      // element offset of the stack in the concatenation
+  int64_t member;     // elements of one member
+  int64_t first;      // global index of its first member (coefficients)
+  int64_t n, inner;   // the last pass's view inside a member
+  // device addresses of the last axis's predecessor arrays, each (g, n)
+  int64_t lp, rp, lm, rm;
+};
+
 template <typename T>
-__global__ void axis_pass_scatter_fwd_kernel(
-    const T* __restrict__ x, const int32_t* __restrict__ idx,
-    const T* __restrict__ coeff, T* __restrict__ acc, int64_t dump,
-    const int32_t* __restrict__ lp, const int32_t* __restrict__ rp,
-    const uint8_t* __restrict__ lm, const uint8_t* __restrict__ rm,
-    int64_t n, int64_t inner, int64_t total) {
-  const T c = *coeff;
-  for (int64_t e = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; e < total;
-       e += int64_t(gridDim.x) * blockDim.x) {
-    const int64_t slot = idx[e];
-    if (slot == dump) continue;
-    const int64_t node = (e / inner) % n;
-    const T alpha = hier3<T>(x, e, node, inner, lp, rp, lm, rm);
-    acc[slot] = add_rn(acc[slot], mul_rn(c, alpha));
+__global__ void scatter_products_kernel(const ScatterBucket* __restrict__ bk,
+                                        int64_t nbuckets,
+                                        const int32_t* __restrict__ entries,
+                                        int64_t count,
+                                        const T* __restrict__ y,
+                                        const T* __restrict__ coeffs,
+                                        T* __restrict__ prod) {
+  for (int64_t j = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; j < count;
+       j += int64_t(gridDim.x) * blockDim.x) {
+    const int64_t e = entries[j];
+    int64_t lo = 0, hi = nbuckets - 1;   // the last bucket starting <= e
+    while (lo < hi) {
+      const int64_t mid = (lo + hi + 1) / 2;
+      if (bk[mid].start <= e) lo = mid; else hi = mid - 1;
+    }
+    const ScatterBucket& b = bk[lo];
+    const int64_t off = e - b.start, m = off / b.member;
+    const int64_t p = off - m * b.member, row = m * b.n;
+    const T alpha = hier3<T>(
+        y + b.start + m * b.member, p, (p / b.inner) % b.n, b.inner,
+        reinterpret_cast<const int32_t*>(b.lp) + row,
+        reinterpret_cast<const int32_t*>(b.rp) + row,
+        reinterpret_cast<const uint8_t*>(b.lm) + row,
+        reinterpret_cast<const uint8_t*>(b.rm) + row);
+    prod[j] = mul_rn(coeffs[b.first + m], alpha);
   }
 }
 
 template <typename T>
-static int launch(const void* x, const void* idx, const void* coeffs, void* acc,
-                  int64_t dump, const void* lp, const void* rp, const void* lm,
-                  const void* rm, int64_t g, int64_t outer, int64_t n,
-                  int64_t inner, void* stream) {
-  const int64_t member = outer * n * inner;
-  for (int64_t m = 0; m < g && member > 0; ++m) {
-    axis_pass_scatter_fwd_kernel<T><<<blocks_for(member), kThreads, 0,
-                                      (cudaStream_t)stream>>>(
-        (const T*)x + m * member, (const int32_t*)idx + m * member,
-        (const T*)coeffs + m, (T*)acc, dump, (const int32_t*)lp + m * n,
-        (const int32_t*)rp + m * n, (const uint8_t*)lm + m * n,
-        (const uint8_t*)rm + m * n, n, inner, member);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+__global__ void scatter_fold_kernel(const int32_t* __restrict__ slots,
+                                    const int64_t* __restrict__ offsets,
+                                    int64_t owners, int64_t long_owners,
+                                    const T* __restrict__ prod,
+                                    T* __restrict__ acc) {
+  const int64_t t = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int64_t warp_threads = long_owners * 32;  // whole warps
+  if (t < warp_threads) {
+    const int64_t o = t / 32;
+    const int lane = int(t % 32);
+    const int64_t s = slots[o], begin = offsets[o], end = offsets[o + 1];
+    T v = acc[s];
+    for (int64_t base = begin; base < end; base += 32) {
+      const T pv = base + lane < end ? prod[base + lane] : T(0);
+      const int run = int(end - base < 32 ? end - base : 32);
+      for (int k = 0; k < run; ++k)
+        v = add_rn(v, __shfl_sync(0xffffffffu, pv, k));
+    }
+    if (lane == 0) acc[s] = v;
+    return;
   }
+  const int64_t o = long_owners + (t - warp_threads);
+  if (o >= owners) return;
+  const int64_t s = slots[o];
+  T v = acc[s];
+  for (int64_t j = offsets[o]; j < offsets[o + 1]; ++j) v = add_rn(v, prod[j]);
+  acc[s] = v;
+}
+
+template <typename T>
+static int launch(const void* buckets, int64_t nbuckets, const void* entries,
+                  int64_t count, const void* slots, const void* offsets,
+                  int64_t owners, int64_t long_owners, const void* y,
+                  const void* coeffs, void* prod, void* acc, void* stream) {
+  if (count <= 0 || owners <= 0) return (int)cudaGetLastError();
+  if (nbuckets <= 0 || long_owners < 0 || long_owners > owners)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  scatter_products_kernel<T><<<blocks_for(count), kThreads, 0, st>>>(
+      (const ScatterBucket*)buckets, nbuckets, (const int32_t*)entries, count,
+      (const T*)y, (const T*)coeffs, (T*)prod);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int64_t threads = long_owners * 32 + (owners - long_owners);
+  const int64_t grid = (threads + kThreads - 1) / kThreads;
+  if (grid > INT32_MAX) return (int)cudaErrorInvalidValue;
+  scatter_fold_kernel<T><<<(unsigned int)grid, kThreads, 0, st>>>(
+      (const int32_t*)slots, (const int64_t*)offsets, owners, long_owners,
+      (const T*)prod, (T*)acc);
   return (int)cudaGetLastError();
 }
 
-extern "C" int axis_pass_scatter_fwd_f64(const void* x, const void* idx,
-                                         const void* coeffs, void* acc,
-                                         int64_t dump, const void* lp,
-                                         const void* rp, const void* lm,
-                                         const void* rm, int64_t g,
-                                         int64_t outer, int64_t n,
-                                         int64_t inner, void* stream) {
-  return launch<double>(x, idx, coeffs, acc, dump, lp, rp, lm, rm, g, outer, n,
-                        inner, stream);
-}
+#define SCATTER_ENTRY(tag, T)                                                \
+  extern "C" int axis_pass_scatter_fwd_##tag(                                \
+      const void* buckets, int64_t nbuckets, const void* entries,            \
+      int64_t count, const void* slots, const void* offsets, int64_t owners, \
+      int64_t long_owners, const void* y, const void* coeffs, void* prod,    \
+      void* acc, void* stream) {                                             \
+    return launch<T>(buckets, nbuckets, entries, count, slots, offsets,      \
+                     owners, long_owners, y, coeffs, prod, acc, stream);     \
+  }
 
-extern "C" int axis_pass_scatter_fwd_f32(const void* x, const void* idx,
-                                         const void* coeffs, void* acc,
-                                         int64_t dump, const void* lp,
-                                         const void* rp, const void* lm,
-                                         const void* rm, int64_t g,
-                                         int64_t outer, int64_t n,
-                                         int64_t inner, void* stream) {
-  return launch<float>(x, idx, coeffs, acc, dump, lp, rp, lm, rm, g, outer, n,
-                       inner, stream);
-}
+SCATTER_ENTRY(f64, double)
+SCATTER_ENTRY(f32, float)

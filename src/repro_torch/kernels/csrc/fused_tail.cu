@@ -23,8 +23,11 @@
 //   same slab list with the operand roles swapped, so that X is read along
 //   its contiguous rows; one block per (H's row tile, 64 rows of X).
 // f64 runs on DMMA, f32 and bf16 on the CUDA cores.  On the 511^3 cube a
-// pass has 8 x 8 x 511 (axis 1) or 8 x 4,080 (axis 2) blocks.  Skipping a
-// zero tile changes what a NaN or Inf in x reaches (see the tile's header).
+// pass has 8 x 8 x 511 (axis 1) or 8 x 4,080 (axis 2) blocks.  Each pass's
+// tile launch is followed by its repair launch (see the tile's header),
+// which gives the lines that held a NaN or Inf the dense product's pattern
+// before the next pass reads them; the passes' launch count counts the
+// tile launches.
 //
 // Bound: bytes.  The function reads x once and writes out once (0.637 ms
 // at 511^3 f64 on 3.35 TB/s); each extra axis adds a workspace round trip,
@@ -44,18 +47,18 @@ __global__ void __launch_bounds__(kMmaThreads)
                           const double* __restrict__ src,
                           double* __restrict__ dst, int64_t outer, int64_t n,
                           int64_t inner, int64_t row_tiles,
-                          int64_t col_tiles) {
+                          int64_t col_tiles, NonFinite nf) {
   __shared__ __align__(16) MmaSmem<kSwap> sm;
   const int64_t r = int64_t(blockIdx.x) % row_tiles;
   const int64_t rest = int64_t(blockIdx.x) / row_tiles;
   if constexpr (kSwap) {
     operator_slab_tile_f64<true>(tiles, offsets, slabs, src, dst, n, outer,
-                                 r, rest * kOpN, sm);
+                                 r, rest * kOpN, sm, nf, rest);
   } else {
     const int64_t base = rest / col_tiles * n * inner;
     operator_slab_tile_f64<false>(tiles, offsets, slabs, src + base,
                                   dst + base, n, inner, r,
-                                  rest % col_tiles * kOpN, sm);
+                                  rest % col_tiles * kOpN, sm, nf, rest);
   }
 }
 
@@ -66,18 +69,20 @@ __global__ void __launch_bounds__(kCoreThreads)
                            const int32_t* __restrict__ slabs,
                            const TS* __restrict__ src, TD* __restrict__ dst,
                            int64_t outer, int64_t n, int64_t inner,
-                           int64_t row_tiles, int64_t col_tiles) {
+                           int64_t row_tiles, int64_t col_tiles,
+                           NonFinite nf) {
   __shared__ CoreSmem<float> sm;
   const int64_t r = int64_t(blockIdx.x) % row_tiles;
   const int64_t rest = int64_t(blockIdx.x) / row_tiles;
   if constexpr (kSwap) {
     operator_slab_tile_core<TS, TD, float, true>(
-        tiles, offsets, slabs, src, dst, n, outer, r, rest * kOpN, sm);
+        tiles, offsets, slabs, src, dst, n, outer, r, rest * kOpN, sm, nf,
+        rest);
   } else {
     const int64_t base = rest / col_tiles * n * inner;
     operator_slab_tile_core<TS, TD, float, false>(
         tiles, offsets, slabs, src + base, dst + base, n, inner, r,
-        rest % col_tiles * kOpN, sm);
+        rest % col_tiles * kOpN, sm, nf, rest);
   }
 }
 
@@ -90,7 +95,7 @@ struct Pass {
 
 // One pass src -> dst; returns the launch's error.
 template <typename TS, typename TD>
-static int launch_pass(const Pass& p, const TS* src, TD* dst,
+static int launch_pass(const Pass& p, const TS* src, TD* dst, NonFinite nf,
                        cudaStream_t stream) {
   const int64_t row_tiles = (p.n + kOpM - 1) / kOpM;
   const bool swap = p.inner == 1;
@@ -104,19 +109,22 @@ static int launch_pass(const Pass& p, const TS* src, TD* dst,
                        : fused_tail_f64_kernel<false>;
     kernel<<<(unsigned int)blocks, kMmaThreads, 0, stream>>>(
         (const double*)p.tiles, p.offsets, p.slabs, src, dst, p.outer, p.n,
-        p.inner, row_tiles, col_tiles);
+        p.inner, row_tiles, col_tiles, nf);
   } else {
     auto kernel = swap ? fused_tail_core_kernel<TS, TD, true>
                        : fused_tail_core_kernel<TS, TD, false>;
     kernel<<<(unsigned int)blocks, kCoreThreads, 0, stream>>>(
         (const float*)p.tiles, p.offsets, p.slabs, src, dst, p.outer, p.n,
-        p.inner, row_tiles, col_tiles);
+        p.inner, row_tiles, col_tiles, nf);
   }
-  return (int)cudaGetLastError();
+  const int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  return launch_repair(nf, src, dst, p.outer, p.n, p.inner, p.offsets,
+                       p.slabs, stream);
 }
 
 template <typename T, typename Acc>
-static int launch(const void* x, void* ws0, void* ws1, void* out,
+static int launch(const void* x, void* ws0, void* ws1, void* out, void* state,
                   int64_t count, const int64_t* outer, const int64_t* n,
                   const int64_t* inner, const void* const* tiles,
                   const void* const* offsets, const void* const* slabs,
@@ -124,6 +132,7 @@ static int launch(const void* x, void* ws0, void* ws1, void* out,
   if (count < 1 || count > kMaxTail || !tile_is_ours(tile_m, tile_k))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  const NonFinite nf{(unsigned int*)state};   // shared by the passes in turn
   Acc* ws[2] = {(Acc*)ws0, (Acc*)ws1};
   for (int a = 0; a < count; ++a) {
     const Pass p{tiles[a], (const int32_t*)offsets[a],
@@ -131,13 +140,13 @@ static int launch(const void* x, void* ws0, void* ws1, void* out,
     const bool first = a == 0, last = a == count - 1;
     int err;
     if (first && last) {
-      err = launch_pass<T, T>(p, (const T*)x, (T*)out, st);
+      err = launch_pass<T, T>(p, (const T*)x, (T*)out, nf, st);
     } else if (first) {
-      err = launch_pass<T, Acc>(p, (const T*)x, ws[0], st);
+      err = launch_pass<T, Acc>(p, (const T*)x, ws[0], nf, st);
     } else if (last) {
-      err = launch_pass<Acc, T>(p, ws[(a - 1) % 2], (T*)out, st);
+      err = launch_pass<Acc, T>(p, ws[(a - 1) % 2], (T*)out, nf, st);
     } else {
-      err = launch_pass<Acc, Acc>(p, ws[(a - 1) % 2], ws[a % 2], st);
+      err = launch_pass<Acc, Acc>(p, ws[(a - 1) % 2], ws[a % 2], nf, st);
     }
     if (err != 0) return err;
   }
@@ -146,13 +155,13 @@ static int launch(const void* x, void* ws0, void* ws1, void* out,
 
 #define FUSED_TAIL_ENTRY(tag, T, Acc)                                        \
   extern "C" int fused_tail_##tag(                                           \
-      const void* x, void* ws0, void* ws1, void* out, int64_t count,         \
-      const int64_t* outer, const int64_t* n, const int64_t* inner,          \
-      const void* const* tiles, const void* const* offsets,                  \
-      const void* const* slabs, int64_t tile_m, int64_t tile_k,              \
-      void* stream) {                                                        \
-    return launch<T, Acc>(x, ws0, ws1, out, count, outer, n, inner, tiles,   \
-                          offsets, slabs, tile_m, tile_k, stream);           \
+      const void* x, void* ws0, void* ws1, void* out, void* state,           \
+      int64_t count, const int64_t* outer, const int64_t* n,                 \
+      const int64_t* inner, const void* const* tiles,                        \
+      const void* const* offsets, const void* const* slabs, int64_t tile_m,  \
+      int64_t tile_k, void* stream) {                                        \
+    return launch<T, Acc>(x, ws0, ws1, out, state, count, outer, n, inner,   \
+                          tiles, offsets, slabs, tile_m, tile_k, stream);    \
   }
 
 FUSED_TAIL_ENTRY(f64, double, double)

@@ -20,10 +20,12 @@ __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, 
 __device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
 
 // One element of a pass along an axis viewed as (outer, n, inner) per
-// member.  `e` is the element's flat offset inside its member, `k` the
-// row of the member's (n,) predecessor arrays for its node along the axis.
+// member.  `e` is the element's flat offset inside its member, `node` its
+// row of the member's (n,) predecessor arrays along the axis.  `x` may be
+// shared memory, or device memory that this block wrote before a barrier,
+// so it is not declared __restrict__ (no read-only cache path).
 template <typename T>
-__device__ __forceinline__ T hier3(const T* __restrict__ x, int64_t e,
+__device__ __forceinline__ T hier3(const T* x, int64_t e,
                                    int64_t node, int64_t inner,
                                    const int32_t* __restrict__ lp,
                                    const int32_t* __restrict__ rp,
@@ -36,8 +38,8 @@ __device__ __forceinline__ T hier3(const T* __restrict__ x, int64_t e,
   return sub_rn(sub_rn(x[e], mul_rn(half, xl)), mul_rn(half, xr));
 }
 
-// Launch shape shared by both kernels: a grid-stride loop over the
-// elements, capped so a launch never asks for more blocks than useful.
+// Launch shape of a grid-stride loop over elements, capped so a launch
+// never asks for more blocks than useful.
 constexpr int kThreads = 256;
 // Streaming multiprocessors of an H100 SXM, which the launch shapes assume.
 constexpr int64_t kSMs = 132;

@@ -22,10 +22,24 @@
 //   load and store runs along a contiguous row: no strided gather of X^T.
 //
 // Skipped tiles are exact zeros, so for finite X the sum loses only +0.0
-// terms.  A NaN or Inf in X now stays in the output tiles whose listed
-// slabs cover it: the outputs whose operator entries touch it and the rest
-// of their 64-wide tile (0 * Inf is NaN there), where the dense product
-// spreads it along the whole transformed axis.
+// terms.  A NaN or Inf in X is another matter: the dense product spreads it
+// along the whole transformed line (0 * Inf is NaN), the listed tiles alone
+// would keep it inside the tiles whose slabs cover it.  The repair has two
+// parts.  A tile block marks each line of its tile whose outputs are not
+// finite (NonFinite, 64 lines a column strip).  H's diagonal is 1 (for
+// H^-1 too), so the row tile r of a non-finite x[k] lists k's slab, and
+// that slab's product (0 * Inf included) makes every output of the line in
+// r's tile non-finite: the line is marked by r, which checks one output a
+// line.  A mark without a non-finite x (a finite sum that overflowed)
+// repairs nothing.  Then a second launch on the same stream
+// (repair_nonfinite_kernel, one block a strip) returns at once for a strip
+// with no mark, and otherwise gives the marked lines the dense product's
+// pattern: an output of row tile r becomes NaN when its line holds a
+// non-finite value in a slab that r does not list (the dense product's
+// 0 * NaN or 0 * Inf term there), and keeps its tile sum otherwise (whose
+// own terms give the dense product's NaN / +-Inf pattern).  On finite input
+// that costs a few integer operations a thread and the repair launch's few
+// microseconds; no host synchronisation.
 //
 // f64 runs on the tensor cores (DMMA, mma.sync.aligned.m8n8k4 .f64; Hopper
 // keeps them, wgmma has no f64): 128 threads, each warp 32 x 32 of the
@@ -62,6 +76,130 @@ inline bool tile_is_ours(int64_t tile_m, int64_t tile_k) {
   return tile_m == kOpM && tile_k == kOpK;
 }
 
+// The exponent field of v in place: kInfExponent for an Inf or a NaN.
+__device__ __forceinline__ int exponent_bits(double v) {
+  return __double2hiint(v) & 0x7ff00000;
+}
+__device__ __forceinline__ int exponent_bits(float v) {
+  return __float_as_int(v) & 0x7f800000;
+}
+template <typename T>
+constexpr int kInfExponent = sizeof(T) == 8 ? 0x7ff00000 : 0x7f800000;
+
+__device__ __forceinline__ bool nonfinite(double v) {
+  return (__double2hiint(v) & 0x7ff00000) == 0x7ff00000;
+}
+__device__ __forceinline__ bool nonfinite(float v) {
+  return (__float_as_uint(v) & 0x7f800000u) == 0x7f800000u;
+}
+__device__ __forceinline__ bool nonfinite(__nv_bfloat16 v) {
+  return nonfinite(__bfloat162float(v));
+}
+
+template <typename T>
+__device__ __forceinline__ T quiet_nan();
+template <>
+__device__ __forceinline__ double quiet_nan<double>() {
+  return __longlong_as_double(0x7ff8000000000000LL);
+}
+template <>
+__device__ __forceinline__ float quiet_nan<float>() {
+  return __int_as_float(0x7fc00000);
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 quiet_nan<__nv_bfloat16>() {
+  return __float2bfloat16(__int_as_float(0x7fc00000));
+}
+
+// The marks of the non-finite repair, in device memory, zero between
+// calls (the repair launch zeroes what it reads): a 64-line mask, two
+// words, per column strip of a pass.  A pass views X as (outer, m, inner);
+// line c = o * inner + j is X[o, :, j] (inner = 1: row o of an (outer, m)
+// X), and strip t holds the 64 lines of one block column's tile:
+// lines 64 t .. for inner = 1, else lines o * inner + 64 u .. of strip
+// t = o * ceil(inner / 64) + u.
+struct NonFinite {
+  unsigned int* ws;
+
+  __device__ __forceinline__ void mark(int64_t strip, uint64_t lines) const {
+    if (lines & 0xffffffffull)
+      atomicOr(&ws[2 * strip], unsigned(lines));
+    if (lines >> 32) atomicOr(&ws[2 * strip + 1], unsigned(lines >> 32));
+  }
+};
+
+constexpr int kRepairThreads = 128;
+constexpr int64_t kRepairBlocks = 132 * 8;
+
+// Line c of the pass: its element at node k of the transformed axis.
+__device__ __forceinline__ int64_t line_elem(int64_t c, int64_t k, int64_t m,
+                                             int64_t inner) {
+  return c / inner * m * inner + k * inner + c % inner;
+}
+
+template <typename TS, typename TD>
+__global__ void __launch_bounds__(kRepairThreads) repair_nonfinite_kernel(
+    unsigned int* ws, int64_t strips, const TS* __restrict__ x, TD* out,
+    int64_t m, int64_t inner, const int32_t* __restrict__ offsets,
+    const int32_t* __restrict__ slabs) {
+  const unsigned int full = 0xffffffffu;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t row_tiles = (m + kOpM - 1) / kOpM;
+  const int64_t col_tiles = inner == 1 ? 1 : (inner + kOpN - 1) / kOpN;
+  for (int64_t strip = blockIdx.x; strip < strips; strip += gridDim.x) {
+    const uint64_t lines =
+        uint64_t(ws[2 * strip]) | uint64_t(ws[2 * strip + 1]) << 32;
+    if (!lines) continue;
+    const int64_t first = inner == 1 ? strip * kOpN
+                                     : strip / col_tiles * inner +
+                                           strip % col_tiles * kOpN;
+    for (int bit = warp; bit < 64; bit += kRepairThreads / 32) {
+      if (!((lines >> bit) & 1u)) continue;
+      const int64_t c = first + bit;
+      unsigned int total = 0;
+      for (int64_t k = lane; k < m; k += 32)
+        total += nonfinite(x[line_elem(c, k, m, inner)]);
+      total = __reduce_add_sync(full, total);
+      for (int64_t r = 0; total && r < row_tiles; ++r) {
+        const int64_t b = offsets[r], e = offsets[r + 1];
+        unsigned int seen = 0;
+        for (int64_t i = lane; i < (e - b) * kOpK; i += 32) {
+          const int64_t k = int64_t(slabs[b + i / kOpK]) * kOpK + i % kOpK;
+          if (k < m) seen += nonfinite(x[line_elem(c, k, m, inner)]);
+        }
+        seen = __reduce_add_sync(full, seen);
+        if (seen == total) continue;     // every one inside r's slabs
+        const int64_t end = (r + 1) * kOpM < m ? (r + 1) * kOpM : m;
+        for (int64_t k = r * kOpM + lane; k < end; k += 32)
+          out[line_elem(c, k, m, inner)] = quiet_nan<TD>();
+      }
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      ws[2 * strip] = 0;
+      ws[2 * strip + 1] = 0;
+    }
+  }
+}
+
+// The repair launch after a tile launch over an (outer, m, inner) view,
+// on the same stream; returns its launch error.
+template <typename TS, typename TD>
+inline int launch_repair(const NonFinite& nf, const TS* x, TD* out,
+                         int64_t outer, int64_t m, int64_t inner,
+                         const int32_t* offsets, const int32_t* slabs,
+                         cudaStream_t stream) {
+  const int64_t strips =
+      inner == 1 ? (outer + kOpN - 1) / kOpN
+                 : outer * ((inner + kOpN - 1) / kOpN);
+  if (strips <= 0) return (int)cudaSuccess;
+  const int64_t grid = strips < kRepairBlocks ? strips : kRepairBlocks;
+  repair_nonfinite_kernel<TS, TD><<<(unsigned int)grid, kRepairThreads, 0,
+                                    stream>>>(nf.ws, strips, x, out, m,
+                                              inner, offsets, slabs);
+  return (int)cudaGetLastError();
+}
+
 // d += a . b for one 8 x 8 x 4 f64 product: a = A[lane / 4][lane % 4],
 // b = B[lane % 4][lane / 4], d = D[lane / 4][2 * (lane % 4) + {0, 1}].
 __device__ __forceinline__ void dmma_8x8x4(double& d0, double& d1, double a,
@@ -84,12 +222,14 @@ struct MmaSmem {
 // extent of X's other axis and `start` the tile's first index along it
 // (see the header for the two roles).  Every thread of the 128-thread
 // block calls it.
+// Lines of the tile with a non-finite output are marked in `nf` under
+// `strip` (see NonFinite).
 template <bool kSwap>
 __device__ void operator_slab_tile_f64(
     const double* __restrict__ tiles, const int32_t* __restrict__ offsets,
     const int32_t* __restrict__ slabs, const double* __restrict__ x,
     double* __restrict__ c, int64_t m, int64_t other, int64_t tile,
-    int64_t start, MmaSmem<kSwap>& sm) {
+    int64_t start, MmaSmem<kSwap>& sm, const NonFinite& nf, int64_t strip) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
   const int gr = lane >> 2, q = lane & 3;
@@ -178,6 +318,31 @@ __device__ void operator_slab_tile_f64(
       if (col + 1 < cols) c[row * cols + col + 1] = acc[u][v][1];
     }
   }
+  // A non-finite x in the diagonal slabs reaches every output of its line
+  // in this tile (each listed slab's product reaches every row), so one
+  // output per line is checked: row 0 of each thread's columns, or column
+  // 0 of its rows in kSwap.  An exponent maximum first, then the lines.
+  int top = 0;
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+    top = max(top, exponent_bits(kSwap ? acc[u][0][0] : acc[0][u][0]));
+  if constexpr (!kSwap) {
+#pragma unroll
+    for (int v = 0; v < 4; ++v) top = max(top, exponent_bits(acc[0][v][1]));
+  }
+  if (top == kInfExponent<double>) {
+    uint64_t bad = 0;   // the tile's lines (C's columns, or rows in kSwap)
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (kSwap && h) continue;
+        const int line = kSwap ? wm + u * 8 + gr : wn + u * 8 + 2 * q + h;
+        const double v = kSwap ? acc[u][0][0] : acc[0][u][h];
+        if (start + line < other && nonfinite(v)) bad |= 1ull << line;
+      }
+    if (bad) nf.mark(strip, bad);
+  }
 }
 
 template <typename Acc, typename T>
@@ -211,7 +376,7 @@ __device__ void operator_slab_tile_core(
     const Acc* __restrict__ tiles, const int32_t* __restrict__ offsets,
     const int32_t* __restrict__ slabs, const TS* __restrict__ x,
     TD* __restrict__ c, int64_t m, int64_t other, int64_t tile,
-    int64_t start, CoreSmem<Acc>& sm) {
+    int64_t start, CoreSmem<Acc>& sm, const NonFinite& nf, int64_t strip) {
   const int tid = threadIdx.x;
   const int ri = tid / 16, ci = tid % 16;
   const int begin = offsets[tile], end = offsets[tile + 1];
@@ -272,5 +437,21 @@ __device__ void operator_slab_tile_core(
       if (gi < rows && gj < cols)
         c[gi * cols + gj] = narrow_to<TD>(acc[u][v]);
     }
+  }
+  // One output per line, as in the f64 tile: row 0 of each thread's
+  // columns, or column 0 of its rows in kSwap.
+  int top = 0;
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+    top = max(top, exponent_bits(kSwap ? acc[u][0] : acc[0][u]));
+  if (top == kInfExponent<Acc>) {
+    uint64_t bad = 0;   // the tile's lines (C's columns, or rows in kSwap)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int line = kSwap ? ri + 16 * u : ci + 16 * u;
+      if (start + line < other && nonfinite(kSwap ? acc[u][0] : acc[0][u]))
+        bad |= 1ull << line;
+    }
+    if (bad) nf.mark(strip, bad);
   }
 }

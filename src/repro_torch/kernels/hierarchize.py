@@ -49,7 +49,7 @@ the port runs the stencil, so it agrees with the reference to rounding
 Batched wrappers (each the port of one TPU kernel of the reference):
 
 * ``hier_tail_batched``  — ``hier_tail_batched_pallas`` (forward): passes
-  along tail axes, one ``axis_pass_fwd`` launch per axis;
+  along tail axes, one ``axis_pass_fwd`` launch for all of them;
 * ``dehier_tail_batched`` — ``hier_tail_batched_pallas(inverse=True)``:
   one ``axis_pass_inv`` launch per tail axis;
 * ``hier_axis0_batched`` — ``hier_axis0_batched_pallas`` (forward): one
@@ -58,7 +58,13 @@ Batched wrappers (each the port of one TPU kernel of the reference):
   one ``axis_pass_inv`` launch along axis 0;
 * ``hier_axis0_scatter_batched`` — ``hier_axis0_scatter_batched_pallas``:
   the last pass fused with the coefficient-weighted scatter-add into the
-  flat fine grid, one ``axis_pass_scatter_fwd`` launch per member.
+  flat fine grid, two ``axis_pass_scatter_fwd`` launches.
+
+The CT ingest runs the same two kernels over every bucket at once:
+``hier_forward_grouped`` (rows 5 and 7: the passes before each bucket's
+last, one ``axis_pass_fwd`` launch) and ``hier_scatter_grouped`` (row 9:
+the last passes and the ordered scatter-add, two ``axis_pass_scatter_fwd``
+launches, on a slot-owner table, ``scatter_table``, built once per plan).
 
 ``hier_tail_batched`` and ``hier_axis0_batched`` keep the reference's
 signatures: ``inverse=True`` hands the call to the inverse wrapper, which
@@ -77,7 +83,9 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import functools
+import threading
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -98,6 +106,10 @@ __all__ = [
     "hier_axis0_batched",
     "dehier_axis0_batched",
     "hier_axis0_scatter_batched",
+    "hier_forward_grouped",
+    "hier_scatter_grouped",
+    "ScatterTable",
+    "scatter_table",
     "hierarchize_batched",
     "dehierarchize_batched",
     "hierarchize_batched_data",
@@ -457,14 +469,104 @@ def _raise_on(err: int, name: str) -> None:
                            f"{err}")
 
 
-def _launch_axis_pass(src: torch.Tensor, dst: torch.Tensor, axis: int,
-                      pred) -> None:
-    outer, n, inner = _view(src.shape[1:], axis)
-    lp, rp, lm, rm = pred
+#: ``axis_pass_fwd.cu``'s ``kMaxPasses``: passes a stack of the forward
+#: kernel (grids of up to 10 dimensions).
+_MAX_PASSES = 10
+#: A member the forward kernel keeps in shared memory: two buffers of it
+#: fill a block's 227 KB.  Larger members walk device memory.
+_SMEM_MEMBER_BYTES = 116224
+
+
+class _FwdItem(ctypes.Structure):
+    """``axis_pass_fwd.cu``'s ``FwdItem``: one stack of a forward launch,
+    pointers as int64 device addresses."""
+    _fields_ = [(f, ctypes.c_int64) for f in ("src", "dst", "scratch",
+                                                "member", "g", "passes")] + [
+        (f, ctypes.c_int64 * _MAX_PASSES)
+        for f in ("n", "inner", "lp", "rp", "lm", "rm")]
+
+
+@dataclasses.dataclass(frozen=True)
+class _ForwardTable:
+    """A grouped forward launch's work table on the device: the packed
+    ``FwdItem`` structs, the block list ``(item, member)`` heaviest first,
+    the member sizes of the stacks with passes (shared-memory sizing), the
+    scratch elements of members too large for shared memory, and the
+    tensors the table points at (kept alive with it)."""
+
+    items: torch.Tensor
+    blocks: torch.Tensor
+    nblocks: int
+    members: Tuple[int, ...]
+    scratch: int
+    keep: tuple
+
+
+def _forward_table(specs, device: torch.device) -> _ForwardTable:
+    """The work table of the stacks ``specs``: ``(offset, g, shape,
+    passes)`` each, ``offset`` the stack's element offset in the flat
+    source and output, ``passes`` a list of ``(axis, (lp, rp, lm, rm))``
+    in order, the predecessor tensors on ``device``."""
+    items = (_FwdItem * max(1, len(specs)))()
+    keep, members, order, scratch = [], [], [], 0
+    for i, (offset, g, shape, passes) in enumerate(specs):
+        if len(passes) > _MAX_PASSES:
+            raise ValueError(f"the forward kernel takes at most "
+                             f"{_MAX_PASSES} passes a stack")
+        member = int(np.prod(shape, dtype=np.int64))
+        it = items[i]
+        it.src = it.dst = offset
+        it.member, it.g, it.passes = member, g, len(passes)
+        it.scratch = -1
+        if len(passes) > 1 and member * 8 > _SMEM_MEMBER_BYTES:
+            it.scratch, scratch = scratch, scratch + g * member
+        for p, (axis, pred) in enumerate(passes):
+            _, it.n[p], it.inner[p] = _view(shape, axis)
+            it.lp[p], it.rp[p], it.lm[p], it.rm[p] = (t.data_ptr()
+                                                      for t in pred)
+            keep += pred
+        if passes:
+            members.append(member)
+        order += [(-member * max(1, len(passes)), i, m) for m in range(g)]
+    order.sort()
+    blocks = np.asarray([(i, m) for _, i, m in order], np.int32)
+    return _ForwardTable(
+        items=torch.frombuffer(bytearray(items), dtype=torch.uint8).to(device),
+        blocks=torch.from_numpy(blocks.reshape(-1, 2)).to(device),
+        nblocks=len(order), members=tuple(members), scratch=scratch,
+        keep=tuple(keep))
+
+
+def _launch_forward(src: torch.Tensor, dst: torch.Tensor,
+                    table: _ForwardTable) -> None:
+    """One ``axis_pass_fwd`` launch of ``table`` from ``src`` into ``dst``
+    (flat buffers of the stacks, same layout)."""
+    cap = _SMEM_MEMBER_BYTES // src.element_size()
+    smem = max((m for m in table.members if m <= cap), default=0)
+    scratch = src.new_empty(table.scratch) if table.scratch else None
     fn = _build.kernel("axis_pass_fwd", _DTYPE_TAG[src.dtype])
-    _raise_on(fn(src.data_ptr(), dst.data_ptr(), lp.data_ptr(),
-                 rp.data_ptr(), lm.data_ptr(), rm.data_ptr(), src.shape[0],
-                 outer, n, inner, _stream(src)), "axis_pass_fwd")
+    _raise_on(fn(table.items.data_ptr(), table.blocks.data_ptr(),
+                 table.nblocks, src.data_ptr(), dst.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(), smem,
+                 _stream(src)), "axis_pass_fwd")
+
+
+def _stack_passes(x: torch.Tensor, member_levels, pred, axes) -> torch.Tensor:
+    """Passes along the live bucket ``axes`` of the stack ``x`` in one
+    launch, into a fresh buffer (``pred``: each axis's runtime data, or
+    None to build it from ``member_levels``)."""
+    x = _check_stack(x)
+    out = torch.empty_like(x)
+    if pred is None:
+        levels = tuple(tuple(int(l) for l in lv) for lv in member_levels)
+        table = _grouped_table(((tuple(x.shape[1:]), levels, tuple(axes)),),
+                               x.device)
+    else:
+        table = _forward_table([(0, x.shape[0], tuple(x.shape[1:]), [
+            (k, _runtime_pred(p, k, x)) for k, p in zip(axes, pred)])],
+            x.device)
+    _launch_forward(x, out, table)
+    return out
 
 
 def _launch_inverse_pass(src: torch.Tensor, dst: torch.Tensor, axis: int,
@@ -492,9 +594,9 @@ def hier_tail_batched(x: torch.Tensor, member_levels, *,
     (G, N_k) for axes 1..d-1 in order (the tail slice of
     ``member_pred_arrays``); ``member_levels`` is then ignored.
     ``inverse=True`` is ``dehier_tail_batched``.  On CUDA: one
-    ``axis_pass_fwd`` launch per axis of extent > 1 (a level-1 axis is
-    the identity), ping-ponging two fresh buffers; ``x`` itself is never
-    written."""
+    ``axis_pass_fwd`` launch that applies every axis of extent > 1 (a
+    level-1 axis is the identity; none such: ``x`` is returned) into a
+    fresh buffer; ``x`` itself is never written."""
     if inverse:
         if pred is not None:
             raise ValueError("pred= is forward only")
@@ -504,14 +606,12 @@ def hier_tail_batched(x: torch.Tensor, member_levels, *,
     if x.device.type == "cpu":
         return _tail_plain(x, member_levels, pred=pred, axes=axes)
     live = _live_axes(x, axes)
-    x = _check_stack(x)
-    bufs = [torch.empty_like(x) for _ in range(min(2, len(live)))]
-    for i, k in enumerate(live):
-        _launch_axis_pass(x, bufs[i % 2], k, _forward_pred(
-            _axis_levels(member_levels, k), _tail_pred(pred, k), k, x))
-        hier_tail_batched.launches += 1
-        x = bufs[i % 2]
-    return x
+    if not live:
+        return x
+    out = _stack_passes(x, member_levels, None if pred is None else
+                        [_tail_pred(pred, k) for k in live], live)
+    hier_tail_batched.launches += 1
+    return out
 
 
 def dehier_tail_batched(x: torch.Tensor,
@@ -552,9 +652,9 @@ def hier_axis0_batched(x: torch.Tensor, levels0, *, inverse: bool = False,
         return x
     if x.device.type == "cpu":
         return _axis0_plain(x, levels0, pred=pred)
-    x = _check_stack(x)
-    out = torch.empty_like(x)
-    _launch_axis_pass(x, out, 0, _forward_pred(levels0, pred, 0, x))
+    out = _stack_passes(x, None if levels0 is None else
+                        [(int(l),) for l in levels0],
+                        None if pred is None else [pred], [0])
     hier_axis0_batched.launches += 1
     return out
 
@@ -591,8 +691,9 @@ def hier_axis0_scatter_batched(x: torch.Tensor, levels: Sequence[int],
     PLACE (it is the whole fine grid) and returned.  Per fine slot the
     adds happen once per member, in member order — the left fold of the
     unfused scatter, so fused and unfused give the same bits.  On CUDA:
-    one ``axis_pass_scatter_fwd`` launch per member, in order, on the
-    current stream."""
+    the one-bucket case of ``hier_scatter_grouped``, its slot-owner table
+    built from ``index`` on the host at each call (``index`` is copied to
+    the host), then two ``axis_pass_scatter_fwd`` launches."""
     _record(hier_axis0_scatter_batched, x=x, levels=levels, coeffs=coeffs,
             index=index, acc=acc, axis=axis)
     g = x.shape[0]
@@ -604,19 +705,257 @@ def hier_axis0_scatter_batched(x: torch.Tensor, levels: Sequence[int],
         raise ValueError("index must be an int32 (G, P) map of the stack")
     if x.device.type == "cpu":
         return _axis0_scatter_plain(x, levels, coeffs, index, acc, axis=axis)
-    pred = _axis_pred(levels, axis, x)
     x = _check_stack(x)
-    index = _cuda_operand(index, "index")
     coeffs = _cuda_operand(coeffs, "coeffs")
     _cuda_operand(acc, "acc")
-    outer, n, inner = _view(x.shape[1:], axis)
-    lp, rp, lm, rm = pred
-    fn = _build.kernel("axis_pass_scatter_fwd", _DTYPE_TAG[x.dtype])
-    _raise_on(fn(x.data_ptr(), index.data_ptr(), coeffs.data_ptr(),
-                 acc.data_ptr(), acc.shape[0] - 1, lp.data_ptr(),
-                 rp.data_ptr(), lm.data_ptr(), rm.data_ptr(), g, outer, n,
-                 inner, _stream(x)), "axis_pass_scatter_fwd")
-    hier_axis0_scatter_batched.launches += g
+    table = scatter_table([(tuple(x.shape[1:]), tuple(int(l) for l in levels),
+                            axis)], [index.cpu().numpy().reshape(g, -1)],
+                          acc.shape[0] - 1)
+    _launch_scatter(x.reshape(-1), table, coeffs, acc)
+    hier_axis0_scatter_batched.launches += 2
+    return acc
+
+
+# ---------------------------------------------------------------------------
+# Grouped launches: every stack of a CT ingest at once
+# ---------------------------------------------------------------------------
+
+def _stack_spans(sizes: Sequence[int]) -> list:
+    """``(start, end)`` of consecutive stacks of ``sizes`` elements."""
+    ends = np.cumsum([0] + [int(n) for n in sizes])
+    return list(zip(ends[:-1].tolist(), ends[1:].tolist()))
+
+
+def _stack_size(shape: Sequence[int], levels) -> int:
+    return len(levels) * int(np.prod(shape, dtype=np.int64))
+
+
+def _check_grouped(x: torch.Tensor, sizes: Sequence[int], what: str) -> None:
+    if x.ndim != 1 or x.numel() != sum(sizes):
+        raise ValueError(f"{what} must be the flat concatenation of the "
+                         f"stacks ({sum(sizes)} values), got shape "
+                         f"{tuple(x.shape)}")
+
+
+def _forward_grouped_plain(x: torch.Tensor, stacks) -> torch.Tensor:
+    out = torch.empty_like(x)
+    sizes = [_stack_size(shape, levels) for shape, levels, _ in stacks]
+    for (a, b), (shape, levels, axes) in zip(_stack_spans(sizes), stacks):
+        y = x[a:b].view((len(levels),) + tuple(shape))
+        for k in axes:
+            if shape[k] > 1:
+                y = _axis_pass_plain(y, k, _axis_pred(
+                    _axis_levels(levels, k), k, y))
+        out[a:b] = y.reshape(-1)
+    return out
+
+
+@functools.lru_cache(maxsize=256)
+def _grouped_table(stacks, device: torch.device) -> _ForwardTable:
+    """The work table of ``hier_forward_grouped``'s ``stacks`` (each axis
+    of extent > 1 a pass).  Cached: built once per stacks and device."""
+    sizes = [_stack_size(shape, levels) for shape, levels, _ in stacks]
+    return _forward_table([
+        (a, len(levels), tuple(shape), [
+            (k, _pred_tensors(tuple(lv[k] for lv in levels), shape[k],
+                              device)) for k in axes if shape[k] > 1])
+        for (a, _), (shape, levels, axes) in zip(_stack_spans(sizes),
+                                                 stacks)], device)
+
+
+def hier_forward_grouped(x: torch.Tensor, stacks) -> torch.Tensor:
+    """Forward passes over several bucket stacks at once: the passes before
+    each bucket's last in a CT ingest.
+
+    ``x`` is the flat concatenation of the stacks, stack i a (G_i,
+    *shape_i) array; ``stacks[i] = (shape_i, member_levels_i, axes_i)``
+    (hashable tuples), ``axes_i`` the bucket axes to pass along, in order
+    (a level-1 axis is the identity).  Returns a new flat tensor, each
+    stack passed along its axes, bitwise what ``forward_passes`` gives
+    stack by stack.  On CUDA: ONE ``axis_pass_fwd`` launch, a block a
+    member, every member of every stack (the work table is built once per
+    ``stacks`` and device)."""
+    _record(hier_forward_grouped, x=x, stacks=stacks)
+    _check_grouped(x, [_stack_size(s, lv) for s, lv, _ in stacks], "x")
+    if x.device.type == "cpu":
+        return _forward_grouped_plain(x, stacks)
+    x = _check_stack(x)
+    out = torch.empty_like(x)
+    _launch_forward(x, out, _grouped_table(stacks, x.device))
+    hier_forward_grouped.launches += 1
+    return out
+
+
+class _ScatterBucket(ctypes.Structure):
+    """``axis_pass_scatter_fwd.cu``'s ``ScatterBucket``."""
+    _fields_ = [(f, ctypes.c_int64) for f in (
+        "start", "member", "first", "n", "inner", "lp", "rp", "lm", "rm")]
+
+
+class ScatterTable:
+    """The slot-owner table of a grouped scatter (``scatter_table``).
+
+    ``stacks[b] = (shape, levels, axis)``: bucket b's stack shape, its
+    members' levels along its last pass axis ``axis``, laid out one after
+    the other in the concatenation.  ``entries`` (int32) are element
+    offsets into that concatenation, run by run; owner i is fine slot
+    ``slots[i]`` and its run is ``entries[offsets[i]:offsets[i + 1]]``, in
+    global member order (bucket order, then member order); owners with
+    longer runs come first, ``long_owners`` of them longer than 32.
+    ``dump`` is the fine buffer's pad slot, which no entry lists."""
+
+    def __init__(self, stacks, entries, slots, offsets, dump):
+        self.stacks = tuple(stacks)
+        self.entries, self.slots, self.offsets = entries, slots, offsets
+        self.dump = int(dump)
+        counts = np.diff(offsets)
+        self.long_owners = int((counts > 32).sum())
+        sizes = [_stack_size(shape, lv) for shape, lv, _ in self.stacks]
+        self.spans = _stack_spans(sizes)
+        self.size = sum(sizes)
+        self.members = sum(len(lv) for _, lv, _ in self.stacks)
+        # alive[r]: owners whose run is longer than r (a prefix)
+        self.alive = np.searchsorted(-counts, -np.arange(
+            int(counts.max()) if counts.size else 0), side="left")
+        self._on: dict = {}
+        self._lock = threading.Lock()
+
+    @property
+    def owners(self) -> int:
+        return len(self.slots)
+
+    def on(self, device: torch.device) -> dict:
+        """The table's tensors on ``device`` (built once per device):
+        ``entries``, ``slots``, ``offsets`` and, on CUDA, the packed
+        ``ScatterBucket`` structs (``buckets``) and the predecessor tensors
+        they point at."""
+        with self._lock:
+            t = self._on.get(device)
+            if t is not None:
+                return t
+        t = {k: torch.from_numpy(v).to(device) for k, v in (
+            ("entries", self.entries), ("slots", self.slots),
+            ("offsets", self.offsets))}
+        if device.type == "cuda":
+            bk = (_ScatterBucket * max(1, len(self.stacks)))()
+            keep, first = [], 0
+            for b, ((shape, levels, axis), (start, _)) in enumerate(
+                    zip(self.stacks, self.spans)):
+                pred = _pred_tensors(levels, shape[axis], device)
+                _, n, inner = _view(shape, axis)
+                bk[b].start, bk[b].first = start, first
+                bk[b].member = int(np.prod(shape, dtype=np.int64))
+                bk[b].n, bk[b].inner = n, inner
+                bk[b].lp, bk[b].rp, bk[b].lm, bk[b].rm = (
+                    p.data_ptr() for p in pred)
+                keep += pred
+                first += len(levels)
+            t["buckets"] = torch.frombuffer(bytearray(bk),
+                                            dtype=torch.uint8).to(device)
+            t["keep"] = keep
+        with self._lock:
+            return self._on.setdefault(device, t)
+
+
+def scatter_table(stacks, indices, dump: int) -> ScatterTable:
+    """Build the slot-owner table of a grouped scatter on the host.
+
+    ``stacks[b] = (shape, levels, axis)`` as in ``ScatterTable``;
+    ``indices[b]`` is bucket b's (G, P) int map into the fine buffer, its
+    pad positions on ``dump``.  Each member's map must be injective off the
+    dump slot.  A stable sort by slot of the concatenation's non-pad
+    positions gives every slot's entries in global member order."""
+    flat = np.concatenate([np.asarray(i).reshape(-1) for i in indices]) \
+        if len(indices) else np.zeros(0, np.int64)
+    if flat.size >= 2 ** 31:
+        raise ValueError("the stacks exceed the table's int32 offsets")
+    pos = np.flatnonzero(flat != dump)
+    slot = flat[pos]
+    order = np.argsort(slot, kind="stable")
+    pos, slot = pos[order], slot[order]
+    first = np.flatnonzero(np.r_[True, slot[1:] != slot[:-1]]) \
+        if slot.size else np.zeros(0, np.int64)
+    counts = np.diff(np.r_[first, slot.size])
+    rank = np.argsort(-counts, kind="stable")      # longest runs first
+    counts = counts[rank]
+    offsets = np.r_[0, np.cumsum(counts)].astype(np.int64)
+    take = np.repeat(first[rank] - offsets[:-1], counts) + np.arange(
+        offsets[-1])
+    return ScatterTable(stacks, pos[take].astype(np.int32),
+                        slot[first[rank]].astype(np.int32), offsets, dump)
+
+
+def _check_scatter(y, table: ScatterTable, coeffs, acc) -> None:
+    if acc.dtype != y.dtype or coeffs.dtype != y.dtype:
+        raise TypeError("acc and coeffs must have the stacks' dtype")
+    if acc.ndim != 1 or not acc.is_contiguous() or \
+            acc.shape[0] != table.dump + 1:
+        raise ValueError(f"acc must be a contiguous 1-D fine buffer of "
+                         f"{table.dump + 1} values (the dump slot last)")
+    if coeffs.numel() != table.members:
+        raise ValueError(f"expected {table.members} coefficients, got "
+                         f"{coeffs.numel()}")
+    _check_grouped(y, [b - a for a, b in table.spans], "y")
+
+
+def _scatter_grouped_plain(y: torch.Tensor, table: ScatterTable,
+                           coeffs: torch.Tensor,
+                           acc: torch.Tensor) -> torch.Tensor:
+    """The kernel's function on the same table: every entry's weighted
+    surplus, then the runs folded rank by rank (at rank r the owners with
+    a run longer than r, each slot once)."""
+    t = table.on(y.device)
+    prods, first = [], 0
+    for (shape, levels, axis), (a, b) in zip(table.stacks, table.spans):
+        g = len(levels)
+        v = y[a:b].view((g,) + tuple(shape))
+        alpha = _axis_pass_plain(v, axis, _axis_pred(levels, axis, v))
+        prods.append((coeffs[first:first + g, None]
+                      * alpha.reshape(g, -1)).reshape(-1))
+        first += g
+    p = torch.cat(prods)[t["entries"].long()] if prods else y[:0]
+    slots, offsets = t["slots"].long(), t["offsets"]
+    for r, k in enumerate(table.alive.tolist()):
+        s = slots[:k]
+        acc[s] = acc[s] + p[offsets[:k] + r]
+    return acc
+
+
+def _launch_scatter(y: torch.Tensor, table: ScatterTable,
+                    coeffs: torch.Tensor, acc: torch.Tensor) -> None:
+    t = table.on(y.device)
+    prod = torch.empty(len(table.entries), dtype=y.dtype, device=y.device)
+    fn = _build.kernel("axis_pass_scatter_fwd", _DTYPE_TAG[y.dtype])
+    _raise_on(fn(t["buckets"].data_ptr(), len(table.stacks),
+                 t["entries"].data_ptr(), len(table.entries),
+                 t["slots"].data_ptr(), t["offsets"].data_ptr(),
+                 table.owners, table.long_owners, y.data_ptr(),
+                 coeffs.data_ptr(), prod.data_ptr(), acc.data_ptr(),
+                 _stream(y)), "axis_pass_scatter_fwd")
+
+
+def hier_scatter_grouped(y: torch.Tensor, table: ScatterTable,
+                         coeffs: torch.Tensor,
+                         acc: torch.Tensor) -> torch.Tensor:
+    """Fused epilogue of a CT ingest over every bucket at once: each
+    bucket's last forward pass along its table axis, weighted by its
+    members' coefficients and added into the flat fine buffer ``acc``
+    (the fine grid plus the dump slot), IN PLACE.
+
+    ``y`` is the flat concatenation of the stacks (``table.stacks``'s
+    layout), ``coeffs`` the (total members,) coefficients in plan order.
+    Per fine slot the adds run once per member, in global member order:
+    the left fold of per-bucket, per-member scatters, so the bits are
+    those of ``hier_axis0_scatter_batched`` bucket by bucket.  On CUDA: two
+    ``axis_pass_scatter_fwd`` launches (products, then the ordered fold)."""
+    _record(hier_scatter_grouped, y=y, table=table, coeffs=coeffs, acc=acc)
+    _check_scatter(y, table, coeffs, acc)
+    if y.device.type == "cpu":
+        return _scatter_grouped_plain(y, table, coeffs, acc)
+    y = _check_stack(y)
+    _cuda_operand(acc, "acc")
+    _launch_scatter(y, table, _cuda_operand(coeffs, "coeffs"), acc)
+    hier_scatter_grouped.launches += 2
     return acc
 
 
@@ -700,6 +1039,31 @@ def _operator_tiles(level: int, inverse: bool, dtype: torch.dtype,
             torch.from_numpy(slabs).to(device))
 
 
+_NONFINITE_STATE: dict = {}
+
+
+def _strips(outer: int, inner: int) -> int:
+    """Column strips (64 lines each, one per block column) of an operator
+    pass over an (outer, n, inner) view."""
+    tile = OPERATOR_TILE[0]
+    return -(-outer // tile) if inner == 1 else outer * -(-inner // tile)
+
+
+def _nonfinite_state(x: torch.Tensor, strips: int) -> torch.Tensor:
+    """The device state of the operator kernels' non-finite repair
+    (``operator_slab_tile.cuh``'s ``NonFinite``) for passes of up to
+    ``strips`` column strips: a 64-line mask (two words) a strip, zero
+    between calls (the repair launch zeroes what it reads), one per device
+    and stream, grown when a call needs more."""
+    key = (x.device, _stream(x))
+    words = 2 * strips
+    state = _NONFINITE_STATE.get(key)
+    if state is None or state.numel() < words:
+        state = torch.zeros(words, dtype=torch.int32, device=x.device)
+        _NONFINITE_STATE[key] = state
+    return state
+
+
 def _pole_plain(x: torch.Tensor, *, reduced_op: bool = True) -> torch.Tensor:
     return ref.hierarchize_1d_ref(x, 0, reduced_op=reduced_op)
 
@@ -777,8 +1141,10 @@ def apply_axis_matmul(x: torch.Tensor, *,
     product ``H . x`` (``H^-1 . x`` with ``inverse``).  On CUDA: one
     ``axis_operator`` launch (f64 on the tensor cores, f32, or bf16 summed
     in f32) that multiplies only the operator's nonzero tiles
-    (``_operator_tiles``); a NaN or Inf in ``x`` then reaches only the row
-    tiles whose operator entries touch it, not its whole column."""
+    (``_operator_tiles``), then a repair launch on the same stream that
+    gives a column holding a NaN or Inf the dense product's non-finite
+    pattern, as the plain version has it (it returns at once on finite
+    input; ``apply_axis_matmul.launches`` counts the tile launches)."""
     _record(apply_axis_matmul, x=x, inverse=inverse)
     level = _bundle_level(x)
     if level == 1:
@@ -789,10 +1155,11 @@ def apply_axis_matmul(x: torch.Tensor, *,
     tiles, offsets, slabs = _operator_tiles(level, inverse,
                                             _op_dtype(x.dtype), x.device)
     out = torch.empty_like(x)
+    state = _nonfinite_state(x, _strips(1, x.shape[1]))
     _raise_on(_build.kernel("axis_operator", _GRID_TAG[x.dtype])(
         tiles.data_ptr(), offsets.data_ptr(), slabs.data_ptr(), x.data_ptr(),
-        out.data_ptr(), x.shape[0], x.shape[1], *OPERATOR_TILE, _stream(x)),
-        "axis_operator")
+        out.data_ptr(), state.data_ptr(), x.shape[0], x.shape[1],
+        *OPERATOR_TILE, _stream(x)), "axis_operator")
     apply_axis_matmul.launches += 1
     return out
 
@@ -810,10 +1177,10 @@ def hier_fused_tail(x: torch.Tensor, *, inverse: bool = False) -> torch.Tensor:
     with the per-axis operators.  On CUDA: one ``fused_tail`` call (d <=
     10) that launches one pass per tail axis of extent > 1 (none when every
     tail axis has extent 1), each multiplying only the operator's nonzero
-    tiles (``_operator_tiles``); a NaN or Inf in ``x`` then reaches only
-    the output tiles whose operator entries touch it, as in
-    ``apply_axis_matmul``.  ``hier_fused_tail.launches`` counts the
-    passes."""
+    tiles (``_operator_tiles``), each followed by a repair launch that
+    gives a line holding a NaN or Inf the dense product's non-finite
+    pattern, as in ``apply_axis_matmul``.  ``hier_fused_tail.launches``
+    counts the passes."""
     _record(hier_fused_tail, x=x, inverse=inverse)
     if x.ndim < 2:
         raise ValueError("need >= 2 dims; use apply_axis_matmul for 1-D")
@@ -839,8 +1206,11 @@ def hier_fused_tail(x: torch.Tensor, *, inverse: bool = False) -> torch.Tensor:
     ptrs = lambda ts: (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
     tiles, offsets, slabs = zip(*ops)
     out = torch.empty_like(x)
+    state = _nonfinite_state(x, max(_strips(o, i)
+                                    for o, i in zip(outer, inner)))
     _raise_on(_build.kernel("fused_tail", _GRID_TAG[x.dtype])(
-        x.data_ptr(), ws_ptrs[0], ws_ptrs[1], out.data_ptr(), len(passes),
+        x.data_ptr(), ws_ptrs[0], ws_ptrs[1], out.data_ptr(),
+        state.data_ptr(), len(passes),
         ints(outer), ints(n), ints(inner), ptrs(tiles), ptrs(offsets),
         ptrs(slabs), *OPERATOR_TILE, _stream(x)), "fused_tail")
     hier_fused_tail.launches += len(passes)
@@ -872,12 +1242,14 @@ def dehierarchize_nd_fused(a: torch.Tensor) -> torch.Tensor:
 
 WRAPPERS = (hier_tail_batched, hier_axis0_batched, hier_axis0_scatter_batched,
             dehier_tail_batched, dehier_axis0_batched,
-            hier_pole, dehier_pole, apply_axis_matmul, hier_fused_tail)
+            hier_pole, dehier_pole, apply_axis_matmul, hier_fused_tail,
+            hier_forward_grouped, hier_scatter_grouped)
 for _w, _plain in zip(WRAPPERS, (_tail_plain, _axis0_plain,
                                  _axis0_scatter_plain, _dehier_tail_plain,
                                  _dehier_axis0_plain, _pole_plain,
                                  _dehier_pole_plain, _axis_matmul_plain,
-                                 _fused_tail_plain)):
+                                 _fused_tail_plain, _forward_grouped_plain,
+                                 _scatter_grouped_plain)):
     _w.launches = 0
     _w.plain = _plain
 

@@ -27,7 +27,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.executor import build_plan, ct_transform_with_plan
+from repro_torch.core.executor import (MergeConfig, build_plan,
+                                       ct_transform_with_plan)
 from repro_torch.core.levels import (CombinationScheme, GeneralScheme,
                                      grid_shape)
 from repro_torch.core.iterated import run_iterated_heat
@@ -139,11 +140,13 @@ def test_wrappers_count_launches(cuda):
                torch.float64).to(cuda)
     with H.count_launches() as n:
         H.hierarchize_batched(x, levels)
-    assert n == {"hier_tail_batched": 2, "hier_axis0_batched": 1,
+    # axis 0, then both tail axes in one launch
+    assert n == {"hier_tail_batched": 1, "hier_axis0_batched": 1,
                  "hier_axis0_scatter_batched": 0, "dehier_tail_batched": 0,
                  "dehier_axis0_batched": 0, "hier_pole": 0,
                  "dehier_pole": 0, "apply_axis_matmul": 0,
-                 "hier_fused_tail": 0}
+                 "hier_fused_tail": 0, "hier_forward_grouped": 0,
+                 "hier_scatter_grouped": 0}
     with H.count_launches() as n:
         H.dehierarchize_batched(x, levels)
     assert {k: v for k, v in n.items() if v} == {"dehier_tail_batched": 2,
@@ -280,6 +283,100 @@ def test_surrogate_card_matches_cpu(cuda):
 
 
 # ---------------------------------------------------------------------------
+# The grouped ingest kernels (rows 5, 7 and 9 of the TPU-kernel table)
+# ---------------------------------------------------------------------------
+
+GROUPED = {
+    "prod_3d": lambda: build_plan(CombinationScheme(3, 9)),
+    "prod_3d_merged": lambda: build_plan(CombinationScheme(3, 9),
+                                         merge=MergeConfig()),
+    "regular_4_6": lambda: build_plan(CombinationScheme(4, 6)),
+    "fig8_10d": lambda: build_plan(CombinationScheme(10, 3)),
+    # 32767-long and 255 x 255 members: the forward kernel's device-memory
+    # branch
+    "long_axis_2_15": lambda: build_plan(CombinationScheme(2, 15)),
+}
+
+
+def _grouped_scatter_table(plan, table, rng):
+    """The plan's slot-owner table, or, where the plan's fine grid is over
+    2**28 values, one of the same stacks on random injective maps into a
+    compact fine buffer (members overlapping, pads on the dump slot)."""
+    sc = table.scatter
+    if plan.fine_size <= 1 << 28:
+        return sc
+    fine = 2 * sc.size
+    maps = []
+    for b in plan.buckets:
+        real = b.index != plan.fine_size
+        maps.append(np.where(real, np.stack([
+            rng.permutation(fine)[:b.index.shape[1]]
+            for _ in range(b.index.shape[0])]), fine).astype(np.int32))
+    return H.scatter_table(sc.stacks, maps, fine)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", sorted(GROUPED))
+def test_grouped_kernels_match_plain(cuda, name, dtype):
+    """One launch of the grouped forward passes and two of the grouped
+    scatter over every bucket of the plan, each bitwise its plain version
+    (the scatter from a random starting fine buffer, +-1 and +-3
+    coefficients)."""
+    from repro_torch.core.executor import _ingest_table
+    plan = GROUPED[name]()
+    table = _ingest_table(plan)
+    rng = np.random.default_rng(30)
+    x = torch.from_numpy(rng.standard_normal(table.scatter.size)).to(dtype)
+    with H.count_launches() as n:
+        y = H.hier_forward_grouped(x.to(cuda), table.stacks)
+    want = H.hier_forward_grouped(x, table.stacks)
+    assert _same(y, want)
+    sc = _grouped_scatter_table(plan, table, rng)
+    cs = torch.from_numpy(rng.choice([-3.0, -1.0, 1.0, 3.0],
+                                     sc.members)).to(dtype)
+    acc = torch.zeros(sc.dump + 1, dtype=dtype)
+    acc[torch.from_numpy(sc.slots).long()] = torch.from_numpy(
+        rng.standard_normal(sc.owners)).to(dtype)
+    with H.count_launches() as m:
+        got = H.hier_scatter_grouped(y, sc, cs.to(cuda), acc.to(cuda))
+    assert _same(got, H.hier_scatter_grouped(want, sc, cs, acc))
+    assert n["hier_forward_grouped"] == 1 and m["hier_scatter_grouped"] == 2
+
+
+FORWARD_STACKS = (
+    # device memory: 3 passes (scratch twice), then 2 passes (once)
+    ((31, 63, 127), ((5, 6, 7),), (0, 1, 2)),
+    ((3, 127, 127), ((2, 7, 7), (2, 7, 6), (1, 6, 7)), (1, 2)),
+    # shared memory, a level-1 axis, a stack with no pass (a copy)
+    ((7, 1, 15), ((3, 1, 4), (2, 1, 3)), (2, 1, 0)),
+    ((15,), ((4,), (2,)), ()),
+)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_grouped_forward_device_memory_branch(cuda, dtype):
+    """Members past two shared buffers (116,224 bytes each) walk their
+    passes in device memory, ping-ponging through the scratch."""
+    rng = np.random.default_rng(31)
+    size = sum(len(lv) * int(np.prod(s)) for s, lv, _ in FORWARD_STACKS)
+    x = torch.from_numpy(rng.standard_normal(size)).to(dtype)
+    got = H.hier_forward_grouped(x.to(cuda), FORWARD_STACKS)
+    assert _same(got, H.hier_forward_grouped(x, FORWARD_STACKS))
+
+
+def test_prod_3d_ingest_makes_three_launches(cuda):
+    scheme = CombinationScheme(3, 9)
+    rng = np.random.default_rng(32)
+    grids = {ell: torch.from_numpy(rng.standard_normal(grid_shape(ell)))
+             .to(cuda) for ell, _ in scheme.grids}
+    plan = build_plan(scheme)
+    with H.count_launches() as n:
+        ct_transform_with_plan(grids, plan, device=cuda)
+    assert {k: v for k, v in n.items() if v} == {
+        "hier_forward_grouped": 1, "hier_scatter_grouped": 2}
+
+
+# ---------------------------------------------------------------------------
 # The per-grid kernels (rows 1-4 of the TPU-kernel table)
 # ---------------------------------------------------------------------------
 
@@ -332,17 +429,74 @@ def test_axis_operator_f64_runs_on_dmma(cuda):
     assert len(counts) == 1 and all(counts.values()), counts
 
 
-def test_axis_operator_keeps_a_nan_in_its_row_tiles(cuda):
-    """The kernel skips the operator's zero tiles: an Inf at x[0, 0] (only
-    H[0, 0] touches it) makes rows 0..63 of column 0 non-finite (the first
-    64-row tile, 0 * Inf there) and leaves the rest of the column finite,
-    where the dense product would spread it to the whole column."""
-    x = _bundle(9, 70, 15)
-    x[0, 0] = float("inf")
-    got = H.apply_axis_matmul(x.to(cuda)).cpu()
-    assert not torch.isfinite(got[:64, 0]).any()
-    assert torch.isfinite(got[64:, 0]).all()
-    assert torch.isfinite(got[:, 1:]).all()
+def _same_masks(got, want):
+    """NaN, +Inf and -Inf at the same places; the finite rest held to the
+    operator kernels' tolerances (bf16: one bf16 ulp + 2**-12)."""
+    got = got.cpu()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    for mask in (torch.isnan, torch.isposinf, torch.isneginf):
+        assert torch.equal(mask(got), mask(want)), mask.__name__
+    fin = torch.isfinite(want)
+    g, w = got[fin].double(), want[fin].double()
+    if want.dtype == torch.bfloat16:
+        bar = torch.exp2((torch.frexp(w.float()).exponent - 8).double()) \
+            + 2.0 ** -12
+    else:
+        bar = OP_TOL[want.dtype]["atol"] + OP_TOL[want.dtype]["rtol"] * w.abs()
+    assert bool(((g - w).abs() <= bar).all())
+
+
+def _non_finite(x, seed):
+    """``x`` with three +Infs, three -Infs and three NaNs at seeded
+    places."""
+    rng = np.random.default_rng(seed)
+    x = x.clone()
+    flat = x.view(-1)
+    picks = torch.from_numpy(rng.choice(flat.numel(), 9, replace=False))
+    flat[picks[:3]] = float("inf")
+    flat[picks[3:6]] = float("-inf")
+    flat[picks[6:]] = float("nan")
+    return x
+
+
+NONFINITE_DTYPES = DTYPES + [torch.bfloat16]
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("dtype", NONFINITE_DTYPES)
+def test_axis_operator_spreads_non_finite_as_the_plain_version(
+        cuda, dtype, inverse):
+    """Row 3 multiplies only the operator's nonzero tiles; its last block
+    repairs each column that holds a NaN or Inf, so the card gives the
+    dense product's NaN / +-Inf pattern (the plain version's), not one
+    kept inside the tiles that touch it."""
+    x = _bundle(9, 70, 15).to(dtype)
+    x[0, 0] = float("inf")         # only H[0, 0] touches it along axis 0
+    x[[5, 300], 2] = torch.tensor([float("inf"), float("-inf")]).to(dtype)
+    x[200, 3] = float("nan")
+    x[:, 1] = float("-inf")        # a whole column
+    x = _non_finite(x, 21)
+    got = H.apply_axis_matmul(x.to(cuda), inverse=inverse)
+    want = H.apply_axis_matmul.plain(x, inverse=inverse)
+    assert not torch.isfinite(want[:, 0]).any()
+    _same_masks(got, want)
+    # the state is left clean: a finite call afterwards is finite
+    y = _bundle(9, 70, 16).to(dtype)
+    assert torch.isfinite(H.apply_axis_matmul(y.to(cuda))).all()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_axis_operator_fully_non_finite(cuda, dtype):
+    """Every column marked: a 511 x 4096 bundle of NaN and +-Inf."""
+    rng = np.random.default_rng(22)
+    x = torch.from_numpy(rng.choice([np.inf, -np.inf, np.nan],
+                                    (511, 4096))).to(dtype)
+    for inverse in (False, True):
+        got = H.apply_axis_matmul(x.to(cuda), inverse=inverse)
+        _same_masks(got, H.apply_axis_matmul.plain(x, inverse=inverse))
+    x[:, ::2] = 1.0                # every other column finite
+    _same_masks(H.apply_axis_matmul(x.to(cuda)),
+                H.apply_axis_matmul.plain(x))
 
 
 TAIL_SHAPES = [(7, 7), (15, 3), (3, 7, 15), (7, 3, 3, 7), (3, 1, 7),
@@ -413,20 +567,33 @@ def test_fused_tail_launches_once_per_live_axis(cuda):
         assert n["hier_fused_tail"] == 2 * passes, shape
 
 
-def test_fused_tail_keeps_a_nan_in_its_tiles(cuda):
-    """Row 4 walks only the operator's nonzero tiles, as row 3 does: an
-    Inf at x[0, 0, 0] (only H[0, 0] touches it along either axis, and only
-    the first 64-row tile lists its slab) makes x[0, :64, :64] non-finite
-    and leaves the rest of the grid finite, where the dense products would
-    spread it over the whole of x[0]."""
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("dtype", NONFINITE_DTYPES)
+@pytest.mark.parametrize("shape", [(3, 127, 127), (7, 63, 15, 127)],
+                         ids=str)
+def test_fused_tail_spreads_non_finite_as_the_plain_version(
+        cuda, shape, dtype, inverse):
+    """Row 4 repairs each pass's lines that hold a NaN or Inf before the
+    next pass reads them: the grid gets the dense products' NaN / +-Inf
+    pattern (the plain version's), in both operand roles."""
     x = torch.from_numpy(np.random.default_rng(18).standard_normal(
-        (3, 127, 127)))
-    x[0, 0, 0] = float("inf")
-    got = H.hier_fused_tail(x.to(cuda)).cpu()
-    assert not torch.isfinite(got[0, :64, :64]).any()
-    assert torch.isfinite(got[0, 64:]).all()
-    assert torch.isfinite(got[0, :, 64:]).all()
-    assert torch.isfinite(got[1:]).all()
+        shape)).to(dtype)
+    x[(0,) * len(shape)] = float("inf")
+    x[(1, slice(None)) + (2,) * (len(shape) - 2)] = float("nan")  # a line
+    x = _non_finite(x, 23)
+    got = H.hier_fused_tail(x.to(cuda), inverse=inverse)
+    _same_masks(got, H.hier_fused_tail.plain(x, inverse=inverse))
+    y = torch.from_numpy(np.random.default_rng(19).standard_normal(shape))
+    assert torch.isfinite(H.hier_fused_tail(y.to(dtype).to(cuda))).all()
+
+
+def test_fused_tail_fully_non_finite(cuda):
+    rng = np.random.default_rng(24)
+    x = torch.from_numpy(rng.choice([np.inf, -np.inf, np.nan],
+                                    (31, 63, 127)))
+    for inverse in (False, True):
+        _same_masks(H.hier_fused_tail(x.to(cuda), inverse=inverse),
+                    H.hier_fused_tail.plain(x, inverse=inverse))
 
 
 @pytest.mark.parametrize("inverse", [False, True])
