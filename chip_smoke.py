@@ -9,23 +9,33 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds each kernel wrapper against its plain PyTorch version (bitwise, f64
 and f32) on the calls of an ingest of the production configuration
 ``prod_3d`` (``CombinationScheme(3, 9)``: 109 grids in 25 buckets, a 511^3
-fine grid, 1.07 GB in f64), which are two: the grouped forward passes
-(rows 5 and 7, one launch) and the grouped ordered scatter (row 9, two
-launches); then on the long-axis stacks of ``CombinationScheme(2, 15)``
-(each per-bucket wrapper, and the grouped kernels over the whole plan,
-whose largest members walk device memory); then drives the port's main
-path — ``CTSurrogate`` construction, one ``update`` and three query
-batches of 1024 points — at full size, fails if an ingest makes more than
-three launches, and checks the result:
+fine grid, 1.07 GB in f64), which are three: the assembly of the member
+grids into the flat bucket stacks (one launch; replayed also on strided
+member grids), the grouped forward passes (rows 5 and 7, one launch) and
+the grouped ordered scatter (row 9, two launches); then on the long-axis
+stacks of ``CombinationScheme(2, 15)`` (each per-bucket wrapper, and the
+assembly and the grouped kernels over the whole plan, whose largest
+members walk device memory); then drives the port's main path —
+``CTEngine`` on the card with two ``prod_3d`` tenants of one plan
+signature (``bump`` and a second seeded function), ``CTSurrogate`` a view
+on the first, one ``update``, one query coalesced over both tenants and
+three query batches of 1024 points — at full size, fails if an ingest
+makes more than four launches, and checks the result:
 
-* fused and unfused ingest give the same bits;
-* the card's surplus is bitwise the port's CPU run;
+* the two tenants share one ingest executable (1 miss, 1 hit);
+* the coalesced query is one eval batch and each answer is bitwise that
+  tenant's one-tenant query;
+* fused and unfused ingest give the same bits, and each card surplus is
+  bitwise the port's CPU run;
 * 16 query points match the CPU eval (rtol 1e-12) and the direct
   combination of the grids' multilinear interpolants (rtol 1e-9);
-* the surplus checks again for ``CombinationScheme(4, 6)`` (coefficients
-  of +-3, which would expose a fused multiply-add in the scatter) and for
-  ``CombinationScheme(2, 11)`` (buckets in both of the reference's axis
-  orders; every ``prod_3d`` and ``fig7_4d`` bucket takes one order).
+* ``refit`` through the engine onto a refined scheme on the same fine
+  grid serves it on a new executable, its surplus bitwise the CPU run;
+* the surplus checks again for ``fig7_4d`` = ``CombinationScheme(4, 6)``
+  (coefficients of +-3, which would expose a fused multiply-add in the
+  scatter) and ``fig6_2d`` = ``CombinationScheme(2, 11)`` (buckets in
+  both of the reference's axis orders; every ``prod_3d`` and ``fig7_4d``
+  bucket takes one order).
 
 Then the second path, the per-grid (de)hierarchization of
 ``kernels.ops`` and the iterated combination round that drives it:
@@ -143,9 +153,14 @@ times in all, and if every try comes back empty takes that one time with
 CUDA events around the calls instead (device time plus launch gaps,
 printed as such).  It prints how many sessions came back empty.
 
-It prints the card's name and power limit, the kernels' ``-Xptxas -v``
-report, the timings, a ``{"kernels": [...]}`` JSON line (ten rows, in the
-order of ``PERF.md``'s table) and, last,
+The ingest is timed warm through ``engine.update`` and
+``CTSurrogate.update`` (median of ``ENGINE_UPDATES``) and profiled, the
+fine grid's fill reported beside the device busy time that holds it; the
+assembly's row times its recorded call against the present copy loop (its
+plain version).  It prints the card's name and power limit, the kernels'
+``-Xptxas -v`` report, the timings, a ``{"kernels": [...]}`` JSON line
+(eleven rows: the ten of ``PERF.md``'s table in its order, then the
+assembly) and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is
 then non-zero and no result line is printed.  Without a CUDA device, or
 without the rest of the repository, it exits non-zero at once.
@@ -184,6 +199,10 @@ FLASH_CASES = [  # b, sq, skv, h, kv, hd, causal
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the reference's bars
 
 KERNELS = {  # the main path's wrappers -> (CUDA source, TPU kernels)
+    "assemble_grouped": (
+        "src/repro_torch/kernels/csrc/assemble_members.cu",
+        # no TPU kernel: the reference's XLA-fused member assembly
+        "src/repro/core/executor.py:907"),
     "hier_forward_grouped": (
         "src/repro_torch/kernels/csrc/axis_pass_fwd.cu",
         {"tail": "src/repro/kernels/hierarchize.py:509",      # row 5
@@ -192,7 +211,8 @@ KERNELS = {  # the main path's wrappers -> (CUDA source, TPU kernels)
         "src/repro_torch/kernels/csrc/axis_pass_scatter_fwd.cu",
         "src/repro/kernels/hierarchize.py:657"),              # row 9
 }
-MAX_INGEST_LAUNCHES = 3          # rows 5, 7 and 9 together, per ingest
+MAX_INGEST_LAUNCHES = 4          # the assembly and rows 5, 7, 9, per ingest
+ENGINE_UPDATES = 7               # warm engine.update calls timed (median)
 SCATTER_KERNELS = {  # the scatter path: wrapper -> (source, TPU kernel)
     "dehier_tail_batched": (
         "src/repro_torch/kernels/csrc/axis_pass_inv.cu",
@@ -205,7 +225,7 @@ ROW = {"hier_pole": 1, "dehier_pole": 2, "apply_axis_matmul": 3,
        "hier_fused_tail": 4, "hier_forward_grouped:tail": 5,
        "dehier_tail_batched": 6, "hier_forward_grouped:axis0": 7,
        "dehier_axis0_batched": 8, "hier_scatter_grouped": 9,
-       "flash_attention": 10}
+       "flash_attention": 10, "assemble_grouped": 11}
 #: The per-bucket wrappers of rows 5, 7 and 9 (one-stack calls of the
 #: grouped kernels), checked on the long-axis stacks: row -> wrapper.
 PER_BUCKET = {"hier_forward_grouped:tail": "hier_tail_batched",
@@ -247,6 +267,21 @@ def bump(*xs):
     return out * (1.0 + 0.5 * xs[0] - 0.25 * xs[-1] ** 2)
 
 
+def seeded(seed: int):
+    """Another smooth function vanishing on the boundary, its shape drawn
+    from ``seed``: the second tenant's data."""
+    import numpy as np
+    a = np.random.default_rng(seed).uniform(-1.0, 1.0, 4)
+
+    def f(*xs):
+        out = 1.0
+        for x in xs:
+            out = out * 4.0 * x * (1.0 - x)
+        return out * (a[0] + a[1] * xs[0] + a[2] * xs[-1] ** 2
+                      + a[3] * xs[0] * xs[-1])
+    return f
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: the port's sources (src/repro_torch) are not "
@@ -274,6 +309,7 @@ def main() -> int:
     from repro_torch.core.levels import CombinationScheme, grid_shape
     from repro_torch.kernels import _build
     from repro_torch.kernels import hierarchize as H
+    from repro_torch.core.engine import CTEngine, clear_compile_cache
     from repro_torch.launch.serve import CTSurrogate
 
     PROD, FIG7, FIG6 = ((CT_CONFIGS[n].dim, CT_CONFIGS[n].level)
@@ -344,16 +380,11 @@ def main() -> int:
         sessions["empty"] += not ops
         return ops, wall_us
 
-    def profiled(label, fn):
-        """``fn`` once under the profiler: prints the host clock around it
-        (ending in a synchronise), the device's busy time and idle share
-        and its top device ops; returns the host-clock ms.  ``fn`` may
-        change state, so an empty session is reported, not run again."""
-        ops, wall_us = traced(fn)
-        if not ops:
-            print(f"profile {label}: wall {wall_us / 1e3:.3f} ms; the "
-                  f"profiler recorded no device activity  [{card}]")
-            return wall_us / 1e3
+    def report(label, ops, wall_us, calls=1):
+        """Prints, per call of ``calls``, the host clock, the device's busy
+        time (the union of the device ops' intervals) and idle share, the
+        device ops, the fills among them and the top ops; returns the
+        host-clock ms per call."""
         spans, by_name = [], {}
         for e in ops:
             a, b = e.time_range.start, e.time_range.end
@@ -365,13 +396,67 @@ def main() -> int:
             if b > end:
                 busy_us += b - max(a, end)
                 end = b
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
-        print(f"profile {label}: wall {wall_us / 1e3:.3f} ms, device busy "
-              f"{busy_us / 1e3:.3f} ms (idle share "
-              f"{1.0 - busy_us / wall_us:.3f}), {len(spans)} device ops; "
-              f"top: " + "; ".join(f"{k[:48]} x{n} {t / 1e3:.3f} ms"
-                                   for k, (n, t) in top) + f"  [{card}]")
-        return wall_us / 1e3
+        fills = [(n, t) for k, (n, t) in by_name.items()
+                 if "fill" in k.lower() or "memset" in k.lower()]
+        fill_us = sum(t for _, t in fills) / calls
+        wall, busy = wall_us / calls, busy_us / calls
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:7]
+        print(f"profile {label}: wall {wall / 1e3:.4f} ms, device busy "
+              f"{busy / 1e3:.4f} ms (idle share {1.0 - busy / wall:.4f}), "
+              f"{len(spans) / calls:.1f} device ops; fills "
+              f"{sum(n for n, _ in fills) / calls:.1f} ops "
+              f"{fill_us / 1e3:.4f} ms (inside the busy time; busy without "
+              f"them {(busy - fill_us) / 1e3:.4f} ms); top: " + "; ".join(
+                  f"{k[:48]} x{n / calls:.1f} {t / calls / 1e3:.4f} ms"
+                  for k, (n, t) in top) + f"  [{card}]")
+        return wall / 1e3
+
+    def profiled(label, fn):
+        """``fn`` once under the profiler, ending in a synchronise (see
+        ``report``).  ``fn`` may change state, so an empty session is
+        reported, not run again."""
+        ops, wall_us = traced(fn)
+        if not ops:
+            print(f"profile {label}: wall {wall_us / 1e3:.3f} ms; the "
+                  f"profiler recorded no device activity  [{card}]")
+            return wall_us / 1e3
+        return report(label, ops, wall_us)
+
+    def profiled_steps(label, fn, steps=5):
+        """``fn`` under the profiler, one warm-up call and then ``steps`` + 1
+        recorded calls, each ending in a synchronise; ``report`` per call
+        over the last ``steps``.  The first recorded call is left out (a
+        session can lose its first device activity), found by the
+        profiler's step marks on the device timeline, which are not device
+        ops themselves."""
+        torch.cuda.synchronize()
+        walls, events = [], []
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=torch.profiler.schedule(
+                         wait=0, warmup=1, active=steps + 1),
+                     on_trace_ready=lambda p: events.extend(
+                         p.events())) as prof:
+            for _ in range(steps + 2):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e6)
+                prof.step()
+        device = [e for e in events if e.device_type == DeviceType.CUDA]
+        marks = sorted(e.time_range.end for e in device
+                       if e.name.startswith("ProfilerStep"))
+        ops = [e for e in device if not e.name.startswith("ProfilerStep")]
+        sessions["all"] += 1
+        sessions["empty"] += not ops
+        if len(marks) != steps + 1:     # cannot tell the calls apart
+            return report(f"{label}, per call (mean of {steps + 1} after a "
+                          f"warm-up call; {len(marks)} step marks)", ops,
+                          sum(walls[1:]), steps + 1)
+        return report(f"{label}, per call (mean of {steps} after a warm-up "
+                      f"and a first recorded call)",
+                      [e for e in ops if e.time_range.start > marks[0]],
+                      sum(walls[2:]), steps)
 
     err = {k: 0.0 for k in [*ROW, *KERNELS, *PER_BUCKET.values()]}
     rng = np.random.default_rng(0)
@@ -389,18 +474,32 @@ def main() -> int:
     def replay(call, acc, *, plain=False, cpu=False):
         """Repeat a recorded wrapper call (or its plain version), with
         ``acc`` as the fine buffer and, if ``cpu``, CPU copies of the
-        other tensors."""
+        other tensors (the assembly's member grids too)."""
         wrapper, args = call
+        on = (lambda v: v.cpu()) if cpu else (lambda v: v)
         args = {k: acc if k == "acc" else
-                v.cpu() if cpu and torch.is_tensor(v) else v
+                on(v) if torch.is_tensor(v) else
+                [on(p) for p in v] if k == "parts" else v
                 for k, v in args.items()}
         return (wrapper.plain if plain else wrapper)(**args)
+
+    def strided(call):
+        """The assembly call with every member grid given as a strided
+        view (its axes reversed over a copy laid out the other way)."""
+        wrapper, args = call
+        parts = [p.permute(*reversed(range(p.ndim))).contiguous().permute(
+            *reversed(range(p.ndim))) for p in args["parts"]]
+        if all(p.is_contiguous() for p in parts):
+            fail("the strided assembly check has no strided member")
+        return wrapper, {**args, "parts": parts}
 
     def check_kernels(plan, grids, dtype, label):
         calls = record_ingest(plan, grids)
         acc_card = torch.zeros(plan.fine_size + 1, dtype=dtype, device=cuda)
         acc_cpu = torch.zeros(plan.fine_size + 1, dtype=dtype)
         counts = {}
+        if calls[0][0] is H.assemble_grouped:
+            calls.insert(1, strided(calls[0]))
         for call in calls:
             name = call[0].__name__
             counts[name] = counts.get(name, 0) + 1
@@ -421,7 +520,8 @@ def main() -> int:
             fail(f"hier_scatter_grouped differs from its plain version "
                  f"({label}, max err {e})")
         print(f"kernel check {label}: bitwise equal to the plain versions "
-              f"over {counts} wrapper calls")
+              f"over {counts} wrapper calls (the assembly's second on "
+              f"strided member grids)")
 
     def random_grids(scheme, dtype):
         return {ell: torch.from_numpy(rng.standard_normal(grid_shape(ell)))
@@ -505,31 +605,62 @@ def main() -> int:
         if not same(got, want):
             fail(f"hier_scatter_grouped differs on the long-axis plan "
                  f"({dtype})")
+    long_grids = random_grids(CombinationScheme(*LONG), torch.float64)
+    for dtype in (torch.float64, torch.float32):
+        parts = [long_grids[ell].to(dtype) for b in long_plan.buckets
+                 for ell in b.ells]
+        call = (H.assemble_grouped, {"parts": parts, "stacks": tuple(
+            (b.shape, b.perms) for b in long_plan.buckets)})
+        for c in (call, strided(call)):
+            got = replay(c, None)
+            want = replay(c, None, plain=True, cpu=True)
+            err["assemble_grouped"] = max(err["assemble_grouped"],
+                                          max_err(got, want))
+            if not same(got, want):
+                fail(f"assemble_grouped differs on the long-axis plan "
+                     f"({dtype})")
+    del long_grids, parts
     biggest = max(int(np.prod(shape)) for shape, _, _ in sc.stacks)
-    print(f"kernel check long-axis plan {LONG}: the grouped kernels over its "
+    print(f"kernel check long-axis plan {LONG}: the assembly and the "
+          f"grouped kernels over its "
           f"{len(long_plan.buckets)} buckets ({sc.size} values, members of "
           f"up to {biggest} values) bitwise equal in f64 and f32")
 
     # ------------------------------------------------------------------
-    # The main path at full size: CTSurrogate on prod_3d, f64
+    # The main path at full size: CTEngine on prod_3d, f64, two tenants of
+    # one signature, CTSurrogate a view on the first
     # ------------------------------------------------------------------
     grids = {ell: sample_function(bump, ell, device=cuda)
              for ell, _ in prod.grids}
+    wave = seeded(7)
+    grids2 = {ell: sample_function(wave, ell, device=cuda)
+              for ell, _ in prod.grids}
     points = [torch.from_numpy(np.random.default_rng(100 + i).random(
         (QUERY_BATCH, 3))) for i in range(QUERY_BATCHES)]
+    clear_compile_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for w in H.WRAPPERS:
         w.launches = 0
     t0 = time.perf_counter()
-    srv = CTSurrogate(prod, grids, device=cuda)
+    engine = CTEngine(device=cuda, ingest_workers=0)
+    srv = CTSurrogate(prod, grids, engine=engine, name="bump")
+    engine.register("wave", prod, grids2)
     torch.cuda.synchronize()
     construct_ms = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
-    with H.record_calls() as main_calls:     # replayed by the timings
-        srv.update(grids)
+    with H.record_calls() as main_calls, H.count_launches() as one_ingest:
+        engine.update("bump", grids)        # replayed by the timings
     torch.cuda.synchronize()
     ingest_ms = (time.perf_counter() - t0) * 1e3
+    eval_before = engine.stats()["eval"]
+    t0 = time.perf_counter()
+    futs = {n: engine.submit_query(n, points[0].numpy())
+            for n in ("bump", "wave")}
+    engine.flush()
+    coalesced = {n: f.result() for n, f in futs.items()}
+    coalesced_ms = (time.perf_counter() - t0) * 1e3
+    eval_after = engine.stats()["eval"]
     query_ms, answers = [], []
     for pts in points:
         t0 = time.perf_counter()
@@ -538,15 +669,39 @@ def main() -> int:
         query_ms.append((time.perf_counter() - t0) * 1e3)
     launches = {name: getattr(H, name).launches for name in KERNELS}
     peak = torch.cuda.max_memory_allocated()
-    print(f"main path prod_3d: launches per 2 ingests {launches}")
+    cache = engine.stats()["ingest_cache"]
+    print(f"main path prod_3d: launches per 3 ingests (two registers, one "
+          f"update) {launches}; one update "
+          f"{ {k: v for k, v in one_ingest.items() if v} }; executable "
+          f"cache {cache['misses']} miss, {cache['hits']} hit")
     for name, n in launches.items():
         if n == 0:
             fail(f"{name} was not launched on the main path")
     others = {w.__name__: w.launches for w in H.WRAPPERS
               if w.launches and w.__name__ not in KERNELS}
-    if others or sum(launches.values()) > 2 * MAX_INGEST_LAUNCHES:
-        fail(f"the two ingests launched {launches} and {others}: at most "
-             f"{MAX_INGEST_LAUNCHES} launches an ingest, of {sorted(KERNELS)}")
+    if others or sum(launches.values()) > 3 * MAX_INGEST_LAUNCHES \
+            or sum(one_ingest.values()) > MAX_INGEST_LAUNCHES:
+        fail(f"the three ingests launched {launches} and {others}, one "
+             f"update {one_ingest}: at most {MAX_INGEST_LAUNCHES} launches "
+             f"an ingest, of {sorted(KERNELS)}")
+    if (cache["misses"], cache["hits"]) != (1, 1):
+        fail(f"two tenants of one signature: expected 1 miss and 1 hit, "
+             f"got {cache}")
+    batches = eval_after["batches"] - eval_before["batches"]
+    merged_q = (eval_after["coalesced_queries"]
+                - eval_before["coalesced_queries"])
+    if (batches, merged_q) != (1, 1):
+        fail(f"the two tenants' queries made {batches} eval batches and "
+             f"{merged_q} coalesced queries, expected 1 and 1")
+    for name, got in coalesced.items():
+        alone = engine.query(name, points[0].numpy())
+        if got.shape != (QUERY_BATCH,) or not np.array_equal(
+                got.view(np.uint8), alone.view(np.uint8)):
+            fail(f"{name}: the coalesced answer differs from its one-tenant "
+                 f"query")
+    print(f"prod_3d coalesced query over both tenants: 1 eval batch, 1 "
+          f"coalesced query, each answer bitwise its one-tenant query; "
+          f"{coalesced_ms:.2f} ms for the pair  [{card}]")
 
     surplus = srv.surplus
     if surplus.shape != grid_shape((PROD[1],) * PROD[0]) or \
@@ -572,7 +727,8 @@ def main() -> int:
               f"fused/unfused and card/CPU")
         return cpu
 
-    cpu_surplus = check_surplus(prod, grids, surplus, "prod_3d")
+    check_surplus(prod, grids2, engine.surplus("wave"), "prod_3d wave")
+    cpu_surplus = check_surplus(prod, grids, surplus, "prod_3d bump")
     pts = points[0][:CHECK_POINTS]
     want = interpolate_hierarchical(cpu_surplus, pts).numpy()
     got = answers[0][:CHECK_POINTS]
@@ -585,6 +741,18 @@ def main() -> int:
           f" and the direct combination "
           f"(max abs err {float(np.max(np.abs(got - direct)))})")
     del cpu_surplus
+
+    # refit through the engine: a refined scheme on the same fine grid
+    extra = (PROD[1], 2) + (1,) * (PROD[0] - 2)
+    refined = prod.as_general().with_levels([extra])
+    grids3 = dict(grids2)
+    grids3[extra] = sample_function(wave, extra, device=cuda)
+    engine.refit("wave", refined, grids3)
+    if engine.scheme("wave") != refined or engine.stats()[
+            "ingest_cache"]["misses"] != 2:
+        fail("refit did not serve the refined scheme on a new executable")
+    check_surplus(refined, grids3, engine.surplus("wave"), "prod_3d refit")
+    del grids3
 
     for label, config in (("fig7_4d", FIG7), ("fig6_2d", FIG6)):
         scheme = CombinationScheme(*config)
@@ -1244,6 +1412,17 @@ def main() -> int:
               table.size * (item + 4) + 2 * len(table.entries) * item,
               "ingest", 1, launches["hier_scatter_grouped"] // 2,
               "scatter_")
+    # The assembly per prod_3d ingest: its recorded call, against the
+    # present copy loop (its plain version); bound: every member value
+    # read once, every stack value written once
+    asm_call, = [c for c in main_calls if c[0].__name__ == "assemble_grouped"]
+    asm_in = sum(p.numel() for p in asm_call[1]["parts"])
+    asm_out = replay(asm_call, acc).numel()
+    timed_row("assemble_grouped", *KERNELS["assemble_grouped"],
+              lambda: replay(asm_call, acc),
+              lambda: replay(asm_call, acc, plain=True), None,
+              launches["assemble_grouped"], (asm_in + asm_out) * item,
+              "ingest", 1, 1, ("assemble_members", "Memcpy"))
     # Rows 6 and 8 per prod_3d ct_scatter: the per-bucket inverse calls
     for name, (source, replaces) in SCATTER_KERNELS.items():
         mine = [c for c in scatter_calls if c[0].__name__ == name]
@@ -1649,7 +1828,38 @@ def main() -> int:
     # ------------------------------------------------------------------
     # Where the time goes: ingest, query and scatter under the profiler
     # ------------------------------------------------------------------
-    profiled("prod_3d ingest (update)", lambda: srv.update(grids))
+    update_ms = {"engine.update": [], "CTSurrogate.update": []}
+    for _ in range(ENGINE_UPDATES):
+        for label, fn in (("engine.update",
+                           lambda: engine.update("bump", grids)),
+                          ("CTSurrogate.update", lambda: srv.update(grids))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            update_ms[label].append((time.perf_counter() - t0) * 1e3)
+    print("prod_3d warm ingest, median of " + str(ENGINE_UPDATES) + ": "
+          + "; ".join(f"{k} {float(np.median(v)):.3f} ms (runs "
+                      + ", ".join(f"{x:.3f}" for x in v) + ")"
+                      for k, v in update_ms.items()) + f"  [{card}]")
+    profiled_steps("prod_3d ingest (engine.update)",
+                   lambda: engine.update("bump", grids))
+    profiled_steps("prod_3d ingest (CTSurrogate.update)",
+                   lambda: srv.update(grids))
+    pair = [points[1].numpy()] * 2
+
+    def two_tenant_query():
+        futs = [engine.submit_query(n, p) for n, p in zip(("bump", "wave"),
+                                                          pair)]
+        engine.flush()
+        return [f.result() for f in futs]
+
+    profiled_steps(f"prod_3d two-tenant coalesced query ({QUERY_BATCH} "
+                   f"points each)", two_tenant_query)
+    profiled_steps(f"prod_3d one-tenant query ({QUERY_BATCH} points)",
+                   lambda: srv.query(points[1].numpy()))
+    two_ms = wall_clock_ms(two_tenant_query)
+    one_ms = wall_clock_ms(lambda: srv.query(points[1].numpy()))
     scatter_ms = wall_clock_ms(
         lambda: E.ct_scatter_with_plan(srv.surplus, srv._plan, device=cuda))
     profiled("prod_3d ct_scatter",
@@ -1657,17 +1867,16 @@ def main() -> int:
                                             device=cuda))
     profiled("prod_3d iterated round (auto)",
              lambda: iterated.round(ITERATED["t_steps"]))
-    profiled(f"prod_3d query ({QUERY_BATCH} points)",
-             lambda: srv.query(points[1].numpy()))
     profiled(f"{LM_ARCH} prefill_step {PREFILL}",
              lambda: LM.prefill_step(model, cfg, batch))
     profiled(f"{LM_ARCH} serve_step (batch {SERVE['requests']})",
              lambda: LM.serve_step(model, cfg, decode_cache, decode_batch))
 
-    print(f"prod_3d CTSurrogate: construct {construct_ms:.1f} ms, ingest "
-          f"(update) {ingest_ms:.2f} ms, query per batch of {QUERY_BATCH} "
-          f"{', '.join(f'{q:.2f}' for q in query_ms)} ms; peak device "
-          f"memory {peak} B  [{card}]")
+    print(f"prod_3d CTEngine: construct (two tenants) {construct_ms:.1f} "
+          f"ms, first update {ingest_ms:.2f} ms, query per batch of "
+          f"{QUERY_BATCH} {', '.join(f'{q:.2f}' for q in query_ms)} ms; "
+          f"warm one-tenant query {one_ms:.2f} ms, two-tenant coalesced "
+          f"query {two_ms:.2f} ms; peak device memory {peak} B  [{card}]")
     print(f"scatter path: prod_3d ct_scatter {scatter_ms:.2f} ms (host clock, "
           f"warm; first call {scatter_first_ms:.2f} ms); aniso_6d adaptive "
           f"step {adaptive_step_ms:.2f} ms profiled (median unprofiled "

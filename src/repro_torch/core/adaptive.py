@@ -24,6 +24,7 @@ expansion, and the frontier is scored there in numpy.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -102,13 +103,34 @@ class AdaptiveDriver:
 
     def __init__(self, solver: Solver, dim: Optional[int] = None,
                  initial: Optional[GeneralScheme] = None,
-                 config: Optional[AdaptiveConfig] = None):
+                 config: Optional[AdaptiveConfig] = None, *, spec=None):
         if initial is None:
             if dim is None:
                 raise ValueError("pass dim or an initial GeneralScheme")
             initial = GeneralScheme.regular(dim, 1)   # {(1, ..., 1)}
         self.config = config or AdaptiveConfig()
+        if spec is not None:
+            # the spec is authoritative for the execution policy (merge,
+            # fused); budgets and indicators stay AdaptiveConfig's, and a
+            # conflicting config raises instead of being overwritten
+            from repro_torch.core.executor import ensure_spec
+            ensure_spec("AdaptiveDriver", spec)
+            if spec.dtype is not None:
+                raise ValueError(
+                    "AdaptiveDriver: spec.dtype is not supported — the "
+                    "driver scores surpluses in the solver's own dtype; "
+                    "cast the solver output instead")
+            have = self.config.merge
+            if have is not None and have != spec.merge:
+                raise ValueError(
+                    f"AdaptiveDriver: config.merge={have!r} conflicts with "
+                    f"spec.merge={spec.merge!r}; set the execution policy "
+                    f"in ONE place (the spec)")
+            self.config = dataclasses.replace(self.config, merge=spec.merge)
+        self.spec = spec
         self.device = resolve_device(self.config.device)
+        if spec is not None:
+            spec.resolve_interpret(self.device)
         self.solver = solver
         self.scheme = initial
         self._nodal: Dict[LevelVector, torch.Tensor] = {}
@@ -140,6 +162,7 @@ class AdaptiveDriver:
 
     def _retransform(self) -> None:
         self._surplus = ct_transform_with_plan(self._nodal, self.plan,
+                                               spec=self.spec,
                                                device=self.device)
         self._surplus_host = None        # host copy invalidated
 
@@ -249,10 +272,11 @@ class AdaptiveDriver:
 
 def refine(solver: Solver, dim: int,
            config: Optional[AdaptiveConfig] = None,
-           initial: Optional[GeneralScheme] = None) -> AdaptiveResult:
+           initial: Optional[GeneralScheme] = None, *,
+           spec=None) -> AdaptiveResult:
     """One-call dimension-adaptive refinement (see ``AdaptiveDriver``)."""
     return AdaptiveDriver(solver, dim=dim, initial=initial,
-                          config=config).run()
+                          config=config, spec=spec).run()
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,1256 @@
+"""CT execution front door: ``ExecSpec`` and the multi-tenant ``CTEngine``.
+
+Port of ``repro.core.engine`` on one device (CUDA, or the CPU where the
+caller asks for it).
+
+* ``ExecSpec`` — one frozen, hashable dataclass of execution policy,
+  accepted as ``spec=`` by ``build_plan``, ``extend_plan``, the
+  ``ct_transform`` / ``ct_scatter`` / ``ct_embedded`` families,
+  ``recombine_after_fault``, ``AdaptiveDriver``, ``make_ct_step`` /
+  ``make_ct_eval_step`` and ``CTSurrogate``.  The precedence rules are the
+  reference's (``core.executor.resolve_spec``): an explicit spec wins and a
+  conflicting legacy keyword raises; legacy keywords alone fold into a
+  spec and warn once per call-site family.  The device is no spec field:
+  an engine takes ``device=`` and every tenant lives there.
+* ``CTEngine`` — a thread-safe registry of named tenants (scheme + plan +
+  spec each) behind a deadline-aware batching queue, with ingest
+  executables shared by every tenant of one plan signature.
+
+What is not ported: meshes and slab or member sharding (``ExecSpec``'s
+``mesh``, ``n_slabs > 1`` and ``member_axis``, and ``rebind``) wait for
+ROADMAP A9; donation (``donate=True``) and the threaded stress tier for
+A5b; the durable store (``store=``, ``restore``, ``replay``,
+``snapshot_tenant``) for A7; the cluster's ``heartbeat`` and
+``submit_probe`` for A8.  Each raises ``NotImplementedError`` naming its
+item.
+
+Ingest executables
+------------------
+
+``register`` binds a tenant to the executable of its plan signature (the
+canonical bucket levels and axis permutations, the fine grid, and the
+execution-relevant spec fields), built once per signature in a
+process-global LRU of 64 and shared across engines.  The reference jits
+one XLA executable per signature; here the executable is an object that
+holds what the signature determines — each bucket's ``(shape, levels,
+axes)`` for ``hier_forward_grouped``, the stacks' layout for
+``assemble_grouped`` and the fused flag — and the device tables built from
+them at the first bind on a device (the spec gives the dtype policy).  The
+per-tenant arguments, bound once at ``register`` or a refit, are the
+plan's slot-owner table (``executor._ingest_table``) and its coefficients
+on the device.  A fused ingest on CUDA is then a fine-buffer fill, one
+copy of the assembly's pointer table and four launches (assembly, forward
+passes, two of the ordered scatter), however many grids the scheme has.
+
+Queries
+-------
+
+Queries coalesce by signature (surplus shape and dtype, point dtype and
+the padded batch extent) into eval batches, with the reference's counters
+and scheduling rules.  The reference stacks the group's surpluses for one
+vmapped eval; at ``prod_3d`` that stack would copy 1.07 GB per tenant,
+so here the group's requests are evaluated one by one inside the batch,
+each against its own tenant's surplus and its own unpadded points —
+exactly the call a one-tenant query makes, so every answer is bitwise
+that query's, whatever the batch.
+
+Threading
+---------
+
+As in the reference: ``submit_*`` from any thread; ``flush`` drains all,
+``pump`` what is due, ``start``/``stop`` run a scheduler thread.  Ingests
+run on a pool (shared, private with ``ingest_workers=N``, inline with
+``ingest_workers=0``), one ordered chain per tenant; a per-tenant
+watermark makes a query wait for the ingests submitted before it; an
+ingest commits by compare-and-swap on the tenant record, newest sequence
+number winning.  Before the commit the pool thread synchronises its CUDA
+stream, so a failed launch resolves the owning future.  One engine lock
+(an ``RLock`` under two conditions) guards the registry, queue, watermarks
+and counters; the executable cache's lock is a leaf; no device work runs
+under a lock.  The kernel wrappers' launch counters and ``record_calls``
+are not thread-safe: count with ``ingest_workers=0`` or one chain at a
+time.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import math
+import os
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.executor import (ExecutorPlan, MergeConfig,
+                                       _check_plan, _grids_on,
+                                       _ingest_fused, _ingest_table,
+                                       _ingest_unfused, build_plan,
+                                       extend_plan, plan_launch_stats,
+                                       reset_legacy_warnings)
+from repro_torch.core.interpolation import interpolate_hierarchical
+from repro_torch.core.levels import SchemeLike
+
+__all__ = ["ExecSpec", "CTEngine", "CTFuture", "EngineSaturated",
+           "RetryPolicy", "plan_signature", "reset_deprecation_warnings",
+           "clear_compile_cache"]
+
+
+def reset_deprecation_warnings() -> None:
+    """Re-arm the once-per-call-site legacy-keyword warnings (tests)."""
+    reset_legacy_warnings()
+
+
+def _not_ported(what: str, item: str, detail: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet: {detail} "
+                               f"(ROADMAP {item})")
+
+
+class EngineSaturated(RuntimeError):
+    """The engine's bounded request queue is full (admission control)."""
+
+
+class _RebindRace(RuntimeError):
+    """An ingest commit lost the compare-and-swap against a concurrent
+    refit's record swap; retried under the engine's ``RetryPolicy``."""
+
+
+@dataclass(frozen=True)
+class RetryPolicy:
+    """Bounded immediate retries: the part of the reference's
+    ``runtime.durability.RetryPolicy`` the ingest commit uses (it never
+    sleeps: losing the compare-and-swap means the record has already
+    changed, there is nothing to wait for)."""
+
+    attempts: int = 5
+
+    def __post_init__(self):
+        if self.attempts < 1:
+            raise ValueError(f"attempts must be >= 1, got {self.attempts}")
+
+    def run(self, fn: Callable[[], Any], *,
+            retry_on: Tuple[type, ...] = (Exception,)):
+        """Call ``fn`` up to ``attempts`` times; re-raise the last
+        failure."""
+        for attempt in range(self.attempts):
+            try:
+                return fn()
+            except retry_on:
+                if attempt == self.attempts - 1:
+                    raise
+
+
+def _dtype_name(dtype) -> str:
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).removeprefix("torch.")
+    return np.dtype(dtype).name
+
+
+@dataclass(frozen=True)
+class ExecSpec:
+    """One frozen config of execution policy (hashable: ``MergeConfig`` is
+    a frozen dataclass and ``dtype`` is canonicalized to its name), so a
+    spec can sit in cache keys.  Fields as the reference's; ``mesh``,
+    ``n_slabs > 1`` and ``member_axis`` raise (ROADMAP A9), ``donate=True``
+    raises (A5b)."""
+
+    #: bucket-merging cost model (``None`` = one bucket per canonical
+    #: shape): part of the PLAN
+    merge: Optional[MergeConfig] = None
+    mesh: Optional[Any] = None
+    axis_name: str = "slab"
+    n_slabs: Optional[int] = None
+    #: ingest epilogue: ``None``/``True`` fused, ``False`` unfused
+    fused: Optional[bool] = None
+    #: the reference's Pallas interpret mode.  The port's kernels have no
+    #: interpret mode: on the CPU the plain versions run whatever this
+    #: says, and ``True`` with a CUDA device raises (``resolve_interpret``)
+    interpret: Optional[bool] = None
+    #: accumulation dtype of an engine ingest (a name, e.g. ``"float64"``);
+    #: ``None`` = promote the input grid dtypes
+    dtype: Optional[str] = None
+    donate: bool = False
+    member_axis: Optional[str] = None
+
+    def __post_init__(self):
+        if self.dtype is not None:
+            object.__setattr__(self, "dtype", _dtype_name(self.dtype))
+        if self.n_slabs is not None and self.n_slabs < 1:
+            raise ValueError(f"n_slabs must be >= 1, got {self.n_slabs}")
+        if self.mesh is not None or (self.n_slabs or 1) > 1 \
+                or self.member_axis is not None:
+            raise _not_ported(
+                "ExecSpec(mesh=, n_slabs > 1, member_axis=)", "A9",
+                "slab and member sharding across cards runs one card here")
+        if self.donate:
+            raise _not_ported("ExecSpec(donate=True)", "A5b",
+                              "donating the ingest's input buffers")
+
+    @property
+    def torch_dtype(self) -> Optional[torch.dtype]:
+        return None if self.dtype is None else getattr(torch, self.dtype)
+
+    def resolve_interpret(self, device) -> bool:
+        """Whether the plain versions run on ``device``: on the CPU always,
+        on CUDA never.  ``interpret=True`` with a CUDA device raises — the
+        kernels have no interpret mode, and the card never falls back to
+        the plain versions."""
+        device = torch.device(device)
+        if device.type != "cpu" and self.interpret:
+            raise ValueError(
+                f"ExecSpec(interpret=True) on {device}: the CUDA kernels "
+                f"have no interpret mode and never fall back to their plain "
+                f"versions; run on device='cpu' for those")
+        return device.type == "cpu"
+
+    def result_dtype(self, *input_dtypes) -> torch.dtype:
+        """Accumulation dtype under this spec's dtype policy."""
+        if self.dtype is not None:
+            return self.torch_dtype
+        out = input_dtypes[0]
+        for d in input_dtypes[1:]:
+            out = torch.promote_types(out, d)
+        return out
+
+    def plan(self, scheme: SchemeLike, full_levels=None) -> ExecutorPlan:
+        """The executor plan this spec prescribes for ``scheme``."""
+        return build_plan(scheme, full_levels, spec=self)
+
+
+# ---------------------------------------------------------------------------
+# Signature-shared ingest executables
+# ---------------------------------------------------------------------------
+
+def plan_signature(plan: ExecutorPlan, spec: ExecSpec) -> Tuple:
+    """Hashable shape signature of (plan, spec), laid out as the
+    reference's: canonical bucket member levels and axis permutations, the
+    fine grid, the (absent) slab split and the execution-relevant spec
+    fields.  Not included: coefficients and the plan's index arrays,
+    which are the per-tenant arguments."""
+    buckets = tuple((b.levels, b.perms) for b in plan.buckets)
+    return (plan.full_levels, buckets, None, spec.fused, spec.interpret,
+            spec.dtype, spec.donate, None, None, None)
+
+
+@dataclass
+class _Binding:
+    """One tenant's arguments of its executable, on the engine's device:
+    the plan, its slot-owner table (fused) or index maps (unfused), and its
+    coefficients, uploaded once in float64 and kept per dtype.
+
+    Every tenant of one signature has the same index maps (a member's map
+    depends only on its canonical levels, permutation, bucket target and
+    the fine grid, all in the signature), so the tables could be shared;
+    each binding takes its plan's own from the identity-keyed
+    ``_ingest_table`` cache, which already shares them between the plans
+    of a coefficient-only update, and holds it for as long as the record
+    lives."""
+
+    plan: ExecutorPlan
+    table: Any
+    idxs: Tuple[torch.Tensor, ...]
+    coeffs64: torch.Tensor
+    _coeffs: Dict[torch.dtype, Any] = dataclasses.field(default_factory=dict)
+
+    def coeffs(self, dtype: torch.dtype):
+        """The coefficients in ``dtype``: concatenated (fused) or per bucket
+        (unfused), cast once."""
+        c = self._coeffs.get(dtype)
+        if c is None:
+            c = self.coeffs64.to(dtype)
+            if self.table is None:
+                c = tuple(torch.split(c, [len(b.ells)
+                                          for b in self.plan.buckets]))
+            self._coeffs[dtype] = c
+        return c
+
+
+class _IngestExecutable:
+    """The ingest of one plan signature, shared by its tenants:
+    ``(grids on the device, binding, dtype) -> surplus``.  Holds what the
+    signature determines and, per device it ran on, the grouped forward
+    launch's work table (``kernels.hierarchize._grouped_table``) and the
+    assembly's layout."""
+
+    def __init__(self, plan: ExecutorPlan, spec: ExecSpec):
+        table = _ingest_table(plan)
+        self.stacks = table.stacks
+        self.layout = tuple((b.shape, b.perms) for b in plan.buckets)
+        self.fused = spec.fused is not False
+        self._on: Dict[torch.device, tuple] = {}
+        self._lock = threading.Lock()
+
+    def _tables(self, device: torch.device) -> None:
+        from repro_torch.kernels.hierarchize import (_assembly_layout,
+                                                     _grouped_table)
+        with self._lock:
+            if device in self._on:
+                return
+        tables = (_assembly_layout(self.layout),
+                  _grouped_table(self.stacks, device) if self.fused
+                  and device.type == "cuda" else None)
+        with self._lock:
+            self._on.setdefault(device, tables)
+
+    def bind(self, plan: ExecutorPlan, device: torch.device) -> _Binding:
+        """Upload a tenant's arguments (at ``register`` or a refit)."""
+        self._tables(device)
+        coeffs = torch.from_numpy(np.concatenate(
+            [b.coeffs for b in plan.buckets])).to(device)
+        if self.fused:
+            table = _ingest_table(plan)
+            if device.type == "cuda":
+                table.scatter.on(device)
+            return _Binding(plan, table, (), coeffs)
+        idxs = tuple(torch.from_numpy(b.index).to(device)
+                     for b in plan.buckets)
+        return _Binding(plan, None, idxs, coeffs)
+
+    def __call__(self, grids, binding: _Binding, dtype: torch.dtype,
+                 device: torch.device) -> torch.Tensor:
+        if self.fused:
+            return _ingest_fused(grids, binding.plan, binding.table,
+                                 binding.coeffs(dtype), dtype, device)
+        return _ingest_unfused(grids, binding.plan, binding.idxs,
+                               binding.coeffs(dtype), dtype, device)
+
+
+#: Process-global executable cache: signature -> executable, shared by
+#: every engine (and so every surrogate).  LRU-bounded; a live tenant keeps
+#: its executable after eviction, which only makes the NEXT tenant of that
+#: signature build anew.  ``_INGEST_CACHE_LOCK`` is a leaf lock.
+_INGEST_EXECUTABLES: "collections.OrderedDict[Tuple, _IngestExecutable]" = \
+    collections.OrderedDict()
+_INGEST_CACHE_MAX = 64
+_INGEST_CACHE_LOCK = threading.Lock()
+
+
+def clear_compile_cache() -> None:
+    """Drop the shared ingest-executable cache (tests / benchmarks)."""
+    with _INGEST_CACHE_LOCK:
+        _INGEST_EXECUTABLES.clear()
+
+
+def _ingest_executable(signature: Tuple, plan: ExecutorPlan,
+                       spec: ExecSpec) -> Tuple[_IngestExecutable, bool]:
+    """Fetch-or-build the shared executable; returns ``(executable,
+    was_hit)``.  One lock over get/build/insert/evict, so concurrent
+    binders of one signature see exactly one miss (building is host-side
+    and cheap: the device tables come at bind time, outside the lock)."""
+    with _INGEST_CACHE_LOCK:
+        ex = _INGEST_EXECUTABLES.get(signature)
+        if ex is not None:
+            _INGEST_EXECUTABLES.move_to_end(signature)
+            return ex, True
+        ex = _IngestExecutable(plan, spec)
+        _INGEST_EXECUTABLES[signature] = ex
+        while len(_INGEST_EXECUTABLES) > _INGEST_CACHE_MAX:
+            _INGEST_EXECUTABLES.popitem(last=False)
+        return ex, False
+
+
+#: How long a draining flush waits for another thread's in-flight ingest
+#: before failing the dependent query futures with TimeoutError.
+_DRAIN_TIMEOUT_S = 120.0
+
+_SHARED_POOL: Optional[ThreadPoolExecutor] = None
+_SHARED_POOL_LOCK = threading.Lock()
+
+
+def _shared_pool() -> ThreadPoolExecutor:
+    """Lazy process-wide ingest pool, shared by every engine constructed
+    with ``ingest_workers=None``."""
+    global _SHARED_POOL
+    with _SHARED_POOL_LOCK:
+        if _SHARED_POOL is None:
+            _SHARED_POOL = ThreadPoolExecutor(
+                max_workers=min(8, (os.cpu_count() or 1) + 2),
+                thread_name_prefix="ct-ingest")
+        return _SHARED_POOL
+
+
+def _synchronize(device: torch.device) -> None:
+    """Wait for the work queued on this thread's stream of ``device``, so
+    that a failed launch surfaces here (no-op on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+
+
+# ---------------------------------------------------------------------------
+# Engine
+# ---------------------------------------------------------------------------
+
+class CTFuture:
+    """Result handle of ``submit_ingest`` / ``submit_query``, safe to wait
+    on from any thread.  ``result(timeout=)`` blocks until the request
+    resolves, flushing the owning engine's queue while it waits; a failed
+    request re-raises its own exception from ``result()``.  ``wait``
+    blocks without driving the engine."""
+
+    __slots__ = ("_engine", "_event", "_payload", "_error", "done_at")
+
+    def __init__(self, engine: "CTEngine"):
+        self._engine = engine
+        self._event = threading.Event()
+        self._payload = None
+        self._error: Optional[BaseException] = None
+        #: ``time.monotonic()`` at resolution (latency accounting)
+        self.done_at: Optional[float] = None
+
+    def done(self) -> bool:
+        return self._event.is_set()
+
+    def wait(self, timeout: Optional[float] = None) -> bool:
+        return self._event.wait(timeout)
+
+    def error(self) -> Optional[BaseException]:
+        return self._error
+
+    def _set(self, payload) -> None:
+        self._payload = payload
+        self.done_at = time.monotonic()
+        self._event.set()
+
+    def _set_error(self, exc: BaseException) -> None:
+        self._error = exc
+        self.done_at = time.monotonic()
+        self._event.set()
+
+    def result(self, timeout: Optional[float] = None):
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while not self._event.is_set():
+            self._engine.flush()
+            if self._event.wait(0.02):
+                break
+            if deadline is not None and time.monotonic() >= deadline:
+                raise TimeoutError(
+                    f"CTFuture.result: request still pending after "
+                    f"{timeout:.3f}s")
+        if self._error is not None:
+            raise self._error
+        return self._payload() if callable(self._payload) else self._payload
+
+
+@dataclass
+class _Tenant:
+    """One named surrogate: scheme + plan + spec, its executable and the
+    arguments bound to it, its served surplus and scheduling defaults."""
+
+    name: str
+    scheme: SchemeLike
+    spec: ExecSpec
+    plan: ExecutorPlan
+    signature: Tuple
+    executable: _IngestExecutable
+    binding: _Binding
+    surplus: Optional[torch.Tensor] = None
+    surplus_seq: int = 0            # ingest seq of the committed surplus
+    deadline_ms: Optional[float] = None   # None = engine default
+    priority: int = 0
+
+
+@dataclass
+class _Request:
+    """One queued unit of work, holding the tenant NAME (resolved at
+    dispatch, so a refit's record swap or an unregister applies to queued
+    work).  ``ingest_seq``: an ingest's own generation, or the generation
+    a query must wait for."""
+
+    kind: str                       # "ingest" | "query"
+    name: str
+    payload: Any                    # (grids, check_finite) | (points, q, qpad)
+    future: CTFuture
+    ingest_seq: int = 0
+    priority: int = 0
+    deadline: Optional[float] = None      # absolute time.monotonic()
+
+
+def _validate_points(points, dim: int, name: str) -> np.ndarray:
+    """Named errors for malformed query points."""
+    points = np.asarray(points)
+    if points.ndim == 1:
+        points = points[None, :]
+    if points.ndim != 2 or points.shape[1] != dim:
+        raise ValueError(
+            f"query points for tenant {name!r} must have shape (Q, {dim}) "
+            f"— the scheme is {dim}-dimensional — got {points.shape}")
+    if not np.issubdtype(points.dtype, np.floating):
+        raise TypeError(
+            f"query points for tenant {name!r} must be a floating dtype "
+            f"(coordinates in [0,1]^{dim}), got {points.dtype}")
+    return points
+
+
+def _qpad(q: int) -> int:
+    """The reference's padded batch extent (a power of two, >= 16): part of
+    a query's coalescing key, so batches split as the reference's do."""
+    return max(16, 1 << max(0, q - 1).bit_length())
+
+
+class CTEngine:
+    """Thread-safe multi-tenant CT surrogate server on one device (see the
+    module docstring).  ``device`` defaults to CUDA; every tenant's plan
+    tables, coefficients and surplus live there."""
+
+    def __init__(self, spec: Optional[ExecSpec] = None, *,
+                 device=None, max_batch: int = 32, max_pending: int = 1024,
+                 deadline_ms: float = 10.0,
+                 ingest_workers: Optional[int] = None,
+                 check_finite: bool = False,
+                 host_id: Optional[str] = None,
+                 retry: Optional[RetryPolicy] = None,
+                 store=None):
+        if spec is not None and not isinstance(spec, ExecSpec):
+            raise TypeError(f"CTEngine: spec must be an ExecSpec, got "
+                            f"{type(spec).__name__}")
+        if store is not None:
+            raise _not_ported("CTEngine(store=)", "A7",
+                              "the durable tenant store")
+        if max_batch < 1:
+            raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+        if max_pending < 1:
+            raise ValueError(f"max_pending must be >= 1, got {max_pending}")
+        self.device = resolve_device(device)
+        self._default_spec = spec or ExecSpec()
+        self._default_spec.resolve_interpret(self.device)
+        self._max_batch = max_batch
+        self._max_pending = max_pending
+        self._deadline_ms = deadline_ms
+        self._check_finite = check_finite
+        self._retry = retry or RetryPolicy()
+        #: name of this engine in error messages and ``stats()``
+        self.host_id = host_id
+        self._lock = threading.RLock()
+        self._work = threading.Condition(self._lock)    # new work / progress
+        self._space = threading.Condition(self._lock)   # queue has room
+        self._work_seq = 0          # bumped on every submit/progress event
+        self._tenants: Dict[str, _Tenant] = {}
+        self._pending: List[_Request] = []
+        self._ingest_submitted: Dict[str, int] = {}
+        self._ingest_done: Dict[str, int] = {}
+        self._counters = {"ingests": 0, "queries": 0, "eval_batches": 0,
+                          "coalesced_queries": 0, "cache_hits": 0,
+                          "cache_misses": 0}
+        self._sched = {"dispatch_deadline": 0, "dispatch_batch_full": 0,
+                       "flushes": 0, "rejected": 0, "requeued": 0,
+                       "ingest_retries": 0, "promoted": 0}
+        self._inline_ingest = ingest_workers == 0
+        self._private_pool = ThreadPoolExecutor(
+            max_workers=ingest_workers, thread_name_prefix="ct-ingest") \
+            if ingest_workers else None
+        self._sched_thread: Optional[threading.Thread] = None
+        self._stop_evt: Optional[threading.Event] = None
+
+    # -- registry -----------------------------------------------------------
+
+    def register(self, name: str, scheme: SchemeLike, nodal_grids=None, *,
+                 spec: Optional[ExecSpec] = None,
+                 deadline_ms: Optional[float] = None,
+                 priority: int = 0, plan=None, surplus=None) -> "CTEngine":
+        """Admit tenant ``name``: build its plan under ``spec`` (engine
+        default when omitted), bind the signature-shared executable, and —
+        when ``nodal_grids`` is given — ingest at once.  ``plan=`` /
+        ``surplus=`` adopt a retained plan and an already-computed surplus
+        (the failover lane): no plan build, no ingest; the caller owns the
+        triple's consistency.  ``surplus=`` and ``nodal_grids=`` exclude
+        each other."""
+        if spec is not None and not isinstance(spec, ExecSpec):
+            raise TypeError(f"register: spec must be an ExecSpec, got "
+                            f"{type(spec).__name__}")
+        if surplus is not None and nodal_grids is not None:
+            raise ValueError(
+                "register: pass nodal_grids= (ingest now) or surplus= "
+                "(adopt precomputed state), not both")
+        with self._lock:
+            if name in self._tenants:
+                raise ValueError(f"tenant {name!r} already registered "
+                                 f"(unregister first, or refit)")
+        spec = spec or self._default_spec
+        if plan is None:
+            plan = build_plan(scheme, spec=spec)      # outside the lock
+        tenant = self._bind(name, scheme, spec, plan)
+        tenant.deadline_ms, tenant.priority = deadline_ms, priority
+        if surplus is not None:
+            tenant.surplus = torch.as_tensor(surplus, device=self.device)
+        with self._work:
+            if name in self._tenants:
+                raise ValueError(f"tenant {name!r} already registered "
+                                 f"(unregister first, or refit)")
+            self._tenants[name] = tenant
+            if nodal_grids is not None:
+                # a query submitted before the commit below waits for it
+                self._ingest_submitted[name] = \
+                    self._ingest_submitted.get(name, 0) + 1
+            self._work_seq += 1
+            self._work.notify_all()
+        if nodal_grids is not None:
+            try:
+                surplus = self._dispatch_ingest(tenant, nodal_grids)
+                _synchronize(self.device)
+                with self._lock:
+                    tenant.surplus = surplus
+                    self._counters["ingests"] += 1
+            except Exception:
+                with self._lock:
+                    if self._tenants.get(name) is tenant:
+                        del self._tenants[name]
+                raise
+            finally:
+                # advance even on failure: waiters re-check and fail fast
+                with self._work:
+                    self._ingest_done[name] = \
+                        self._ingest_done.get(name, 0) + 1
+                    self._work_seq += 1
+                    self._work.notify_all()
+        return self
+
+    def unregister(self, name: str) -> None:
+        """Remove tenant ``name``.  Work queued for it fails its future
+        with a named ``KeyError`` at dispatch; the per-name watermark stays
+        monotonic, so a later re-register is race-free."""
+        with self._work:
+            del self._tenants[name]
+            self._work_seq += 1
+            self._work.notify_all()
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._tenants
+
+    def names(self) -> Tuple[str, ...]:
+        with self._lock:
+            return tuple(self._tenants)
+
+    def _tenant(self, name: str) -> _Tenant:
+        with self._lock:
+            try:
+                return self._tenants[name]
+            except KeyError:
+                raise KeyError(f"no tenant {name!r} (registered: "
+                               f"{sorted(self._tenants)})") from None
+
+    def scheme(self, name: str) -> SchemeLike:
+        return self._tenant(name).scheme
+
+    def plan(self, name: str) -> ExecutorPlan:
+        return self._tenant(name).plan
+
+    def spec(self, name: str) -> ExecSpec:
+        return self._tenant(name).spec
+
+    def surplus(self, name: str) -> torch.Tensor:
+        """The tenant's served surplus (flushes and waits if an ingest for
+        it is still queued or in flight)."""
+        t = self._tenant(name)
+        with self._lock:
+            target = self._ingest_submitted.get(name, 0)
+            behind = self._ingest_done.get(name, 0) < target
+        if behind:
+            self.flush()
+            deadline = time.monotonic() + _DRAIN_TIMEOUT_S
+            with self._work:
+                while self._ingest_done.get(name, 0) < target:
+                    if name not in self._tenants:
+                        break
+                    if not self._work.wait(1.0) \
+                            and time.monotonic() >= deadline:
+                        raise TimeoutError(
+                            f"surplus({name!r}): in-flight ingest did not "
+                            f"complete within {_DRAIN_TIMEOUT_S:.0f}s")
+            t = self._tenant(name)
+        if t.surplus is None:
+            raise RuntimeError(f"tenant {name!r} has no ingested state yet")
+        return t.surplus
+
+    # -- executable binding -------------------------------------------------
+
+    def _bind(self, name: str, scheme: SchemeLike, spec: ExecSpec,
+              plan: ExecutorPlan) -> _Tenant:
+        _check_plan(plan, "CTEngine.register")
+        spec.resolve_interpret(self.device)
+        signature = plan_signature(plan, spec)
+        executable, hit = _ingest_executable(signature, plan, spec)
+        with self._lock:
+            self._counters["cache_hits" if hit else "cache_misses"] += 1
+        return _Tenant(name=name, scheme=scheme, spec=spec, plan=plan,
+                       signature=signature, executable=executable,
+                       binding=executable.bind(plan, self.device))
+
+    def _dispatch_ingest(self, tenant: _Tenant, nodal_grids) -> torch.Tensor:
+        grids, dtype = _grids_on(nodal_grids, tenant.plan, self.device)
+        return tenant.executable(grids, tenant.binding,
+                                 tenant.spec.result_dtype(dtype), self.device)
+
+    # -- thread-safe submission ---------------------------------------------
+
+    def _host(self) -> str:
+        return f"engine[{self.host_id}]" if self.host_id else "engine"
+
+    def _admit(self, block: bool, timeout: Optional[float],
+               name: str) -> None:
+        """Bounded-queue admission control; the caller holds the lock."""
+        if len(self._pending) < self._max_pending:
+            return
+        if not block:
+            self._sched["rejected"] += 1
+            raise EngineSaturated(
+                f"{self._host()}: rejecting request for tenant {name!r}: "
+                f"queue depth {len(self._pending)} >= max_pending="
+                f"{self._max_pending}; flush(), start() the scheduler, "
+                f"or raise max_pending")
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while len(self._pending) >= self._max_pending:
+            if deadline is None:
+                self._space.wait(0.1)
+            else:
+                left = deadline - time.monotonic()
+                if left <= 0 or not self._space.wait(left):
+                    if len(self._pending) < self._max_pending:
+                        break
+                    self._sched["rejected"] += 1
+                    raise EngineSaturated(
+                        f"{self._host()}: request for tenant {name!r} "
+                        f"still blocked after {timeout:.3f}s: queue depth "
+                        f"{len(self._pending)} >= max_pending="
+                        f"{self._max_pending}")
+
+    def submit_ingest(self, name: str, nodal_grids, *, priority: int = 0,
+                      check_finite: Optional[bool] = None, block: bool = True,
+                      timeout: Optional[float] = None) -> CTFuture:
+        """Enqueue new solver output for ``name`` (any thread); the future
+        resolves to the new surplus once it is committed.  Ingests of one
+        tenant apply in submission order; its later queries observe
+        them."""
+        self._tenant(name)                      # raise early on a bad name
+        check = self._check_finite if check_finite is None else check_finite
+        fut = CTFuture(self)
+        with self._work:
+            self._admit(block, timeout, name)
+            if name not in self._tenants:
+                raise KeyError(f"no tenant {name!r} (registered: "
+                               f"{sorted(self._tenants)})")
+            seq = self._ingest_submitted.get(name, 0) + 1
+            self._ingest_submitted[name] = seq
+            self._pending.append(
+                _Request("ingest", name, (nodal_grids, check), fut,
+                         ingest_seq=seq, priority=priority,
+                         deadline=time.monotonic()))
+            self._work_seq += 1
+            self._work.notify_all()
+        return fut
+
+    def submit_query(self, name: str, points, *,
+                     deadline_ms: Optional[float] = None,
+                     priority: Optional[int] = None, block: bool = True,
+                     timeout: Optional[float] = None,
+                     stale_ok: bool = False) -> CTFuture:
+        """Enqueue a point evaluation against ``name``'s surplus (any
+        thread); the future resolves to the (Q,) values once the scheduler
+        dispatches its signature group.  ``stale_ok=True`` waits only for
+        the ingests already committed."""
+        tenant = self._tenant(name)
+        points = _validate_points(points, tenant.plan.dim, name)
+        q = points.shape[0]
+        if deadline_ms is None:
+            deadline_ms = tenant.deadline_ms if tenant.deadline_ms \
+                is not None else self._deadline_ms
+        prio = tenant.priority if priority is None else priority
+        fut = CTFuture(self)
+        dl = (time.monotonic() + deadline_ms / 1000.0
+              if deadline_ms is not None and math.isfinite(deadline_ms)
+              else None)
+        with self._work:
+            self._admit(block, timeout, name)
+            if name not in self._tenants:
+                raise KeyError(f"no tenant {name!r} (registered: "
+                               f"{sorted(self._tenants)})")
+            watermark = (self._ingest_done if stale_ok
+                         else self._ingest_submitted).get(name, 0)
+            self._pending.append(
+                _Request("query", name, (points, q, _qpad(q)), fut,
+                         ingest_seq=watermark, priority=prio, deadline=dl))
+            self._work_seq += 1
+            self._work.notify_all()
+        return fut
+
+    def submit_probe(self, *args, **kwargs):
+        raise _not_ported("CTEngine.submit_probe", "A8",
+                          "the cluster's liveness probe")
+
+    def heartbeat(self):
+        raise _not_ported("CTEngine.heartbeat", "A8",
+                          "the cluster's pump-liveness signal")
+
+    # -- draining: flush / pump / scheduler ---------------------------------
+
+    def flush(self) -> None:
+        """Drain the whole queue now and return once all of it completed.
+        The queue swap is atomic under the engine lock; a failing request
+        resolves its own future, siblings proceed."""
+        with self._work:
+            pending, self._pending = self._pending, []
+            if pending:
+                self._sched["flushes"] += 1
+                self._space.notify_all()
+        if pending:
+            self._run(pending, drain=True)
+
+    def pump(self, now: Optional[float] = None) -> int:
+        """One scheduler step: dispatch only the due work (ingests always;
+        queries on batch-full or deadline expiry).  Returns the number of
+        requests resolved or handed to the pool."""
+        with self._work:
+            take, _ = self._take_due(time.monotonic() if now is None
+                                     else now)
+        if not take:
+            return 0
+        return self._run(take, drain=False)
+
+    def start(self) -> "CTEngine":
+        """Start the background scheduler thread (idempotent)."""
+        with self._lock:
+            if self._sched_thread is not None \
+                    and self._sched_thread.is_alive():
+                return self
+            stop_evt = threading.Event()
+            t = threading.Thread(target=self._scheduler_loop,
+                                 args=(stop_evt,), name="ct-scheduler",
+                                 daemon=True)
+            self._stop_evt, self._sched_thread = stop_evt, t
+        t.start()
+        return self
+
+    def stop(self, drain: bool = True) -> None:
+        """Stop the scheduler thread; ``drain=True`` flushes what is left."""
+        with self._lock:
+            t, evt = self._sched_thread, self._stop_evt
+            self._sched_thread = self._stop_evt = None
+        if evt is not None:
+            evt.set()
+            with self._work:
+                self._work.notify_all()
+        if t is not None:
+            t.join(timeout=30.0)
+        if drain:
+            self.flush()
+
+    def close(self) -> None:
+        """Stop the scheduler, drain the queue, shut down a private pool."""
+        self.stop(drain=True)
+        if self._private_pool is not None:
+            self._private_pool.shutdown(wait=True)
+
+    def __enter__(self) -> "CTEngine":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def _scheduler_loop(self, stop_evt: threading.Event) -> None:
+        while not stop_evt.is_set():
+            now = time.monotonic()
+            with self._work:
+                seq = self._work_seq
+                take, next_wake = self._take_due(now)
+            if take:
+                if self._run(take, drain=False) == 0:
+                    # everything requeued (queries waiting on in-flight
+                    # ingests): block briefly instead of spinning
+                    with self._work:
+                        if self._work_seq == seq:
+                            self._work.wait(0.01)
+                continue
+            with self._work:
+                if self._work_seq != seq:
+                    continue                    # raced a submit: rescan
+                delay = 0.05
+                if next_wake is not None:
+                    delay = min(delay, next_wake - time.monotonic())
+                self._work.wait(max(delay, 0.001))
+
+    def _take_due(self, now: float) -> Tuple[List[_Request],
+                                             Optional[float]]:
+        """Pull the due requests off the queue; the caller holds the lock.
+        Ingests are always due; a query when its tenant's pending batch is
+        full, its deadline expired, or its tenant is gone.  The reference's
+        two anti-head-of-line rules: a batch-full tenant contributes at
+        most ``max_batch`` queries per pump (highest priority first), and
+        when any query dispatches, every pending query of strictly higher
+        priority is taken along."""
+        pending = self._pending
+        counts: Dict[str, int] = {}
+        for r in pending:
+            if r.kind == "query":
+                counts[r.name] = counts.get(r.name, 0) + 1
+        full = {n for n, c in counts.items() if c >= self._max_batch}
+        self._sched["dispatch_batch_full"] += len(full)
+        take_idx = set()
+        for i, r in enumerate(pending):
+            if r.kind != "query" or r.name not in self._tenants:
+                take_idx.add(i)
+            elif r.deadline is not None and r.deadline <= now:
+                take_idx.add(i)
+                self._sched["dispatch_deadline"] += 1
+        for name in full:
+            cand = [i for i, r in enumerate(pending)
+                    if r.kind == "query" and r.name == name
+                    and i not in take_idx]
+            cand.sort(key=lambda i: (-pending[i].priority, i))
+            take_idx.update(cand[:self._max_batch])
+        due_q = [pending[i].priority for i in take_idx
+                 if pending[i].kind == "query"]
+        if due_q:
+            pmax = max(due_q)
+            for i, r in enumerate(pending):
+                if i not in take_idx and r.kind == "query" \
+                        and r.priority > pmax:
+                    take_idx.add(i)
+                    self._sched["promoted"] += 1
+        take, keep = [], []
+        next_wake: Optional[float] = None
+        for i, r in enumerate(pending):
+            if i in take_idx:
+                take.append(r)
+            else:
+                keep.append(r)
+                if r.deadline is not None and (next_wake is None
+                                               or r.deadline < next_wake):
+                    next_wake = r.deadline
+        self._pending = keep
+        if take:
+            self._space.notify_all()
+        return take, next_wake
+
+    # -- execution ----------------------------------------------------------
+
+    def _run(self, requests: List[_Request], drain: bool) -> int:
+        """Per-tenant ingest chains go to the pool (or run inline), queries
+        resolve on the calling thread; ``drain=True`` waits for the chains.
+        Returns the number of requests resolved or handed to the pool."""
+        chains: Dict[str, List[_Request]] = {}
+        queries: List[_Request] = []
+        for r in requests:
+            if r.kind == "ingest":
+                chains.setdefault(r.name, []).append(r)
+            else:
+                queries.append(r)
+        progress = sum(len(c) for c in chains.values())
+        pool = None if self._inline_ingest \
+            else (self._private_pool or _shared_pool())
+        chain_futures = []
+        for reqs in chains.values():
+            if pool is None:
+                self._run_ingest_chain(reqs)
+            else:
+                chain_futures.append(pool.submit(self._run_ingest_chain,
+                                                 reqs))
+        try:
+            progress += self._run_queries(queries, drain=drain)
+        finally:
+            if drain:
+                for f in chain_futures:
+                    f.result()      # engine bugs only; request errors
+                    #                 resolved their own futures already
+        return progress
+
+    def _run_ingest_chain(self, reqs: List[_Request]) -> None:
+        """One tenant's queued ingests, in order.  Every exit path advances
+        the watermark and notifies, so a failed ingest still unblocks the
+        queries waiting on it."""
+        for req in reqs:
+            grids, check = req.payload
+            try:
+                surplus = self._ingest_one(req.name, grids, check,
+                                           req.ingest_seq)
+            except Exception as exc:
+                req.future._set_error(exc)
+            else:
+                req.future._set(surplus)
+            finally:
+                with self._work:
+                    if req.ingest_seq > self._ingest_done.get(req.name, 0):
+                        self._ingest_done[req.name] = req.ingest_seq
+                    self._work_seq += 1
+                    self._work.notify_all()
+
+    def _ingest_one(self, name: str, nodal_grids, check_finite: bool,
+                    seq: int = 0) -> torch.Tensor:
+        """Dispatch and commit one ingest.  Device work runs outside the
+        lock and is synchronised before the commit, a compare-and-swap on
+        the tenant record read before dispatch (retried when a concurrent
+        refit swapped it), newest seq winning: an older ingest finishing
+        last does not clobber a newer committed surplus (its future still
+        gets its own value)."""
+        def attempt():
+            with self._lock:
+                tenant = self._tenants.get(name)
+            if tenant is None:
+                raise KeyError(f"tenant {name!r} was unregistered before "
+                               f"its queued ingest ran")
+            surplus = self._dispatch_ingest(tenant, nodal_grids)
+            # device failures surface here, on the owning request
+            _synchronize(self.device)
+            if check_finite and not bool(torch.isfinite(surplus).all()):
+                raise FloatingPointError(
+                    f"ingest for tenant {name!r} produced non-finite "
+                    f"surplus values")
+            with self._work:
+                cur = self._tenants.get(name)
+                if cur is None:
+                    raise KeyError(f"tenant {name!r} was unregistered "
+                                   f"before its queued ingest ran")
+                if cur is tenant:
+                    if seq >= cur.surplus_seq:
+                        cur.surplus = surplus
+                        cur.surplus_seq = seq
+                    self._counters["ingests"] += 1
+                    return surplus
+                self._sched["ingest_retries"] += 1
+                raise _RebindRace(name)
+        try:
+            return self._retry.run(attempt, retry_on=(_RebindRace,))
+        except _RebindRace:
+            raise RuntimeError(
+                f"ingest for tenant {name!r} kept losing the rebind race "
+                f"({self._retry.attempts} attempts) — engine bug") from None
+
+    def _run_queries(self, queries: List[_Request], drain: bool) -> int:
+        """Group the watermark-eligible queries by signature and dispatch;
+        park the rest (requeue when pumping, wait for the in-flight ingests
+        when draining)."""
+        if not queries:
+            return 0
+        resolved = 0
+        remaining = list(queries)
+        give_up = time.monotonic() + _DRAIN_TIMEOUT_S
+        while remaining:
+            groups: Dict[Tuple, List[Tuple[_Request, torch.Tensor]]] = {}
+            waiting: List[_Request] = []
+            with self._lock:
+                for req in remaining:
+                    t = self._tenants.get(req.name)
+                    if t is None:
+                        req.future._set_error(KeyError(
+                            f"tenant {req.name!r} was unregistered before "
+                            f"its queued query ran"))
+                        resolved += 1
+                        continue
+                    if self._ingest_done.get(req.name, 0) < req.ingest_seq:
+                        waiting.append(req)     # its ingest is in flight
+                        continue
+                    if t.surplus is None:
+                        if self._ingest_done.get(req.name, 0) < \
+                                self._ingest_submitted.get(req.name, 0):
+                            waiting.append(req)
+                            continue
+                        req.future._set_error(RuntimeError(
+                            f"tenant {req.name!r} has no ingested state "
+                            f"to query"))
+                        resolved += 1
+                        continue
+                    points, _, qpad = req.payload
+                    key = (tuple(t.surplus.shape), str(t.surplus.dtype),
+                           str(points.dtype), qpad)
+                    groups.setdefault(key, []).append((req, t.surplus))
+            if groups:
+                resolved += self._dispatch_query_groups(groups)
+            if not waiting:
+                break
+            if not drain:
+                with self._work:
+                    self._pending[:0] = waiting
+                    self._sched["requeued"] += len(waiting)
+                break
+            with self._work:
+                def _unblocked(r):
+                    t = self._tenants.get(r.name)
+                    if t is None:
+                        return True
+                    done = self._ingest_done.get(r.name, 0)
+                    return done >= r.ingest_seq and (
+                        t.surplus is not None
+                        or done >= self._ingest_submitted.get(r.name, 0))
+                if not any(_unblocked(r) for r in waiting):
+                    self._work.wait(0.05)
+                    if time.monotonic() >= give_up:
+                        for r in waiting:
+                            r.future._set_error(TimeoutError(
+                                f"query for tenant {r.name!r} timed out "
+                                f"waiting for its in-flight ingest"))
+                        resolved += len(waiting)
+                        break
+            remaining = waiting
+        return resolved
+
+    def _dispatch_query_groups(self, groups) -> int:
+        """Eval batches of the signature groups, highest priority and
+        earliest deadline first, chunked to ``max_batch`` and at priority
+        boundaries.  Each request of a chunk is evaluated on its own (its
+        tenant's surplus, its unpadded points: the one-tenant query's
+        call), then the chunk is synchronised so a device failure fails
+        the chunk's futures.  Runs outside the lock."""
+        def group_rank(item):
+            entries = item[1]
+            return (-max(r.priority for r, _ in entries),
+                    min((r.deadline if r.deadline is not None else math.inf)
+                        for r, _ in entries))
+
+        count = 0
+        for _, entries in sorted(groups.items(), key=group_rank):
+            entries.sort(key=lambda e: (
+                -e[0].priority,
+                e[0].deadline if e[0].deadline is not None else math.inf))
+            chunks: List[List] = []
+            for e in entries:
+                if chunks and len(chunks[-1]) < self._max_batch \
+                        and chunks[-1][0][0].priority == e[0].priority:
+                    chunks[-1].append(e)
+                else:
+                    chunks.append([e])
+            for chunk in chunks:
+                try:
+                    outs = [interpolate_hierarchical(
+                        surplus, torch.from_numpy(r.payload[0]).to(
+                            self.device)) for r, surplus in chunk]
+                    _synchronize(self.device)
+                except Exception as exc:
+                    for r, _ in chunk:
+                        r.future._set_error(exc)
+                else:
+                    for (r, _), out in zip(chunk, outs):
+                        r.future._set(lambda out=out: out.cpu().numpy())
+                    with self._lock:
+                        self._counters["eval_batches"] += 1
+                        self._counters["queries"] += len(chunk)
+                        self._counters["coalesced_queries"] += len(chunk) - 1
+                count += len(chunk)
+        return count
+
+    # -- synchronous conveniences -------------------------------------------
+
+    def update(self, name: str, nodal_grids) -> torch.Tensor:
+        """Synchronous re-ingest (same scheme: same executable)."""
+        fut = self.submit_ingest(name, nodal_grids)
+        self.flush()
+        return fut.result()
+
+    def query(self, name: str, points) -> np.ndarray:
+        """Synchronous point query (a one-tenant batch)."""
+        fut = self.submit_query(name, points)
+        self.flush()
+        return fut.result()
+
+    # -- lifecycle: incremental plan paths per tenant -----------------------
+
+    def refit(self, name: str, scheme: SchemeLike, nodal_grids) -> None:
+        """Swap tenant ``name`` onto a (refined) scheme through the
+        incremental ``extend_plan`` path, re-binding the shared executable.
+        A failing ingest raises before any tenant state changes."""
+        tenant = self._tenant(name)
+        plan = extend_plan(tenant.plan, scheme, spec=tenant.spec)
+        self._commit(tenant, scheme, plan, nodal_grids)
+
+    def extend(self, name: str, new_levels, nodal_grids) -> None:
+        """Grow tenant ``name``'s downward-closed index set by
+        ``new_levels`` (``refit`` onto ``scheme.with_levels``)."""
+        scheme = self._tenant(name).scheme
+        if not hasattr(scheme, "with_levels"):
+            scheme = scheme.as_general()
+        self.refit(name, scheme.with_levels(new_levels), nodal_grids)
+
+    def drop_grid(self, name: str, failed, nodal_grids) -> None:
+        """Recombine tenant ``name`` without grid(s) ``failed``
+        (``recombine_after_fault``: coefficient-only when possible, so the
+        plan's tables and the executable are reused).  Raises and leaves
+        the tenant unchanged when the reduced scheme needs data the caller
+        did not supply."""
+        from repro_torch.runtime.fault_tolerance import recombine_after_fault
+        tenant = self._tenant(name)
+        scheme, plan, _ = recombine_after_fault(tenant.scheme, failed,
+                                                plan=tenant.plan)
+        self._commit(tenant, scheme, plan, nodal_grids)
+
+    def rebind(self, name: str, **changes):
+        raise _not_ported("CTEngine.rebind", "A9",
+                          "moving a tenant onto another mesh or slab layout")
+
+    def _commit(self, tenant: _Tenant, scheme: SchemeLike,
+                plan: ExecutorPlan, nodal_grids) -> None:
+        """Re-bind a tenant onto (scheme, plan) and ingest: bind and device
+        work outside the lock, the record swap one locked step keyed by
+        name (queued work picks up the new record at dispatch)."""
+        nxt = self._bind(tenant.name, scheme, tenant.spec, plan)
+        nxt.deadline_ms, nxt.priority = tenant.deadline_ms, tenant.priority
+        nxt.surplus = self._dispatch_ingest(nxt, nodal_grids)  # raises first
+        _synchronize(self.device)
+        with self._work:
+            if tenant.name not in self._tenants:
+                raise KeyError(f"tenant {tenant.name!r} was unregistered "
+                               f"during refit")
+            self._counters["ingests"] += 1
+            self._tenants[tenant.name] = nxt
+            self._work_seq += 1
+            self._work.notify_all()
+
+    def restore(self, *args, **kwargs):
+        raise _not_ported("CTEngine.restore, replay and snapshot_tenant",
+                          "A7", "the durable store")
+
+    replay = snapshot_tenant = restore
+
+    # -- accounting ---------------------------------------------------------
+
+    def stats(self) -> Dict[str, Any]:
+        """Per-tenant and summed ``plan_launch_stats`` (one ingest's
+        launches and bytes on CUDA), the shared executable cache's
+        counters, the eval batching counters and the scheduler's."""
+        with self._lock:
+            tenants = dict(self._tenants)
+            counters = dict(self._counters)
+            sched = dict(self._sched)
+            pending = len(self._pending)
+        per_tenant = {}
+        gather = {"buckets": 0, "members": 0, "launches": 0,
+                  "pallas_launches": 0, "einsum_dispatches": 0,
+                  "scatter_dispatches": 0, "transform_bytes": 0,
+                  "stack_bytes": 0}
+        for name, t in tenants.items():
+            s = plan_launch_stats(t.plan, fused=t.spec.fused)
+            per_tenant[name] = s
+            for k in gather:
+                gather[k] += s[k]
+        # the LIVE tenants' executables: one evicted from the cache keeps
+        # serving its tenants
+        uniq = {id(t.executable) for t in tenants.values()}
+        with _INGEST_CACHE_LOCK:
+            cache_entries = len(_INGEST_EXECUTABLES)
+        return {
+            "host_id": self.host_id,
+            "tenants": len(tenants),
+            "per_tenant": per_tenant,
+            "gather": gather,
+            "ingests": counters["ingests"],
+            "ingest_cache": {
+                "entries": cache_entries,
+                "hits": counters["cache_hits"],
+                "misses": counters["cache_misses"],
+                "executables": len(uniq),
+            },
+            "eval": {
+                "queries": counters["queries"],
+                "batches": counters["eval_batches"],
+                "coalesced_queries": counters["coalesced_queries"],
+            },
+            "scheduler": {
+                "pending": pending,
+                "max_batch": self._max_batch,
+                "max_pending": self._max_pending,
+                "deadline_ms": self._deadline_ms,
+                **sched,
+            },
+        }

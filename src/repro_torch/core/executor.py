@@ -28,6 +28,12 @@ The reference's ``ShardedPlan`` waits for the multi-GPU port: every entry
 point here takes an ``ExecutorPlan`` and raises ``TypeError`` on anything
 else.
 
+Execution policy comes as one ``spec=repro_torch.core.engine.ExecSpec``
+on every entry point, under the reference's precedence rules
+(``resolve_spec``): an explicit spec wins and a conflicting legacy keyword
+raises; the legacy keywords (``merge=``, ``fused=``) fold into a spec and
+warn once per call-site family.  ``device=`` stays a plain keyword.
+
 Execution rule of the port: every bucket, on every device, takes the
 FUSED epilogue by default — each bucket's last forward pass writes the
 coefficient-weighted surpluses straight into the fine grid, so the
@@ -35,14 +41,17 @@ compact (G, P) surplus stack is never stored.  The reference gates its
 fused path on a TPU VMEM budget and on its Pallas path; on Hopper the
 fine grid stays in device memory and the pass axis is a kernel
 parameter, so no gate is needed.  The fused ingest runs every bucket at
-once: the stacks are assembled into one flat buffer, one
-``hier_forward_grouped`` launch applies every bucket's passes before its
-last, and ``hier_scatter_grouped`` (two launches) applies the last passes
-and adds into the fine grid through the plan's slot-owner table
+once: the stacks are assembled into one flat buffer (one
+``assemble_grouped`` launch), one ``hier_forward_grouped`` launch
+applies every bucket's passes before its last, and
+``hier_scatter_grouped`` (two launches) applies the last passes and adds
+into the fine grid through the plan's slot-owner table
 (``scatter_table``, built once per plan and kept while the plan's index
-maps live).  ``fused=False`` runs the full transform bucket by bucket and
-then one ordered ``index_add_`` per member.  Both accumulate each fine
-slot as a left fold in global member order, so they give the same bits.
+maps live): four launches however many grids the scheme has.
+``fused=False`` runs the full transform bucket by bucket on the same
+assembled buffer and then one ordered ``index_add_`` per member.  Both
+accumulate each fine slot as a left fold in global member order, so they
+give the same bits.
 """
 
 from __future__ import annotations
@@ -50,6 +59,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import threading
+import warnings
 import weakref
 from dataclasses import dataclass
 from typing import Dict, Mapping, Optional, Sequence, Tuple
@@ -61,9 +71,10 @@ from repro_torch import resolve_device
 from repro_torch.core.levels import (LevelVector, SchemeLike,
                                      canonical_levels, fine_levels,
                                      grid_shape)
-from repro_torch.kernels.hierarchize import (ScatterTable, axis_order,
-                                             batched_method,
+from repro_torch.kernels.hierarchize import (ScatterTable, assemble_grouped,
+                                             axis_order, batched_method,
                                              dehierarchize_batched,
+                                             hier_flops,
                                              hier_forward_grouped,
                                              hier_scatter_grouped,
                                              hier_tail_batched,
@@ -75,7 +86,74 @@ __all__ = ["ExecutorPlan", "Bucket", "MergeConfig", "build_plan",
            "ct_transform_with_plan", "ct_scatter", "ct_scatter_with_plan",
            "ct_embedded", "ct_embedded_with_plan", "bucket_surpluses",
            "bucket_tail_surpluses", "bucket_nodal_stacks",
-           "clear_plan_cache"]
+           "plan_launch_stats", "plan_ingest_stats", "clear_plan_cache",
+           "resolve_spec", "ensure_spec"]
+
+
+# ---------------------------------------------------------------------------
+# ExecSpec resolution and the legacy-keyword warnings
+# ---------------------------------------------------------------------------
+
+#: (function, sorted legacy keywords) families already warned about: each
+#: warns once per process (``reset_legacy_warnings`` rearms them).
+_WARNED_LEGACY: set = set()
+_WARNED_LEGACY_LOCK = threading.Lock()
+
+
+def reset_legacy_warnings() -> None:
+    """Re-arm every once-per-call-site legacy-keyword warning (tests)."""
+    with _WARNED_LEGACY_LOCK:
+        _WARNED_LEGACY.clear()
+
+
+def warn_legacy_kwargs(fn_name: str, kwarg_names: Sequence[str]) -> None:
+    """One ``DeprecationWarning`` per (function, keywords) family: the
+    execution keywords keep working but should become one ``spec=``.  The
+    first thread to claim a family warns; concurrent callers stay
+    silent."""
+    key = (fn_name, tuple(sorted(kwarg_names)))
+    with _WARNED_LEGACY_LOCK:
+        if key in _WARNED_LEGACY:
+            return
+        _WARNED_LEGACY.add(key)
+    shown = ", ".join(f"{k}=" for k in sorted(kwarg_names))
+    warnings.warn(
+        f"{fn_name}: keyword(s) {shown} are deprecated; pass "
+        f"spec=repro_torch.core.engine.ExecSpec(...) instead (the legacy "
+        f"keywords are folded into an ExecSpec and keep working)",
+        DeprecationWarning, stacklevel=3)
+
+
+def ensure_spec(fn_name: str, spec) -> None:
+    """Named ``TypeError`` when ``spec=`` receives something else than an
+    ``ExecSpec`` (an old positional caller's option landing in ``spec``)."""
+    from repro_torch.core.engine import ExecSpec
+    if spec is not None and not isinstance(spec, ExecSpec):
+        raise TypeError(
+            f"{fn_name}: spec must be a repro_torch.core.engine.ExecSpec, "
+            f"got {type(spec).__name__}; legacy options go in their "
+            f"(deprecated) keywords, e.g. merge=..., not positionally")
+
+
+def resolve_spec(fn_name: str, spec, **legacy):
+    """Fold legacy execution keywords into an ``ExecSpec``: an explicit
+    ``spec=`` wins and a non-``None`` legacy keyword beside it raises;
+    legacy keywords alone build the equivalent spec and warn once per
+    call-site family."""
+    from repro_torch.core.engine import ExecSpec
+    ensure_spec(fn_name, spec)
+    given = {k: v for k, v in legacy.items() if v is not None}
+    if spec is None:
+        spec = ExecSpec()
+    elif given:
+        shown = ", ".join(f"{k}=" for k in sorted(given))
+        raise ValueError(
+            f"{fn_name}: pass either spec= or the legacy keyword(s) "
+            f"{shown}, not both (fold them into the ExecSpec)")
+    if given:
+        warn_legacy_kwargs(fn_name, tuple(given))
+        spec = dataclasses.replace(spec, **given)
+    return spec
 
 
 @dataclass(frozen=True)
@@ -272,10 +350,17 @@ def _make_bucket(members: list, full_levels: LevelVector,
 
 def build_plan(scheme: SchemeLike,
                full_levels: Optional[Sequence[int]] = None, *,
-               merge: Optional[MergeConfig] = None) -> ExecutorPlan:
+               merge: Optional[MergeConfig] = None,
+               spec=None) -> ExecutorPlan:
     """Bucket (and optionally merge-plan) the scheme's grids and
     precompute the embed index plan.  Cached per ``(scheme, full_levels,
-    merge)``, with ``full_levels`` normalized first."""
+    merge)``, with ``full_levels`` normalized first.  ``spec`` supplies
+    ``merge`` instead (both at once raise)."""
+    if spec is not None:
+        ensure_spec("build_plan", spec)
+        if merge is not None:
+            raise ValueError("build_plan: pass merge or spec, not both")
+        merge = spec.merge
     if full_levels is None:
         full_levels = fine_levels(scheme)
     key = (scheme, tuple(int(l) for l in full_levels), merge)
@@ -348,8 +433,8 @@ def _check_plan(plan, fn: str) -> None:
 
 
 def extend_plan(plan: ExecutorPlan, scheme: SchemeLike,
-                full_levels: Optional[Sequence[int]] = None
-                ) -> ExecutorPlan:
+                full_levels: Optional[Sequence[int]] = None, *,
+                spec=None) -> ExecutorPlan:
     """Incremental plan rebuild after the scheme's index set changed.
 
     Gives exactly ``build_plan(scheme, full_levels, merge=plan.merge)``,
@@ -358,8 +443,13 @@ def extend_plan(plan: ExecutorPlan, scheme: SchemeLike,
     keeps its ``index`` array by identity; a bucket that gained or lost
     members recomputes index-map rows only for members no old bucket of
     its target held.  A changed fine grid makes every embed index stale,
-    so it falls back to a full (cached) ``build_plan``."""
+    so it falls back to a full (cached) ``build_plan``.  A ``spec`` whose
+    ``merge`` differs from the plan's re-partitions under the spec's."""
     _check_plan(plan, "extend_plan")
+    if spec is not None:
+        ensure_spec("extend_plan", spec)
+        if spec.merge != plan.merge:
+            plan = dataclasses.replace(plan, merge=spec.merge)
     if full_levels is None:
         full_levels = fine_levels(scheme)
     full_levels = tuple(int(l) for l in full_levels)
@@ -446,28 +536,30 @@ def _grids_on(nodal_grids, plan: ExecutorPlan, device: torch.device
     return grids, dtype
 
 
-def _assemble_members(parts: Sequence[torch.Tensor],
-                      perms: Sequence[Tuple[int, ...]],
-                      shape: Tuple[int, ...],
-                      dtype: torch.dtype,
-                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Stack one bucket's member grids: each transposed to canonical axis
-    order and zero-padded to the bucket target shape (pad values never
-    reach the fine buffer — the index plan routes them to the dump slot).
-    ``out``, if given, is the zeroed (G, *shape) stack to fill."""
-    x = out if out is not None else torch.zeros(
-        (len(parts),) + tuple(shape), dtype=dtype, device=parts[0].device)
-    for g, (part, perm) in enumerate(zip(parts, perms)):
-        p = part.permute(perm)
-        x[(g,) + tuple(slice(0, s) for s in p.shape)] = p
-    return x
+def _parts(grids: Mapping[LevelVector, torch.Tensor], buckets,
+           dtype: torch.dtype) -> list:
+    """The buckets' member grids in plan order, in ``dtype``."""
+    return [g if g.dtype == dtype else g.to(dtype)
+            for g in (grids[ell] for b in buckets for ell in b.ells)]
 
 
-def _assemble_bucket(grids: Mapping[LevelVector, torch.Tensor],
-                     bucket: Bucket, dtype: torch.dtype,
-                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    return _assemble_members([grids[ell] for ell in bucket.ells],
-                             bucket.perms, bucket.shape, dtype, out=out)
+def _assemble(grids: Mapping[LevelVector, torch.Tensor], buckets,
+              dtype: torch.dtype) -> torch.Tensor:
+    """The flat concatenation of the buckets' stacks: each member grid
+    transposed to canonical axis order and zero-padded to its bucket's
+    target shape (pad values never reach the fine buffer — the index plan
+    routes them to the dump slot).  One ``assemble_grouped`` call."""
+    return assemble_grouped(_parts(grids, buckets, dtype),
+                            tuple((b.shape, b.perms) for b in buckets))
+
+
+def _bucket_views(x: torch.Tensor, buckets):
+    """The ``(G, *shape)`` stacks of the flat concatenation ``x``."""
+    a = 0
+    for b in buckets:
+        n = len(b.ells) * int(np.prod(b.shape, dtype=np.int64))
+        yield x[a:a + n].view((len(b.ells),) + b.shape)
+        a += n
 
 
 @dataclass(frozen=True)
@@ -489,7 +581,8 @@ def _ingest_table(plan: ExecutorPlan) -> _IngestTable:
     """The plan's ingest table, built once and cached under the identity of
     the plan's index arrays: ``update_plan_coefficients`` and the
     coefficient-only path of ``extend_plan`` keep them, so their plans
-    reuse it.  An entry is dropped when one of its index arrays dies."""
+    reuse it.  An entry is dropped when one of its index arrays dies; a
+    holder of the table (an engine tenant) keeps it usable after that."""
     key = tuple(id(b.index) for b in plan.buckets)
     with _INGEST_LOCK:
         table = _INGEST_TABLES.get(key)
@@ -527,37 +620,69 @@ def _gather_unfused(full: torch.Tensor, x: torch.Tensor,
     return full
 
 
+def _ingest_fused(grids, plan: ExecutorPlan, table: _IngestTable,
+                  coeffs: torch.Tensor, dtype: torch.dtype,
+                  device: torch.device) -> torch.Tensor:
+    """The fused ingest: assembly, the grouped forward passes and the
+    grouped ordered scatter (four launches on CUDA) into a fresh fine
+    buffer; ``coeffs`` are the plan's coefficients, concatenated, in
+    ``dtype`` on ``device``."""
+    full = torch.zeros(plan.fine_size + 1, dtype=dtype, device=device)
+    x = _assemble(grids, plan.buckets, dtype)
+    hier_scatter_grouped(hier_forward_grouped(x, table.stacks),
+                         table.scatter, coeffs, full)
+    return full[:-1].reshape(plan.fine_shape)
+
+
+def _ingest_unfused(grids, plan: ExecutorPlan, idxs, coeffs,
+                    dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The unfused ingest (same bits): the assembly, then per bucket the
+    full transform and one ``index_add_`` per member; ``idxs`` and
+    ``coeffs`` are per bucket, on ``device`` (``coeffs`` in ``dtype``)."""
+    full = torch.zeros(plan.fine_size + 1, dtype=dtype, device=device)
+    x = _assemble(grids, plan.buckets, dtype)
+    for b, stack, idx, cs in zip(plan.buckets, _bucket_views(x, plan.buckets),
+                                 idxs, coeffs):
+        _gather_unfused(full, stack, b.levels, idx, cs)
+    return full[:-1].reshape(plan.fine_shape)
+
+
+def _check_spec_device(fn: str, spec, device: torch.device) -> None:
+    if spec is not None:
+        ensure_spec(fn, spec)
+        spec.resolve_interpret(device)
+
+
 def ct_transform_with_plan(nodal_grids: Mapping[LevelVector, torch.Tensor],
                            plan: ExecutorPlan, *,
                            fused: Optional[bool] = None,
-                           device=None) -> torch.Tensor:
+                           spec=None, device=None) -> torch.Tensor:
     """``ct_transform`` against an explicit plan: nodal component grids
     -> sparse-grid surplus on the common fine grid, on ``device``.
 
     ``fused=None`` takes the port's default, the fused epilogue on every
-    bucket (three kernel launches in all on CUDA); ``fused=False`` the
-    unfused scatter (same bits)."""
+    bucket (four kernel launches in all on CUDA); ``fused=False`` the
+    unfused scatter (same bits).  ``spec`` supplies ``fused`` instead
+    (both at once raise)."""
     _check_plan(plan, "ct_transform_with_plan")
     device = resolve_device(device)
+    if spec is not None:
+        _check_spec_device("ct_transform_with_plan", spec, device)
+        if fused is not None:
+            raise ValueError("ct_transform_with_plan: pass spec or the bare "
+                             "fused keyword, not both")
+        fused = spec.fused
     grids, dtype = _grids_on(nodal_grids, plan, device)
-    full = torch.zeros(plan.fine_size + 1, dtype=dtype, device=device)
     if fused is False:
-        for bucket in plan.buckets:
-            _gather_unfused(
-                full, _assemble_bucket(grids, bucket, dtype), bucket.levels,
-                torch.from_numpy(bucket.index).to(device),
-                torch.as_tensor(bucket.coeffs, dtype=dtype, device=device))
-        return full[:-1].reshape(plan.fine_shape)
-    table = _ingest_table(plan)
-    x = torch.zeros(table.scatter.size, dtype=dtype, device=device)
-    for bucket, (a, b) in zip(plan.buckets, table.scatter.spans):
-        _assemble_bucket(grids, bucket, dtype, out=x[a:b].view(
-            (len(bucket.ells),) + bucket.shape))
+        return _ingest_unfused(
+            grids, plan,
+            [torch.from_numpy(b.index).to(device) for b in plan.buckets],
+            [torch.as_tensor(b.coeffs, dtype=dtype, device=device)
+             for b in plan.buckets], dtype, device)
     coeffs = torch.from_numpy(np.concatenate(
         [b.coeffs for b in plan.buckets])).to(device=device, dtype=dtype)
-    hier_scatter_grouped(hier_forward_grouped(x, table.stacks),
-                         table.scatter, coeffs, full)
-    return full[:-1].reshape(plan.fine_shape)
+    return _ingest_fused(grids, plan, _ingest_table(plan), coeffs, dtype,
+                         device)
 
 
 def ct_transform(nodal_grids: Mapping[LevelVector, torch.Tensor],
@@ -565,14 +690,16 @@ def ct_transform(nodal_grids: Mapping[LevelVector, torch.Tensor],
                  full_levels: Optional[Sequence[int]] = None,
                  merge: Optional[MergeConfig] = None,
                  fused: Optional[bool] = None,
-                 device=None) -> torch.Tensor:
+                 spec=None, device=None) -> torch.Tensor:
     """Gather phase, batched: nodal component grids -> sparse-grid surplus
     on the common fine grid (hierarchize-per-grid + ``combine_full``, in
-    one pass over the plan).  ``merge`` opts into bucket merging (same
-    bits, fewer launches)."""
+    one pass over the plan).  ``spec.merge`` opts into bucket merging (same
+    bits, fewer buckets); ``merge=`` / ``fused=`` are deprecated
+    spellings of the spec's fields."""
+    spec = resolve_spec("ct_transform", spec, merge=merge, fused=fused)
     return ct_transform_with_plan(
-        nodal_grids, build_plan(scheme, full_levels, merge=merge),
-        fused=fused, device=device)
+        nodal_grids, build_plan(scheme, full_levels, merge=spec.merge),
+        spec=spec, device=device)
 
 
 def bucket_surpluses(nodal_grids: Mapping[LevelVector, torch.Tensor],
@@ -583,10 +710,10 @@ def bucket_surpluses(nodal_grids: Mapping[LevelVector, torch.Tensor],
     _check_plan(plan, "bucket_surpluses")
     device = resolve_device(device)
     grids, dtype = _grids_on(nodal_grids, plan, device)
-    return tuple(
-        hierarchize_batched(_assemble_bucket(grids, b, dtype), b.levels)
-        .reshape(len(b.ells), -1)
-        for b in plan.buckets)
+    x = _assemble(grids, plan.buckets, dtype)
+    return tuple(hierarchize_batched(stack, b.levels).reshape(len(b.ells), -1)
+                 for b, stack in zip(plan.buckets,
+                                     _bucket_views(x, plan.buckets)))
 
 
 def bucket_tail_surpluses(nodal_grids: Mapping[LevelVector, torch.Tensor],
@@ -597,9 +724,10 @@ def bucket_tail_surpluses(nodal_grids: Mapping[LevelVector, torch.Tensor],
     _check_plan(plan, "bucket_tail_surpluses")
     device = resolve_device(device)
     grids, dtype = _grids_on(nodal_grids, plan, device)
+    x = _assemble(grids, plan.buckets, dtype)
     out = []
-    for b in plan.buckets:
-        y = hier_tail_batched(_assemble_bucket(grids, b, dtype), b.levels)
+    for b, stack in zip(plan.buckets, _bucket_views(x, plan.buckets)):
+        y = hier_tail_batched(stack, b.levels)
         out.append(y.reshape(len(b.ells), y.shape[1], -1))
     return tuple(out)
 
@@ -612,8 +740,85 @@ def bucket_nodal_stacks(nodal_grids: Mapping[LevelVector, torch.Tensor],
     _check_plan(plan, "bucket_nodal_stacks")
     device = resolve_device(device)
     grids, dtype = _grids_on(nodal_grids, plan, device)
-    return tuple(_assemble_bucket(grids, b, dtype).reshape(len(b.ells), -1)
-                 for b in plan.buckets)
+    x = _assemble(grids, plan.buckets, dtype)
+    return tuple(stack.reshape(len(b.ells), -1) for b, stack in
+                 zip(plan.buckets, _bucket_views(x, plan.buckets)))
+
+
+# ---------------------------------------------------------------------------
+# Plan accounting
+# ---------------------------------------------------------------------------
+
+def plan_launch_stats(plan: ExecutorPlan, *, dtype_bytes: int = 8,
+                      fused: Optional[bool] = None) -> Dict[str, int]:
+    """Plan-derived launch and byte accounting of one ingest
+    (``ct_transform_with_plan``) on CUDA, under the reference's keys:
+
+    * ``pallas_launches`` — the port's hand-written kernel launches (the
+      reference's Pallas launches): fused, one ``assemble_grouped``, one
+      ``hier_forward_grouped`` and two ``hier_scatter_grouped`` launches,
+      four however many buckets; unfused, the assembly plus per bucket
+      one axis-0 launch (axis 0 of extent > 1) and one tail launch (a
+      tail axis of extent > 1);
+    * ``einsum_dispatches`` — always 0: the port has no dense-operator
+      dispatch in the ingest;
+    * ``scatter_dispatches`` — the unfused path's library scatter-adds,
+      one ``index_add_`` per member; 0 fused;
+    * ``launches`` — the sum;
+    * ``transform_bytes`` — the stacks' traffic in the transform kernels:
+      fused, the forward launch reads and writes every stack and the
+      scatter reads it (3 touches); unfused, 2 touches per launch;
+    * ``stack_bytes`` — the compact-surplus round trip of the unfused path
+      (written by the transform, read by the scatter-adds); 0 fused.
+
+    ``dtype_bytes`` prices one value (8 = f64)."""
+    _check_plan(plan, "plan_launch_stats")
+    stats = {"buckets": len(plan.buckets), "members": plan.num_grids,
+             "pallas_launches": 0, "einsum_dispatches": 0,
+             "scatter_dispatches": 0, "launches": 0,
+             "transform_bytes": 0, "stack_bytes": 0}
+    stack = sum(len(b.ells) * int(np.prod(b.shape, dtype=np.int64))
+                for b in plan.buckets) * dtype_bytes
+    if fused is not False:
+        stats["pallas_launches"] = 4
+        stats["transform_bytes"] = 3 * stack
+    else:
+        stats["pallas_launches"] = 1
+        for b in plan.buckets:
+            g = len(b.ells)
+            nb = g * int(np.prod(b.shape, dtype=np.int64)) * dtype_bytes
+            n = (b.shape[0] > 1) + any(n > 1 for n in b.shape[1:])
+            stats["pallas_launches"] += n
+            stats["transform_bytes"] += 2 * n * nb
+            stats["scatter_dispatches"] += g
+        stats["stack_bytes"] = 2 * stack
+    stats["launches"] = (stats["pallas_launches"]
+                         + stats["einsum_dispatches"]
+                         + stats["scatter_dispatches"])
+    return stats
+
+
+def plan_ingest_stats(plan: ExecutorPlan, *,
+                      dtype_bytes: int = 8) -> Dict[str, int]:
+    """Per-device ingest compute and memory of the plan, as the reference
+    counts them for an unsharded plan: ``ingest_flops`` the
+    hierarchization flops (``hier_flops`` of every stack) plus one add per
+    stack entry; ``ingest_bytes`` the stacks plus the fine buffer (+1
+    dump slot), at ``dtype_bytes`` a value."""
+    _check_plan(plan, "plan_ingest_stats")
+    flops = stack_bytes = scatter_elems = 0
+    for b in plan.buckets:
+        g = len(b.ells)
+        p = int(np.prod(b.shape, dtype=np.int64))
+        flops += hier_flops(b.shape, g)
+        stack_bytes += g * p * dtype_bytes
+        scatter_elems += g * p
+    out_bytes = (plan.fine_size + 1) * dtype_bytes
+    return {"n_groups": 1, "n_slabs": 1,
+            "ingest_flops": flops + scatter_elems,
+            "ingest_bytes": stack_bytes + out_bytes,
+            "stack_bytes": stack_bytes, "ship_bytes": 0,
+            "out_bytes": out_bytes}
 
 
 # ---------------------------------------------------------------------------
@@ -621,6 +826,7 @@ def bucket_nodal_stacks(nodal_grids: Mapping[LevelVector, torch.Tensor],
 # ---------------------------------------------------------------------------
 
 def ct_scatter_with_plan(full: torch.Tensor, plan: ExecutorPlan, *,
+                         spec=None,
                          device=None) -> Dict[LevelVector, torch.Tensor]:
     """Scatter phase, batched: sparse-grid surplus on the common fine grid
     -> nodal values of the combined solution on every component grid of
@@ -633,6 +839,7 @@ def ct_scatter_with_plan(full: torch.Tensor, plan: ExecutorPlan, *,
     fine grid is never copied."""
     _check_plan(plan, "ct_scatter_with_plan")
     device = resolve_device(device)
+    _check_spec_device("ct_scatter_with_plan", spec, device)
     flat = torch.as_tensor(full, device=device).reshape(-1)
     if flat.numel() != plan.fine_size:
         raise ValueError(f"the surplus has {flat.numel()} values, the plan's "
@@ -655,16 +862,19 @@ def ct_scatter_with_plan(full: torch.Tensor, plan: ExecutorPlan, *,
 def ct_scatter(full: torch.Tensor, scheme: SchemeLike, *,
                full_levels: Optional[Sequence[int]] = None,
                merge: Optional[MergeConfig] = None,
-               device=None) -> Dict[LevelVector, torch.Tensor]:
+               spec=None, device=None) -> Dict[LevelVector, torch.Tensor]:
     """Scatter phase, batched (``ct_scatter_with_plan`` on the scheme's
     cached plan): the truncating projection of the surplus onto every
-    component grid, dehierarchized."""
+    component grid, dehierarchized.  ``merge=`` is a deprecated spelling
+    of ``spec.merge``."""
+    spec = resolve_spec("ct_scatter", spec, merge=merge)
     return ct_scatter_with_plan(
-        full, build_plan(scheme, full_levels, merge=merge), device=device)
+        full, build_plan(scheme, full_levels, merge=spec.merge), spec=spec,
+        device=device)
 
 
 def ct_embedded_with_plan(nodal_grids: Mapping[LevelVector, torch.Tensor],
-                          plan: ExecutorPlan, *, device=None
+                          plan: ExecutorPlan, *, spec=None, device=None
                           ) -> Tuple[torch.Tensor, torch.Tensor,
                                      Tuple[LevelVector, ...]]:
     """Per-grid UNWEIGHTED embedded surpluses, batched: ``(embedded (G,
@@ -676,15 +886,16 @@ def ct_embedded_with_plan(nodal_grids: Mapping[LevelVector, torch.Tensor],
     result holds G fine grids: it is meant for small fine grids."""
     _check_plan(plan, "ct_embedded_with_plan")
     device = resolve_device(device)
+    _check_spec_device("ct_embedded_with_plan", spec, device)
     grids, dtype = _grids_on(nodal_grids, plan, device)
     fine = plan.fine_size
     total = plan.num_grids
     buf = torch.zeros(total * fine + 1, dtype=dtype, device=device)
     coeffs, order = [], []
-    for bucket in plan.buckets:
+    x = _assemble(grids, plan.buckets, dtype)
+    for bucket, stack in zip(plan.buckets, _bucket_views(x, plan.buckets)):
         g = len(bucket.ells)
-        alpha = hierarchize_batched(_assemble_bucket(grids, bucket, dtype),
-                                    bucket.levels)
+        alpha = hierarchize_batched(stack, bucket.levels)
         rows = np.arange(len(order), len(order) + g, dtype=np.int64)[:, None]
         flat = np.where(bucket.index == fine, total * fine,
                         rows * fine + bucket.index)
@@ -700,9 +911,11 @@ def ct_embedded(nodal_grids: Mapping[LevelVector, torch.Tensor],
                 scheme: SchemeLike, *,
                 full_levels: Optional[Sequence[int]] = None,
                 merge: Optional[MergeConfig] = None,
-                device=None) -> Tuple[torch.Tensor, torch.Tensor,
-                                      Tuple[LevelVector, ...]]:
-    """``ct_embedded_with_plan`` on the scheme's cached plan."""
+                spec=None, device=None) -> Tuple[torch.Tensor, torch.Tensor,
+                                                 Tuple[LevelVector, ...]]:
+    """``ct_embedded_with_plan`` on the scheme's cached plan (``merge=`` a
+    deprecated spelling of ``spec.merge``)."""
+    spec = resolve_spec("ct_embedded", spec, merge=merge)
     return ct_embedded_with_plan(
-        nodal_grids, build_plan(scheme, full_levels, merge=merge),
-        device=device)
+        nodal_grids, build_plan(scheme, full_levels, merge=spec.merge),
+        spec=spec, device=device)

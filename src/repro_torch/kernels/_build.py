@@ -35,6 +35,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int64
 
 #: C entry points of each source: name -> argtypes.
 KERNELS: Dict[str, Dict[str, list]] = {
+    "assemble_members": {f"assemble_members_{t}": [_P, _I, _I, _P, _P]
+                         for t in ("f32", "f64")},
     "axis_pass_fwd": {
         f"axis_pass_fwd_{t}": [_P, _P, _I, _P, _P, _P, _I, _P]
         for t in ("f32", "f64")},

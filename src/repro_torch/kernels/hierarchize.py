@@ -65,6 +65,10 @@ The CT ingest runs the same two kernels over every bucket at once:
 last, one ``axis_pass_fwd`` launch) and ``hier_scatter_grouped`` (row 9:
 the last passes and the ordered scatter-add, two ``axis_pass_scatter_fwd``
 launches, on a slot-owner table, ``scatter_table``, built once per plan).
+Their input, the flat concatenation of the bucket stacks, is assembled
+from the member grids by ``assemble_grouped`` (one ``assemble_members``
+launch; the reference leaves this transpose-and-pad to XLA, so it
+replaces no TPU kernel).
 
 ``hier_tail_batched`` and ``hier_axis0_batched`` keep the reference's
 signatures: ``inverse=True`` hands the call to the inverse wrapper, which
@@ -108,6 +112,7 @@ __all__ = [
     "hier_axis0_scatter_batched",
     "hier_forward_grouped",
     "hier_scatter_grouped",
+    "assemble_grouped",
     "ScatterTable",
     "scatter_table",
     "hierarchize_batched",
@@ -763,6 +768,11 @@ def _grouped_table(stacks, device: torch.device) -> _ForwardTable:
                                                  stacks)], device)
 
 
+@functools.lru_cache(maxsize=256)
+def _grouped_sizes(stacks) -> Tuple[int, ...]:
+    return tuple(_stack_size(shape, levels) for shape, levels, _ in stacks)
+
+
 def hier_forward_grouped(x: torch.Tensor, stacks) -> torch.Tensor:
     """Forward passes over several bucket stacks at once: the passes before
     each bucket's last in a CT ingest.
@@ -776,7 +786,7 @@ def hier_forward_grouped(x: torch.Tensor, stacks) -> torch.Tensor:
     member, every member of every stack (the work table is built once per
     ``stacks`` and device)."""
     _record(hier_forward_grouped, x=x, stacks=stacks)
-    _check_grouped(x, [_stack_size(s, lv) for s, lv, _ in stacks], "x")
+    _check_grouped(x, _grouped_sizes(stacks), "x")
     if x.device.type == "cpu":
         return _forward_grouped_plain(x, stacks)
     x = _check_stack(x)
@@ -957,6 +967,129 @@ def hier_scatter_grouped(y: torch.Tensor, table: ScatterTable,
     _launch_scatter(y, table, _cuda_operand(coeffs, "coeffs"), acc)
     hier_scatter_grouped.launches += 2
     return acc
+
+
+# ---------------------------------------------------------------------------
+# Assembly: every member grid of an ingest into the flat stacks at once
+# ---------------------------------------------------------------------------
+
+#: ``assemble_members.cu``'s ``kMaxDims`` and ``AsmMember`` layout: src,
+#: dst, size, ndim, then shape, ext and stride, ``_ASM_DIMS`` each.
+_ASM_DIMS = 10
+_ASM_COLS = 4 + 3 * _ASM_DIMS
+#: Slot elements a block of the assembly kernel walks (256 threads x 4).
+_ASM_CHUNK = 1024
+
+
+@functools.lru_cache(maxsize=256)
+def _assembly_layout(stacks):
+    """The signature-determined part of ``assemble_grouped``'s work table:
+    one row a member with its slot's offset, volume, rank and the bucket
+    shape; the members' perms as an (M, d) array; the flat size; the
+    chunks a member's slot is split into.  Every stack has one rank d (a
+    plan's grids share the scheme's dimension)."""
+    ranks = {len(shape) for shape, _ in stacks}
+    if len(ranks) > 1 or max(ranks, default=0) > _ASM_DIMS:
+        raise ValueError(f"the assembly takes stacks of one rank, up to "
+                         f"{_ASM_DIMS}, got ranks {sorted(ranks)}")
+    d = max(ranks, default=0)
+    rows, perms, offset = [], [], 0
+    for shape, bucket_perms in stacks:
+        size = int(np.prod(shape, dtype=np.int64))
+        for perm in bucket_perms:
+            row = np.zeros(_ASM_COLS, np.int64)
+            row[1:4] = offset, size, d
+            row[4:4 + d] = shape
+            rows.append(row)
+            perms.append(tuple(perm))
+            offset += size
+    biggest = max((int(np.prod(s, dtype=np.int64)) for s, _ in stacks),
+                  default=0)
+    chunks = max(1, min(64, -(-biggest // _ASM_CHUNK)))
+    table = np.stack(rows) if rows else np.zeros((0, _ASM_COLS), np.int64)
+    return table, np.asarray(perms, np.int64).reshape(-1, d), offset, chunks
+
+
+def _check_parts(parts, stacks) -> Tuple[torch.dtype, torch.device]:
+    perms = _assembly_layout(stacks)[1]
+    if len(parts) != len(perms):
+        raise ValueError(f"expected {len(perms)} member grids, got "
+                         f"{len(parts)}")
+    dtype, device = parts[0].dtype, parts[0].device
+    for part in parts:
+        if part.dtype != dtype or part.device != device:
+            raise TypeError(f"the member grids must share one dtype and "
+                            f"device, got {part.dtype} on {part.device} "
+                            f"beside {dtype} on {device}")
+    return dtype, device
+
+
+def _assemble_grouped_plain(parts, stacks) -> torch.Tensor:
+    dtype, device = _check_parts(parts, stacks)
+    size = _assembly_layout(stacks)[2]
+    out = torch.zeros(size, dtype=dtype, device=device)
+    spans = _stack_spans([len(p) * int(np.prod(s, dtype=np.int64))
+                          for s, p in stacks])
+    m = 0
+    for (shape, bucket_perms), (a, b) in zip(stacks, spans):
+        x = out[a:b].view((len(bucket_perms),) + tuple(shape))
+        for g, perm in enumerate(bucket_perms):
+            p = parts[m].permute(perm)
+            x[(g,) + tuple(slice(0, s) for s in p.shape)] = p
+            m += 1
+    return out
+
+
+def assemble_grouped(parts: Sequence[torch.Tensor], stacks) -> torch.Tensor:
+    """The flat concatenation of a CT ingest's bucket stacks, assembled from
+    its member grids.
+
+    ``stacks[b] = (shape_b, perms_b)`` (hashable tuples): bucket b's
+    canonical shape and its members' axis permutations, canonical axis k
+    <- member axis ``perm[k]``.  ``parts`` are the member grids in bucket
+    order, then member order, of one dtype and device, any strides.
+    Member g of bucket b, permuted, fills the head of its (shape_b) slot of
+    stack b, a ``(G_b, *shape_b)`` array; the rest of the slot is 0.  On
+    CUDA: ONE ``assemble_members`` launch on a work table of one row a
+    member, copied to the device from pinned memory at each call (the
+    caching host allocator hands that block out again only once the copy
+    has run); bitwise the plain version."""
+    _record(assemble_grouped, parts=parts, stacks=stacks)
+    dtype, device = _check_parts(parts, stacks)
+    if device.type == "cpu":
+        return _assemble_grouped_plain(parts, stacks)
+    if device.type != "cuda" or dtype not in _DTYPE_TAG:
+        _check_stack(parts[0])          # raises, naming what it takes
+    static, perms, size, chunks = _assembly_layout(stacks)
+    d = perms.shape[1]
+    try:
+        shapes = np.array([tuple(p.shape) for p in parts],
+                          np.int64).reshape(-1, d)
+        strides = np.array([p.stride() for p in parts],
+                           np.int64).reshape(-1, d)
+    except ValueError:
+        raise ValueError(f"the member grids must all be {d}-dim") from None
+    table = torch.empty(static.shape, dtype=torch.int64, pin_memory=True)
+    rows = table.numpy()
+    rows[:] = static
+    rows[:, 0] = [p.data_ptr() for p in parts]
+    ext = rows[:, 4 + _ASM_DIMS:4 + _ASM_DIMS + d]
+    ext[:] = np.take_along_axis(shapes, perms, 1)
+    rows[:, 4 + 2 * _ASM_DIMS:4 + 2 * _ASM_DIMS + d] = np.take_along_axis(
+        strides, perms, 1)
+    over = np.flatnonzero((ext > rows[:, 4:4 + d]).any(1))
+    if over.size:
+        m = int(over[0])
+        raise ValueError(f"member {m} of shape {tuple(parts[m].shape)} does "
+                         f"not fit its slot {tuple(rows[m, 4:4 + d])} under "
+                         f"perm {tuple(perms[m])}")
+    out = torch.empty(size, dtype=dtype, device=device)
+    members = table.to(device, non_blocking=True)
+    fn = _build.kernel("assemble_members", _DTYPE_TAG[dtype])
+    _raise_on(fn(members.data_ptr(), len(parts), chunks, out.data_ptr(),
+                 _stream(out)), "assemble_members")
+    assemble_grouped.launches += 1
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1243,13 +1376,14 @@ def dehierarchize_nd_fused(a: torch.Tensor) -> torch.Tensor:
 WRAPPERS = (hier_tail_batched, hier_axis0_batched, hier_axis0_scatter_batched,
             dehier_tail_batched, dehier_axis0_batched,
             hier_pole, dehier_pole, apply_axis_matmul, hier_fused_tail,
-            hier_forward_grouped, hier_scatter_grouped)
+            hier_forward_grouped, hier_scatter_grouped, assemble_grouped)
 for _w, _plain in zip(WRAPPERS, (_tail_plain, _axis0_plain,
                                  _axis0_scatter_plain, _dehier_tail_plain,
                                  _dehier_axis0_plain, _pole_plain,
                                  _dehier_pole_plain, _axis_matmul_plain,
                                  _fused_tail_plain, _forward_grouped_plain,
-                                 _scatter_grouped_plain)):
+                                 _scatter_grouped_plain,
+                                 _assemble_grouped_plain)):
     _w.launches = 0
     _w.plain = _plain
 

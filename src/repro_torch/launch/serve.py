@@ -10,11 +10,8 @@ same distribution as the reference's ``jax.random.categorical``, other
 draws), and the log-probabilities are taken in float32 whatever the
 model's type.  Only dense architectures run (``configs.DENSE_ARCH_IDS``).
 
-``CTSurrogate`` is the port of ``repro.launch.serve.CTSurrogate``, single
-tenant: the reference delegates to its multi-tenant ``CTEngine``; here the
-surrogate owns its scheme, its plan and the served surplus.  ``refit`` (a
-refined scheme) and ``drop_grid`` (fault recovery) swap all three through
-the executor's incremental plan rebuilds.
+``CTSurrogate`` is the port of ``repro.launch.serve.CTSurrogate``: a
+single-tenant view over ``repro_torch.core.engine.CTEngine``.
 """
 
 from __future__ import annotations
@@ -27,12 +24,9 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.core.executor import (build_plan, ct_transform_with_plan,
-                                       extend_plan)
-from repro_torch.core.interpolation import interpolate_hierarchical
+from repro_torch.core.executor import resolve_spec
 from repro_torch.models import model as M
 from repro_torch.models.transformer import DenseLM, init_params
-from repro_torch.runtime.fault_tolerance import recombine_after_fault
 
 __all__ = ["ServeConfig", "generate", "CTSurrogate"]
 
@@ -94,58 +88,84 @@ def generate(sc: ServeConfig, prompts, params: DenseLM | None = None, *,
 class CTSurrogate:
     """Sparse-grid surrogate server: ingest once, answer point queries.
 
+    A thin single-tenant view over ``repro_torch.core.engine.CTEngine``, as
+    the reference's: the surrogate registers itself as tenant ``name`` of
+    a private engine (or of ``engine=``, shared with other tenants) and
+    delegates ingest, queries and lifecycle to it, so its ingest executable
+    is shared with every tenant of the same plan signature.
+
     A solver produces nodal values on every component grid; ``update``
-    runs the CT transform (one batched pass over the plan) into the
-    served surplus on the common fine grid, and ``query`` evaluates the
-    hierarchical interpolant of that surplus at a batch of points in
-    [0,1]^d.  ``merge`` opts the plan into bucket merging; ``fused``
-    selects the gather's epilogue (default fused; same bits either way);
-    ``device`` defaults to CUDA.
+    runs the CT transform into the served surplus on the common fine grid,
+    ``query`` evaluates the hierarchical interpolant of that surplus at a
+    batch of points in [0,1]^d.  ``refit`` (a refined scheme) and
+    ``drop_grid`` (fault recovery) swap scheme, plan and surplus through
+    the executor's incremental plan rebuilds; ``submit_query`` /
+    ``submit_update`` enqueue on the engine and return futures.
+
+    Execution policy comes as ``spec=ExecSpec(...)``; ``merge=`` and
+    ``fused=`` are deprecated spellings of its fields (they warn once).
+    ``device=`` is the private engine's device (default CUDA); with
+    ``engine=`` it must be the engine's.  ``store=`` / ``restore`` wait for
+    the durable store (ROADMAP A7), ``cluster=`` for the cluster (A8).
     """
 
-    def __init__(self, scheme, nodal_grids, *, merge=None, fused=None,
-                 device=None):
-        self._device = resolve_device(device)
-        self._scheme = scheme
-        self._fused = fused
-        self._plan = build_plan(scheme, merge=merge)
-        self._surplus = None
-        self.update(nodal_grids)
+    def __init__(self, scheme, nodal_grids, spec=None, *, engine=None,
+                 cluster=None, name: str = "surrogate", store=None,
+                 merge=None, fused=None, device=None):
+        from repro_torch.core.engine import CTEngine, _not_ported
+        if cluster is not None:
+            raise _not_ported("CTSurrogate(cluster=)", "A8",
+                              "serving through a CTCluster fleet")
+        if store is not None:
+            raise _not_ported("CTSurrogate(store=)", "A7",
+                              "the durable tenant store")
+        spec = resolve_spec("CTSurrogate", spec, merge=merge, fused=fused)
+        if engine is None:
+            engine = CTEngine(device=device)
+        elif device is not None and resolve_device(device) != engine.device:
+            raise ValueError(f"device={device} differs from the engine's "
+                             f"{engine.device}")
+        self._engine = engine
+        self._name = name
+        engine.register(name, scheme, nodal_grids, spec=spec)
+
+    @classmethod
+    def restore(cls, *args, **kwargs):
+        from repro_torch.core.engine import _not_ported
+        raise _not_ported("CTSurrogate.restore", "A7", "the durable store")
+
+    @property
+    def engine(self):
+        """The backing (possibly shared) ``CTEngine``."""
+        return self._engine
 
     @property
     def scheme(self):
-        return self._scheme
+        return self._engine.scheme(self._name)
 
     @property
     def device(self) -> torch.device:
-        return self._device
+        return self._engine.device
+
+    @property
+    def _plan(self):
+        return self._engine.plan(self._name)
 
     @property
     def surplus(self) -> torch.Tensor:
         """Sparse-grid surplus on the common fine grid (the served state)."""
-        return self._surplus
+        return self._engine.surplus(self._name)
 
     def update(self, nodal_grids) -> None:
-        """Re-ingest new solver output for the same scheme.  The previous
-        surplus is released before the new one is built, so the fine grid
-        is held once."""
-        self._surplus = None
-        self._surplus = ct_transform_with_plan(
-            nodal_grids, self._plan, fused=self._fused, device=self._device)
-
-    def _commit(self, scheme, plan, nodal_grids) -> None:
-        """Ingest ``nodal_grids`` under ``plan``, then swap in scheme, plan
-        and surplus together.  A failing ingest (a grid missing from
-        ``nodal_grids`` raises ``ValueError`` naming it) raises before any
-        state changes; the old surplus is held until the new one exists."""
-        surplus = ct_transform_with_plan(nodal_grids, plan, fused=self._fused,
-                                         device=self._device)
-        self._scheme, self._plan, self._surplus = scheme, plan, surplus
+        """Re-ingest new solver output for the same scheme."""
+        self._engine.update(self._name, nodal_grids)
 
     def refit(self, scheme, nodal_grids) -> None:
         """Serve a (refined) scheme: the plan is rebuilt incrementally
-        (``extend_plan``) and ``nodal_grids`` ingested under it."""
-        self._commit(scheme, extend_plan(self._plan, scheme), nodal_grids)
+        (``extend_plan``) and ``nodal_grids`` ingested under it.  A failing
+        ingest (a grid missing from ``nodal_grids`` raises ``ValueError``
+        naming it) raises before any state changes."""
+        self._engine.refit(self._name, scheme, nodal_grids)
 
     def drop_grid(self, failed, nodal_grids) -> None:
         """Fault recovery: recombine without grid(s) ``failed``
@@ -154,26 +174,20 @@ class CTSurrogate:
         the dropped grids (their coefficient is 0) and, when the reduction
         activates a previously coefficient-0 grid, that grid's data too.
         Later ``update`` calls recombine with the reduced coefficients."""
-        scheme, plan, _ = recombine_after_fault(self._scheme, failed,
-                                                plan=self._plan)
-        self._commit(scheme, plan, nodal_grids)
+        self._engine.drop_grid(self._name, failed, nodal_grids)
 
     def query(self, points) -> np.ndarray:
         """points: (Q, d) in [0,1]^d -> combined-interpolant values (Q,)."""
-        pts = np.asarray(points)
-        if pts.ndim == 1:
-            pts = pts[None, :]
-        dim = self._plan.dim
-        if pts.ndim != 2 or pts.shape[1] != dim:
-            raise ValueError(f"query points must have shape (Q, {dim}) — "
-                             f"the scheme is {dim}-dimensional — got "
-                             f"{pts.shape}")
-        if not np.issubdtype(pts.dtype, np.floating):
-            raise TypeError(f"query points must be a floating dtype "
-                            f"(coordinates in [0,1]^{dim}), got {pts.dtype}")
-        out = interpolate_hierarchical(
-            self._surplus, torch.from_numpy(pts).to(self._device))
-        return out.cpu().numpy()
+        return self._engine.query(self._name, points)
+
+    def submit_query(self, points, **kw):
+        """Asynchronous ``query``: the engine's ``CTFuture`` (keywords:
+        ``deadline_ms=``, ``priority=``, ``block=``, ...)."""
+        return self._engine.submit_query(self._name, points, **kw)
+
+    def submit_update(self, nodal_grids, **kw):
+        """Asynchronous ``update``: the engine's ``CTFuture``."""
+        return self._engine.submit_ingest(self._name, nodal_grids, **kw)
 
 
 def main(argv=None):

@@ -149,7 +149,7 @@ class HostHealthTracker:
 # ---------------------------------------------------------------------------
 
 def recombine_after_fault(scheme, failed: Iterable[Tuple[int, ...]],
-                          plan=None):
+                          plan=None, *, spec=None):
     """Recombine the CT scheme without the failed grid(s).
 
     Returns ``(new_scheme, new_plan, coefficient_only)``:
@@ -166,8 +166,8 @@ def recombine_after_fault(scheme, failed: Iterable[Tuple[int, ...]],
       supply nodal data for the newly activated grids.
     * ``coefficient_only`` — which of the two paths was taken.
 
-    ``plan`` defaults to ``build_plan(scheme)``; a merged plan stays
-    merged on both paths.
+    ``plan`` defaults to ``build_plan(scheme, spec=spec)`` (a live plan
+    wins over ``spec``); a merged plan stays merged on both paths.
     """
     from repro_torch.core.executor import (build_plan, extend_plan,
                                            update_plan_coefficients)
@@ -177,7 +177,7 @@ def recombine_after_fault(scheme, failed: Iterable[Tuple[int, ...]],
     if not isinstance(scheme, GeneralScheme):
         raise TypeError(f"expected a scheme, got {type(scheme).__name__}")
     if plan is None:
-        plan = build_plan(scheme)
+        plan = build_plan(scheme, spec=spec)
     new_scheme = scheme.without_levels(failed)
     try:
         return new_scheme, update_plan_coefficients(plan, new_scheme), True

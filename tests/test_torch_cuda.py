@@ -146,7 +146,7 @@ def test_wrappers_count_launches(cuda):
                  "dehier_axis0_batched": 0, "hier_pole": 0,
                  "dehier_pole": 0, "apply_axis_matmul": 0,
                  "hier_fused_tail": 0, "hier_forward_grouped": 0,
-                 "hier_scatter_grouped": 0}
+                 "hier_scatter_grouped": 0, "assemble_grouped": 0}
     with H.count_launches() as n:
         H.dehierarchize_batched(x, levels)
     assert {k: v for k, v in n.items() if v} == {"dehier_tail_batched": 2,
@@ -365,6 +365,8 @@ def test_grouped_forward_device_memory_branch(cuda, dtype):
 
 
 def test_prod_3d_ingest_makes_three_launches(cuda):
+    """Three launches of the hierarchization kernels (rows 5, 7 and 9) and
+    one of the assembly: four in all, however many grids."""
     scheme = CombinationScheme(3, 9)
     rng = np.random.default_rng(32)
     grids = {ell: torch.from_numpy(rng.standard_normal(grid_shape(ell)))
@@ -373,7 +375,94 @@ def test_prod_3d_ingest_makes_three_launches(cuda):
     with H.count_launches() as n:
         ct_transform_with_plan(grids, plan, device=cuda)
     assert {k: v for k, v in n.items() if v} == {
-        "hier_forward_grouped": 1, "hier_scatter_grouped": 2}
+        "assemble_grouped": 1, "hier_forward_grouped": 1,
+        "hier_scatter_grouped": 2}
+
+
+def _member_views(plan, rng, dtype, device):
+    """The plan's member grids on ``device``, alternately laid out with
+    their axes reversed (a permuted view) and as every other element of a
+    wider buffer (a strided slice)."""
+    parts = []
+    for b in plan.buckets:
+        for ell in b.ells:
+            u = torch.from_numpy(rng.standard_normal(grid_shape(ell))).to(
+                dtype=dtype, device=device)
+            rev = tuple(reversed(range(u.ndim)))
+            if len(parts) % 2:
+                wide = torch.zeros(u.shape[:-1] + (2 * u.shape[-1],),
+                                   dtype=dtype, device=device)
+                wide[..., ::2] = u
+                parts.append(wide[..., ::2])
+            else:
+                parts.append(u.permute(rev).contiguous().permute(rev))
+    return parts
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", ["prod_3d", "prod_3d_merged", "fig8_10d",
+                                  "long_axis_2_15"])
+def test_assemble_grouped_matches_plain(cuda, name, dtype):
+    """One ``assemble_members`` launch, bitwise the plain copy loop, on
+    permuted and strided member grids (the padding written as zeros)."""
+    plan = GROUPED[name]()
+    parts = _member_views(plan, np.random.default_rng(33), dtype, cuda)
+    assert sum(not p.is_contiguous() for p in parts) >= len(parts) // 3
+    stacks = tuple((b.shape, b.perms) for b in plan.buckets)
+    with H.count_launches() as n:
+        got = H.assemble_grouped(parts, stacks)
+    assert n["assemble_grouped"] == 1
+    assert _same(got, H.assemble_grouped([p.cpu() for p in parts], stacks))
+    assert _same(got, H.assemble_grouped.plain(parts, stacks))
+
+
+def test_engine_prod_3d_tenants_share_one_executable(cuda):
+    """Two prod_3d tenants of one signature: 1 miss and 1 hit, each
+    surplus bitwise ``ct_transform_with_plan``'s, each ingest four
+    launches."""
+    from repro_torch.core.engine import CTEngine, clear_compile_cache
+    scheme = CombinationScheme(3, 9)
+    plan = build_plan(scheme)
+    clear_compile_cache()
+    eng = CTEngine(device=cuda, ingest_workers=0)
+    rng = np.random.default_rng(34)
+    for name in ("a", "b"):
+        grids = {ell: torch.from_numpy(rng.standard_normal(grid_shape(ell)))
+                 .to(cuda) for ell, _ in scheme.grids}
+        with H.count_launches() as n:
+            eng.register(name, scheme, grids)
+        assert sum(n.values()) == 4
+        assert _same(eng.surplus(name),
+                     ct_transform_with_plan(grids, plan, device=cuda))
+    st = eng.stats()["ingest_cache"]
+    assert (st["misses"], st["hits"]) == (1, 1)
+
+
+def test_engine_ingest_on_the_pool_thread(cuda):
+    """An ingest run by the shared pool's thread (the default engine) and
+    its query: the surplus bitwise the caller-thread transform, the
+    answers bitwise a one-tenant query, a failing ingest failing its own
+    future only."""
+    from repro_torch.core.engine import CTEngine
+    scheme = CombinationScheme(3, 4)
+    plan = build_plan(scheme)
+    rng = np.random.default_rng(35)
+    grids = {ell: torch.from_numpy(rng.standard_normal(grid_shape(ell)))
+             .to(cuda) for ell, _ in scheme.grids}
+    eng = CTEngine(device=cuda)
+    eng.register("t", scheme, {k: 0.5 * v for k, v in grids.items()})
+    pts = rng.random((64, 3))
+    fi = eng.submit_ingest("t", grids)
+    fq = eng.submit_query("t", pts)
+    bad = eng.submit_ingest("t", {k: v for k, v in list(grids.items())[1:]})
+    eng.flush()
+    assert _same(fi.result(), ct_transform_with_plan(grids, plan,
+                                                     device=cuda))
+    with pytest.raises(ValueError, match="missing"):
+        bad.result()
+    assert fi.result() is eng.surplus("t")
+    assert np.array_equal(fq.result(), eng.query("t", pts))
+    eng.close()
 
 
 # ---------------------------------------------------------------------------

@@ -162,7 +162,8 @@ def test_recorded_calls_replay_the_ingest_bitwise(name):
     with th.record_calls() as calls:
         surplus = tex.ct_transform_with_plan(grids, plan, device="cpu")
     wrappers = [w for w, _ in calls]
-    assert wrappers == [th.hier_forward_grouped, th.hier_scatter_grouped]
+    assert wrappers == [th.assemble_grouped, th.hier_forward_grouped,
+                        th.hier_scatter_grouped]
     acc = torch.zeros(plan.fine_size + 1, dtype=torch.float64)
     for wrapper, args in calls:
         assert wrapper in th.WRAPPERS

@@ -164,7 +164,8 @@ def test_grouped_ingest_equals_reference_surplus(reference_4_6, merged):
         got = tex.ct_transform_with_plan(
             {k: torch.from_numpy(v) for k, v in grids.items()}, plan,
             device="cpu")
-    assert [w for w, _ in calls] == [th.hier_forward_grouped,
+    assert [w for w, _ in calls] == [th.assemble_grouped,
+                                     th.hier_forward_grouped,
                                      th.hier_scatter_grouped]
     _bitwise(got, want[merged])
 
