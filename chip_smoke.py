@@ -37,6 +37,36 @@ makes more than four launches, and checks the result:
   both of the reference's axis orders; every ``prod_3d`` and ``fig7_4d``
   bucket takes one order).
 
+Then the durable store and donation, at ``prod_3d`` in f64 on
+``CTEngine(device=cuda, ingest_workers=0)``, in a temporary directory
+removed at the end, with the launch counts set to 0 just before the
+restore and read just after it:
+
+* durable serving: a ``DurableStore`` with ``snapshot_interval=2``;
+  ``bump`` registered, then updated with ``seeded(11)`` (the snapshot at
+  seq 2, 1.07 GB) and ``seeded(12)`` (one WAL entry past it); the engine
+  is then left without ``close()`` (the crash) and a fresh engine on a
+  fresh store restores: its surplus bitwise the never-crashed one's,
+  ``RestoreInfo`` snapshot seq 2, pending 1, replayed 1, the replayed
+  ingest at most four launches, each of the assembly and rows 5, 7, 9
+  launched; a third engine restores with ``replay=False``, its
+  ``stale_ok`` query bitwise the seq-2 surplus's, and ``replay()`` brings
+  it bitwise to the never-crashed surplus;
+* donation on the restored engine: a second tenant of the same plan with
+  ``ExecSpec(donate=True)``, updated with grids on the card that the
+  script owns: its surplus bitwise the non-donating tenant's fed the same
+  values, every grid released, ``torch.cuda.memory_allocated()`` down by
+  what the grids were charged (73,915 x 8 B in the allocator's 512 B
+  blocks); a NaN ingest under ``check_finite=True`` raises
+  ``IngestBuffersDonated`` and leaves the served surplus unchanged;
+  handing the released grids in again raises ``IngestBuffersDonated``
+  before any launch, and the next ingest runs;
+* it prints the WAL append (median), the snapshot and its steps each
+  timed alone on the same surplus (device-to-host, npz write, crc32), the
+  restore split into load-and-verify and the rest (plan and adoption onto
+  the card), the replay per entry, the bytes on disk, and warm-median
+  ``update`` with and without donation (a record only).
+
 Then the second path, the per-grid (de)hierarchization of
 ``kernels.ops`` and the iterated combination round that drives it:
 
@@ -169,8 +199,10 @@ without the rest of the repository, it exits non-zero at once.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -309,8 +341,12 @@ def main() -> int:
     from repro_torch.core.levels import CombinationScheme, grid_shape
     from repro_torch.kernels import _build
     from repro_torch.kernels import hierarchize as H
-    from repro_torch.core.engine import CTEngine, clear_compile_cache
+    from repro_torch.checkpoint.checkpoint import _crc32
+    from repro_torch.core.engine import (CTEngine, ExecSpec,
+                                         IngestBuffersDonated,
+                                         clear_compile_cache)
     from repro_torch.launch.serve import CTSurrogate
+    from repro_torch.runtime.durability import DurableStore
 
     PROD, FIG7, FIG6 = ((CT_CONFIGS[n].dim, CT_CONFIGS[n].level)
                         for n in ("prod_3d", "fig7_4d", "fig6_2d"))
@@ -760,6 +796,185 @@ def main() -> int:
              for ell, _ in scheme.grids}
         check_surplus(scheme, g, CTSurrogate(scheme, g, device=cuda).surplus,
                       label)
+
+    # ------------------------------------------------------------------
+    # The durable store and donation at prod_3d: journal, snapshot, crash,
+    # restore and replay bitwise, then donated ingests on the restored
+    # engine (counts zeroed before the restore, read after it)
+    # ------------------------------------------------------------------
+    def timed(fn, into):
+        """``fn`` wrapped so that each call's host ms is appended."""
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                into.append((time.perf_counter() - t0) * 1e3)
+        return wrapper
+
+    def disk_bytes(root):
+        return sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, files in os.walk(root) for f in files)
+
+    values = sum(int(np.prod(grid_shape(ell))) for ell, _ in prod.grids)
+    qpts = points[2].numpy()
+    with tempfile.TemporaryDirectory(prefix="ct-store-") as root:
+        append_ms, snapshot_ms, load_ms = [], [], []
+        store1 = DurableStore(root, "h0")
+        store1.append = timed(store1.append, append_ms)
+        store1.snapshot = timed(store1.snapshot, snapshot_ms)
+        e1 = CTEngine(device=cuda, ingest_workers=0, store=store1,
+                      snapshot_interval=2)
+        e1.register("bump", prod, grids)                     # seq 1
+        e1.update("bump", {ell: sample_function(seeded(11), ell, device=cuda)
+                           for ell, _ in prod.grids})        # seq 2: snapshot
+        seq2_answer = e1.query("bump", qpts)
+        e1.update("bump", {ell: sample_function(seeded(12), ell, device=cuda)
+                           for ell, _ in prod.grids})        # seq 3: WAL only
+        never_crashed = e1.surplus("bump")
+        written = disk_bytes(root)
+        if store1.stats()["snapshots"] != 1 or len(snapshot_ms) != 1:
+            fail(f"expected one snapshot at seq 2, store stats "
+                 f"{store1.stats()}")
+        # the crash: e1 is left as it is, never closed
+        torch.cuda.synchronize()
+        for w in H.WRAPPERS:
+            w.launches = 0
+        store2 = DurableStore(root, "h0")
+        store2.load = timed(store2.load, load_ms)
+        e2 = CTEngine(device=cuda, ingest_workers=0, store=store2,
+                      snapshot_interval=0)     # no snapshots past seq 2
+        info = e2.restore()["bump"]
+        torch.cuda.synchronize()
+        replay_launches = {name: getattr(H, name).launches
+                           for name in KERNELS}
+        if (info.snapshot_seq, info.pending, info.replayed) != (2, 1, 1):
+            fail(f"restore: expected snapshot_seq 2, pending 1, replayed 1, "
+                 f"got {info}")
+        if not same(e2.surplus("bump"), never_crashed):
+            fail("the restored surplus differs from the never-crashed one")
+        for name, n in replay_launches.items():
+            if n == 0:
+                fail(f"{name} was not launched by the replayed ingest")
+        if sum(replay_launches.values()) > MAX_INGEST_LAUNCHES:
+            fail(f"the replayed ingest launched {replay_launches}: at most "
+                 f"{MAX_INGEST_LAUNCHES}")
+        # restore without the replay: stale queries serve the snapshot
+        e3 = CTEngine(device=cuda, ingest_workers=0)
+        deferred = e3.restore(DurableStore(root, "h0"),
+                              replay=False)["bump"]
+        stale = e3.submit_query("bump", qpts, stale_ok=True)
+        e3.flush()
+        if deferred.replayed != 0 or not np.array_equal(
+                stale.result().view(np.uint8), seq2_answer.view(np.uint8)):
+            fail("restore(replay=False): the stale query is not bitwise the "
+                 "seq-2 surplus's")
+        e3.replay()
+        if not same(e3.surplus("bump"), never_crashed):
+            fail("replay() did not reach the never-crashed surplus")
+        del e3, stale, never_crashed
+        # the snapshot's steps, each timed alone on the restored surplus
+        surplus = e2.surplus("bump")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = surplus.cpu().numpy()
+        d2h_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        np.savez(os.path.join(root, "timing.npz"), surplus=host)
+        npz_ms = (time.perf_counter() - t0) * 1e3
+        os.remove(os.path.join(root, "timing.npz"))
+        t0 = time.perf_counter()
+        _crc32(host)
+        crc_ms = (time.perf_counter() - t0) * 1e3
+        del host, surplus
+        print(f"durable prod_3d: restore bitwise the never-crashed engine "
+              f"(snapshot seq 2, 1 WAL entry replayed, launches "
+              f"{replay_launches}); restore(replay=False) served the seq-2 "
+              f"surplus bitwise, replay() caught up bitwise")
+        print(f"durable prod_3d times: WAL append (host copy of {values} "
+              f"values, npz, write) median "
+              f"{float(np.median(append_ms)):.3f} ms (runs "
+              + ", ".join(f"{x:.3f}" for x in append_ms) + "); snapshot "
+              f"(1.07 GB) {snapshot_ms[0]:.1f} ms, its steps alone: "
+              f"device-to-host {d2h_ms:.1f} ms, npz write {npz_ms:.1f} ms, "
+              f"crc32 {crc_ms:.1f} ms; restore {info.restore_s * 1e3:.1f} ms"
+              f" = load and verify {load_ms[0]:.1f} ms + plan and adoption "
+              f"onto the card {info.restore_s * 1e3 - load_ms[0]:.1f} ms; "
+              f"replay {info.replay_s * 1e3 / info.replayed:.2f} ms per "
+              f"entry; {written} B on disk  [{card}]")
+
+        # donation: a second tenant of the same plan on the restored engine
+        def owned(fn):
+            return {ell: sample_function(fn, ell, device=cuda).clone()
+                    for ell, _ in prod.grids}
+
+        e2.register("donated", prod, owned(bump),
+                    spec=ExecSpec(donate=True))
+        kept = owned(seeded(13))
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        given = owned(seeded(13))
+        charged = torch.cuda.memory_allocated() - before
+        before = torch.cuda.memory_allocated()
+        e2.update("donated", given)
+        torch.cuda.synchronize()
+        dropped = before - torch.cuda.memory_allocated()
+        e2.update("bump", kept)
+        if not same(e2.surplus("donated"), e2.surplus("bump")):
+            fail("the donated ingest differs from the non-donating one")
+        if not all(H.storage_released(v) for v in given.values()):
+            fail("a donated grid was not released")
+        blocks = sum(-(-int(np.prod(grid_shape(ell))) * 8 // 512) * 512
+                     for ell, _ in prod.grids)
+        if dropped != charged or not values * 8 <= charged <= blocks:
+            fail(f"donation: memory_allocated dropped by {dropped} B, the "
+                 f"grids were charged {charged} B ({values} x 8 B = "
+                 f"{values * 8} B, in 512 B blocks {blocks} B)")
+        nan = owned(seeded(14))
+        nan[next(iter(nan))].view(-1)[0] = float("nan")
+        fut = e2.submit_ingest("donated", nan, check_finite=True)
+        e2.flush()
+        try:
+            fut.result()
+            fail("a NaN ingest under check_finite did not raise")
+        except IngestBuffersDonated:
+            pass
+        if not same(e2.surplus("donated"), e2.surplus("bump")):
+            fail("the NaN ingest changed the served surplus")
+        with H.count_launches() as refused:
+            try:
+                e2.submit_ingest("donated", given)
+                fail("released grids were accepted again")
+            except IngestBuffersDonated:
+                pass
+        if any(refused.values()):
+            fail(f"released grids reached a launch: {refused}")
+        e2.update("donated", owned(seeded(15)))     # the context survived
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(e2.surplus("donated")).all()):
+            fail("the ingest after the refusal is not finite")
+        print(f"donation prod_3d: surplus bitwise the non-donating tenant's, "
+              f"every grid released, memory_allocated dropped {dropped} B "
+              f"(the grids' {values} x 8 B = {values * 8} B in the "
+              f"allocator's blocks); a NaN under check_finite raised "
+              f"IngestBuffersDonated, surplus unchanged; released grids "
+              f"refused before any launch; the next ingest succeeded")
+        sets = [owned(seeded(16 + i)) for i in range(ENGINE_UPDATES)]
+        donate_ms = {"without donation": [], "with donation": []}
+        for i in range(ENGINE_UPDATES):
+            for label, name, g in (("without donation", "bump", kept),
+                                   ("with donation", "donated", sets[i])):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                e2.update(name, g)
+                torch.cuda.synchronize()
+                donate_ms[label].append((time.perf_counter() - t0) * 1e3)
+        print("prod_3d update on the durable engine (WAL append included), "
+              f"median of {ENGINE_UPDATES}: " + "; ".join(
+                  f"{k} {float(np.median(v)):.3f} ms (runs "
+                  + ", ".join(f"{x:.3f}" for x in v) + ")"
+                  for k, v in donate_ms.items()) + f"  [{card}]")
+        del e1, e2, given, kept, nan, sets
 
     # ------------------------------------------------------------------
     # Third path: the scatter phase and adaptivity (rows 6 and 8)

@@ -7,8 +7,10 @@ imports ``torch`` and numpy only — never JAX, never ``repro``.
 Ported so far: the CT ingest-and-query path (``core.executor.ct_transform``,
 ``core.interpolation.interpolate_hierarchical``), the single-device CT
 engine (``core.engine``: ``ExecSpec``, ``CTEngine`` with
-signature-shared ingest executables and coalesced queries, and
-``launch.serve.CTSurrogate`` as its one-tenant view), the per-grid
+signature-shared ingest executables, coalesced queries and donation, and
+``launch.serve.CTSurrogate`` as its one-tenant view) with its durable
+store (``runtime.durability``: WAL, surplus snapshots, restore and replay,
+on the checkpoint layer ``checkpoint.checkpoint``), the per-grid
 transforms (``kernels.ops``) and the iterated combination technique
 (``core.iterated``), the scatter phase with adaptivity
 (``core.executor.ct_scatter``, ``core.adaptive``,
@@ -18,9 +20,8 @@ transforms (``kernels.ops``) and the iterated combination technique
 carries the reference's weights across).  Every TPU kernel of the
 reference is written by hand in CUDA for Hopper (``kernels/csrc``): the
 hierarchization kernels and flash attention, and the ingest's member
-assembly is one hand-written launch too.  Not ported yet: the engine's
-donation and threaded stress tier (A5b), multi-GPU sharding and
-``rebind`` (A9), durability (A7) and the cluster (A8), and of the LM
+assembly is one hand-written launch too.  Not ported yet: multi-GPU
+sharding and ``rebind`` (A9), the cluster (A8), and of the LM
 stack the moe, ssm, hybrid, encdec and vlm families, training
 (``launch/train.py``, ``optim``, ``data``, the loss) and ``make_batch``/
 ``input_specs`` (ROADMAP.md, Queue A).  Entry points run on the CUDA

@@ -18,11 +18,8 @@ caller asks for it).
 
 What is not ported: meshes and slab or member sharding (``ExecSpec``'s
 ``mesh``, ``n_slabs > 1`` and ``member_axis``, and ``rebind``) wait for
-ROADMAP A9; donation (``donate=True``) and the threaded stress tier for
-A5b; the durable store (``store=``, ``restore``, ``replay``,
-``snapshot_tenant``) for A7; the cluster's ``heartbeat`` and
-``submit_probe`` for A8.  Each raises ``NotImplementedError`` naming its
-item.
+ROADMAP A9; the cluster's ``heartbeat`` and ``submit_probe`` for A8.  Each
+raises ``NotImplementedError`` naming its item.
 
 Ingest executables
 ------------------
@@ -70,6 +67,41 @@ and counters; the executable cache's lock is a leaf; no device work runs
 under a lock.  The kernel wrappers' launch counters and ``record_calls``
 are not thread-safe: count with ``ingest_workers=0`` or one chain at a
 time.
+
+Durability
+----------
+
+As in the reference (``repro_torch.runtime.durability``): with
+``store=`` every admitted ingest is journaled to the tenant's WAL before it
+is queued (a grid on the card is copied to the host there, on the
+submitter's thread), the served surplus is snapshotted every
+``snapshot_interval`` acked ingests on the ingest chain's thread after the
+ack (copied to the host, written as npz, checksummed), and
+``restore(store)`` adopts each tenant's newest intact snapshot onto the
+engine's device and replays the newer WAL entries through the normal
+ingest, so the restored surplus is bitwise that of an engine that never
+crashed.  The store's bytes are the reference's: a store written by either
+package restores in the other.
+
+Donation
+--------
+
+``ExecSpec(donate=True)`` hands the caller's grid tensors to the ingest.
+JAX deletes a donated buffer; here the engine frees the storage of each
+grid the assembly read in place (``untyped_storage().resize_(0)``, after
+``record_stream`` on the ingest's stream, so the caching allocator reuses
+the memory only after the assembly ran).  A grid is released only when
+it is the very tensor the assembly read (on the engine's device, in the
+ingest's dtype), owns its storage whole (offset 0, no bytes beyond its
+own) and its storage is resizable; anything else is kept, and a warning
+saying so (it contains "donated") fires once per tenant.  Numpy input is
+staged per call and is never donated.  A released tensor is recognised
+from its metadata (``kernels.hierarchize.storage_released``) before
+anything reads it: handing one in again raises ``IngestBuffersDonated``
+(and the WAL's host copy is never attempted), a NaN found by
+``check_finite`` after a donated ingest raises ``IngestBuffersDonated``
+instead of ``FloatingPointError``, and a lost compare-and-swap never
+dispatches released grids again.
 """
 
 from __future__ import annotations
@@ -80,9 +112,10 @@ import math
 import os
 import threading
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -96,9 +129,12 @@ from repro_torch.core.executor import (ExecutorPlan, MergeConfig,
                                        reset_legacy_warnings)
 from repro_torch.core.interpolation import interpolate_hierarchical
 from repro_torch.core.levels import SchemeLike
+from repro_torch.kernels.hierarchize import storage_released
+from repro_torch.runtime.durability import DurableStore, RetryPolicy
 
 __all__ = ["ExecSpec", "CTEngine", "CTFuture", "EngineSaturated",
-           "RetryPolicy", "plan_signature", "reset_deprecation_warnings",
+           "IngestBuffersDonated", "RestoreInfo", "RetryPolicy",
+           "plan_signature", "reset_deprecation_warnings",
            "clear_compile_cache"]
 
 
@@ -122,28 +158,28 @@ class _RebindRace(RuntimeError):
 
 
 @dataclass(frozen=True)
-class RetryPolicy:
-    """Bounded immediate retries: the part of the reference's
-    ``runtime.durability.RetryPolicy`` the ingest commit uses (it never
-    sleeps: losing the compare-and-swap means the record has already
-    changed, there is nothing to wait for)."""
+class RestoreInfo:
+    """What ``CTEngine.restore`` recovered for one tenant."""
 
-    attempts: int = 5
+    name: str
+    snapshot_seq: int           # watermark of the adopted snapshot (0 none)
+    base_seq: int               # highest journaled seq (snapshot + WAL)
+    tag: int                    # newest caller ordering tag recovered; -1
+    snapshot_tag: int           # caller tag of the adopted snapshot; -1
+    pending: int                # WAL entries newer than the snapshot
+    replayed: int               # entries already applied (replay=True)
+    restore_s: float
+    replay_s: float
+    events: Tuple[str, ...]     # tolerated anomalies (torn tails, ...)
 
-    def __post_init__(self):
-        if self.attempts < 1:
-            raise ValueError(f"attempts must be >= 1, got {self.attempts}")
 
-    def run(self, fn: Callable[[], Any], *,
-            retry_on: Tuple[type, ...] = (Exception,)):
-        """Call ``fn`` up to ``attempts`` times; re-raise the last
-        failure."""
-        for attempt in range(self.attempts):
-            try:
-                return fn()
-            except retry_on:
-                if attempt == self.attempts - 1:
-                    raise
+class IngestBuffersDonated(RuntimeError):
+    """An ingest under ``ExecSpec(donate=True)`` failed (or lost a refit
+    race) after its input grids were donated, or was handed grids whose
+    storage an earlier donated ingest released: the storage is gone, so
+    the ingest can neither be retried in place nor resubmitted.  The
+    owning future resolves with this error instead of dispatching released
+    grids; resubmit from host copies to recover."""
 
 
 def _dtype_name(dtype) -> str:
@@ -157,8 +193,7 @@ class ExecSpec:
     """One frozen config of execution policy (hashable: ``MergeConfig`` is
     a frozen dataclass and ``dtype`` is canonicalized to its name), so a
     spec can sit in cache keys.  Fields as the reference's; ``mesh``,
-    ``n_slabs > 1`` and ``member_axis`` raise (ROADMAP A9), ``donate=True``
-    raises (A5b)."""
+    ``n_slabs > 1`` and ``member_axis`` raise (ROADMAP A9)."""
 
     #: bucket-merging cost model (``None`` = one bucket per canonical
     #: shape): part of the PLAN
@@ -175,6 +210,9 @@ class ExecSpec:
     #: accumulation dtype of an engine ingest (a name, e.g. ``"float64"``);
     #: ``None`` = promote the input grid dtypes
     dtype: Optional[str] = None
+    #: hand the caller's grid tensors to the ingest, which releases their
+    #: storage once the assembly has read them (module docstring,
+    #: "Donation"); opt-in, part of the plan signature
     donate: bool = False
     member_axis: Optional[str] = None
 
@@ -188,9 +226,6 @@ class ExecSpec:
             raise _not_ported(
                 "ExecSpec(mesh=, n_slabs > 1, member_axis=)", "A9",
                 "slab and member sharding across cards runs one card here")
-        if self.donate:
-            raise _not_ported("ExecSpec(donate=True)", "A5b",
-                              "donating the ingest's input buffers")
 
     @property
     def torch_dtype(self) -> Optional[torch.dtype]:
@@ -453,6 +488,9 @@ class _Tenant:
     surplus_seq: int = 0            # ingest seq of the committed surplus
     deadline_ms: Optional[float] = None   # None = engine default
     priority: int = 0
+    #: one per ``register``, carried over by a refit's record swap: tells a
+    #: refit (retry the ingest) from an unregister and a new register
+    incarnation: Any = dataclasses.field(default_factory=object)
 
 
 @dataclass
@@ -464,7 +502,7 @@ class _Request:
 
     kind: str                       # "ingest" | "query"
     name: str
-    payload: Any                    # (grids, check_finite) | (points, q, qpad)
+    payload: Any          # (grids, check_finite, tag) | (points, q, qpad)
     future: CTFuture
     ingest_seq: int = 0
     priority: int = 0
@@ -496,7 +534,10 @@ def _qpad(q: int) -> int:
 class CTEngine:
     """Thread-safe multi-tenant CT surrogate server on one device (see the
     module docstring).  ``device`` defaults to CUDA; every tenant's plan
-    tables, coefficients and surplus live there."""
+    tables, coefficients and surplus live there.  ``store=`` (a
+    ``DurableStore``) journals every admitted ingest and snapshots each
+    tenant every ``snapshot_interval`` acked ingests; ``None`` keeps the
+    engine in memory only."""
 
     def __init__(self, spec: Optional[ExecSpec] = None, *,
                  device=None, max_batch: int = 32, max_pending: int = 1024,
@@ -504,14 +545,12 @@ class CTEngine:
                  ingest_workers: Optional[int] = None,
                  check_finite: bool = False,
                  host_id: Optional[str] = None,
-                 retry: Optional[RetryPolicy] = None,
-                 store=None):
+                 store: Optional[DurableStore] = None,
+                 snapshot_interval: int = 16,
+                 retry: Optional[RetryPolicy] = None):
         if spec is not None and not isinstance(spec, ExecSpec):
             raise TypeError(f"CTEngine: spec must be an ExecSpec, got "
                             f"{type(spec).__name__}")
-        if store is not None:
-            raise _not_ported("CTEngine(store=)", "A7",
-                              "the durable tenant store")
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         if max_pending < 1:
@@ -523,7 +562,13 @@ class CTEngine:
         self._max_pending = max_pending
         self._deadline_ms = deadline_ms
         self._check_finite = check_finite
-        self._retry = retry or RetryPolicy()
+        self._store = store
+        self._snapshot_interval = snapshot_interval
+        self._retry = retry or RetryPolicy(attempts=5, base_delay_s=0.0)
+        self._snap_seq: Dict[str, int] = {}     # last snapshotted watermark
+        self._last_tag: Dict[str, int] = {}     # newest caller ordering tag
+        self._replay_pending: Dict[str, List[Any]] = {}
+        self._donation_warned: set = set()      # tenants warned of kept grids
         #: name of this engine in error messages and ``stats()``
         self.host_id = host_id
         self._lock = threading.RLock()
@@ -552,14 +597,23 @@ class CTEngine:
     def register(self, name: str, scheme: SchemeLike, nodal_grids=None, *,
                  spec: Optional[ExecSpec] = None,
                  deadline_ms: Optional[float] = None,
-                 priority: int = 0, plan=None, surplus=None) -> "CTEngine":
+                 priority: int = 0, plan=None, surplus=None,
+                 tag: Optional[int] = None,
+                 durable: bool = True) -> "CTEngine":
         """Admit tenant ``name``: build its plan under ``spec`` (engine
         default when omitted), bind the signature-shared executable, and —
         when ``nodal_grids`` is given — ingest at once.  ``plan=`` /
         ``surplus=`` adopt a retained plan and an already-computed surplus
         (the failover lane): no plan build, no ingest; the caller owns the
         triple's consistency.  ``surplus=`` and ``nodal_grids=`` exclude
-        each other."""
+        each other.
+
+        With a store attached (and ``durable=True``) the tenant's identity
+        is registered in the store, an initial ingest is journaled at
+        admission, and an adopted ``surplus`` is snapshotted at once.
+        ``tag`` is the caller's own ordering tag, journaled beside the
+        engine's watermark; ``durable=False`` is for ``restore`` itself,
+        whose state is already on disk."""
         if spec is not None and not isinstance(spec, ExecSpec):
             raise TypeError(f"register: spec must be an ExecSpec, got "
                             f"{type(spec).__name__}")
@@ -578,6 +632,13 @@ class CTEngine:
         tenant.deadline_ms, tenant.priority = deadline_ms, priority
         if surplus is not None:
             tenant.surplus = torch.as_tensor(surplus, device=self.device)
+        durable = durable and self._store is not None
+        if durable:
+            # identity first (atomic meta.json): a crash between here and
+            # the first journal append restores an empty tenant
+            self._store.register(name, scheme,
+                                 full_levels=tenant.plan.full_levels,
+                                 deadline_ms=deadline_ms, priority=priority)
         with self._work:
             if name in self._tenants:
                 raise ValueError(f"tenant {name!r} already registered "
@@ -585,10 +646,31 @@ class CTEngine:
             self._tenants[name] = tenant
             if nodal_grids is not None:
                 # a query submitted before the commit below waits for it
-                self._ingest_submitted[name] = \
-                    self._ingest_submitted.get(name, 0) + 1
+                seq0 = self._ingest_submitted.get(name, 0) + 1
+                self._ingest_submitted[name] = seq0
+                if durable:
+                    try:
+                        # journal at admission: a crash after this append
+                        # replays the initial ingest
+                        self._journal(name, seq0, nodal_grids, tag)
+                    except Exception:
+                        del self._tenants[name]
+                        self._ingest_submitted[name] = seq0 - 1
+                        raise
+                if tag is not None:
+                    self._last_tag[name] = tag
             self._work_seq += 1
             self._work.notify_all()
+        if durable and surplus is not None:
+            # adopted state never flows through submit_ingest: make it
+            # durable now (this also rotates away a stale journal of an
+            # earlier tenant of the name)
+            seq0 = self._ingest_submitted.get(name, 0)
+            if tag is not None:
+                self._last_tag[name] = tag
+            self._snapshot_now(name, seq0, tag, tenant.surplus,
+                               scheme=scheme,
+                               full_levels=tenant.plan.full_levels)
         if nodal_grids is not None:
             try:
                 surplus = self._dispatch_ingest(tenant, nodal_grids)
@@ -613,11 +695,16 @@ class CTEngine:
     def unregister(self, name: str) -> None:
         """Remove tenant ``name``.  Work queued for it fails its future
         with a named ``KeyError`` at dispatch; the per-name watermark stays
-        monotonic, so a later re-register is race-free."""
+        monotonic, so a later re-register is race-free.  Its durable state
+        is discarded: an unregister is a deliberate handoff, not a crash,
+        and a later ``restore`` must not bring the tenant back."""
         with self._work:
             del self._tenants[name]
+            self._replay_pending.pop(name, None)
             self._work_seq += 1
             self._work.notify_all()
+        if self._store is not None:
+            self._store.discard(name)
 
     def __contains__(self, name: str) -> bool:
         return name in self._tenants
@@ -681,10 +768,72 @@ class CTEngine:
                        signature=signature, executable=executable,
                        binding=executable.bind(plan, self.device))
 
+    def _check_not_donated(self, name: str, nodal_grids) -> None:
+        """Raise the named ``IngestBuffersDonated`` if a grid of the payload
+        is a tensor whose storage a donated ingest released, before
+        anything reads it."""
+        dead = [ell for ell, v in nodal_grids.items()
+                if isinstance(v, torch.Tensor) and storage_released(v)]
+        if dead:
+            raise IngestBuffersDonated(
+                f"{self._host()}: ingest for tenant {name!r} cannot be "
+                f"dispatched: {len(dead)} input grid(s) (first: {dead[0]}) "
+                f"were donated to an earlier ingest and their storage is "
+                f"released (deleted) — resubmit from host copies")
+
+    def _release_donated(self, tenant: _Tenant, nodal_grids, staged,
+                         dtype: torch.dtype) -> None:
+        """Release the storage of each caller's grid that the assembly read
+        in place (``staged`` holds what it read), after ``record_stream``
+        on the ingest's stream; warn once per tenant of the grids kept."""
+        stream = torch.cuda.current_stream(self.device) \
+            if self.device.type == "cuda" else None
+        kept = []
+        for b in tenant.plan.buckets:
+            for ell in b.ells:
+                v = nodal_grids[ell]
+                if not isinstance(v, torch.Tensor):
+                    continue        # staged per call: nothing to hand over
+                storage = v.untyped_storage()
+                if staged[ell] is v and v.dtype == dtype \
+                        and v.storage_offset() == 0 and storage.nbytes() \
+                        == v.numel() * v.element_size() \
+                        and storage.resizable():
+                    if stream is not None:
+                        v.record_stream(stream)
+                    storage.resize_(0)
+                else:
+                    kept.append(ell)
+        with self._lock:
+            warn = bool(kept) and tenant.name not in self._donation_warned
+            if warn:
+                self._donation_warned.add(tenant.name)
+        if warn:
+            warnings.warn(
+                f"{self._host()}: tenant {tenant.name!r} donated its ingest's "
+                f"grids (ExecSpec(donate=True)), but {len(kept)} of them "
+                f"(first: {kept[0]}) cannot be released and were kept: not "
+                f"on {self.device} in {dtype}, a view into a larger "
+                f"storage, or a storage that cannot be resized (numpy "
+                f"memory)", stacklevel=3)
+
     def _dispatch_ingest(self, tenant: _Tenant, nodal_grids) -> torch.Tensor:
+        if tenant.spec.donate:
+            self._check_not_donated(tenant.name, nodal_grids)
         grids, dtype = _grids_on(nodal_grids, tenant.plan, self.device)
-        return tenant.executable(grids, tenant.binding,
-                                 tenant.spec.result_dtype(dtype), self.device)
+        dtype = tenant.spec.result_dtype(dtype)
+        surplus = tenant.executable(grids, tenant.binding, dtype, self.device)
+        if tenant.spec.donate:
+            self._release_donated(tenant, nodal_grids, grids, dtype)
+        return surplus
+
+    def _journal(self, name: str, seq: int, nodal_grids,
+                 tag: Optional[int]) -> None:
+        """Append an admitted ingest to the store's WAL (the caller holds
+        the lock, so journal order is admission order).  Its host copy
+        would read a released grid: that raises first."""
+        self._check_not_donated(name, nodal_grids)
+        self._store.append(name, seq, nodal_grids, tag=tag)
 
     # -- thread-safe submission ---------------------------------------------
 
@@ -721,11 +870,15 @@ class CTEngine:
 
     def submit_ingest(self, name: str, nodal_grids, *, priority: int = 0,
                       check_finite: Optional[bool] = None, block: bool = True,
-                      timeout: Optional[float] = None) -> CTFuture:
+                      timeout: Optional[float] = None,
+                      tag: Optional[int] = None) -> CTFuture:
         """Enqueue new solver output for ``name`` (any thread); the future
         resolves to the new surplus once it is committed.  Ingests of one
         tenant apply in submission order; its later queries observe
-        them."""
+        them.  With a store attached the payload is journaled here, at
+        admission, before it can be acknowledged; a failed append (a torn
+        record) fails the admission.  ``tag`` is the caller's own ordering
+        tag, stored beside the engine's seq."""
         self._tenant(name)                      # raise early on a bad name
         check = self._check_finite if check_finite is None else check_finite
         fut = CTFuture(self)
@@ -736,8 +889,18 @@ class CTEngine:
                                f"{sorted(self._tenants)})")
             seq = self._ingest_submitted.get(name, 0) + 1
             self._ingest_submitted[name] = seq
+            if self._store is not None:
+                try:
+                    # under the lock: an append outside it could ack seq
+                    # N+1 before N is on disk
+                    self._journal(name, seq, nodal_grids, tag)
+                except Exception:
+                    self._ingest_submitted[name] = seq - 1
+                    raise
+            if tag is not None:
+                self._last_tag[name] = tag
             self._pending.append(
-                _Request("ingest", name, (nodal_grids, check), fut,
+                _Request("ingest", name, (nodal_grids, check, tag), fut,
                          ingest_seq=seq, priority=priority,
                          deadline=time.monotonic()))
             self._work_seq += 1
@@ -840,10 +1003,17 @@ class CTEngine:
             self.flush()
 
     def close(self) -> None:
-        """Stop the scheduler, drain the queue, shut down a private pool."""
+        """Stop the scheduler, drain the queue, shut down a private pool;
+        an attached store gets a final fsync (it belongs to the host, so
+        it is flushed, not closed)."""
         self.stop(drain=True)
         if self._private_pool is not None:
             self._private_pool.shutdown(wait=True)
+        if self._store is not None:
+            try:
+                self._store.flush()
+            except OSError:
+                pass        # a store removed at shutdown is moot
 
     def __enter__(self) -> "CTEngine":
         return self.start()
@@ -963,7 +1133,8 @@ class CTEngine:
         the watermark and notifies, so a failed ingest still unblocks the
         queries waiting on it."""
         for req in reqs:
-            grids, check = req.payload
+            grids, check, tag = req.payload
+            committed = None
             try:
                 surplus = self._ingest_one(req.name, grids, check,
                                            req.ingest_seq)
@@ -971,31 +1142,44 @@ class CTEngine:
                 req.future._set_error(exc)
             else:
                 req.future._set(surplus)
+                committed = surplus
             finally:
                 with self._work:
                     if req.ingest_seq > self._ingest_done.get(req.name, 0):
                         self._ingest_done[req.name] = req.ingest_seq
                     self._work_seq += 1
                     self._work.notify_all()
+            if committed is not None:
+                # after the ack: a snapshot speeds up a later recovery and
+                # never fails an ingest that succeeded
+                self._maybe_snapshot(req.name, req.ingest_seq, tag,
+                                     committed)
 
     def _ingest_one(self, name: str, nodal_grids, check_finite: bool,
                     seq: int = 0) -> torch.Tensor:
         """Dispatch and commit one ingest.  Device work runs outside the
         lock and is synchronised before the commit, a compare-and-swap on
         the tenant record read before dispatch (retried when a concurrent
-        refit swapped it), newest seq winning: an older ingest finishing
-        last does not clobber a newer committed surplus (its future still
-        gets its own value)."""
+        refit swapped it; a ``KeyError`` when the tenant was unregistered
+        and registered anew, where the reference retries too), newest seq
+        winning: an older ingest finishing last does not clobber a newer
+        committed surplus (its future still gets its own value)."""
         def attempt():
             with self._lock:
                 tenant = self._tenants.get(name)
             if tenant is None:
                 raise KeyError(f"tenant {name!r} was unregistered before "
                                f"its queued ingest ran")
+            # a donated payload released by an earlier attempt raises here
             surplus = self._dispatch_ingest(tenant, nodal_grids)
             # device failures surface here, on the owning request
             _synchronize(self.device)
             if check_finite and not bool(torch.isfinite(surplus).all()):
+                if tenant.spec.donate:
+                    raise IngestBuffersDonated(
+                        f"ingest for tenant {name!r} produced non-finite "
+                        f"surplus values and its input grids were donated "
+                        f"— cannot retry; resubmit from host copies")
                 raise FloatingPointError(
                     f"ingest for tenant {name!r} produced non-finite "
                     f"surplus values")
@@ -1010,10 +1194,16 @@ class CTEngine:
                         cur.surplus_seq = seq
                     self._counters["ingests"] += 1
                     return surplus
+                if cur.incarnation is not tenant.incarnation:
+                    # unregistered and registered anew meanwhile: queued
+                    # work of an unregistered tenant fails, named
+                    raise KeyError(f"tenant {name!r} was unregistered "
+                                   f"while its queued ingest ran")
                 self._sched["ingest_retries"] += 1
                 raise _RebindRace(name)
         try:
-            return self._retry.run(attempt, retry_on=(_RebindRace,))
+            return self._retry.run(attempt, retry_on=(_RebindRace,),
+                                   sleep=False)
         except _RebindRace:
             raise RuntimeError(
                 f"ingest for tenant {name!r} kept losing the rebind race "
@@ -1186,8 +1376,10 @@ class CTEngine:
         name (queued work picks up the new record at dispatch)."""
         nxt = self._bind(tenant.name, scheme, tenant.spec, plan)
         nxt.deadline_ms, nxt.priority = tenant.deadline_ms, tenant.priority
-        nxt.surplus = self._dispatch_ingest(nxt, nodal_grids)  # raises first
+        nxt.incarnation = tenant.incarnation
+        surplus = self._dispatch_ingest(nxt, nodal_grids)  # raises first
         _synchronize(self.device)
+        nxt.surplus = surplus
         with self._work:
             if tenant.name not in self._tenants:
                 raise KeyError(f"tenant {tenant.name!r} was unregistered "
@@ -1196,12 +1388,210 @@ class CTEngine:
             self._tenants[tenant.name] = nxt
             self._work_seq += 1
             self._work.notify_all()
+        if self._store is not None:
+            # the scheme changed: refresh the durable identity and snapshot
+            # at once, superseding every WAL entry journaled against the
+            # old scheme (its grids would fail the new plan's validation)
+            name = tenant.name
+            self._store.register(name, scheme,
+                                 full_levels=nxt.plan.full_levels,
+                                 deadline_ms=nxt.deadline_ms,
+                                 priority=nxt.priority)
+            with self._lock:
+                seq = self._ingest_submitted.get(name, 0)
+                tag = self._last_tag.get(name)
+            self._snapshot_now(name, seq, tag, surplus, scheme=scheme,
+                               full_levels=nxt.plan.full_levels)
 
-    def restore(self, *args, **kwargs):
-        raise _not_ported("CTEngine.restore, replay and snapshot_tenant",
-                          "A7", "the durable store")
+    # -- durability: snapshot / restore / replay ----------------------------
 
-    replay = snapshot_tenant = restore
+    def _snapshot_now(self, name: str, seq: int, tag: Optional[int],
+                      surplus, *, scheme: SchemeLike,
+                      full_levels) -> Optional[str]:
+        """Best-effort durable snapshot.  A failed snapshot (disk trouble,
+        the injected crash-mid-snapshot) never fails serving: the previous
+        snapshot and the WAL still cover every acked ingest, so the failure
+        is recorded and swallowed."""
+        if self._store is None:
+            return None
+        try:
+            path = self._store.snapshot(
+                name, seq, surplus, tag=-1 if tag is None else int(tag),
+                scheme=scheme, full_levels=full_levels)
+        except Exception as exc:
+            self._store.events.append(
+                f"{self._host()}: snapshot of tenant {name!r} at seq "
+                f"{seq} failed ({exc!r}); previous snapshot + WAL still "
+                f"cover all acked ingests")
+            return None
+        with self._lock:
+            if seq > self._snap_seq.get(name, 0):
+                self._snap_seq[name] = seq
+        return path
+
+    def _maybe_snapshot(self, name: str, seq: int, tag: Optional[int],
+                        surplus) -> None:
+        """Snapshot when the done watermark advanced ``snapshot_interval``
+        past the last snapshot (the ingest chain calls this after the ack).
+        The claim on ``_snap_seq`` is taken under the lock, so concurrent
+        chains of one tenant snapshot once; a failed snapshot undoes it."""
+        if self._store is None or self._snapshot_interval <= 0:
+            return
+        with self._lock:
+            last = self._snap_seq.get(name, 0)
+            tenant = self._tenants.get(name)
+            if tenant is None or seq - last < self._snapshot_interval:
+                return
+            self._snap_seq[name] = seq          # claim before the IO
+            scheme = tenant.scheme
+            full_levels = tenant.plan.full_levels
+        if self._snapshot_now(name, seq, tag, surplus, scheme=scheme,
+                              full_levels=full_levels) is None:
+            with self._lock:
+                if self._snap_seq.get(name, 0) == seq:
+                    self._snap_seq[name] = last     # un-claim: retry later
+
+    def snapshot_tenant(self, name: str, *,
+                        tag: Optional[int] = None) -> Optional[str]:
+        """Force a durable snapshot of ``name``'s served surplus at the
+        current watermark (``None`` without a store or without state)."""
+        if self._store is None:
+            return None
+        with self._lock:
+            tenant = self._tenants.get(name)
+            if tenant is None or tenant.surplus is None:
+                return None
+            seq = self._ingest_submitted.get(name, 0)
+            if tag is None:
+                tag = self._last_tag.get(name)
+            scheme = tenant.scheme
+            full_levels = tenant.plan.full_levels
+            surplus = tenant.surplus
+        return self._snapshot_now(name, seq, tag, surplus, scheme=scheme,
+                                  full_levels=full_levels)
+
+    def restore(self, store: Optional[DurableStore] = None, *,
+                specs=None, names=None,
+                replay: bool = True) -> Dict[str, RestoreInfo]:
+        """Rebuild tenants from a durable store: adopt each tenant's newest
+        intact snapshot onto the engine's device, then replay the WAL
+        entries newer than it through the normal ingest executable, so the
+        restored surplus is bitwise that of an engine that never crashed.
+
+        ``specs`` maps a tenant name to its ``ExecSpec`` (a dict or a
+        callable; the engine default otherwise).  ``replay=False`` defers
+        the replay to an explicit ``replay()``: until then ``stale_ok``
+        queries serve the snapshot, and other queries wait on the admitted
+        watermark as behind a long ingest queue."""
+        store = store if store is not None else self._store
+        if store is None:
+            raise ValueError("restore: no store attached and none given")
+        out: Dict[str, RestoreInfo] = {}
+        for name in store.tenants():
+            if names is not None and name not in names:
+                continue
+            t0 = time.monotonic()
+            state = store.load(name)
+            if callable(specs):
+                spec = specs(name)
+            elif isinstance(specs, dict):
+                spec = specs.get(name)
+            else:
+                spec = None
+            spec = spec or self._default_spec
+            plan = build_plan(state.scheme, state.full_levels, spec=spec)
+            self.register(
+                name, state.scheme, spec=spec, plan=plan,
+                surplus=(None if state.surplus is None
+                         else torch.from_numpy(state.surplus)),
+                deadline_ms=state.deadline_ms, priority=state.priority,
+                durable=False)      # its durable state is this store
+            with self._work:
+                base = max(state.max_seq,
+                           self._ingest_submitted.get(name, 0))
+                self._ingest_submitted[name] = base
+                self._ingest_done[name] = \
+                    max(state.snapshot_seq, self._ingest_done.get(name, 0))
+                self._snap_seq[name] = state.snapshot_seq
+                if state.max_tag >= 0:
+                    self._last_tag[name] = state.max_tag
+                self._tenants[name].surplus_seq = state.snapshot_seq
+                if state.entries:
+                    self._replay_pending[name] = list(state.entries)
+                self._work_seq += 1
+                self._work.notify_all()
+            out[name] = RestoreInfo(
+                name=name, snapshot_seq=state.snapshot_seq,
+                base_seq=state.max_seq, tag=state.max_tag,
+                snapshot_tag=state.snapshot_tag,
+                pending=len(state.entries), replayed=0,
+                restore_s=time.monotonic() - t0, replay_s=0.0,
+                events=tuple(state.events))
+        if replay:
+            replayed = self.replay(
+                names=list(out) if names is None else list(names))
+            for name, r in replayed.items():
+                if name in out:
+                    out[name] = dataclasses.replace(
+                        out[name], replayed=r["replayed"],
+                        replay_s=r["seconds"])
+        return out
+
+    def replay(self, names=None) -> Dict[str, Dict[str, Any]]:
+        """Apply the deferred WAL entries of ``restore(replay=False)``
+        through the normal ingest executable, advancing the done watermark
+        per entry (newest seq wins against a live ingest submitted after
+        the restore).  An entry whose surplus is not finite under
+        ``check_finite`` is skipped, as its live ingest would have failed;
+        the watermark still advances."""
+        if names is None:
+            with self._lock:
+                names = list(self._replay_pending)
+        out: Dict[str, Dict[str, Any]] = {}
+        for name in names:
+            with self._lock:
+                entries = self._replay_pending.pop(name, [])
+            t0 = time.monotonic()
+            applied, skipped, last_tag = 0, 0, None
+            for e in entries:
+                with self._lock:
+                    tenant = self._tenants.get(name)
+                if tenant is None:
+                    break               # unregistered mid-replay: moot
+                surplus = self._dispatch_ingest(tenant, e.grids)
+                _synchronize(self.device)
+                if self._check_finite and \
+                        not bool(torch.isfinite(surplus).all()):
+                    with self._work:
+                        if e.seq > self._ingest_done.get(name, 0):
+                            self._ingest_done[name] = e.seq
+                        self._work_seq += 1
+                        self._work.notify_all()
+                    skipped += 1
+                    continue
+                with self._work:
+                    cur = self._tenants.get(name)
+                    if cur is not None and e.seq >= cur.surplus_seq:
+                        cur.surplus = surplus
+                        cur.surplus_seq = e.seq
+                    if e.seq > self._ingest_done.get(name, 0):
+                        self._ingest_done[name] = e.seq
+                    if e.tag >= 0:
+                        self._last_tag[name] = e.tag
+                    self._counters["ingests"] += 1
+                    self._work_seq += 1
+                    self._work.notify_all()
+                applied += 1
+                if e.tag >= 0:
+                    last_tag = e.tag
+            out[name] = {"replayed": applied, "skipped": skipped,
+                         "seconds": time.monotonic() - t0,
+                         "last_tag": last_tag}
+        return out
+
+    @property
+    def store(self) -> Optional[DurableStore]:
+        return self._store
 
     # -- accounting ---------------------------------------------------------
 
@@ -1253,4 +1643,10 @@ class CTEngine:
                 "deadline_ms": self._deadline_ms,
                 **sched,
             },
+            "durability": (None if self._store is None else {
+                "snapshot_interval": self._snapshot_interval,
+                "replay_pending": {n: len(v) for n, v
+                                   in self._replay_pending.items()},
+                **self._store.stats(),
+            }),
         }

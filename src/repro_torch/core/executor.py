@@ -79,7 +79,8 @@ from repro_torch.kernels.hierarchize import (ScatterTable, assemble_grouped,
                                              hier_scatter_grouped,
                                              hier_tail_batched,
                                              hierarchize_batched,
-                                             scatter_table, tile_volume)
+                                             scatter_table,
+                                             storage_released, tile_volume)
 
 __all__ = ["ExecutorPlan", "Bucket", "MergeConfig", "build_plan",
            "extend_plan", "update_plan_coefficients", "ct_transform",
@@ -527,7 +528,8 @@ def _grids_on(nodal_grids, plan: ExecutorPlan, device: torch.device
               ) -> Tuple[Dict[LevelVector, torch.Tensor], torch.dtype]:
     """The plan's grids as tensors on ``device`` and their common dtype."""
     _check_nodal_grids(nodal_grids, plan)
-    grids = {ell: torch.as_tensor(nodal_grids[ell], device=device)
+    grids = {ell: torch.as_tensor(_readable(nodal_grids[ell], ell, device),
+                                  device=device)
              for b in plan.buckets for ell in b.ells}
     dtype = None
     for g in grids.values():
@@ -536,11 +538,25 @@ def _grids_on(nodal_grids, plan: ExecutorPlan, device: torch.device
     return grids, dtype
 
 
+def _readable(v, ell: LevelVector, device=None):
+    """``v``, unless it is a tensor whose storage was released (a donated
+    grid) and the caller is about to copy it (to ``device``, or to another
+    dtype when ``device`` is None): that raises ``ValueError`` before the
+    copy reads freed memory.  The assembly checks the grids it reads in
+    place (``assemble_grouped``)."""
+    if isinstance(v, torch.Tensor) and (device is None or v.device != device) \
+            and storage_released(v):
+        raise ValueError(f"the grid of level vector {ell} has a released "
+                         f"storage (a donated grid) and cannot be read")
+    return v
+
+
 def _parts(grids: Mapping[LevelVector, torch.Tensor], buckets,
            dtype: torch.dtype) -> list:
     """The buckets' member grids in plan order, in ``dtype``."""
-    return [g if g.dtype == dtype else g.to(dtype)
-            for g in (grids[ell] for b in buckets for ell in b.ells)]
+    return [grids[ell] if grids[ell].dtype == dtype
+            else _readable(grids[ell], ell).to(dtype)
+            for b in buckets for ell in b.ells]
 
 
 def _assemble(grids: Mapping[LevelVector, torch.Tensor], buckets,

@@ -113,6 +113,7 @@ __all__ = [
     "hier_forward_grouped",
     "hier_scatter_grouped",
     "assemble_grouped",
+    "storage_released",
     "ScatterTable",
     "scatter_table",
     "hierarchize_batched",
@@ -1010,17 +1011,40 @@ def _assembly_layout(stacks):
     return table, np.asarray(perms, np.int64).reshape(-1, d), offset, chunks
 
 
+def storage_released(t: torch.Tensor) -> bool:
+    """Whether ``t``'s storage holds fewer bytes than its extent needs: a
+    tensor whose storage was released (``ExecSpec(donate=True)`` frees a
+    donated grid's storage).  Reading such a tensor faults, on the card an
+    illegal address that ends the CUDA context; this reads only its
+    metadata."""
+    n = t.numel()
+    if n == 0:
+        return False
+    if t.is_contiguous():
+        extent = t.storage_offset() + n
+    else:
+        extent = t.storage_offset() + 1 + sum(
+            (s - 1) * st for s, st in zip(t.shape, t.stride()))
+    return t.untyped_storage().nbytes() < extent * t.element_size()
+
+
 def _check_parts(parts, stacks) -> Tuple[torch.dtype, torch.device]:
     perms = _assembly_layout(stacks)[1]
     if len(parts) != len(perms):
         raise ValueError(f"expected {len(perms)} member grids, got "
                          f"{len(parts)}")
     dtype, device = parts[0].dtype, parts[0].device
-    for part in parts:
+    for m, part in enumerate(parts):
         if part.dtype != dtype or part.device != device:
             raise TypeError(f"the member grids must share one dtype and "
                             f"device, got {part.dtype} on {part.device} "
                             f"beside {dtype} on {device}")
+        if storage_released(part):
+            raise ValueError(
+                f"member {m} of shape {tuple(part.shape)} has a storage of "
+                f"{part.untyped_storage().nbytes()} B, fewer than its extent "
+                f"needs: its storage was released (a donated grid) and "
+                f"cannot be read")
     return dtype, device
 
 
@@ -1053,7 +1077,9 @@ def assemble_grouped(parts: Sequence[torch.Tensor], stacks) -> torch.Tensor:
     CUDA: ONE ``assemble_members`` launch on a work table of one row a
     member, copied to the device from pinned memory at each call (the
     caching host allocator hands that block out again only once the copy
-    has run); bitwise the plain version."""
+    has run); bitwise the plain version.  Both refuse, with a
+    ``ValueError`` before anything reads it, a part whose storage was
+    released (``storage_released``)."""
     _record(assemble_grouped, parts=parts, stacks=stacks)
     dtype, device = _check_parts(parts, stacks)
     if device.type == "cpu":

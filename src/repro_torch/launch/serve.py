@@ -105,23 +105,34 @@ class CTSurrogate:
     Execution policy comes as ``spec=ExecSpec(...)``; ``merge=`` and
     ``fused=`` are deprecated spellings of its fields (they warn once).
     ``device=`` is the private engine's device (default CUDA); with
-    ``engine=`` it must be the engine's.  ``store=`` / ``restore`` wait for
-    the durable store (ROADMAP A7), ``cluster=`` for the cluster (A8).
+    ``engine=`` it must be the engine's.  ``cluster=`` waits for the
+    cluster (ROADMAP A8).
+
+    ``store=`` (a ``repro_torch.runtime.durability.DurableStore``) makes
+    the surrogate's own engine durable: every admitted update is journaled
+    at admission and the served surplus snapshotted every
+    ``snapshot_interval`` acked updates, so a crashed process rebuilds the
+    surrogate bitwise with ``CTSurrogate.restore(store, ...)``.  With a
+    shared ``engine=`` durability is that engine's (``CTEngine(store=)``),
+    and passing ``store=`` too raises.
     """
 
     def __init__(self, scheme, nodal_grids, spec=None, *, engine=None,
                  cluster=None, name: str = "surrogate", store=None,
-                 merge=None, fused=None, device=None):
+                 snapshot_interval: int = 16, merge=None, fused=None,
+                 device=None):
         from repro_torch.core.engine import CTEngine, _not_ported
         if cluster is not None:
             raise _not_ported("CTSurrogate(cluster=)", "A8",
                               "serving through a CTCluster fleet")
-        if store is not None:
-            raise _not_ported("CTSurrogate(store=)", "A7",
-                              "the durable tenant store")
+        if store is not None and engine is not None:
+            raise ValueError(
+                "store= applies to the surrogate's own engine; a shared "
+                "engine= carries its own durability (CTEngine(store=...))")
         spec = resolve_spec("CTSurrogate", spec, merge=merge, fused=fused)
         if engine is None:
-            engine = CTEngine(device=device)
+            engine = CTEngine(device=device, store=store,
+                              snapshot_interval=snapshot_interval)
         elif device is not None and resolve_device(device) != engine.device:
             raise ValueError(f"device={device} differs from the engine's "
                              f"{engine.device}")
@@ -130,9 +141,24 @@ class CTSurrogate:
         engine.register(name, scheme, nodal_grids, spec=spec)
 
     @classmethod
-    def restore(cls, *args, **kwargs):
-        from repro_torch.core.engine import _not_ported
-        raise _not_ported("CTSurrogate.restore", "A7", "the durable store")
+    def restore(cls, store, *, name: str = "surrogate", spec=None,
+                snapshot_interval: int = 16, device=None) -> "CTSurrogate":
+        """Rebuild a durable surrogate after a crash: adopt tenant
+        ``name``'s newest intact snapshot from ``store`` onto ``device``
+        (default CUDA) and replay the newer WAL entries through the normal
+        ingest, so it answers bitwise as one that never crashed.  Raises
+        ``KeyError`` when the store holds no tenant ``name``."""
+        from repro_torch.core.engine import CTEngine
+        engine = CTEngine(device=device, store=store,
+                          snapshot_interval=snapshot_interval)
+        specs = None if spec is None \
+            else {name: resolve_spec("CTSurrogate", spec)}
+        if engine.restore(store, names=[name], specs=specs).get(name) is None:
+            raise KeyError(f"durable store holds no tenant {name!r}")
+        self = cls.__new__(cls)
+        self._engine = engine
+        self._name = name
+        return self
 
     @property
     def engine(self):

@@ -1,1 +1,2 @@
-"""Runtime policy of the CT port: fault recombination and health tracking."""
+"""Runtime policy of the CT port: fault recombination, health tracking
+and the durable tenant store."""

@@ -876,3 +876,71 @@ def test_generate_card_matches_cpu(cuda):
     np.testing.assert_array_equal(got["tokens"], want["tokens"])
     np.testing.assert_allclose(got["logprobs"], want["logprobs"], rtol=1e-4,
                                atol=1e-4)
+
+
+def _prod_3d_grids(seed, device):
+    """prod_3d grids on ``device``, each owning its storage whole."""
+    rng = np.random.default_rng(seed)
+    return {ell: torch.from_numpy(rng.standard_normal(grid_shape(ell)))
+            .to(device) for ell, _ in CombinationScheme(3, 9).grids}
+
+
+def test_durable_restore_at_prod_3d_is_bitwise(cuda, tmp_path):
+    """Register and two updates with a snapshot at seq 2 (1.07 GB) and
+    one WAL entry past it; a fresh engine on a fresh store restores
+    bitwise the never-crashed surplus, its replayed ingest four launches."""
+    from repro_torch.core.engine import CTEngine
+    from repro_torch.runtime.durability import DurableStore
+    scheme = CombinationScheme(3, 9)
+    eng = CTEngine(device=cuda, ingest_workers=0, snapshot_interval=2,
+                   store=DurableStore(str(tmp_path), "h0"))
+    eng.register("t", scheme, _prod_3d_grids(40, cuda))
+    for seed in (41, 42):
+        eng.update("t", _prod_3d_grids(seed, cuda))
+    back = CTEngine(device=cuda, ingest_workers=0)
+    with H.count_launches() as n:
+        info = back.restore(DurableStore(str(tmp_path), "h0"))["t"]
+    assert (info.snapshot_seq, info.pending, info.replayed) == (2, 1, 1)
+    assert sum(n.values()) == 4
+    assert _same(back.surplus("t"), eng.surplus("t"))
+
+
+def test_donation_at_prod_3d(cuda):
+    """A donated ingest is bitwise the non-donating tenant's, releases
+    every grid (``memory_allocated`` drops by what the grids were
+    charged), a NaN under ``check_finite`` raises the named error with the
+    surplus unchanged, and released grids are refused before any launch,
+    after which the next ingest runs."""
+    from repro_torch.core.engine import (CTEngine, ExecSpec,
+                                         IngestBuffersDonated)
+    scheme = CombinationScheme(3, 9)
+    eng = CTEngine(device=cuda, ingest_workers=0)
+    eng.register("plain", scheme, _prod_3d_grids(43, cuda))
+    eng.register("donated", scheme, _prod_3d_grids(43, cuda),
+                 spec=ExecSpec(donate=True))
+    kept = _prod_3d_grids(44, cuda)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    given = _prod_3d_grids(44, cuda)
+    charged = torch.cuda.memory_allocated() - before
+    before = torch.cuda.memory_allocated()
+    eng.update("donated", given)
+    torch.cuda.synchronize()
+    assert before - torch.cuda.memory_allocated() == charged >= 73915 * 8
+    assert all(H.storage_released(v) for v in given.values())
+    eng.update("plain", kept)
+    assert _same(eng.surplus("donated"), eng.surplus("plain"))
+    nan = _prod_3d_grids(45, cuda)
+    nan[(9, 1, 1)].view(-1)[0] = float("nan")
+    fut = eng.submit_ingest("donated", nan, check_finite=True)
+    eng.flush()
+    with pytest.raises(IngestBuffersDonated, match="non-finite"):
+        fut.result()
+    assert _same(eng.surplus("donated"), eng.surplus("plain"))
+    with H.count_launches() as n:
+        with pytest.raises(IngestBuffersDonated, match="donated"):
+            eng.update("donated", given)
+    assert not any(n.values())
+    eng.update("donated", _prod_3d_grids(46, cuda))
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(eng.surplus("donated")).all())

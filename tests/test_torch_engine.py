@@ -217,7 +217,7 @@ def test_execspec_defaults_and_resolution():
 
 @pytest.mark.parametrize("fields,item", [
     (dict(mesh=object()), "A9"), (dict(n_slabs=4), "A9"),
-    (dict(member_axis="member"), "A9"), (dict(donate=True), "A5b")])
+    (dict(member_axis="member"), "A9")])
 def test_execspec_unported_fields_raise_naming_their_item(fields, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         ExecSpec(**fields)
@@ -629,16 +629,11 @@ def test_plan_cache_contract_and_explicit_clear():
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda: CTEngine(device="cpu", store=object()), "A7"),
-    (lambda: _engine().restore(object()), "A7"),
     (lambda: _engine().rebind("t", n_slabs=2), "A9"),
     (lambda: _engine().heartbeat(), "A8"),
     (lambda: _engine().submit_probe(), "A8"),
-    (lambda: CTSurrogate.restore(object()), "A7"),
     (lambda: CTSurrogate(CombinationScheme(2, 2), None, cluster=object(),
-                         device="cpu"), "A8"),
-    (lambda: CTSurrogate(CombinationScheme(2, 2), None, store=object(),
-                         device="cpu"), "A7")])
+                         device="cpu"), "A8")])
 def test_unported_engine_surface_raises_naming_its_item(call, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         call()
