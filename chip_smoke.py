@@ -67,6 +67,36 @@ restore and read just after it:
   the card), the replay per entry, the bytes on disk, and warm-median
   ``update`` with and without donation (a record only).
 
+Then the CT cluster (``repro_torch.runtime.cluster.CTCluster``) at
+``prod_3d`` in f64: four durable hosts, each a ``CTEngine`` on the card
+with its own ``DurableStore`` in a temporary directory
+(``snapshot_interval=2``), ``replication=1``, seed 7, with the launch
+counts set to 0 just before the phase and read just after it:
+
+* three tenants of one signature (``bump``, ``seeded(7)``,
+  ``seeded(11)``) registered through the cluster's front door, one
+  cluster-routed ingest counted alone (at most four launches, of the
+  assembly and rows 5, 7, 9), one more update each (a 1.07 GB snapshot
+  each at engine seq 2);
+* ``start()``: the hosts' schedulers and the health monitor run; an
+  open-loop load of one query of 64 points every 10 ms, round robin over
+  the tenants, with one update per tenant at a fifth of the load (a WAL
+  entry past each snapshot); half-way, ``FaultInjector.kill`` of
+  ``bump``'s primary, which the monitor detects and fails over (the
+  victim's tenants re-registered from the retained host copies); at
+  three quarters, ``restart_host`` of the victim on a thread of its own
+  while the load goes on (restore from its store, rejoin, the WAL replay
+  with stale-marked queries meanwhile);
+* gates: every future resolves with a value (none hung, none failed),
+  placement back to the pre-kill map, one failover and one restart,
+  ``stats()`` JSON-serialisable, every kernel of the ingest launched in
+  the phase, and each tenant's surplus bitwise (and its queries equal to)
+  a never-failed ``CTEngine`` on the card fed its newest acked payload;
+* it prints recovery_ms (kill to failover complete), the restart's
+  restore, replace and replay ms, and p50 and p99 query latency before
+  the kill, during the outage and after the restart, each beside the
+  card's name and power limit.
+
 Then the second path, the per-grid (de)hierarchization of
 ``kernels.ops`` and the iterated combination round that drives it:
 
@@ -203,6 +233,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -245,6 +276,15 @@ KERNELS = {  # the main path's wrappers -> (CUDA source, TPU kernels)
 }
 MAX_INGEST_LAUNCHES = 4          # the assembly and rows 5, 7, 9, per ingest
 ENGINE_UPDATES = 7               # warm engine.update calls timed (median)
+CLUSTER = dict(                  # the cluster phase's open-loop load
+    load_s=12.0,                 # updates at 1/5, the kill at 1/2, restart 3/4
+    after_s=3.0,                 # load kept on this long after the restart
+    query_period_s=0.01, points=64,
+    monitor_s=0.05,
+    # lenient probe bars: a 1.07 GB snapshot, restore or replay holds the
+    # host for seconds; the kill itself is detected on the first pass
+    health=dict(heartbeat_timeout_s=5.0, probe_deadline_s=2.0,
+                max_strikes=3))
 SCATTER_KERNELS = {  # the scatter path: wrapper -> (source, TPU kernel)
     "dehier_tail_batched": (
         "src/repro_torch/kernels/csrc/axis_pass_inv.cu",
@@ -975,6 +1015,179 @@ def main() -> int:
                   + ", ".join(f"{x:.3f}" for x in v) + ")"
                   for k, v in donate_ms.items()) + f"  [{card}]")
         del e1, e2, given, kept, nan, sets
+
+    # ------------------------------------------------------------------
+    # The cluster at prod_3d: four durable hosts on the card, three tenants
+    # of one signature under open-loop load, a kill half-way detected by
+    # the health monitor, failover, a restart under load (counts zeroed
+    # before the phase, read after it)
+    # ------------------------------------------------------------------
+    from repro_torch.runtime.cluster import CTCluster
+    from repro_torch.runtime.fault_tolerance import HostHealthConfig
+
+    base = {n: {ell: sample_function(f, ell, device=cuda).cpu().numpy()
+                for ell, _ in prod.grids}
+            for n, f in (("bump", bump), ("wave", seeded(7)),
+                         ("ridge", seeded(11)))}
+
+    def payload(name, k):
+        """Submission ``k`` of tenant ``name``: host arrays, as a solver
+        hands them over (the cluster retains host copies anyway)."""
+        return {ell: g * (1.0 + 0.01 * k) for ell, g in base[name].items()}
+
+    cpts = np.random.default_rng(300).random((CLUSTER["points"], 3))
+    with tempfile.TemporaryDirectory(prefix="ct-cluster-") as root:
+        torch.cuda.synchronize()
+        for w in H.WRAPPERS:
+            w.launches = 0
+        t0 = time.perf_counter()
+        cl = CTCluster(4, replication=1, seed=7, device=cuda,
+                       durability_dir=root, snapshot_interval=2,
+                       monitor_interval_s=CLUSTER["monitor_s"],
+                       health=HostHealthConfig(**CLUSTER["health"]))
+        for n in base:
+            cl.register(n, prod, payload(n, 0))              # cluster seq 0
+        register_ms = (time.perf_counter() - t0) * 1e3
+        acked = {n: 0 for n in base}
+        with H.count_launches() as routed:
+            cl.update("bump", payload("bump", 1))             # seq 1
+        routed = {k: v for k, v in routed.items() if v}
+        if not 0 < sum(routed.values()) <= MAX_INGEST_LAUNCHES \
+                or set(routed) - set(KERNELS):
+            fail(f"a cluster-routed prod_3d ingest launched {routed}: at "
+                 f"most {MAX_INGEST_LAUNCHES} launches, of {sorted(KERNELS)}")
+        for n in ("wave", "ridge"):
+            cl.update(n, payload(n, 1))                      # snapshot at 2
+        acked = {n: 1 for n in base}
+        before = {n: cl.owners_of(n) for n in base}
+        victim = before["bump"][0]
+        # (kind, tenant, k, phase, time the load meant to send it, future):
+        # latency counts from the send time, so a submission held up by
+        # the cluster's lock (a failover, a restart's rejoin) counts too
+        futs = []
+        marks = {}
+        cl.start()
+        t_start = time.monotonic()
+        restarter = None
+        k_query = 0
+        while True:
+            now = time.monotonic() - t_start
+            if "updates" not in marks and now >= 0.2 * CLUSTER["load_s"]:
+                marks["updates"] = now
+                for n in base:                               # seq 2: WAL
+                    futs.append(("ingest", n, 2, "before", time.monotonic(),
+                                 cl.submit_ingest(n, payload(n, 2))))
+            if "kill" not in marks and now >= 0.5 * CLUSTER["load_s"]:
+                marks["kill"] = now
+                cl.injector.kill(victim)
+            if "kill" in marks and "failover" not in marks \
+                    and victim not in cl.live_hosts():
+                # live_hosts waits on the cluster lock that fail_host holds
+                # until every tenant has moved
+                marks["failover"] = time.monotonic() - t_start
+            if "restart" not in marks and "failover" in marks \
+                    and now >= 0.75 * CLUSTER["load_s"]:
+                marks["restart"] = now
+                restarter = threading.Thread(
+                    target=cl.restart_host, args=(victim,), name="restart")
+                restarter.start()
+            if restarter is not None and "restarted" not in marks \
+                    and not restarter.is_alive():
+                marks["restarted"] = time.monotonic() - t_start
+            if "restarted" in marks and now >= max(
+                    CLUSTER["load_s"], marks["restarted"]
+                    + CLUSTER["after_s"]):
+                break
+            if now > CLUSTER["load_s"] + 600:
+                fail(f"cluster phase: no end to the load after {now:.0f} s "
+                     f"(marks {marks})")
+            phase = ("before" if "kill" not in marks else "after"
+                     if "restarted" in marks else "during")
+            name = list(base)[k_query % len(base)]
+            futs.append(("query", name, k_query, phase, time.monotonic(),
+                         cl.submit_query(name, cpts)))
+            k_query += 1
+            time.sleep(CLUSTER["query_period_s"])
+        cl.stop()
+        hung, errors = [], []
+        for kind, name, k, phase, _, f in futs:
+            if not f.wait(120.0):
+                hung.append((kind, name, k))
+            elif f.error() is not None:
+                errors.append((kind, name, k, repr(f.error())))
+            elif kind == "ingest":
+                acked[name] = max(acked[name], k)
+            elif f.result().shape != (len(cpts),) \
+                    or not np.isfinite(f.result()).all():
+                fail(f"cluster query {k} for {name!r}: not {len(cpts)} "
+                     f"finite values")
+        if hung or errors:
+            fail(f"cluster phase: {len(hung)} futures hung {hung[:5]}, "
+                 f"{len(errors)} resolved with an error {errors[:5]}")
+        phase_launches = {name: getattr(H, name).launches
+                          for name in KERNELS}
+        stray = {w.__name__: w.launches for w in H.WRAPPERS
+                 if w.launches and w.__name__ not in KERNELS}
+        for name, n in phase_launches.items():
+            if n == 0:
+                fail(f"{name} was not launched in the cluster phase")
+        if stray:
+            fail(f"the cluster phase launched {stray}")
+        after = {n: cl.owners_of(n) for n in base}
+        st = cl.stats()
+        json.dumps(st)
+        if after != before or victim not in st["live_hosts"]:
+            fail(f"placement after the restart {after} is not the pre-kill "
+                 f"map {before}")
+        if len(st["failovers"]) != 1 or st["failovers"][0]["host"] \
+                != victim or len(st["restarts"]) != 1:
+            fail(f"expected one failover of {victim} and one restart, got "
+                 f"{st['failovers']} and {st['restarts']}")
+        oracle = CTEngine(device=cuda, ingest_workers=0, host_id="oracle")
+        for n in base:
+            oracle.register(n, prod, payload(n, acked[n]))
+            if not same(cl.surplus(n), oracle.surplus(n)):
+                fail(f"cluster tenant {n!r}: surplus differs from the "
+                     f"never-failed engine fed its newest acked payload "
+                     f"(k={acked[n]})")
+            if not np.array_equal(cl.query(n, cpts), oracle.query(n, cpts)):
+                fail(f"cluster tenant {n!r}: queries differ from the "
+                     f"never-failed engine's")
+        on_disk = disk_bytes(root)
+        fo, rs = st["failovers"][0], st["restarts"][0]
+        lat = {p: sorted((f.done_at - sent) * 1e3
+                         for kind, _, _, ph, sent, f in futs
+                         if kind == "query" and ph == p)
+               for p in ("before", "during", "after")}
+        stale = sum(1 for kind, *_, f in futs
+                    if kind == "query" and f.stale_seq is not None)
+        retargeted = sum(1 for *_, f in futs if f.retargeted)
+        print(f"cluster prod_3d: 4 hosts, 3 tenants (one signature), "
+              f"register {register_ms:.1f} ms for the three; a routed "
+              f"ingest {routed}; {len(futs)} futures ({k_query} queries of "
+              f"{len(cpts)} points every {CLUSTER['query_period_s'] * 1e3:.0f}"
+              f" ms, {len(futs) - k_query} updates), none dropped, "
+              f"{retargeted} retargeted, {stale} stale-marked during the "
+              f"replay; launches in the phase {phase_launches}; placement "
+              f"restored {after}; every surplus bitwise and every query "
+              f"equal to a never-failed engine fed the newest acked payloads "
+              f"{acked}; {on_disk} B on disk")
+        print(f"cluster prod_3d failover of {victim}: outcomes "
+              f"{fo['outcomes']}, recovery_ms (kill to failover complete, "
+              f"host clock) {(marks['failover'] - marks['kill']) * 1e3:.1f}"
+              f", of which fail_host {fo['recovery_ms']:.1f} ms; "
+              f"restart_host {rs['outcomes']}: restore "
+              f"{rs['restore_ms']:.1f} ms, replace {rs['replace_ms']:.1f} "
+              f"ms, replay {rs['replay_ms']:.1f} ms ({rs['replayed']} "
+              f"entries), total {rs['total_ms']:.1f} ms  [{card}]")
+        print("cluster prod_3d query latency (ms, from the load's send "
+              "time to the engine's answer): " + "; ".join(
+                  f"{p} {len(v)} queries p50 {np.percentile(v, 50):.3f} "
+                  f"p99 {np.percentile(v, 99):.3f}"
+                  for p, v in lat.items() if v) + f"  [{card}]")
+        del cl, oracle, futs
+    del base
+    torch.cuda.empty_cache()
 
     # ------------------------------------------------------------------
     # Third path: the scatter phase and adaptivity (rows 6 and 8)

@@ -10,7 +10,10 @@ engine (``core.engine``: ``ExecSpec``, ``CTEngine`` with
 signature-shared ingest executables, coalesced queries and donation, and
 ``launch.serve.CTSurrogate`` as its one-tenant view) with its durable
 store (``runtime.durability``: WAL, surplus snapshots, restore and replay,
-on the checkpoint layer ``checkpoint.checkpoint``), the per-grid
+on the checkpoint layer ``checkpoint.checkpoint``) and the multi-host
+cluster over it (``runtime.cluster.CTCluster``: consistent-hash placement,
+health monitor, failover by recombination, restart from the store, the
+fault injector and chaos schedules; its hosts share one device), the per-grid
 transforms (``kernels.ops``) and the iterated combination technique
 (``core.iterated``), the scatter phase with adaptivity
 (``core.executor.ct_scatter``, ``core.adaptive``,
@@ -21,7 +24,7 @@ carries the reference's weights across).  Every TPU kernel of the
 reference is written by hand in CUDA for Hopper (``kernels/csrc``): the
 hierarchization kernels and flash attention, and the ingest's member
 assembly is one hand-written launch too.  Not ported yet: multi-GPU
-sharding and ``rebind`` (A9), the cluster (A8), and of the LM
+sharding and ``rebind`` (A9), and of the LM
 stack the moe, ssm, hybrid, encdec and vlm families, training
 (``launch/train.py``, ``optim``, ``data``, the loss) and ``make_batch``/
 ``input_specs`` (ROADMAP.md, Queue A).  Entry points run on the CUDA

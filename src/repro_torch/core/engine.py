@@ -18,8 +18,10 @@ caller asks for it).
 
 What is not ported: meshes and slab or member sharding (``ExecSpec``'s
 ``mesh``, ``n_slabs > 1`` and ``member_axis``, and ``rebind``) wait for
-ROADMAP A9; the cluster's ``heartbeat`` and ``submit_probe`` for A8.  Each
-raises ``NotImplementedError`` naming its item.
+ROADMAP A9, and raise ``NotImplementedError`` naming it.  The cluster's
+seams are here: ``heartbeat()`` (pump liveness) and ``submit_probe()``
+(a no-op request through the queue), which ``repro_torch.runtime.cluster``
+reads.
 
 Ingest executables
 ------------------
@@ -60,8 +62,10 @@ run on a pool (shared, private with ``ingest_workers=N``, inline with
 ``ingest_workers=0``), one ordered chain per tenant; a per-tenant
 watermark makes a query wait for the ingests submitted before it; an
 ingest commits by compare-and-swap on the tenant record, newest sequence
-number winning.  Before the commit the pool thread synchronises its CUDA
-stream, so a failed launch resolves the owning future.  One engine lock
+number winning; an ingest whose tenant was unregistered and registered
+anew meanwhile commits onto the new record (``_ingest_one``).  Before the
+commit the pool thread synchronises its CUDA stream, so a failed launch
+resolves the owning future.  One engine lock
 (an ``RLock`` under two conditions) guards the registry, queue, watermarks
 and counters; the executable cache's lock is a leaf; no device work runs
 under a lock.  The kernel wrappers' launch counters and ``record_calls``
@@ -500,13 +504,21 @@ class _Request:
     work).  ``ingest_seq``: an ingest's own generation, or the generation
     a query must wait for."""
 
-    kind: str                       # "ingest" | "query"
+    kind: str                       # "ingest" | "query" | "probe"
     name: str
-    payload: Any          # (grids, check_finite, tag) | (points, q, qpad)
+    payload: Any    # (grids, check_finite, tag) | (points, q, qpad) | None
     future: CTFuture
     ingest_seq: int = 0
     priority: int = 0
     deadline: Optional[float] = None      # absolute time.monotonic()
+
+
+def _same_ingest(a: _Tenant, b: _Tenant) -> bool:
+    """Whether two tenant records compute bitwise the same surplus from one
+    payload: one plan signature and equal coefficients (the index maps
+    follow from the signature)."""
+    return a.signature == b.signature and torch.equal(
+        a.binding.coeffs64, b.binding.coeffs64)
 
 
 def _validate_points(points, dim: int, name: str) -> np.ndarray:
@@ -591,6 +603,9 @@ class CTEngine:
             if ingest_workers else None
         self._sched_thread: Optional[threading.Thread] = None
         self._stop_evt: Optional[threading.Event] = None
+        #: ``time.monotonic()`` of the last scheduler pass (``pump``,
+        #: ``flush`` or a scheduler-loop iteration): ``heartbeat``'s signal
+        self._last_pump = time.monotonic()
 
     # -- registry -----------------------------------------------------------
 
@@ -684,10 +699,13 @@ class CTEngine:
                         del self._tenants[name]
                 raise
             finally:
-                # advance even on failure: waiters re-check and fail fast
+                # advance even on failure: waiters re-check and fail fast.
+                # To ``seq0``, not by one (the reference): an ingest of an
+                # earlier incarnation still in flight would otherwise leave
+                # the watermark one short of the admitted one for good
                 with self._work:
-                    self._ingest_done[name] = \
-                        self._ingest_done.get(name, 0) + 1
+                    self._ingest_done[name] = max(
+                        self._ingest_done.get(name, 0), seq0)
                     self._work_seq += 1
                     self._work.notify_all()
         return self
@@ -700,7 +718,14 @@ class CTEngine:
         and a later ``restore`` must not bring the tenant back."""
         with self._work:
             del self._tenants[name]
-            self._replay_pending.pop(name, None)
+            dropped = self._replay_pending.pop(name, None)
+            if dropped:
+                # deferred WAL entries that will never run: a later
+                # incarnation must not wait for them (the reference leaves
+                # the watermark behind, and its queries then wait forever)
+                self._ingest_done[name] = max(
+                    self._ingest_done.get(name, 0),
+                    max(e.seq for e in dropped))
             self._work_seq += 1
             self._work.notify_all()
         if self._store is not None:
@@ -941,13 +966,35 @@ class CTEngine:
             self._work.notify_all()
         return fut
 
-    def submit_probe(self, *args, **kwargs):
-        raise _not_ported("CTEngine.submit_probe", "A8",
-                          "the cluster's liveness probe")
+    def submit_probe(self, *, block: bool = False,
+                     timeout: Optional[float] = None) -> CTFuture:
+        """Liveness probe: a no-op request that rides the queue and
+        resolves to ``True`` when a pump, a flush or the scheduler thread
+        reaches it.  Wait on it with ``CTFuture.wait(deadline)``, not
+        ``result()``, whose flush would mask a dead scheduler.  Always due,
+        never coalesced, never counted as tenant work."""
+        fut = CTFuture(self)
+        with self._work:
+            self._admit(block, timeout, "__probe__")
+            self._pending.append(_Request("probe", "__probe__", None, fut,
+                                          deadline=time.monotonic()))
+            self._work_seq += 1
+            self._work.notify_all()
+        return fut
 
-    def heartbeat(self):
-        raise _not_ported("CTEngine.heartbeat", "A8",
-                          "the cluster's pump-liveness signal")
+    def heartbeat(self) -> Dict[str, Any]:
+        """Pump liveness: the time of the last scheduler pass, its age,
+        the queue depth and whether the scheduler thread is alive.  A
+        cluster's health monitor reads a stall from a growing ``age_s``."""
+        now = time.monotonic()
+        with self._lock:
+            alive = (self._sched_thread is not None
+                     and self._sched_thread.is_alive())
+            return {"host_id": self.host_id,
+                    "last_pump": self._last_pump,
+                    "age_s": now - self._last_pump,
+                    "pending": len(self._pending),
+                    "scheduler_alive": alive}
 
     # -- draining: flush / pump / scheduler ---------------------------------
 
@@ -956,6 +1003,7 @@ class CTEngine:
         The queue swap is atomic under the engine lock; a failing request
         resolves its own future, siblings proceed."""
         with self._work:
+            self._last_pump = time.monotonic()
             pending, self._pending = self._pending, []
             if pending:
                 self._sched["flushes"] += 1
@@ -968,6 +1016,7 @@ class CTEngine:
         queries on batch-full or deadline expiry).  Returns the number of
         requests resolved or handed to the pool."""
         with self._work:
+            self._last_pump = time.monotonic()
             take, _ = self._take_due(time.monotonic() if now is None
                                      else now)
         if not take:
@@ -1025,6 +1074,7 @@ class CTEngine:
         while not stop_evt.is_set():
             now = time.monotonic()
             with self._work:
+                self._last_pump = now
                 seq = self._work_seq
                 take, next_wake = self._take_due(now)
             if take:
@@ -1047,11 +1097,11 @@ class CTEngine:
                                              Optional[float]]:
         """Pull the due requests off the queue; the caller holds the lock.
         Ingests are always due; a query when its tenant's pending batch is
-        full, its deadline expired, or its tenant is gone.  The reference's
-        two anti-head-of-line rules: a batch-full tenant contributes at
-        most ``max_batch`` queries per pump (highest priority first), and
-        when any query dispatches, every pending query of strictly higher
-        priority is taken along."""
+        full, its deadline expired, or its tenant is gone; probes are always
+        due.  The reference's two anti-head-of-line rules: a batch-full
+        tenant contributes at most ``max_batch`` queries per pump (highest
+        priority first), and when any query dispatches, every pending query
+        of strictly higher priority is taken along."""
         pending = self._pending
         counts: Dict[str, int] = {}
         for r in pending:
@@ -1104,12 +1154,17 @@ class CTEngine:
         Returns the number of requests resolved or handed to the pool."""
         chains: Dict[str, List[_Request]] = {}
         queries: List[_Request] = []
+        probes = 0
         for r in requests:
             if r.kind == "ingest":
                 chains.setdefault(r.name, []).append(r)
+            elif r.kind == "probe":
+                # the round trip to here is the signal a probe measures
+                r.future._set(True)
+                probes += 1
             else:
                 queries.append(r)
-        progress = sum(len(c) for c in chains.values())
+        progress = probes + sum(len(c) for c in chains.values())
         pool = None if self._inline_ingest \
             else (self._private_pool or _shared_pool())
         chain_futures = []
@@ -1159,11 +1214,16 @@ class CTEngine:
                     seq: int = 0) -> torch.Tensor:
         """Dispatch and commit one ingest.  Device work runs outside the
         lock and is synchronised before the commit, a compare-and-swap on
-        the tenant record read before dispatch (retried when a concurrent
-        refit swapped it; a ``KeyError`` when the tenant was unregistered
-        and registered anew, where the reference retries too), newest seq
-        winning: an older ingest finishing last does not clobber a newer
-        committed surplus (its future still gets its own value)."""
+        the tenant record read before dispatch, newest seq winning: an
+        older ingest finishing last does not clobber a newer committed
+        surplus (its future still gets its own value).  When the record
+        changed meanwhile the ingest runs against the new one, as in the
+        reference: a refit's record is retried, and so is a tenant
+        unregistered and registered anew, unless the new record has the
+        same plan signature and coefficients, whose surplus is bitwise the
+        one already computed: that is committed without a second dispatch
+        (on a slow host a churning tenant would otherwise exhaust the
+        retries)."""
         def attempt():
             with self._lock:
                 tenant = self._tenants.get(name)
@@ -1188,17 +1248,14 @@ class CTEngine:
                 if cur is None:
                     raise KeyError(f"tenant {name!r} was unregistered "
                                    f"before its queued ingest ran")
-                if cur is tenant:
+                if cur is tenant or (
+                        cur.incarnation is not tenant.incarnation
+                        and _same_ingest(cur, tenant)):
                     if seq >= cur.surplus_seq:
                         cur.surplus = surplus
                         cur.surplus_seq = seq
                     self._counters["ingests"] += 1
                     return surplus
-                if cur.incarnation is not tenant.incarnation:
-                    # unregistered and registered anew meanwhile: queued
-                    # work of an unregistered tenant fails, named
-                    raise KeyError(f"tenant {name!r} was unregistered "
-                                   f"while its queued ingest ran")
                 self._sched["ingest_retries"] += 1
                 raise _RebindRace(name)
         try:
@@ -1283,7 +1340,9 @@ class CTEngine:
         boundaries.  Each request of a chunk is evaluated on its own (its
         tenant's surplus, its unpadded points: the one-tenant query's
         call), then the chunk is synchronised so a device failure fails
-        the chunk's futures.  Runs outside the lock."""
+        the chunk's futures.  After each chunk the queries queued since
+        with a strictly higher priority run at once (``_run_urgent``).
+        Runs outside the lock."""
         def group_rank(item):
             entries = item[1]
             return (-max(r.priority for r, _ in entries),
@@ -1319,7 +1378,28 @@ class CTEngine:
                         self._counters["queries"] += len(chunk)
                         self._counters["coalesced_queries"] += len(chunk) - 1
                 count += len(chunk)
+                count += self._run_urgent(chunk[0][0].priority)
         return count
+
+    def _run_urgent(self, priority: int) -> int:
+        """Dispatch, between two chunks of a pass, the queued queries whose
+        priority is strictly above the chunk's: the reference's promotion
+        rule, applied to work that arrived during the pass (one pass over a
+        deep queue evaluates each request on its own, so it can take long
+        enough to starve a health probe).  The pass proves the scheduler
+        alive, so the heartbeat is stamped here too."""
+        with self._work:
+            self._last_pump = time.monotonic()
+            urgent = [r for r in self._pending
+                      if r.kind == "query" and r.priority > priority]
+            if not urgent:
+                return 0
+            self._pending = [r for r in self._pending
+                             if not (r.kind == "query"
+                                     and r.priority > priority)]
+            self._sched["promoted"] += len(urgent)
+            self._space.notify_all()
+        return self._run_queries(urgent, drain=False)
 
     # -- synchronous conveniences -------------------------------------------
 

@@ -105,32 +105,42 @@ class CTSurrogate:
     Execution policy comes as ``spec=ExecSpec(...)``; ``merge=`` and
     ``fused=`` are deprecated spellings of its fields (they warn once).
     ``device=`` is the private engine's device (default CUDA); with
-    ``engine=`` it must be the engine's.  ``cluster=`` waits for the
-    cluster (ROADMAP A8).
+    ``engine=`` it must be the engine's.  ``cluster=`` (a
+    ``repro_torch.runtime.cluster.CTCluster``) registers the tenant through
+    the cluster's front door instead, so every call is routed through
+    placement, health and failover; ``engine=`` and ``cluster=`` exclude
+    each other, and with ``cluster=`` the device is the cluster's.
 
     ``store=`` (a ``repro_torch.runtime.durability.DurableStore``) makes
     the surrogate's own engine durable: every admitted update is journaled
     at admission and the served surplus snapshotted every
     ``snapshot_interval`` acked updates, so a crashed process rebuilds the
     surrogate bitwise with ``CTSurrogate.restore(store, ...)``.  With a
-    shared ``engine=`` durability is that engine's (``CTEngine(store=)``),
-    and passing ``store=`` too raises.
+    shared ``engine=`` or a ``cluster=`` durability is theirs
+    (``CTEngine(store=)``, ``CTCluster(durability_dir=)``), and passing
+    ``store=`` too raises.
     """
 
     def __init__(self, scheme, nodal_grids, spec=None, *, engine=None,
                  cluster=None, name: str = "surrogate", store=None,
                  snapshot_interval: int = 16, merge=None, fused=None,
                  device=None):
-        from repro_torch.core.engine import CTEngine, _not_ported
-        if cluster is not None:
-            raise _not_ported("CTSurrogate(cluster=)", "A8",
-                              "serving through a CTCluster fleet")
-        if store is not None and engine is not None:
+        from repro_torch.core.engine import CTEngine
+        if engine is not None and cluster is not None:
+            raise ValueError("pass engine= or cluster=, not both")
+        if store is not None and (engine is not None or cluster is not None):
             raise ValueError(
                 "store= applies to the surrogate's own engine; a shared "
-                "engine= carries its own durability (CTEngine(store=...))")
+                "engine= / cluster= carries its own durability "
+                "(CTEngine(store=...) / CTCluster(durability_dir=...))")
         spec = resolve_spec("CTSurrogate", spec, merge=merge, fused=fused)
-        if engine is None:
+        if cluster is not None:
+            if device is not None and resolve_device(device) != \
+                    cluster.device:
+                raise ValueError(f"device={device} differs from the "
+                                 f"cluster's {cluster.device}")
+            engine = cluster            # the engine's serving surface
+        elif engine is None:
             engine = CTEngine(device=device, store=store,
                               snapshot_interval=snapshot_interval)
         elif device is not None and resolve_device(device) != engine.device:
@@ -162,7 +172,8 @@ class CTSurrogate:
 
     @property
     def engine(self):
-        """The backing (possibly shared) ``CTEngine``."""
+        """The backing (possibly shared) ``CTEngine``, or the
+        ``CTCluster`` given as ``cluster=``."""
         return self._engine
 
     @property

@@ -1,2 +1,2 @@
-"""Runtime policy of the CT port: fault recombination, health tracking
-and the durable tenant store."""
+"""Runtime of the CT port: fault recombination, health tracking, the
+durable tenant store, the multi-host cluster and elastic re-spreading."""

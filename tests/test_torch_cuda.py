@@ -944,3 +944,41 @@ def test_donation_at_prod_3d(cuda):
     eng.update("donated", _prod_3d_grids(46, cuda))
     torch.cuda.synchronize()
     assert bool(torch.isfinite(eng.surplus("donated")).all())
+
+
+def test_cluster_failover_and_restart_on_the_card(cuda, tmp_path):
+    """A 2-host durable cluster on the card (``CombinationScheme(3, 5)``):
+    kill the tenant's primary, fail over, restart it; placement returns to
+    the pre-kill map, and the surplus is bitwise a never-failed engine's
+    on the card fed the newest acked payload, its cluster-routed ingest at
+    most four launches."""
+    from repro_torch.core.engine import CTEngine
+    from repro_torch.runtime.cluster import CTCluster
+    scheme = CombinationScheme(3, 5)
+
+    def grids(seed):
+        rng = np.random.default_rng(seed)
+        return {ell: rng.standard_normal(grid_shape(ell))
+                for ell, _ in scheme.grids}
+
+    cl = CTCluster(2, replication=1, seed=7, device=cuda,
+                   durability_dir=str(tmp_path), snapshot_interval=2)
+    cl.register("t", scheme, grids(50))
+    with H.count_launches() as n:
+        cl.update("t", grids(51))
+    assert 0 < sum(n.values()) <= 4
+    cl.update("t", grids(52))
+    before = cl.owners_of("t")
+    victim = before[0]
+    cl.injector.kill(victim)
+    assert cl.check_health() == [victim]
+    assert victim not in cl.owners_of("t")
+    cl.update("t", grids(53))                 # on the new owner
+    assert cl.restart_host(victim) == {"t": "adopted"}
+    assert cl.owners_of("t") == before
+    oracle = CTEngine(device=cuda, ingest_workers=0)
+    oracle.register("t", scheme, grids(53))
+    assert cl.surplus("t").device.type == cuda.type
+    assert _same(cl.surplus("t"), oracle.surplus("t"))
+    pts = np.random.default_rng(54).random((16, 3))
+    np.testing.assert_array_equal(cl.query("t", pts), oracle.query("t", pts))

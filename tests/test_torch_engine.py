@@ -628,15 +628,60 @@ def test_plan_cache_contract_and_explicit_clear():
     assert build_plan(scheme) is not p1
 
 
+def _cluster_cpu():
+    from repro_torch.runtime.cluster import CTCluster
+    return CTCluster(1, device="cpu")
+
+
+def _rebalance_engine():
+    from repro_torch.runtime.elastic import rebalance_engine
+    return rebalance_engine(_engine(), mesh=object())
+
+
 @pytest.mark.parametrize("call,item", [
     (lambda: _engine().rebind("t", n_slabs=2), "A9"),
-    (lambda: _engine().heartbeat(), "A8"),
-    (lambda: _engine().submit_probe(), "A8"),
-    (lambda: CTSurrogate(CombinationScheme(2, 2), None, cluster=object(),
-                         device="cpu"), "A8")])
+    (lambda: _cluster_cpu().over_device_slices(2), "A9"),
+    (_rebalance_engine, "A9"),
+    (lambda: ExecSpec(member_axis="member"), "A9")])
 def test_unported_engine_surface_raises_naming_its_item(call, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         call()
+
+
+def test_probe_and_heartbeat_as_the_reference():
+    """The cluster's seams: a probe resolves to True only when a pump, a
+    flush or the scheduler reaches it (``wait`` never drives the engine),
+    counts as no tenant work, and the heartbeat has the reference's keys
+    and stamps each scheduler pass."""
+    scheme = CombinationScheme(2, 2)
+    ref = rengine.CTEngine(host_id="h")
+    eng = _engine(host_id="h")
+    for e in (ref, eng):
+        e.register("t", scheme, _np_grids(scheme, 33))
+    hb_ref, hb = ref.heartbeat(), eng.heartbeat()
+    assert set(hb) == set(hb_ref)
+    assert hb["host_id"] == "h" and hb["pending"] == 0
+    assert hb["scheduler_alive"] is False and hb["age_s"] >= 0.0
+    before = eng.stats()
+    probe = eng.submit_probe()
+    assert not probe.wait(0.05)             # nobody pumps: no answer
+    assert eng.heartbeat()["pending"] == 1
+    stamp = eng.heartbeat()["last_pump"]
+    assert eng.pump() == 1
+    assert probe.wait(1.0) and probe.result() is True
+    assert eng.heartbeat()["last_pump"] > stamp
+    after = eng.stats()
+    assert after["eval"] == before["eval"]
+    assert after["ingests"] == before["ingests"]
+    eng.start()
+    try:
+        assert eng.heartbeat()["scheduler_alive"] is True
+        assert eng.submit_probe().wait(30.0)
+    finally:
+        eng.stop()
+    flushed = eng.submit_probe()
+    eng.flush()
+    assert flushed.done() and eng.stats()["eval"] == before["eval"]
 
 
 # ---------------------------------------------------------------------------
@@ -766,3 +811,30 @@ def test_stale_ok_query_reads_the_committed_surplus():
     np.testing.assert_allclose(fresh.result(), 3.0 * before, rtol=1e-12,
                                atol=1e-14)
     eng.close()
+
+
+def test_higher_priority_queries_run_between_chunks_of_a_pass(monkeypatch):
+    """A query queued during a long pass with a higher priority than the
+    chunk being evaluated runs right after that chunk, not after the pass
+    (so a health probe is never starved by a deep queue)."""
+    scheme = CombinationScheme(2, 2)
+    eng = _engine(max_batch=1)
+    eng.register("t", scheme, _np_grids(scheme, 34))
+    pts = np.random.default_rng(35).random((2, 2))
+    order = []
+    orig = E.interpolate_hierarchical
+
+    def spy(surplus, points):
+        order.append(float(points[0, 0]))
+        if len(order) == 1:
+            urgent.append(eng.submit_query("t", np.full((1, 2), 0.125),
+                                           priority=5))
+        return orig(surplus, points)
+
+    urgent = []
+    monkeypatch.setattr(E, "interpolate_hierarchical", spy)
+    low = [eng.submit_query("t", pts + 0.01 * i) for i in range(3)]
+    eng.flush()
+    assert all(f.done() for f in low) and urgent[0].done()
+    assert order[1] == 0.125                     # right after chunk one
+    assert eng.stats()["scheduler"]["promoted"] >= 1

@@ -264,6 +264,58 @@ def test_unregister_racing_queued_work_resolves_every_future():
     assert eng.stats()["scheduler"]["pending"] == 0
 
 
+@pytest.mark.parametrize("respec", [False, True])
+def test_reregistered_mid_flight_ingest_resolves_as_the_reference(respec):
+    """A queued ingest whose tenant is unregistered and registered anew
+    while it runs (inside ``_dispatch_ingest``, deterministically) resolves
+    with a value on both engines, as the reference's CAS retries it
+    against the new record; the port commits the surplus it computed when
+    the new record has the same signature and coefficients (no second
+    dispatch), and dispatches again when it does not (``respec``: the new
+    record is unfused).  Surpluses and served state are bitwise equal."""
+    scheme = CombinationScheme(2, 3)
+    first = _random_grids(scheme, np.random.default_rng(6))
+    second = _random_grids(scheme, np.random.default_rng(7))
+    out = {}
+    for pkg, make, spec in (
+            ("port", lambda: _engine(ingest_workers=0), E.ExecSpec),
+            ("ref", lambda: rengine.CTEngine(ingest_workers=0),
+             rengine.ExecSpec)):
+        eng = make()
+        eng.register("t", scheme, first)
+        orig = eng._dispatch_ingest
+        calls = []
+
+        def spy(tenant, grids, _eng=eng, _orig=orig, _calls=calls,
+                _spec=spec):
+            _calls.append(tenant)
+            if len(_calls) == 1:
+                _eng.unregister("t")
+                _eng.register("t", scheme, first, spec=_spec(
+                    fused=False) if respec else None)
+            return _orig(tenant, grids)
+
+        eng._dispatch_ingest = spy
+        fut = eng.submit_ingest("t", second)
+        eng.flush()
+        value = fut.result(timeout=RESULT_TIMEOUT)
+        # the served record, read directly: the reference's re-register
+        # leaves its done watermark one short of the admitted one, so its
+        # ``surplus()`` would wait for an ingest that never comes
+        served = eng._tenants["t"].surplus
+        if pkg == "port":
+            assert eng.surplus("t") is served
+        out[pkg] = (np.asarray(value), np.asarray(served),
+                    len(calls), eng.stats()["scheduler"]["ingest_retries"])
+    port, ref = out["port"], out["ref"]
+    for got, want in ((port[0], ref[0]), (port[1], ref[1])):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert np.array_equal(got.view(np.uint8), want.view(np.uint8))
+    assert np.array_equal(port[0], port[1])     # the served state is it
+    assert ref[2:] == (3, 1)                    # ingest, register, retry
+    assert port[2:] == ((3, 1) if respec else (2, 0))
+
+
 def test_refit_racing_queued_ingests_commits_consistently():
     gs = GeneralScheme.regular(2, 2)
     grown = gs.with_levels([(3, 1)])
