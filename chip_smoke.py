@@ -97,6 +97,32 @@ counts set to 0 just before the phase and read just after it:
   the kill, during the outage and after the restart, each beside the
   card's name and power limit.
 
+Then the sharded ingest (``repro_torch.core.distributed``) at ``prod_3d``
+in f64, on ``make_mesh((4,), ("slab",))`` and ``make_mesh((2, 2),
+("member", "slab"))`` over the one card repeated, so every slab and
+compute group shares the card and every collective is a copy within it
+(no interconnect is measured), with the launch counts set to 0 just
+before each ingest and read just after it:
+
+* ``ct_transform_sharded`` 1-D fused (the assembly, rows 5+7 one
+  launch, row 9 two launches a slab on its slab-local table), 1-D
+  unfused and 2-D (rows 5 and 7 per group and bucket, then one row 12
+  ``owner_fold`` a slab), each bitwise the single-device card surplus and
+  launching what its plan says; with ``gather=False`` every slab bitwise
+  its slice; every kernel call of each ingest replayed against its plain
+  version, bitwise, in f64 and f32; warm ingest times beside the
+  single-device one, each ingest profiled (device busy, idle share, top
+  ops), each slab buffer's bytes and the peak device memory;
+* a ``CTEngine`` tenant with ``ExecSpec(mesh=mesh4)`` bitwise the
+  unmeshed one (surplus and a query), ``rebind`` onto the 2-D mesh
+  (``"resharded"``, the surplus carried, an update through one
+  ``owner_fold`` a slab) and off it (``"unsharded"``);
+* at ``fig6_2d``: ``ct_transform_psum`` and ``comm_phase_sharded`` (psum
+  and slab routes) within rtol 1e-12 of one device (at ``prod_3d`` the
+  psum's (G, fine) stack would be 117 GB);
+* at ``fig7_4d``: ``CTCluster.over_device_slices(2, devices=[cuda] *
+  4)``, 1-D and ``members=2``, a tenant bitwise a fresh engine's.
+
 Then the second path, the per-grid (de)hierarchization of
 ``kernels.ops`` and the iterated combination round that drives it:
 
@@ -182,7 +208,12 @@ launch restricted to its own passes (tail axes, axis 0), the whole
 launch's time is their ``ingest_ms``, and their launches are the grouped
 launch's; row 9 is the grouped scatter's two launches per ingest, its
 bound each stack element and its index read once and each listed entry's
-fine slot read and written once;
+fine slot read and written once; row 12 (the 2-D owner fold) is its two
+launches per 2 x 2 ingest, its bound each value a run lists and its
+entry read once (not the payloads' pad) and each owner's slot, offsets
+and accumulator read once and the slot written once, its ``library_ms``
+one ``index_add_`` a slab over the concatenated ``ship_idx[s]`` (the
+same sums in no fixed order, which the port never calls);
 ``wrapper_ms`` and ``plain_wrapper_ms`` are CUDA events around the Python
 calls, host dispatch included.  The inverse rows are timed per
 ``ct_scatter`` at ``prod_3d`` and per call on the 511^3 cube (``cube_*``
@@ -219,8 +250,10 @@ fine grid's fill reported beside the device busy time that holds it; the
 assembly's row times its recorded call against the present copy loop (its
 plain version).  It prints the card's name and power limit, the kernels'
 ``-Xptxas -v`` report, the timings, a ``{"kernels": [...]}`` JSON line
-(eleven rows: the ten of ``PERF.md``'s table in its order, then the
-assembly) and, last,
+(twelve rows: the ten of ``PERF.md``'s table in its order, then the
+assembly and the owner fold; row 9 also carries its slab-local time as
+``slab_ms``, ``slab_plain_ms``, ``slab_wrapper_ms``, ``slab_launches``
+and ``slab_bound_ms``) and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is
 then non-zero and no result line is printed.  Without a CUDA device, or
 without the rest of the repository, it exits non-zero at once.
@@ -235,6 +268,7 @@ import sys
 import tempfile
 import threading
 import time
+from gc import collect as gc_collect
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -297,7 +331,7 @@ ROW = {"hier_pole": 1, "dehier_pole": 2, "apply_axis_matmul": 3,
        "hier_fused_tail": 4, "hier_forward_grouped:tail": 5,
        "dehier_tail_batched": 6, "hier_forward_grouped:axis0": 7,
        "dehier_axis0_batched": 8, "hier_scatter_grouped": 9,
-       "flash_attention": 10, "assemble_grouped": 11}
+       "flash_attention": 10, "assemble_grouped": 11, "owner_fold": 12}
 #: The per-bucket wrappers of rows 5, 7 and 9 (one-stack calls of the
 #: grouped kernels), checked on the long-axis stacks: row -> wrapper.
 PER_BUCKET = {"hier_forward_grouped:tail": "hier_tail_batched",
@@ -1190,6 +1224,230 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------------
+    # The sharded ingest at prod_3d on meshes that repeat the one card:
+    # 1-D fused, 1-D unfused and 2-D (member x slab), each bitwise the
+    # single-device surplus (counts zeroed before each ingest, read after)
+    # ------------------------------------------------------------------
+    from repro_torch.core import distributed as D
+    from repro_torch.core.combination import (combine_full,
+                                              extract_from_full)
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.kernels import ops as OPS
+
+    mesh4 = make_mesh((4,), ("slab",), devices=[cuda] * 4)
+    mesh22 = make_mesh((2, 2), ("member", "slab"), devices=[cuda] * 4)
+    single = engine.surplus("bump")       # the single-device card surplus
+    splans = {"1-D fused": E.shard_plan(prod_plan, 4),
+              "1-D unfused": E.shard_plan(prod_plan, 4),
+              "2-D": E.shard_plan(prod_plan, 2, n_groups=4)}
+    shard_specs = {"1-D fused": (mesh4, ExecSpec()),
+                   "1-D unfused": (mesh4, ExecSpec(fused=False)),
+                   "2-D": (mesh22, ExecSpec(member_axis="member"))}
+
+    def sharded_ingest(label, g, gather=True):
+        mesh, spec = shard_specs[label]
+        return D.ct_transform_sharded(g, prod, mesh, "slab",
+                                      plan=splans[label], spec=spec,
+                                      gather=gather)
+
+    def kernel_calls(calls):
+        """The recorded kernel calls, with their ``acc`` left out (a slab
+        buffer each) and its size kept: ``(wrapper, args, acc numel)``."""
+        return [(w, {k: v for k, v in a.items() if k != "acc"},
+                 a["acc"].numel() if "acc" in a else None)
+                for w, a in calls]
+
+    def fresh(call, cpu=False):
+        """Replay a ``kernel_calls`` entry on a zero buffer (the card's, or
+        the CPU's with CPU copies of its tensors)."""
+        w, a, n = call
+        dtype = next(v.dtype for v in a.values() if torch.is_tensor(v)
+                     and v.is_floating_point())
+        acc = torch.zeros(n, dtype=dtype, device="cpu" if cpu else cuda)
+        return replay((w, {**a, "acc": acc}), acc, plain=cpu, cpu=cpu)
+
+    shard_times, shard_launches, shard_peak, shard_base = {}, {}, {}, {}
+    slab_calls = fold_calls = None
+    checked = {}
+    single_ms = wall_clock_ms(
+        lambda: E.ct_transform_with_plan(grids, prod_plan, device=cuda))
+    for label, splan in splans.items():
+        gc_collect()
+        torch.cuda.synchronize()
+        for w in H.WRAPPERS:
+            w.launches = 0
+        shard_base[label] = base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with H.record_calls() as calls, H.count_launches() as n:
+            got = sharded_ingest(label, grids)
+        torch.cuda.synchronize()
+        shard_peak[label] = torch.cuda.max_memory_allocated() - base_mem
+        made = {k: v for k, v in n.items() if v}
+        shard_launches[label] = made
+        want = E.plan_launch_stats(
+            splan, fused=shard_specs[label][1].fused)["pallas_launches"]
+        if not same(got, single):
+            fail(f"the {label} sharded ingest differs from the "
+                 f"single-device surplus (max err {max_err(got, single)})")
+        if sum(made.values()) != want:
+            fail(f"the {label} sharded ingest launched {made}, the plan "
+                 f"says {want} kernel launches")
+        if label == "1-D fused" and made != {
+                "assemble_grouped": 1, "hier_forward_grouped": 1,
+                "hier_scatter_grouped": 2 * splan.n_slabs}:
+            fail(f"the 1-D fused sharded ingest launched {made}: the "
+                 f"assembly 1, rows 5+7 1, row 9 two a slab")
+        if label == "2-D" and made.get("owner_fold") != splan.n_slabs:
+            fail(f"the 2-D sharded ingest launched {made}: one owner_fold "
+                 f"a slab")
+        del got
+        parts = sharded_ingest(label, grids, gather=False)
+        rows_per = splan.slab_rows
+        flat_rows = single.shape[0]
+        for s, slab in enumerate(parts.slabs):
+            lo = s * rows_per
+            hi = min(lo + rows_per, flat_rows)
+            if slab.device.type != cuda.type or not same(
+                    slab[:hi - lo], single[lo:hi]) or \
+                    bool(slab[hi - lo:].any()):
+                fail(f"{label}: slab {s} of gather=False is not its slice "
+                     f"of the single-device surplus")
+        del parts
+        shard_times[label] = wall_clock_ms(lambda: sharded_ingest(label,
+                                                                  grids))
+        profiled_steps(f"prod_3d sharded ingest ({label})",
+                       lambda: sharded_ingest(label, grids))
+        # every kernel call of the ingest against its plain version, in
+        # f64 and (for the slab tables and the fold) f32 too
+        for dtype in (torch.float64, torch.float32):
+            if dtype == torch.float64:
+                rec = kernel_calls(calls)
+            else:
+                with H.record_calls() as calls32:
+                    sharded_ingest(label, {k: v.float()
+                                           for k, v in grids.items()})
+                rec = kernel_calls(calls32)
+            for call in rec:
+                name = call[0].__name__
+                if name in ("owner_fold", "hier_scatter_grouped"):
+                    a, b = fresh(call), fresh(call, cpu=True)
+                else:
+                    a = replay((call[0], call[1]), None)
+                    b = replay((call[0], call[1]), None, plain=True,
+                               cpu=True)
+                e = max_err(a, b)
+                key = "hier_scatter_grouped" if name == \
+                    "hier_scatter_grouped" else name
+                err[key] = max(err.get(key, 0.0), e)
+                if not same(a, b):
+                    fail(f"{name} ({label}, {dtype}) differs from its plain "
+                         f"version (max err {e})")
+                checked[name] = checked.get(name, 0) + 1
+            if dtype == torch.float64 and label == "1-D fused":
+                slab_calls = [c for c in rec
+                              if c[0].__name__ == "hier_scatter_grouped"]
+            if dtype == torch.float64 and label == "2-D":
+                fold_calls = [c for c in rec
+                              if c[0].__name__ == "owner_fold"]
+        del calls, calls32, rec, a, b
+    slab_bytes = (splans["1-D fused"].slab_size + 1) * single.element_size()
+    print(f"sharded prod_3d on one card (every slab and group on the same "
+          f"device: the collectives are copies within the card, no "
+          f"interconnect was measured): each surplus bitwise the "
+          f"single-device one, gather=False slabs bitwise its slices; "
+          f"kernel calls held bitwise against their plain versions in f64 "
+          f"and f32: {checked}; launches per ingest {shard_launches}  "
+          f"[{card}]")
+    print(f"sharded prod_3d ingest (host clock, warm, per call): "
+          f"single-device {single_ms:.3f} ms; " + "; ".join(
+              f"{k} {v:.3f} ms" for k, v in shard_times.items())
+          + f"; slab buffer {slab_bytes} B each (4 slabs; 2-D: 2 slabs of "
+          f"{(splans['2-D'].slab_size + 1) * single.element_size()} B); "
+          f"peak device memory above the resident state " + ", ".join(
+              f"{k} {v} B (resident {shard_base[k]} B)"
+              for k, v in shard_peak.items()) + f"  [{card}]")
+
+    # CTEngine with a meshed tenant, rebind to the 2-D mesh and off it
+    torch.cuda.synchronize()
+    seng = CTEngine(device=cuda, ingest_workers=0, host_id="sharded")
+    seng.register("flat", prod, grids)
+    seng.register("m4", prod, grids, spec=ExecSpec(mesh=mesh4))
+    spts = points[2].numpy()
+    if not same(seng.surplus("m4"), single) or not np.array_equal(
+            seng.query("m4", spts), seng.query("flat", spts)):
+        fail("the meshed tenant's surplus or query differs from the "
+             "unmeshed tenant's")
+    carried = seng.surplus("m4")
+    outcomes = [seng.rebind("m4", mesh=mesh22, member_axis="member")]
+    if seng.surplus("m4") is not carried:
+        fail("rebind did not carry the surplus")
+    with H.count_launches() as n:
+        seng.update("m4", grids)
+    if not same(seng.surplus("m4"), single) or n["owner_fold"] != 2:
+        fail(f"after rebind to the 2-D mesh the update launched "
+             f"{ {k: v for k, v in n.items() if v} } or differs")
+    outcomes.append(seng.rebind("m4", mesh=None, member_axis=None))
+    if outcomes != ["resharded", "unsharded"] or not np.array_equal(
+            seng.query("m4", spts), seng.query("flat", spts)):
+        fail(f"rebind outcomes {outcomes} or the query after them differ")
+    st = seng.stats()["ingest_cache"]
+    print(f"sharded CTEngine prod_3d: tenant on the 4-slab mesh bitwise the "
+          f"unmeshed one (surplus and a {len(spts)}-point query); rebind "
+          f"{outcomes} with the surplus carried; executables {st}")
+    del seng, carried
+
+    # The psum paths and the comm phase at fig6_2d (at prod_3d the psum's
+    # (G, fine) stack would be 117 GB): rtol 1e-12 against one device
+    fig6 = CombinationScheme(*FIG6)
+    g6 = {ell: sample_function(bump, ell, device=cuda)
+          for ell, _ in fig6.grids}
+    want6 = E.ct_transform(g6, fig6, device=cuda)
+
+    def close(got, want, label):
+        e = max_err(got, want)
+        if not e <= 1e-12 * max(1.0, float(want.abs().max())):
+            fail(f"{label}: max err {e} against the single-device result "
+                 f"(rtol 1e-12)")
+        return e
+
+    psum_err = {"ct_transform_psum": close(D.ct_transform_psum(
+        g6, fig6, mesh4, "slab"), want6, "ct_transform_psum")}
+    h6 = {ell: OPS.hierarchize(g, "pole") for ell, g in g6.items()}
+    comb6, fl6 = combine_full(h6, fig6)
+    for route, kw in (("psum", {}), ("slab", {"spec": ExecSpec(n_slabs=4)})):
+        out = D.comm_phase_sharded(h6, fig6, mesh4, "slab", **kw)
+        psum_err[f"comm_phase_sharded ({route})"] = max(
+            close(out[ell], extract_from_full(comb6, ell, fl6),
+                  f"comm_phase_sharded ({route}) {ell}")
+            for ell in out)
+    print(f"sharded fig6_2d: psum paths within rtol 1e-12 of one device "
+          f"(sums reassociated, the psum folded in rank order), max abs "
+          f"err {psum_err}  [{card}]")
+    del g6, want6, h6, comb6
+
+    # Hosts over disjoint slices of the card repeated, at fig7_4d
+    fig7 = CombinationScheme(*FIG7)
+    g7 = {ell: sample_function(seeded(21), ell, device=cuda).cpu().numpy()
+          for ell, _ in fig7.grids}
+    oracle7 = CTEngine(device=cuda, ingest_workers=0)
+    oracle7.register("t", fig7, g7)
+    pts7 = np.random.default_rng(7).random((64, 4))
+    for members in (1, 2):
+        cl = CTCluster.over_device_slices(2, devices=[cuda] * 4,
+                                          members=members, seed=11)
+        cl.register("t", fig7, g7)
+        if not same(cl.surplus("t"), oracle7.surplus("t")) or \
+                not np.array_equal(cl.query("t", pts7),
+                                   oracle7.query("t", pts7)):
+            fail(f"over_device_slices(members={members}): tenant differs "
+                 f"from a fresh engine's")
+        del cl
+    print("sharded fig7_4d: CTCluster.over_device_slices(2, 4 x the card), "
+          "1-D and members=2, serves the tenant bitwise a fresh engine's")
+    del g7, oracle7, single
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------------
     # Third path: the scatter phase and adaptivity (rows 6 and 8)
     # ------------------------------------------------------------------
     from repro_torch.core import adaptive as A
@@ -1833,13 +2091,98 @@ def main() -> int:
     table = scatter_call[1]["table"]
     err["hier_scatter_grouped"] = max(err["hier_scatter_grouped"],
                                       err["hier_axis0_scatter_batched"])
-    timed_row("hier_scatter_grouped", *KERNELS["hier_scatter_grouped"],
-              lambda: replay(scatter_call, acc),
-              lambda: replay(scatter_call, acc, plain=True), None,
-              launches["hier_scatter_grouped"],
-              table.size * (item + 4) + 2 * len(table.entries) * item,
-              "ingest", 1, launches["hier_scatter_grouped"] // 2,
-              "scatter_")
+    row9_bytes = table.size * (item + 4) + 2 * len(table.entries) * item
+    row9 = timed_row("hier_scatter_grouped", *KERNELS["hier_scatter_grouped"],
+                     lambda: replay(scatter_call, acc),
+                     lambda: replay(scatter_call, acc, plain=True), None,
+                     launches["hier_scatter_grouped"], row9_bytes,
+                     "ingest", 1, launches["hier_scatter_grouped"] // 2,
+                     "scatter_")
+
+    def on_fresh(calls, plain=False):
+        """The recorded sharded calls (``kernel_calls``) replayed on zero
+        buffers of their own, as one callable."""
+        bufs = [torch.zeros(n, dtype=torch.float64, device=cuda)
+                for _, _, n in calls]
+        return lambda: [replay((w, {**a, "acc": b}), b, plain=plain)
+                        for (w, a, _), b in zip(calls, bufs)]
+
+    # Row 9 slab-local: the 1-D fused sharded ingest's calls, one a slab of
+    # the 4-slab mesh, on the card repeated; the same work in all as the
+    # single-device call, so the same bound
+    slab_run, slab_plain = on_fresh(slab_calls), on_fresh(slab_calls, True)
+    row9.update({
+        "slab_ms": device_ms(slab_run, only="scatter_"),
+        "slab_plain_ms": device_ms(slab_plain),
+        "slab_wrapper_ms": wall_ms(slab_run),
+        "slab_launches": shard_launches["1-D fused"]["hier_scatter_grouped"],
+        "slab_bound_ms": row9_bytes / HBM_BYTES_PER_S * 1e3,
+        "slabs": len(slab_calls)})
+    print(f"hier_scatter_grouped slab-local: device {row9['slab_ms']:.4f} ms "
+          f"per sharded ingest ({len(slab_calls)} calls, one a slab, "
+          f"{row9['slab_launches']} launches), bound "
+          f"{row9['slab_bound_ms']:.6f} ms; plain "
+          f"{row9['slab_plain_ms']:.4f} ms; with host dispatch "
+          f"{row9['slab_wrapper_ms']:.4f} ms  [{card}]")
+    # Row 12, the 2-D ingest's owner fold (port-only), one call a slab;
+    # bound: each value a run lists and its entry read once (the payloads'
+    # pad positions, which no run lists, are not read), each owner's slot,
+    # offsets and accumulator read once and its slot written once
+    fold_run, fold_plain = on_fresh(fold_calls), on_fresh(fold_calls, True)
+    n_values = sum(a["values"].numel() for _, a, _ in fold_calls)
+    n_entries = sum(len(a["table"].entries) for _, a, _ in fold_calls)
+    n_owners = sum(a["table"].owners for _, a, _ in fold_calls)
+    fold_bytes = n_entries * (item + 4) + n_owners * (4 + 8 + 2 * item)
+    ms = device_ms(fold_run, only="owner_fold")
+    # The library call: one index_add_ a slab over the concatenated
+    # ship_idx[s] (pad positions onto the dump slot), the same per-slot
+    # sums in no fixed order; timed here only, the port never calls it
+    two_d = splans["2-D"]
+    fold_dst = [torch.from_numpy(np.concatenate(
+        [sb.ship_idx[s].reshape(-1) for sb in two_d.slab_buckets]).astype(
+            np.int64)).to(cuda) for s in range(two_d.n_slabs)]
+    lib_bufs = [torch.zeros(n, dtype=torch.float64, device=cuda)
+                for _, _, n in fold_calls]
+
+    def fold_library():
+        for (_, a, _), idx, buf in zip(fold_calls, fold_dst, lib_bufs):
+            buf.index_add_(0, idx, a["values"])
+
+    fold_library_ms = device_ms(fold_library)
+    lib_errs = []
+    for (fold_w, fold_args, fold_n), fold_idx in zip(fold_calls, fold_dst):
+        lib_acc = torch.zeros(fold_n, dtype=torch.float64, device=cuda)
+        lib_acc.index_add_(0, fold_idx, fold_args["values"])
+        fold_acc = torch.zeros_like(lib_acc)
+        replay((fold_w, {**fold_args, "acc": fold_acc}), fold_acc)
+        lib_errs.append(max_err(lib_acc[:-1], fold_acc[:-1]))
+    fold_lib_err = max(lib_errs)
+    del lib_bufs, fold_dst, lib_acc, fold_acc
+    rows.append({
+        "name": "owner_fold", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/owner_fold.cu",
+        # no TPU kernel: the reference's ordered `.at[dst].add` of the
+        # 2-D gather, which XLA runs as one in-order scatter-add
+        "replaces": "src/repro/core/distributed.py:476",
+        "launches": shard_launches["2-D"]["owner_fold"],
+        "max_abs_err": err.get("owner_fold", 0.0), "ms": ms,
+        "plain_ms": device_ms(fold_plain),
+        "bound_ms": fold_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": fold_library_ms,
+        "wrapper_ms": wall_ms(fold_run), "plain_wrapper_ms": wall_ms(
+            fold_plain)})
+    r = rows[-1]
+    print(f"owner_fold: device {ms:.4f} ms per 2-D ingest "
+          f"({len(fold_calls)} calls, one a slab, {r['launches']} launches, "
+          f"{n_entries} of {n_values} shipped values onto {n_owners} "
+          f"slots, the rest pad), bound {r['bound_ms']:.6f} ms "
+          f"({fold_bytes} B at 3.35 TB/s); plain {r['plain_ms']:.4f} ms; "
+          f"library (index_add_ a slab, in no fixed order, never called by "
+          f"the port) {fold_library_ms:.4f} ms, max abs diff "
+          f"{fold_lib_err}; with host dispatch: kernel "
+          f"{r['wrapper_ms']:.4f} ms, plain {r['plain_wrapper_ms']:.4f} ms"
+          f"  [{card}]")
+    del slab_run, slab_plain, fold_run, fold_plain
     # The assembly per prod_3d ingest: its recorded call, against the
     # present copy loop (its plain version); bound: every member value
     # read once, every stack value written once

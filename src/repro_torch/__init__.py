@@ -13,7 +13,12 @@ store (``runtime.durability``: WAL, surplus snapshots, restore and replay,
 on the checkpoint layer ``checkpoint.checkpoint``) and the multi-host
 cluster over it (``runtime.cluster.CTCluster``: consistent-hash placement,
 health monitor, failover by recombination, restart from the store, the
-fault injector and chaos schedules; its hosts share one device), the per-grid
+fault injector and chaos schedules; its hosts share one device), the
+multi-device layer (``core.mesh``, ``core.distributed``: slab-sharded and
+2-D member x slab ingest, the psum gather, pole-parallel hierarchization,
+meshed ``ExecSpec``s, ``CTEngine.rebind``, ``runtime.elastic.
+rebalance_engine``, ``CTCluster.over_device_slices``; single-controller,
+on meshes that may repeat one device), the per-grid
 transforms (``kernels.ops``) and the iterated combination technique
 (``core.iterated``), the scatter phase with adaptivity
 (``core.executor.ct_scatter``, ``core.adaptive``,
@@ -23,8 +28,8 @@ transforms (``kernels.ops``) and the iterated combination technique
 carries the reference's weights across).  Every TPU kernel of the
 reference is written by hand in CUDA for Hopper (``kernels/csrc``): the
 hierarchization kernels and flash attention, and the ingest's member
-assembly is one hand-written launch too.  Not ported yet: multi-GPU
-sharding and ``rebind`` (A9), and of the LM
+assembly and the 2-D ingest's ordered owner fold are hand-written
+launches too.  Not ported yet: the analysis tooling (A10), and of the LM
 stack the moe, ssm, hybrid, encdec and vlm families, training
 (``launch/train.py``, ``optim``, ``data``, the loss) and ``make_batch``/
 ``input_specs`` (ROADMAP.md, Queue A).  Entry points run on the CUDA

@@ -16,12 +16,17 @@ caller asks for it).
   spec each) behind a deadline-aware batching queue, with ingest
   executables shared by every tenant of one plan signature.
 
-What is not ported: meshes and slab or member sharding (``ExecSpec``'s
-``mesh``, ``n_slabs > 1`` and ``member_axis``, and ``rebind``) wait for
-ROADMAP A9, and raise ``NotImplementedError`` naming it.  The cluster's
-seams are here: ``heartbeat()`` (pump liveness) and ``submit_probe()``
-(a no-op request through the queue), which ``repro_torch.runtime.cluster``
-reads.
+Meshes: ``ExecSpec(mesh=..., axis_name=..., n_slabs=..., member_axis=...)``
+(a ``repro_torch.core.mesh.Mesh``) makes a tenant's plan a ``ShardedPlan``
+and its ingest the slab-sharded one of ``repro_torch.core.distributed``
+(1-D fused, 1-D unfused, or 2-D member x slab), on the mesh's devices,
+which must be of the engine device's type; the served surplus is the
+gathered fine grid on the engine's device, so queries, durability and
+donation read it as an unmeshed tenant's, and it is bitwise the unmeshed
+tenant's.  ``rebind`` moves a live tenant onto another mesh or slab layout
+without recomputing its surplus.  The cluster's seams are here:
+``heartbeat()`` (pump liveness) and ``submit_probe()`` (a no-op request
+through the queue), which ``repro_torch.runtime.cluster`` reads.
 
 Ingest executables
 ------------------
@@ -126,11 +131,13 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.executor import (ExecutorPlan, MergeConfig,
-                                       _check_plan, _grids_on,
+                                       ShardedPlan, _base, _grids_on,
                                        _ingest_fused, _ingest_table,
-                                       _ingest_unfused, build_plan,
-                                       extend_plan, plan_launch_stats,
-                                       reset_legacy_warnings)
+                                       _ingest_unfused, _pass_specs,
+                                       build_plan, extend_plan,
+                                       plan_launch_stats,
+                                       reset_legacy_warnings, shard_plan)
+from repro_torch.core.mesh import mesh_axes
 from repro_torch.core.interpolation import interpolate_hierarchical
 from repro_torch.core.levels import SchemeLike
 from repro_torch.kernels.hierarchize import storage_released
@@ -145,11 +152,6 @@ __all__ = ["ExecSpec", "CTEngine", "CTFuture", "EngineSaturated",
 def reset_deprecation_warnings() -> None:
     """Re-arm the once-per-call-site legacy-keyword warnings (tests)."""
     reset_legacy_warnings()
-
-
-def _not_ported(what: str, item: str, detail: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: {detail} "
-                               f"(ROADMAP {item})")
 
 
 class EngineSaturated(RuntimeError):
@@ -194,16 +196,19 @@ def _dtype_name(dtype) -> str:
 
 @dataclass(frozen=True)
 class ExecSpec:
-    """One frozen config of execution policy (hashable: ``MergeConfig`` is
-    a frozen dataclass and ``dtype`` is canonicalized to its name), so a
-    spec can sit in cache keys.  Fields as the reference's; ``mesh``,
-    ``n_slabs > 1`` and ``member_axis`` raise (ROADMAP A9)."""
+    """One frozen config of execution policy (hashable: a mesh hashes by
+    its devices and axis names, ``MergeConfig`` is a frozen dataclass and
+    ``dtype`` is canonicalized to its name), so a spec can sit in cache
+    keys.  Fields and validation as the reference's."""
 
     #: bucket-merging cost model (``None`` = one bucket per canonical
     #: shape): part of the PLAN
     merge: Optional[MergeConfig] = None
+    #: device mesh of the slab-sharded ingest (``repro_torch.core.mesh``)
     mesh: Optional[Any] = None
+    #: mesh axis the fine grid's leading axis is slab-sharded over
     axis_name: str = "slab"
+    #: slab count; ``None`` = the mesh axis's extent (1 without a mesh)
     n_slabs: Optional[int] = None
     #: ingest epilogue: ``None``/``True`` fused, ``False`` unfused
     fused: Optional[bool] = None
@@ -218,6 +223,9 @@ class ExecSpec:
     #: storage once the assembly has read them (module docstring,
     #: "Donation"); opt-in, part of the plan signature
     donate: bool = False
+    #: second mesh axis of the 2-D (member x slab) ingest: the
+    #: hierarchization is then sharded over ``members * slabs`` groups.
+    #: Inert without a mesh (so de-meshing a spec keeps it valid)
     member_axis: Optional[str] = None
 
     def __post_init__(self):
@@ -225,11 +233,53 @@ class ExecSpec:
             object.__setattr__(self, "dtype", _dtype_name(self.dtype))
         if self.n_slabs is not None and self.n_slabs < 1:
             raise ValueError(f"n_slabs must be >= 1, got {self.n_slabs}")
-        if self.mesh is not None or (self.n_slabs or 1) > 1 \
-                or self.member_axis is not None:
-            raise _not_ported(
-                "ExecSpec(mesh=, n_slabs > 1, member_axis=)", "A9",
-                "slab and member sharding across cards runs one card here")
+        if self.mesh is not None:
+            axes = mesh_axes(self.mesh)
+            if self.axis_name not in axes:
+                raise ValueError(
+                    f"axis_name {self.axis_name!r} is not an axis of the "
+                    f"mesh (axes: {tuple(axes)})")
+            extent = int(axes[self.axis_name])
+            if self.n_slabs is not None and self.n_slabs != extent:
+                raise ValueError(
+                    f"n_slabs={self.n_slabs} conflicts with mesh axis "
+                    f"{self.axis_name!r} of {extent} device(s); set ONE of "
+                    f"them (precedence rule 1: conflicts raise)")
+            if self.member_axis is not None:
+                if self.member_axis == self.axis_name:
+                    raise ValueError(
+                        f"member_axis and axis_name must differ, both "
+                        f"{self.axis_name!r}")
+                if self.member_axis not in axes:
+                    raise ValueError(
+                        f"member_axis {self.member_axis!r} is not an axis "
+                        f"of the mesh (axes: {tuple(axes)})")
+
+    @property
+    def slabs(self) -> int:
+        """Effective slab count: ``n_slabs``, else the mesh axis's extent,
+        else 1 (unsharded)."""
+        if self.n_slabs is not None:
+            return self.n_slabs
+        if self.mesh is not None:
+            return int(mesh_axes(self.mesh)[self.axis_name])
+        return 1
+
+    @property
+    def members(self) -> int:
+        """Member-axis extent of a 2-D mesh (1 when not member-meshed)."""
+        if self.member_axis is not None and self.mesh is not None:
+            return int(mesh_axes(self.mesh).get(self.member_axis, 1))
+        return 1
+
+    @property
+    def groups(self) -> int:
+        """Compute groups of the 2-D ingest: ``members * slabs`` when a
+        member axis is meshed, else 1 (hierarchization replicated)."""
+        if self.member_axis is not None and self.mesh is not None \
+                and self.member_axis in mesh_axes(self.mesh):
+            return self.members * self.slabs
+        return 1
 
     @property
     def torch_dtype(self) -> Optional[torch.dtype]:
@@ -266,44 +316,56 @@ class ExecSpec:
 # Signature-shared ingest executables
 # ---------------------------------------------------------------------------
 
-def plan_signature(plan: ExecutorPlan, spec: ExecSpec) -> Tuple:
+def plan_signature(plan, spec: ExecSpec) -> Tuple:
     """Hashable shape signature of (plan, spec), laid out as the
     reference's: canonical bucket member levels and axis permutations, the
-    fine grid, the (absent) slab split and the execution-relevant spec
-    fields.  Not included: coefficients and the plan's index arrays,
-    which are the per-tenant arguments."""
-    buckets = tuple((b.levels, b.perms) for b in plan.buckets)
-    return (plan.full_levels, buckets, None, spec.fused, spec.interpret,
-            spec.dtype, spec.donate, None, None, None)
+    fine grid, the slab split ``(n_slabs, n_groups)`` and the
+    execution-relevant spec fields (the mesh, its axis and member axis
+    for a sharded plan).  Not included: coefficients and the plan's index
+    arrays, which are the per-tenant arguments."""
+    sharded = isinstance(plan, ShardedPlan)
+    base = plan.plan if sharded else plan
+    buckets = tuple((b.levels, b.perms) for b in base.buckets)
+    shard = (plan.n_slabs, plan.n_groups) if sharded else None
+    return (base.full_levels, buckets, shard, spec.fused, spec.interpret,
+            spec.dtype, spec.donate,
+            spec.mesh if sharded else None,
+            spec.axis_name if sharded else None,
+            spec.member_axis if sharded else None)
 
 
 @dataclass
 class _Binding:
-    """One tenant's arguments of its executable, on the engine's device:
-    the plan, its slot-owner table (fused) or index maps (unfused), and its
-    coefficients, uploaded once in float64 and kept per dtype.
+    """One tenant's arguments of its executable, on the engine's device
+    (and, meshed, on the mesh's): the plan, its tables — the slot-owner
+    table (fused), the per-slab scatter tables (1-D sharded fused) or the
+    2-D tables — or its index maps (unfused; per bucket and slab when
+    sharded), and its coefficients, uploaded once in float64 and kept per
+    dtype, split per bucket for the unsharded unfused ingest.
 
     Every tenant of one signature has the same index maps (a member's map
-    depends only on its canonical levels, permutation, bucket target and
-    the fine grid, all in the signature), so the tables could be shared;
-    each binding takes its plan's own from the identity-keyed
-    ``_ingest_table`` cache, which already shares them between the plans
-    of a coefficient-only update, and holds it for as long as the record
-    lives."""
+    depends only on its canonical levels, permutation, bucket target, the
+    fine grid and the slab split, all in the signature), so the tables
+    could be shared; each binding takes its plan's own from the
+    identity-keyed caches (``executor._ingest_table``,
+    ``distributed.slab_scatter_tables`` / ``two_d_tables``), which already
+    share them between the plans of a coefficient-only update, and holds
+    them for as long as the record lives."""
 
-    plan: ExecutorPlan
+    plan: Any
     table: Any
-    idxs: Tuple[torch.Tensor, ...]
+    idxs: tuple
     coeffs64: torch.Tensor
+    split: bool = False
     _coeffs: Dict[torch.dtype, Any] = dataclasses.field(default_factory=dict)
 
     def coeffs(self, dtype: torch.dtype):
-        """The coefficients in ``dtype``: concatenated (fused) or per bucket
-        (unfused), cast once."""
+        """The coefficients in ``dtype``: concatenated, or per bucket with
+        ``split``, cast once."""
         c = self._coeffs.get(dtype)
         if c is None:
             c = self.coeffs64.to(dtype)
-            if self.table is None:
+            if self.split:
                 c = tuple(torch.split(c, [len(b.ells)
                                           for b in self.plan.buckets]))
             self._coeffs[dtype] = c
@@ -313,15 +375,24 @@ class _Binding:
 class _IngestExecutable:
     """The ingest of one plan signature, shared by its tenants:
     ``(grids on the device, binding, dtype) -> surplus``.  Holds what the
-    signature determines and, per device it ran on, the grouped forward
-    launch's work table (``kernels.hierarchize._grouped_table``) and the
-    assembly's layout."""
+    signature determines — the passes, the assembly's layout, the fused
+    flag and, for a sharded plan, the mesh and its axes — and, per device
+    it ran on, the grouped forward launch's work table
+    (``kernels.hierarchize._grouped_table``) and the assembly's layout."""
 
-    def __init__(self, plan: ExecutorPlan, spec: ExecSpec):
-        table = _ingest_table(plan)
-        self.stacks = table.stacks
-        self.layout = tuple((b.shape, b.perms) for b in plan.buckets)
+    def __init__(self, plan, spec: ExecSpec):
+        base = _base(plan, "CTEngine.register")
+        self.sharded = isinstance(plan, ShardedPlan)
+        if self.sharded and spec.mesh is None:
+            raise ValueError(
+                "a slab-sharded plan needs a meshed spec (ExecSpec(mesh="
+                "...)) to execute; n_slabs alone only shapes the plan")
+        self.stacks = _pass_specs(base)[0]
+        self.layout = tuple((b.shape, b.perms) for b in base.buckets)
         self.fused = spec.fused is not False
+        self.mesh, self.axis_name = spec.mesh, spec.axis_name
+        self.member_axis = spec.member_axis \
+            if self.sharded and plan.n_groups > 1 else None
         self._on: Dict[torch.device, tuple] = {}
         self._lock = threading.Lock()
 
@@ -337,11 +408,14 @@ class _IngestExecutable:
         with self._lock:
             self._on.setdefault(device, tables)
 
-    def bind(self, plan: ExecutorPlan, device: torch.device) -> _Binding:
-        """Upload a tenant's arguments (at ``register`` or a refit)."""
+    def bind(self, plan, device: torch.device) -> _Binding:
+        """Upload a tenant's arguments (at ``register``, a refit or a
+        rebind)."""
         self._tables(device)
         coeffs = torch.from_numpy(np.concatenate(
             [b.coeffs for b in plan.buckets])).to(device)
+        if self.sharded:
+            return self._bind_sharded(plan, device, coeffs)
         if self.fused:
             table = _ingest_table(plan)
             if device.type == "cuda":
@@ -349,10 +423,46 @@ class _IngestExecutable:
             return _Binding(plan, table, (), coeffs)
         idxs = tuple(torch.from_numpy(b.index).to(device)
                      for b in plan.buckets)
+        return _Binding(plan, None, idxs, coeffs, split=True)
+
+    def _bind_sharded(self, plan: ShardedPlan, device: torch.device,
+                      coeffs: torch.Tensor) -> _Binding:
+        from repro_torch.core.distributed import (_check_mesh,
+                                                  slab_scatter_tables,
+                                                  two_d_tables)
+        mesh = _check_mesh(self.mesh, self.axis_name)
+        if mesh.device_type != device.type:
+            raise ValueError(
+                f"the tenant's mesh holds {mesh.device_type} devices but the "
+                f"engine runs on {device}: no path mixes the CPU with a "
+                f"card")
+        if mesh.shape[self.axis_name] != plan.n_slabs:
+            raise ValueError(
+                f"plan is sharded for {plan.n_slabs} slab(s) but mesh axis "
+                f"{self.axis_name!r} has {mesh.shape[self.axis_name]}")
+        slab_devices = mesh.axis_devices(self.axis_name)
+        if self.member_axis is not None:
+            return _Binding(plan, two_d_tables(plan), (), coeffs)
+        if self.fused:
+            tables = slab_scatter_tables(plan)
+            if device.type == "cuda":
+                for t, dev in zip(tables, slab_devices):
+                    t.on(dev)
+            return _Binding(plan, tables, (), coeffs)
+        idxs = tuple([torch.from_numpy(sb.index[s]).to(dev)
+                      for s, dev in enumerate(slab_devices)]
+                     for sb in plan.slab_buckets)
         return _Binding(plan, None, idxs, coeffs)
 
     def __call__(self, grids, binding: _Binding, dtype: torch.dtype,
                  device: torch.device) -> torch.Tensor:
+        if self.sharded:
+            from repro_torch.core.distributed import _sharded_ingest
+            return _sharded_ingest(
+                grids, binding.plan, self.mesh, self.axis_name,
+                member_axis=self.member_axis, fused=self.fused,
+                coeffs=binding.coeffs(dtype), dtype=dtype, device=device,
+                tables=binding.table, idxs=binding.idxs or None)
         if self.fused:
             return _ingest_fused(grids, binding.plan, binding.table,
                                  binding.coeffs(dtype), dtype, device)
@@ -376,7 +486,7 @@ def clear_compile_cache() -> None:
         _INGEST_EXECUTABLES.clear()
 
 
-def _ingest_executable(signature: Tuple, plan: ExecutorPlan,
+def _ingest_executable(signature: Tuple, plan,
                        spec: ExecSpec) -> Tuple[_IngestExecutable, bool]:
     """Fetch-or-build the shared executable; returns ``(executable,
     was_hit)``.  One lock over get/build/insert/evict, so concurrent
@@ -484,7 +594,7 @@ class _Tenant:
     name: str
     scheme: SchemeLike
     spec: ExecSpec
-    plan: ExecutorPlan
+    plan: Any                       # ExecutorPlan | ShardedPlan
     signature: Tuple
     executable: _IngestExecutable
     binding: _Binding
@@ -495,6 +605,11 @@ class _Tenant:
     #: one per ``register``, carried over by a refit's record swap: tells a
     #: refit (retry the ingest) from an unregister and a new register
     incarnation: Any = dataclasses.field(default_factory=object)
+
+    @property
+    def base_plan(self) -> ExecutorPlan:
+        return self.plan.plan if isinstance(self.plan, ShardedPlan) \
+            else self.plan
 
 
 @dataclass
@@ -541,6 +656,9 @@ def _qpad(q: int) -> int:
     """The reference's padded batch extent (a power of two, >= 16): part of
     a query's coalescing key, so batches split as the reference's do."""
     return max(16, 1 << max(0, q - 1).bit_length())
+
+
+_UNSET = object()
 
 
 class CTEngine:
@@ -749,7 +867,7 @@ class CTEngine:
     def scheme(self, name: str) -> SchemeLike:
         return self._tenant(name).scheme
 
-    def plan(self, name: str) -> ExecutorPlan:
+    def plan(self, name: str):
         return self._tenant(name).plan
 
     def spec(self, name: str) -> ExecSpec:
@@ -782,8 +900,8 @@ class CTEngine:
     # -- executable binding -------------------------------------------------
 
     def _bind(self, name: str, scheme: SchemeLike, spec: ExecSpec,
-              plan: ExecutorPlan) -> _Tenant:
-        _check_plan(plan, "CTEngine.register")
+              plan) -> _Tenant:
+        _base(plan, "CTEngine.register")
         spec.resolve_interpret(self.device)
         signature = plan_signature(plan, spec)
         executable, hit = _ingest_executable(signature, plan, spec)
@@ -1445,9 +1563,48 @@ class CTEngine:
                                                 plan=tenant.plan)
         self._commit(tenant, scheme, plan, nodal_grids)
 
-    def rebind(self, name: str, **changes):
-        raise _not_ported("CTEngine.rebind", "A9",
-                          "moving a tenant onto another mesh or slab layout")
+    def rebind(self, name: str, *, mesh: Any = _UNSET,
+               axis_name: Any = _UNSET, n_slabs: Any = _UNSET,
+               member_axis: Any = _UNSET) -> str:
+        """Move tenant ``name`` onto another mesh or slab layout WITHOUT
+        recomputing its surplus: the base plan is re-sharded incrementally
+        (``shard_plan(..., old=)`` reuses unchanged slab buckets), the
+        signature-shared executable is re-bound, and the served surplus
+        (the gathered fine grid) carries over; queued queries keep
+        resolving.  Returns ``"kept"`` (spec unchanged), ``"sharded"``,
+        ``"resharded"``, ``"unsharded"`` or ``"rebound"``."""
+        tenant = self._tenant(name)
+        changes = {k: v for k, v in (
+            ("mesh", mesh), ("axis_name", axis_name), ("n_slabs", n_slabs),
+            ("member_axis", member_axis)) if v is not _UNSET}
+        new_spec = dataclasses.replace(tenant.spec, **changes) \
+            if changes else tenant.spec
+        if new_spec == tenant.spec:
+            return "kept"
+        was_sharded = isinstance(tenant.plan, ShardedPlan)
+        if new_spec.slabs > 1 or new_spec.groups > 1:
+            plan = shard_plan(tenant.base_plan, new_spec.slabs,
+                              old=tenant.plan if was_sharded else None,
+                              n_groups=new_spec.groups)
+            outcome = "resharded" if was_sharded else "sharded"
+        else:
+            plan = tenant.base_plan
+            outcome = "unsharded" if was_sharded else "rebound"
+        nxt = self._bind(name, tenant.scheme, new_spec, plan)
+        nxt.deadline_ms, nxt.priority = tenant.deadline_ms, tenant.priority
+        nxt.incarnation = tenant.incarnation
+        with self._work:
+            if self._tenants.get(name) is not tenant:
+                raise RuntimeError(
+                    f"tenant {name!r} changed during rebind (concurrent "
+                    f"refit/unregister) — retry")
+            # carried over, no recompute: under the lock, so an ingest
+            # committing meanwhile is not lost (it then retries onto nxt)
+            nxt.surplus, nxt.surplus_seq = tenant.surplus, tenant.surplus_seq
+            self._tenants[name] = nxt
+            self._work_seq += 1
+            self._work.notify_all()
+        return outcome
 
     def _commit(self, tenant: _Tenant, scheme: SchemeLike,
                 plan: ExecutorPlan, nodal_grids) -> None:

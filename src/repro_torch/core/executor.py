@@ -24,9 +24,13 @@ Port of ``repro.core.executor`` on plain (unsharded) plans:
      whose coefficients alone moved keep their ``index`` by identity, and
      the result is array-equal to a from-scratch ``build_plan``.
 
-The reference's ``ShardedPlan`` waits for the multi-GPU port: every entry
-point here takes an ``ExecutorPlan`` and raises ``TypeError`` on anything
-else.
+Sharded plans (``shard_plan``, or ``build_plan`` under a sharded spec)
+are the reference's: a ``ShardedPlan`` wraps the base plan with per-slab
+index maps (the fine grid split into ``n_slabs`` leading-axis slabs) and,
+for the 2-D (member x slab) ingest, the per-group shipping maps; the
+incremental rebuilds re-shard incrementally, and the entry points that
+read a plan take either (a ``ShardedPlan`` runs through its base plan
+unless a meshed spec routes it to ``repro_torch.core.distributed``).
 
 Execution policy comes as one ``spec=repro_torch.core.engine.ExecSpec``
 on every entry point, under the reference's precedence rules
@@ -62,7 +66,7 @@ import threading
 import warnings
 import weakref
 from dataclasses import dataclass
-from typing import Dict, Mapping, Optional, Sequence, Tuple
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -82,11 +86,12 @@ from repro_torch.kernels.hierarchize import (ScatterTable, assemble_grouped,
                                              scatter_table,
                                              storage_released, tile_volume)
 
-__all__ = ["ExecutorPlan", "Bucket", "MergeConfig", "build_plan",
+__all__ = ["ExecutorPlan", "Bucket", "ShardedPlan", "SlabBucket",
+           "MergeConfig", "build_plan", "shard_plan",
            "extend_plan", "update_plan_coefficients", "ct_transform",
            "ct_transform_with_plan", "ct_scatter", "ct_scatter_with_plan",
            "ct_embedded", "ct_embedded_with_plan", "bucket_surpluses",
-           "bucket_tail_surpluses", "bucket_nodal_stacks",
+           "bucket_tail_surpluses", "bucket_nodal_stacks", "plan_fused_ok",
            "plan_launch_stats", "plan_ingest_stats", "clear_plan_cache",
            "resolve_spec", "ensure_spec"]
 
@@ -191,6 +196,192 @@ class ExecutorPlan:
     @property
     def num_grids(self) -> int:
         return sum(len(b.ells) for b in self.buckets)
+
+
+@dataclass(frozen=True)
+class SlabBucket:
+    """Per-slab split of one bucket's embed index map, as the reference's.
+
+    The fine grid is split into ``n_slabs`` contiguous slabs along its
+    leading axis (``slab_rows`` rows each, the last one ragged when
+    ``fine_shape[0] % n_slabs != 0``).  For slab ``s``:
+
+    * ``index[s]`` — the bucket's (G, P) map in slab-LOCAL flat
+      coordinates; every entry outside slab ``s`` (and every pad position)
+      points at the slab dump slot ``slab_size``, so each global index
+      lands in exactly one slab and the per-slot addition order of the
+      dense gather is kept;
+    * ``row_ranges[s, g]`` — the range ``[start, stop)`` of member g's
+      nodes along its ORIGINAL leading axis whose embedded rows fall in
+      slab ``s``.
+
+    Compute-sharded over ``n_groups`` member groups (the 2-D ingest), the
+    bucket also carries the shipping maps: ``group_size`` members per
+    group (``ceil(G / n_groups)``, the stack zero-padded at the tail);
+    ``ship_src[i, s]`` gathers, from group i's flattened weighted stack
+    plus one trailing zero slot, the payload it owes slab ``s`` in
+    (member, position) order (pads read the zero slot); ``ship_idx[s, i]``
+    holds the matching slab-local targets (pads on the dump slot).  The
+    payloads of all groups, in group order, replay the base map's global
+    (g, p) order restricted to slab ``s``."""
+
+    index: np.ndarray        # (S, G, P) int32 slab-local indices
+    row_ranges: np.ndarray   # (S, G, 2) int32 node ranges [start, stop)
+    ship_src: Optional[np.ndarray] = None   # (n_groups, S, L) int32
+    ship_idx: Optional[np.ndarray] = None   # (S, n_groups, L) int32
+    group_size: int = 0                     # members per group (padded)
+
+
+@dataclass(frozen=True)
+class ShardedPlan:
+    """Slab-sharded view of an ``ExecutorPlan``: the same buckets and
+    coefficients (``plan``, shared by identity), plus per-slab maps so each
+    of ``n_slabs`` devices scatter-adds only into its own
+    ``ceil(fine_shape[0] / n_slabs)``-row slab
+    (``repro_torch.core.distributed``).  ``n_groups > 1``: the 2-D ingest,
+    each of ``n_groups`` devices hierarchizing only its member shard."""
+
+    plan: ExecutorPlan
+    n_slabs: int
+    slab_rows: int                        # ceil(fine_shape[0] / n_slabs)
+    slab_buckets: Tuple[SlabBucket, ...]
+    n_groups: int = 1
+
+    @property
+    def row_size(self) -> int:
+        return int(np.prod(self.plan.fine_shape[1:], dtype=np.int64))
+
+    @property
+    def slab_size(self) -> int:
+        return self.slab_rows * self.row_size
+
+    # -- the ExecutorPlan surface the fault / adaptive callers read --
+    @property
+    def dim(self) -> int:
+        return self.plan.dim
+
+    @property
+    def full_levels(self) -> LevelVector:
+        return self.plan.full_levels
+
+    @property
+    def fine_shape(self) -> Tuple[int, ...]:
+        return self.plan.fine_shape
+
+    @property
+    def fine_size(self) -> int:
+        return self.plan.fine_size
+
+    @property
+    def buckets(self) -> Tuple[Bucket, ...]:
+        return self.plan.buckets
+
+    @property
+    def merge(self) -> Optional["MergeConfig"]:
+        return self.plan.merge
+
+    @property
+    def num_grids(self) -> int:
+        return self.plan.num_grids
+
+
+def _group_ship_maps(index: np.ndarray, n_groups: int,
+                     slab_size: int) -> tuple:
+    """Shipping maps of one bucket for the 2-D ingest (see
+    ``SlabBucket``): group i owns member rows ``[i*gs, (i+1)*gs)``;
+    per (slab s, group i) the payload positions in (member, position)
+    order and their slab-local targets, padded to the longest payload."""
+    n_slabs, g_total, p = index.shape
+    gs = -(-g_total // n_groups)
+    srcs, dsts = {}, {}
+    pay_len = 1
+    for s in range(n_slabs):
+        for i in range(n_groups):
+            loc = index[s, i * gs:(i + 1) * gs]        # (<=gs, P)
+            gg, pp = np.nonzero(loc != slab_size)      # (member, pos) order
+            srcs[s, i] = gg.astype(np.int64) * p + pp
+            dsts[s, i] = loc[gg, pp]
+            pay_len = max(pay_len, gg.size)
+    zero_slot = gs * p
+    ship_src = np.full((n_groups, n_slabs, pay_len), zero_slot, np.int32)
+    ship_idx = np.full((n_slabs, n_groups, pay_len), slab_size, np.int32)
+    for (s, i), src in srcs.items():
+        ship_src[i, s, :src.size] = src
+        ship_idx[s, i, :src.size] = dsts[s, i]
+    return ship_src, ship_idx, gs
+
+
+def _shard_bucket(bucket: Bucket, full_levels: LevelVector, n_slabs: int,
+                  slab_rows: int, row_size: int,
+                  n_groups: int = 1) -> SlabBucket:
+    """Split one bucket's index map into per-slab local maps and row
+    ranges (and the shipping maps when compute-sharded)."""
+    n0 = (1 << full_levels[0]) - 1
+    slab_size = slab_rows * row_size
+    g = bucket.index.astype(np.int64)             # (G, P); dump == fine_size
+    row = g // row_size                           # dump maps to row n0
+    index = np.empty((n_slabs,) + g.shape, np.int32)
+    ranges = np.zeros((n_slabs, g.shape[0], 2), np.int32)
+    for s in range(n_slabs):
+        lo, hi = s * slab_rows, min((s + 1) * slab_rows, n0)
+        in_slab = (row >= lo) & (row < hi)
+        index[s] = np.where(in_slab, g - lo * row_size, slab_size)
+    for gi, ell in enumerate(bucket.ells):
+        step = 1 << (full_levels[0] - ell[0])
+        rows = (np.arange((1 << ell[0]) - 1) + 1) * step - 1
+        for s in range(n_slabs):
+            lo, hi = s * slab_rows, min((s + 1) * slab_rows, n0)
+            hit = np.nonzero((rows >= lo) & (rows < hi))[0]
+            if hit.size:
+                ranges[s, gi] = (hit[0], hit[-1] + 1)
+    if n_groups == 1:
+        return SlabBucket(index=index, row_ranges=ranges)
+    ship_src, ship_idx, gs = _group_ship_maps(index, n_groups, slab_size)
+    return SlabBucket(index=index, row_ranges=ranges, ship_src=ship_src,
+                      ship_idx=ship_idx, group_size=gs)
+
+
+def shard_plan(plan: ExecutorPlan, n_slabs: Optional[int] = None,
+               old: Optional[ShardedPlan] = None, *,
+               spec=None, n_groups: Optional[int] = None) -> ShardedPlan:
+    """Slab-shard a plan for ``n_slabs`` devices (and compute-shard it over
+    ``n_groups`` member groups for the 2-D ingest).  ``old``, a prior
+    sharding of the same geometry, lends its slab split to every bucket
+    whose base ``index`` survived by identity.  ``spec`` supplies
+    ``n_slabs`` (``spec.slabs``) and ``n_groups`` (``spec.groups``)."""
+    if spec is not None:
+        ensure_spec("shard_plan", spec)
+        if n_slabs is not None:
+            raise ValueError("shard_plan: pass n_slabs or spec, not both")
+        n_slabs = spec.slabs
+        if n_groups is None:
+            n_groups = spec.groups
+    if n_slabs is None:
+        raise ValueError("shard_plan: n_slabs (or a sharded spec) required")
+    if isinstance(plan, ShardedPlan):
+        raise TypeError("shard_plan expects the unsharded base plan")
+    if n_slabs < 1:
+        raise ValueError(f"n_slabs must be >= 1, got {n_slabs}")
+    n_groups = 1 if n_groups is None else int(n_groups)
+    if n_groups < 1:
+        raise ValueError(f"n_groups must be >= 1, got {n_groups}")
+    n0 = plan.fine_shape[0]
+    row_size = int(np.prod(plan.fine_shape[1:], dtype=np.int64))
+    slab_rows = -(-n0 // n_slabs)
+    reuse = {}
+    # a surviving base index proves the embed map unchanged; the slab maps
+    # also bake in the slab geometry and the group count
+    if old is not None and (old.n_slabs, old.n_groups, old.slab_rows,
+                            old.row_size, old.plan.full_levels) == (
+            n_slabs, n_groups, slab_rows, row_size, plan.full_levels):
+        reuse = {id(b.index): sb
+                 for b, sb in zip(old.plan.buckets, old.slab_buckets)}
+    slab_buckets = tuple(
+        reuse.get(id(b.index)) or _shard_bucket(b, plan.full_levels, n_slabs,
+                                                slab_rows, row_size, n_groups)
+        for b in plan.buckets)
+    return ShardedPlan(plan=plan, n_slabs=n_slabs, slab_rows=slab_rows,
+                       slab_buckets=slab_buckets, n_groups=n_groups)
 
 
 @dataclass(frozen=True)
@@ -356,7 +547,9 @@ def build_plan(scheme: SchemeLike,
     """Bucket (and optionally merge-plan) the scheme's grids and
     precompute the embed index plan.  Cached per ``(scheme, full_levels,
     merge)``, with ``full_levels`` normalized first.  ``spec`` supplies
-    ``merge`` instead (both at once raise)."""
+    ``merge`` instead (both at once raise); a sharded spec makes this
+    return the ``ShardedPlan`` (the cached base plan, sharded per call:
+    no mesh ever enters the cache)."""
     if spec is not None:
         ensure_spec("build_plan", spec)
         if merge is not None:
@@ -366,9 +559,11 @@ def build_plan(scheme: SchemeLike,
         full_levels = fine_levels(scheme)
     key = (scheme, tuple(int(l) for l in full_levels), merge)
     plan = _PLAN_CACHE.get(key)
-    if plan is not None:
-        return plan
-    return _PLAN_CACHE.put(key, _build_plan_uncached(*key))
+    if plan is None:
+        plan = _PLAN_CACHE.put(key, _build_plan_uncached(*key))
+    if spec is not None and (spec.slabs > 1 or spec.groups > 1):
+        plan = shard_plan(plan, spec.slabs, n_groups=spec.groups)
+    return plan
 
 
 class _PlanCache:
@@ -427,10 +622,15 @@ def _build_plan_uncached(scheme: SchemeLike, full_levels: LevelVector,
 
 
 def _check_plan(plan, fn: str) -> None:
-    if not isinstance(plan, ExecutorPlan):
-        raise TypeError(f"{fn} takes an ExecutorPlan, got "
-                        f"{type(plan).__name__} (sharded plans are not "
-                        f"ported)")
+    if not isinstance(plan, (ExecutorPlan, ShardedPlan)):
+        raise TypeError(f"{fn} takes an ExecutorPlan or a ShardedPlan, got "
+                        f"{type(plan).__name__}")
+
+
+def _base(plan, fn: str) -> ExecutorPlan:
+    """The unsharded plan of ``plan`` (itself, or a ``ShardedPlan``'s)."""
+    _check_plan(plan, fn)
+    return plan.plan if isinstance(plan, ShardedPlan) else plan
 
 
 def extend_plan(plan: ExecutorPlan, scheme: SchemeLike,
@@ -445,12 +645,29 @@ def extend_plan(plan: ExecutorPlan, scheme: SchemeLike,
     members recomputes index-map rows only for members no old bucket of
     its target held.  A changed fine grid makes every embed index stale,
     so it falls back to a full (cached) ``build_plan``.  A ``spec`` whose
-    ``merge`` differs from the plan's re-partitions under the spec's."""
+    ``merge`` differs from the plan's re-partitions under the spec's.  A
+    ``ShardedPlan`` is extended through its base plan and re-sharded
+    incrementally (``shard_plan(..., old=)``); a spec asking for another
+    slab count raises."""
     _check_plan(plan, "extend_plan")
     if spec is not None:
         ensure_spec("extend_plan", spec)
+        plan_slabs = plan.n_slabs if isinstance(plan, ShardedPlan) else 1
+        if (spec.n_slabs is not None or spec.mesh is not None) \
+                and spec.slabs != plan_slabs:
+            raise ValueError(
+                f"extend_plan: spec requests {spec.slabs} slab(s) but the "
+                f"plan is sharded for {plan_slabs}; re-shard explicitly "
+                f"(shard_plan) instead of extending across layouts")
         if spec.merge != plan.merge:
-            plan = dataclasses.replace(plan, merge=spec.merge)
+            if isinstance(plan, ShardedPlan):
+                plan = dataclasses.replace(plan, plan=dataclasses.replace(
+                    plan.plan, merge=spec.merge))
+            else:
+                plan = dataclasses.replace(plan, merge=spec.merge)
+    if isinstance(plan, ShardedPlan):
+        return shard_plan(extend_plan(plan.plan, scheme, full_levels),
+                          plan.n_slabs, old=plan, n_groups=plan.n_groups)
     if full_levels is None:
         full_levels = fine_levels(scheme)
     full_levels = tuple(int(l) for l in full_levels)
@@ -486,8 +703,12 @@ def update_plan_coefficients(plan: ExecutorPlan,
     index map (by identity); coefficients are re-read from ``scheme`` and
     members no longer in it get coefficient 0 (their stale data must
     merely be finite).  Raises ``ValueError`` when ``scheme`` activates a
-    grid the plan does not hold: ``extend_plan`` is then needed."""
+    grid the plan does not hold: ``extend_plan`` is then needed.  A
+    ``ShardedPlan`` keeps every slab split (by identity)."""
     _check_plan(plan, "update_plan_coefficients")
+    if isinstance(plan, ShardedPlan):
+        return shard_plan(update_plan_coefficients(plan.plan, scheme),
+                          plan.n_slabs, old=plan, n_groups=plan.n_groups)
     coeff = {ell: float(c) for ell, c in scheme.grids}
     held = {ell for b in plan.buckets for ell in b.ells}
     missing = sorted(set(coeff) - held)
@@ -589,36 +810,54 @@ class _IngestTable:
     scatter: ScatterTable
 
 
-_INGEST_TABLES: Dict[tuple, _IngestTable] = {}
-_INGEST_LOCK = threading.Lock()
+_PLAN_TABLES: Dict[tuple, Any] = {}
+_PLAN_TABLES_LOCK = threading.Lock()
 
 
-def _ingest_table(plan: ExecutorPlan) -> _IngestTable:
-    """The plan's ingest table, built once and cached under the identity of
-    the plan's index arrays: ``update_plan_coefficients`` and the
-    coefficient-only path of ``extend_plan`` keep them, so their plans
-    reuse it.  An entry is dropped when one of its index arrays dies; a
-    holder of the table (an engine tenant) keeps it usable after that."""
-    key = tuple(id(b.index) for b in plan.buckets)
-    with _INGEST_LOCK:
-        table = _INGEST_TABLES.get(key)
+def _plan_table(kind: str, arrays, build):
+    """``build()``, cached under ``kind`` and the identity of ``arrays``
+    (a plan's numpy maps), and dropped when one of them dies: a per-plan
+    table is built once and kept while its plan lives.  A holder of the
+    table (an engine tenant) keeps it usable after that."""
+    key = (kind,) + tuple(id(a) for a in arrays)
+    with _PLAN_TABLES_LOCK:
+        table = _PLAN_TABLES.get(key)
     if table is not None:
         return table
+    table = build()
+    with _PLAN_TABLES_LOCK:
+        if key in _PLAN_TABLES:
+            return _PLAN_TABLES[key]
+        _PLAN_TABLES[key] = table
+    for a in arrays:
+        weakref.finalize(a, _PLAN_TABLES.pop, key, None)
+    return table
+
+
+def _pass_specs(plan: ExecutorPlan) -> Tuple[tuple, tuple]:
+    """The fused ingest's passes, in the reference's axis order per bucket:
+    ``hier_forward_grouped``'s ``stacks`` (every pass before a bucket's
+    last) and the last passes ``(shape, levels along the axis, axis)`` of
+    the scatter tables."""
     stacks, last = [], []
     for b in plan.buckets:
         order = axis_order(b.shape)
         stacks.append((b.shape, b.levels, order[:-1]))
         last.append((b.shape, tuple(lv[order[-1]] for lv in b.levels),
                      order[-1]))
-    sc = scatter_table(last, [b.index for b in plan.buckets], plan.fine_size)
-    table = _IngestTable(stacks=tuple(stacks), scatter=sc)
-    with _INGEST_LOCK:
-        if key in _INGEST_TABLES:
-            return _INGEST_TABLES[key]
-        _INGEST_TABLES[key] = table
-    for b in plan.buckets:
-        weakref.finalize(b.index, _INGEST_TABLES.pop, key, None)
-    return table
+    return tuple(stacks), tuple(last)
+
+
+def _ingest_table(plan: ExecutorPlan) -> _IngestTable:
+    """The plan's ingest table, built once and cached under the identity of
+    the plan's index arrays (``_plan_table``): ``update_plan_coefficients``
+    and the coefficient-only path of ``extend_plan`` keep them, so their
+    plans reuse it."""
+    def build():
+        stacks, last = _pass_specs(plan)
+        return _IngestTable(stacks=stacks, scatter=scatter_table(
+            last, [b.index for b in plan.buckets], plan.fine_size))
+    return _plan_table("ingest", [b.index for b in plan.buckets], build)
 
 
 def _gather_unfused(full: torch.Tensor, x: torch.Tensor,
@@ -679,8 +918,30 @@ def ct_transform_with_plan(nodal_grids: Mapping[LevelVector, torch.Tensor],
     ``fused=None`` takes the port's default, the fused epilogue on every
     bucket (four kernel launches in all on CUDA); ``fused=False`` the
     unfused scatter (same bits).  ``spec`` supplies ``fused`` instead
-    (both at once raise)."""
+    (both at once raise).  A ``ShardedPlan`` runs through its base plan on
+    ``device``, unless ``spec`` has a mesh: then it runs slab-sharded over
+    the mesh (``repro_torch.core.distributed.ct_transform_sharded``,
+    gathered onto ``device``, by default the mesh's first device).  A
+    meshed spec with an unsharded plan raises: it never degrades to the
+    single-device path."""
     _check_plan(plan, "ct_transform_with_plan")
+    if spec is not None and spec.mesh is not None:
+        ensure_spec("ct_transform_with_plan", spec)
+        if fused is not None:
+            raise ValueError("ct_transform_with_plan: pass spec or the bare "
+                             "fused keyword, not both")
+        if not isinstance(plan, ShardedPlan):
+            raise ValueError(
+                "ct_transform_with_plan: spec has a mesh but the plan is "
+                "not slab-sharded — build it with build_plan(scheme, "
+                "spec=spec) (or shard_plan) so the multi-device gather can "
+                "run; a meshed spec never silently degrades to the "
+                "single-device path")
+        from repro_torch.core.distributed import ct_transform_sharded
+        return ct_transform_sharded(
+            nodal_grids, None, spec.mesh, spec.axis_name, plan=plan,
+            spec=dataclasses.replace(spec, mesh=None), device=device)
+    plan = _base(plan, "ct_transform_with_plan")
     device = resolve_device(device)
     if spec is not None:
         _check_spec_device("ct_transform_with_plan", spec, device)
@@ -710,9 +971,17 @@ def ct_transform(nodal_grids: Mapping[LevelVector, torch.Tensor],
     """Gather phase, batched: nodal component grids -> sparse-grid surplus
     on the common fine grid (hierarchize-per-grid + ``combine_full``, in
     one pass over the plan).  ``spec.merge`` opts into bucket merging (same
-    bits, fewer buckets); ``merge=`` / ``fused=`` are deprecated
-    spellings of the spec's fields."""
+    bits, fewer buckets); a meshed spec runs the slab-sharded gather
+    (``repro_torch.core.distributed.ct_transform_sharded``, same bits);
+    ``merge=`` / ``fused=`` are deprecated spellings of the spec's
+    fields."""
     spec = resolve_spec("ct_transform", spec, merge=merge, fused=fused)
+    if spec.mesh is not None:
+        from repro_torch.core.distributed import ct_transform_sharded
+        return ct_transform_sharded(
+            nodal_grids, scheme, spec.mesh, spec.axis_name,
+            full_levels=full_levels,
+            spec=dataclasses.replace(spec, mesh=None), device=device)
     return ct_transform_with_plan(
         nodal_grids, build_plan(scheme, full_levels, merge=spec.merge),
         spec=spec, device=device)
@@ -722,8 +991,9 @@ def bucket_surpluses(nodal_grids: Mapping[LevelVector, torch.Tensor],
                      plan: ExecutorPlan, *,
                      device=None) -> Tuple[torch.Tensor, ...]:
     """Per-bucket COMPACT hierarchical surpluses ``[(G_b, P_b), ...]`` —
-    the batched hierarchization without the embed."""
-    _check_plan(plan, "bucket_surpluses")
+    the batched hierarchization without the embed (a ``ShardedPlan``: its
+    base plan's)."""
+    plan = _base(plan, "bucket_surpluses")
     device = resolve_device(device)
     grids, dtype = _grids_on(nodal_grids, plan, device)
     x = _assemble(grids, plan.buckets, dtype)
@@ -737,7 +1007,7 @@ def bucket_tail_surpluses(nodal_grids: Mapping[LevelVector, torch.Tensor],
                           device=None) -> Tuple[torch.Tensor, ...]:
     """Per-bucket TAIL-transformed stacks ``[(G_b, N0, B_b), ...]``: axes
     1..d-1 transformed, axis 0 still nodal."""
-    _check_plan(plan, "bucket_tail_surpluses")
+    plan = _base(plan, "bucket_tail_surpluses")
     device = resolve_device(device)
     grids, dtype = _grids_on(nodal_grids, plan, device)
     x = _assemble(grids, plan.buckets, dtype)
@@ -753,12 +1023,23 @@ def bucket_nodal_stacks(nodal_grids: Mapping[LevelVector, torch.Tensor],
                         device=None) -> Tuple[torch.Tensor, ...]:
     """Per-bucket assembled NODAL stacks ``[(G_b, P_b), ...]``: assembly
     only, no transform."""
-    _check_plan(plan, "bucket_nodal_stacks")
+    plan = _base(plan, "bucket_nodal_stacks")
     device = resolve_device(device)
     grids, dtype = _grids_on(nodal_grids, plan, device)
     x = _assemble(grids, plan.buckets, dtype)
     return tuple(stack.reshape(len(b.ells), -1) for b, stack in
                  zip(plan.buckets, _bucket_views(x, plan.buckets)))
+
+
+def plan_fused_ok(plan) -> bool:
+    """Whether every bucket of the plan takes the fused epilogue under the
+    port's rule: always, on every device and for every scatter target (a
+    ``ShardedPlan``'s slab buffer too).  The reference gates this on a TPU
+    VMEM budget (its ``dtype`` and ``out_elems``) and its Pallas path; here
+    the fine grid or slab stays in device memory and the pass axis is a
+    kernel parameter, so nothing gates it (module docstring)."""
+    _check_plan(plan, "plan_fused_ok")
+    return True
 
 
 # ---------------------------------------------------------------------------
@@ -787,8 +1068,16 @@ def plan_launch_stats(plan: ExecutorPlan, *, dtype_bytes: int = 8,
     * ``stack_bytes`` — the compact-surplus round trip of the unfused path
       (written by the transform, read by the scatter-adds); 0 fused.
 
-    ``dtype_bytes`` prices one value (8 = f64)."""
+    ``dtype_bytes`` prices one value (8 = f64).  A ``ShardedPlan`` counts
+    the sharded ingest's launches (``repro_torch.core.distributed``): the
+    1-D fused ingest has the assembly, the grouped forward launch and two
+    scatter launches per slab; the 1-D unfused one per slab one
+    ``index_add_`` per member; the 2-D ingest the assembly, per member
+    group and bucket its forward launches, and one ``owner_fold`` launch
+    per slab."""
     _check_plan(plan, "plan_launch_stats")
+    if isinstance(plan, ShardedPlan):
+        return _sharded_launch_stats(plan, dtype_bytes, fused)
     stats = {"buckets": len(plan.buckets), "members": plan.num_grids,
              "pallas_launches": 0, "einsum_dispatches": 0,
              "scatter_dispatches": 0, "launches": 0,
@@ -814,27 +1103,85 @@ def plan_launch_stats(plan: ExecutorPlan, *, dtype_bytes: int = 8,
     return stats
 
 
-def plan_ingest_stats(plan: ExecutorPlan, *,
-                      dtype_bytes: int = 8) -> Dict[str, int]:
-    """Per-device ingest compute and memory of the plan, as the reference
-    counts them for an unsharded plan: ``ingest_flops`` the
-    hierarchization flops (``hier_flops`` of every stack) plus one add per
-    stack entry; ``ingest_bytes`` the stacks plus the fine buffer (+1
-    dump slot), at ``dtype_bytes`` a value."""
+def _sharded_launch_stats(plan: ShardedPlan, dtype_bytes: int,
+                          fused: Optional[bool]) -> Dict[str, int]:
+    base = plan.plan
+    stats = {"buckets": len(base.buckets), "members": base.num_grids,
+             "pallas_launches": 1, "einsum_dispatches": 0,
+             "scatter_dispatches": 0, "launches": 0,
+             "transform_bytes": 0, "stack_bytes": 0}
+    stack = sum(len(b.ells) * int(np.prod(b.shape, dtype=np.int64))
+                for b in base.buckets) * dtype_bytes
+    if plan.n_groups > 1:
+        for b, sb in zip(base.buckets, plan.slab_buckets):
+            gs = sb.group_size
+            n = (b.shape[0] > 1) + any(n > 1 for n in b.shape[1:])
+            nb = gs * int(np.prod(b.shape, dtype=np.int64)) * dtype_bytes
+            stats["pallas_launches"] += plan.n_groups * n
+            stats["transform_bytes"] += 2 * n * nb * plan.n_groups
+        stats["pallas_launches"] += plan.n_slabs
+        stats["stack_bytes"] = 2 * stack
+    elif fused is not False:
+        stats["pallas_launches"] += 1 + 2 * plan.n_slabs
+        stats["transform_bytes"] = (2 + plan.n_slabs) * stack
+    else:
+        for b in base.buckets:
+            g = len(b.ells)
+            nb = g * int(np.prod(b.shape, dtype=np.int64)) * dtype_bytes
+            n = (b.shape[0] > 1) + any(n > 1 for n in b.shape[1:])
+            stats["pallas_launches"] += n
+            stats["transform_bytes"] += 2 * n * nb
+            stats["scatter_dispatches"] += g * plan.n_slabs
+        stats["stack_bytes"] = (1 + plan.n_slabs) * stack
+    stats["launches"] = (stats["pallas_launches"]
+                         + stats["einsum_dispatches"]
+                         + stats["scatter_dispatches"])
+    return stats
+
+
+def plan_ingest_stats(plan, *, dtype_bytes: int = 8) -> Dict[str, int]:
+    """PER-DEVICE ingest compute and memory of the plan's execution mode,
+    counted as the reference counts them:
+
+    * ``ingest_flops`` — the hierarchization flops one device performs
+      (``hier_flops``): the whole compact stack on an unsharded or 1-D
+      plan, its ``ceil(G_b / n_groups)`` member shard on a 2-D plan; plus
+      one add per stack entry (1-D), or per real payload entry the busiest
+      slab receives (2-D; pads are shipped but add nothing);
+    * ``ingest_bytes`` — the device's stack (shard), the payload sent and
+      received with its int32 target map (2-D), and its scatter target
+      (the slab buffer, or the whole fine grid unsharded), +1 dump slot.
+
+    ``dtype_bytes`` prices a value, 4 bytes an index."""
     _check_plan(plan, "plan_ingest_stats")
-    flops = stack_bytes = scatter_elems = 0
-    for b in plan.buckets:
+    splan = plan if isinstance(plan, ShardedPlan) else None
+    base = _base(plan, "plan_ingest_stats")
+    n_groups = splan.n_groups if splan is not None else 1
+    flops = stack_bytes = ship_bytes = scatter_elems = 0
+    for i, b in enumerate(base.buckets):
         g = len(b.ells)
         p = int(np.prod(b.shape, dtype=np.int64))
-        flops += hier_flops(b.shape, g)
-        stack_bytes += g * p * dtype_bytes
-        scatter_elems += g * p
-    out_bytes = (plan.fine_size + 1) * dtype_bytes
-    return {"n_groups": 1, "n_slabs": 1,
+        gloc = -(-g // n_groups)
+        flops += hier_flops(b.shape, gloc)
+        stack_bytes += gloc * p * dtype_bytes
+        if n_groups > 1:
+            sb = splan.slab_buckets[i]
+            pay = int(sb.ship_src.shape[-1])
+            ship_bytes += (splan.n_slabs + n_groups) * pay * dtype_bytes
+            ship_bytes += n_groups * pay * 4
+            real = np.asarray(sb.ship_idx) != splan.slab_size
+            scatter_elems += int(real.sum(axis=(1, 2)).max())
+        else:
+            scatter_elems += g * p
+    out_elems = (splan.slab_size if splan is not None
+                 else base.fine_size) + 1
+    return {"n_groups": n_groups,
+            "n_slabs": splan.n_slabs if splan is not None else 1,
             "ingest_flops": flops + scatter_elems,
-            "ingest_bytes": stack_bytes + out_bytes,
-            "stack_bytes": stack_bytes, "ship_bytes": 0,
-            "out_bytes": out_bytes}
+            "ingest_bytes": stack_bytes + ship_bytes
+            + out_elems * dtype_bytes,
+            "stack_bytes": stack_bytes, "ship_bytes": ship_bytes,
+            "out_bytes": out_elems * dtype_bytes}
 
 
 # ---------------------------------------------------------------------------
@@ -852,8 +1199,9 @@ def ct_scatter_with_plan(full: torch.Tensor, plan: ExecutorPlan, *,
     map (pad positions, which point at the dump slot, read +0.0) and
     dehierarchized batched.  The reference appends a zero dump slot to a
     copy of the fine grid; here the dump index is masked instead, so the
-    fine grid is never copied."""
-    _check_plan(plan, "ct_scatter_with_plan")
+    fine grid is never copied.  A ``ShardedPlan`` reads through its base
+    plan (the scatter is a local strided read of the gathered grid)."""
+    plan = _base(plan, "ct_scatter_with_plan")
     device = resolve_device(device)
     _check_spec_device("ct_scatter_with_plan", spec, device)
     flat = torch.as_tensor(full, device=device).reshape(-1)
@@ -899,8 +1247,9 @@ def ct_embedded_with_plan(nodal_grids: Mapping[LevelVector, torch.Tensor],
     Every member's surpluses are written into its own row of one flat
     buffer through its index map offset by the row; pad positions all go
     to one slot past the last row, which the result leaves out.  The
-    result holds G fine grids: it is meant for small fine grids."""
-    _check_plan(plan, "ct_embedded_with_plan")
+    result holds G fine grids: it is meant for small fine grids.  A
+    ``ShardedPlan`` embeds through its base plan."""
+    plan = _base(plan, "ct_embedded_with_plan")
     device = resolve_device(device)
     _check_spec_device("ct_embedded_with_plan", spec, device)
     grids, dtype = _grids_on(nodal_grids, plan, device)

@@ -47,6 +47,8 @@ KERNELS: Dict[str, Dict[str, list]] = {
         f"axis_pass_scatter_fwd_{t}": [_P, _I, _P, _I, _P, _P, _I, _I, _P,
                                        _P, _P, _P, _P]
         for t in ("f32", "f64")},
+    "owner_fold": {f"owner_fold_{t}": [_P, _P, _P, _I, _I, _P, _I, _P, _P]
+                   for t in ("f32", "f64")},
     "pole_fwd": {f"pole_fwd_{t}": [_P, _P, _I, _I, _I, _I, _P]
                  for t in ("f32", "f64")},
     "pole_inv": {f"pole_inv_{t}": [_P, _P, _I, _I, _I, _P]

@@ -22,10 +22,11 @@
 //     its product with the member's coefficient, mul_rn(c[m], alpha),
 //     written in CSR order.
 //   Phase 2 (one thread an owner; one warp an owner whose run is longer
-//     than 32): v = acc[s]; v = add_rn(v, prod[j]) down the run; acc[s] = v.
-//     A warp loads 32 products of its run at once and folds them in order
-//     through shuffles, so the 109-long run of the centre slot is a chain of
-//     dependent adds and not of dependent loads.
+//     than 32): v = acc[s]; v = add_rn(v, prod[j]) down the run; acc[s] = v
+//     (fold_owner_runs in hier3.cuh).  A warp loads 32 products of its run
+//     at once and folds them in order through shuffles, so the 109-long
+//     run of the centre slot is a chain of dependent adds and not of
+//     dependent loads.
 //
 // The result is bitwise the left fold of per-member launches, from any
 // starting acc, in f64 and f32: every product and sum is rounded on its own
@@ -84,28 +85,7 @@ __global__ void scatter_fold_kernel(const int32_t* __restrict__ slots,
                                     int64_t owners, int64_t long_owners,
                                     const T* __restrict__ prod,
                                     T* __restrict__ acc) {
-  const int64_t t = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int64_t warp_threads = long_owners * 32;  // whole warps
-  if (t < warp_threads) {
-    const int64_t o = t / 32;
-    const int lane = int(t % 32);
-    const int64_t s = slots[o], begin = offsets[o], end = offsets[o + 1];
-    T v = acc[s];
-    for (int64_t base = begin; base < end; base += 32) {
-      const T pv = base + lane < end ? prod[base + lane] : T(0);
-      const int run = int(end - base < 32 ? end - base : 32);
-      for (int k = 0; k < run; ++k)
-        v = add_rn(v, __shfl_sync(0xffffffffu, pv, k));
-    }
-    if (lane == 0) acc[s] = v;
-    return;
-  }
-  const int64_t o = long_owners + (t - warp_threads);
-  if (o >= owners) return;
-  const int64_t s = slots[o];
-  T v = acc[s];
-  for (int64_t j = offsets[o]; j < offsets[o + 1]; ++j) v = add_rn(v, prod[j]);
-  acc[s] = v;
+  fold_owner_runs<T>(slots, offsets, owners, long_owners, nullptr, prod, acc);
 }
 
 template <typename T>

@@ -1,4 +1,5 @@
-// The forward 3-term hierarchization update shared by both kernels.
+// The forward 3-term hierarchization update shared by the forward kernels,
+// and the ordered slot-owner fold shared by the scatter and the owner fold.
 //
 // x' = x - 0.5 * (lm ? x[lp] : 0) - 0.5 * (rm ? x[rp] : 0), evaluated in
 // exactly that order with round-to-nearest intrinsics, so nvcc cannot
@@ -36,6 +37,48 @@ __device__ __forceinline__ T hier3(const T* x, int64_t e,
   const T xl = lm[node] ? x[pole + int64_t(lp[node]) * inner] : T(0);
   const T xr = rm[node] ? x[pole + int64_t(rp[node]) * inner] : T(0);
   return sub_rn(sub_rn(x[e], mul_rn(half, xl)), mul_rn(half, xr));
+}
+
+// The ordered fold of a slot-owner table: for every owner o,
+// acc[slots[o]] = acc[slots[o]] + v[0] + v[1] + ... one rounded add at a
+// time (add_rn, so nvcc cannot reassociate or contract), down the run
+// offsets[o] .. offsets[o + 1], where the run's j-th value is values[j], or
+// values[entries[j]] when `entries` is not null.  Thread t of the launch
+// folds one owner; the first long_owners owners (runs longer than 32) take
+// a whole warp each, which loads 32 values of the run at once and folds
+// them in order through shuffles, so a long run is a chain of dependent
+// adds and not of dependent loads.  No atomics, and no two threads write
+// one slot.  The caller launches long_owners * 32 + (owners - long_owners)
+// threads, the warps' first.
+template <typename T>
+__device__ __forceinline__ void fold_owner_runs(
+    const int32_t* __restrict__ slots, const int64_t* __restrict__ offsets,
+    int64_t owners, int64_t long_owners, const int32_t* __restrict__ entries,
+    const T* __restrict__ values, T* __restrict__ acc) {
+  const int64_t t = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int64_t warp_threads = long_owners * 32;  // whole warps
+  if (t < warp_threads) {
+    const int64_t o = t / 32;
+    const int lane = int(t % 32);
+    const int64_t s = slots[o], begin = offsets[o], end = offsets[o + 1];
+    T v = acc[s];
+    for (int64_t base = begin; base < end; base += 32) {
+      const int64_t j = base + lane;
+      const T pv = j < end ? values[entries ? int64_t(entries[j]) : j] : T(0);
+      const int run = int(end - base < 32 ? end - base : 32);
+      for (int k = 0; k < run; ++k)
+        v = add_rn(v, __shfl_sync(0xffffffffu, pv, k));
+    }
+    if (lane == 0) acc[s] = v;
+    return;
+  }
+  const int64_t o = long_owners + (t - warp_threads);
+  if (o >= owners) return;
+  const int64_t s = slots[o];
+  T v = acc[s];
+  for (int64_t j = offsets[o]; j < offsets[o + 1]; ++j)
+    v = add_rn(v, values[entries ? int64_t(entries[j]) : j]);
+  acc[s] = v;
 }
 
 // Launch shape of a grid-stride loop over elements, capped so a launch

@@ -68,7 +68,12 @@ launches, on a slot-owner table, ``scatter_table``, built once per plan).
 Their input, the flat concatenation of the bucket stacks, is assembled
 from the member grids by ``assemble_grouped`` (one ``assemble_members``
 launch; the reference leaves this transpose-and-pad to XLA, so it
-replaces no TPU kernel).
+replaces no TPU kernel).  The slab-sharded ingest runs
+``hier_scatter_grouped`` once per slab, on that slab's table (its local
+index maps, dump ``slab_size``); the 2-D ingest's slab owner adds the
+shipped payloads with ``owner_fold`` (one ``owner_fold`` launch on an
+``owner_table``: the ordered fold alone, which XLA's in-order scatter-add
+gives the reference, port-only).
 
 ``hier_tail_batched`` and ``hier_axis0_batched`` keep the reference's
 signatures: ``inverse=True`` hands the call to the inverse wrapper, which
@@ -116,6 +121,9 @@ __all__ = [
     "storage_released",
     "ScatterTable",
     "scatter_table",
+    "OwnerTable",
+    "owner_table",
+    "owner_fold",
     "hierarchize_batched",
     "dehierarchize_batched",
     "hierarchize_batched_data",
@@ -803,28 +811,22 @@ class _ScatterBucket(ctypes.Structure):
         "start", "member", "first", "n", "inner", "lp", "rp", "lm", "rm")]
 
 
-class ScatterTable:
-    """The slot-owner table of a grouped scatter (``scatter_table``).
+class OwnerTable:
+    """A slot-owner table: the runs of an ordered fold into a flat buffer.
 
-    ``stacks[b] = (shape, levels, axis)``: bucket b's stack shape, its
-    members' levels along its last pass axis ``axis``, laid out one after
-    the other in the concatenation.  ``entries`` (int32) are element
-    offsets into that concatenation, run by run; owner i is fine slot
-    ``slots[i]`` and its run is ``entries[offsets[i]:offsets[i + 1]]``, in
-    global member order (bucket order, then member order); owners with
-    longer runs come first, ``long_owners`` of them longer than 32.
-    ``dump`` is the fine buffer's pad slot, which no entry lists."""
+    ``entries`` (int32) are element offsets into the values being folded,
+    run by run; owner i is buffer slot ``slots[i]`` and its run is
+    ``entries[offsets[i]:offsets[i + 1]]``, in the order the values are
+    to be added; owners with longer runs come first, ``long_owners`` of
+    them longer than 32.  ``dump`` is the buffer's pad slot, which no
+    entry lists.  ``owner_table`` builds one; ``ScatterTable`` (row 9's
+    table) is one whose values are a grouped scatter's products."""
 
-    def __init__(self, stacks, entries, slots, offsets, dump):
-        self.stacks = tuple(stacks)
+    def __init__(self, entries, slots, offsets, dump):
         self.entries, self.slots, self.offsets = entries, slots, offsets
         self.dump = int(dump)
         counts = np.diff(offsets)
         self.long_owners = int((counts > 32).sum())
-        sizes = [_stack_size(shape, lv) for shape, lv, _ in self.stacks]
-        self.spans = _stack_spans(sizes)
-        self.size = sum(sizes)
-        self.members = sum(len(lv) for _, lv, _ in self.stacks)
         # alive[r]: owners whose run is longer than r (a prefix)
         self.alive = np.searchsorted(-counts, -np.arange(
             int(counts.max()) if counts.size else 0), side="left")
@@ -835,11 +837,12 @@ class ScatterTable:
     def owners(self) -> int:
         return len(self.slots)
 
+    def _device_extras(self, device: torch.device, t: dict) -> None:
+        """Further tensors of a subclass on ``device`` (added to ``t``)."""
+
     def on(self, device: torch.device) -> dict:
         """The table's tensors on ``device`` (built once per device):
-        ``entries``, ``slots``, ``offsets`` and, on CUDA, the packed
-        ``ScatterBucket`` structs (``buckets``) and the predecessor tensors
-        they point at."""
+        ``entries``, ``slots``, ``offsets`` and a subclass's extras."""
         with self._lock:
             t = self._on.get(device)
             if t is not None:
@@ -847,39 +850,17 @@ class ScatterTable:
         t = {k: torch.from_numpy(v).to(device) for k, v in (
             ("entries", self.entries), ("slots", self.slots),
             ("offsets", self.offsets))}
-        if device.type == "cuda":
-            bk = (_ScatterBucket * max(1, len(self.stacks)))()
-            keep, first = [], 0
-            for b, ((shape, levels, axis), (start, _)) in enumerate(
-                    zip(self.stacks, self.spans)):
-                pred = _pred_tensors(levels, shape[axis], device)
-                _, n, inner = _view(shape, axis)
-                bk[b].start, bk[b].first = start, first
-                bk[b].member = int(np.prod(shape, dtype=np.int64))
-                bk[b].n, bk[b].inner = n, inner
-                bk[b].lp, bk[b].rp, bk[b].lm, bk[b].rm = (
-                    p.data_ptr() for p in pred)
-                keep += pred
-                first += len(levels)
-            t["buckets"] = torch.frombuffer(bytearray(bk),
-                                            dtype=torch.uint8).to(device)
-            t["keep"] = keep
+        self._device_extras(device, t)
         with self._lock:
             return self._on.setdefault(device, t)
 
 
-def scatter_table(stacks, indices, dump: int) -> ScatterTable:
-    """Build the slot-owner table of a grouped scatter on the host.
-
-    ``stacks[b] = (shape, levels, axis)`` as in ``ScatterTable``;
-    ``indices[b]`` is bucket b's (G, P) int map into the fine buffer, its
-    pad positions on ``dump``.  Each member's map must be injective off the
-    dump slot.  A stable sort by slot of the concatenation's non-pad
-    positions gives every slot's entries in global member order."""
-    flat = np.concatenate([np.asarray(i).reshape(-1) for i in indices]) \
-        if len(indices) else np.zeros(0, np.int64)
+def _owner_runs(flat: np.ndarray, dump: int) -> tuple:
+    """``(entries, slots, offsets)`` of the non-dump positions of the flat
+    int map ``flat``: a stable sort by slot keeps each slot's positions in
+    map order, and the longest runs come first."""
     if flat.size >= 2 ** 31:
-        raise ValueError("the stacks exceed the table's int32 offsets")
+        raise ValueError("the map exceeds the table's int32 offsets")
     pos = np.flatnonzero(flat != dump)
     slot = flat[pos]
     order = np.argsort(slot, kind="stable")
@@ -892,8 +873,71 @@ def scatter_table(stacks, indices, dump: int) -> ScatterTable:
     offsets = np.r_[0, np.cumsum(counts)].astype(np.int64)
     take = np.repeat(first[rank] - offsets[:-1], counts) + np.arange(
         offsets[-1])
-    return ScatterTable(stacks, pos[take].astype(np.int32),
-                        slot[first[rank]].astype(np.int32), offsets, dump)
+    return (pos[take].astype(np.int32), slot[first[rank]].astype(np.int32),
+            offsets)
+
+
+def owner_table(targets, dump: int) -> OwnerTable:
+    """The slot-owner table of an ordered fold into a buffer: ``targets``
+    is a sequence of int maps, taken flat one after the other, value ``j``
+    of the fold going to slot ``j`` of that concatenation; ``dump``
+    positions are skipped.  Each slot's run lists its values in that
+    order."""
+    flat = np.concatenate([np.asarray(t).reshape(-1) for t in targets])
+    return OwnerTable(*_owner_runs(flat, dump), dump)
+
+
+class ScatterTable(OwnerTable):
+    """The slot-owner table of a grouped scatter (``scatter_table``).
+
+    ``stacks[b] = (shape, levels, axis)``: bucket b's stack shape, its
+    members' levels along its last pass axis ``axis``, laid out one after
+    the other in the concatenation.  ``entries`` are element offsets into
+    that concatenation, and each owner's run is in global member order
+    (bucket order, then member order); see ``OwnerTable``."""
+
+    def __init__(self, stacks, entries, slots, offsets, dump):
+        super().__init__(entries, slots, offsets, dump)
+        self.stacks = tuple(stacks)
+        sizes = [_stack_size(shape, lv) for shape, lv, _ in self.stacks]
+        self.spans = _stack_spans(sizes)
+        self.size = sum(sizes)
+        self.members = sum(len(lv) for _, lv, _ in self.stacks)
+
+    def _device_extras(self, device: torch.device, t: dict) -> None:
+        """On CUDA: the packed ``ScatterBucket`` structs (``buckets``) and
+        the predecessor tensors they point at."""
+        if device.type != "cuda":
+            return
+        bk = (_ScatterBucket * max(1, len(self.stacks)))()
+        keep, first = [], 0
+        for b, ((shape, levels, axis), (start, _)) in enumerate(
+                zip(self.stacks, self.spans)):
+            pred = _pred_tensors(levels, shape[axis], device)
+            _, n, inner = _view(shape, axis)
+            bk[b].start, bk[b].first = start, first
+            bk[b].member = int(np.prod(shape, dtype=np.int64))
+            bk[b].n, bk[b].inner = n, inner
+            bk[b].lp, bk[b].rp, bk[b].lm, bk[b].rm = (
+                p.data_ptr() for p in pred)
+            keep += pred
+            first += len(levels)
+        t["buckets"] = torch.frombuffer(bytearray(bk),
+                                        dtype=torch.uint8).to(device)
+        t["keep"] = keep
+
+
+def scatter_table(stacks, indices, dump: int) -> ScatterTable:
+    """Build the slot-owner table of a grouped scatter on the host.
+
+    ``stacks[b] = (shape, levels, axis)`` as in ``ScatterTable``;
+    ``indices[b]`` is bucket b's (G, P) int map into the fine buffer, its
+    pad positions on ``dump``.  Each member's map must be injective off the
+    dump slot.  A stable sort by slot of the concatenation's non-pad
+    positions gives every slot's entries in global member order."""
+    flat = np.concatenate([np.asarray(i).reshape(-1) for i in indices]) \
+        if len(indices) else np.zeros(0, np.int64)
+    return ScatterTable(stacks, *_owner_runs(flat, dump), dump)
 
 
 def _check_scatter(y, table: ScatterTable, coeffs, acc) -> None:
@@ -967,6 +1011,59 @@ def hier_scatter_grouped(y: torch.Tensor, table: ScatterTable,
     _cuda_operand(acc, "acc")
     _launch_scatter(y, table, _cuda_operand(coeffs, "coeffs"), acc)
     hier_scatter_grouped.launches += 2
+    return acc
+
+
+def _check_fold(values, table: OwnerTable, acc) -> None:
+    if acc.dtype != values.dtype:
+        raise TypeError("acc must have the values' dtype")
+    if acc.ndim != 1 or not acc.is_contiguous() or \
+            acc.shape[0] != table.dump + 1:
+        raise ValueError(f"acc must be a contiguous 1-D buffer of "
+                         f"{table.dump + 1} values (the dump slot last)")
+    if values.ndim != 1 or values.device != acc.device:
+        raise ValueError(f"values must be a flat tensor on acc's device "
+                         f"{acc.device}, got shape {tuple(values.shape)} on "
+                         f"{values.device}")
+
+
+def _owner_fold_plain(values: torch.Tensor, table: OwnerTable,
+                      acc: torch.Tensor) -> torch.Tensor:
+    """The kernel's function on the same table: the runs folded rank by
+    rank (at rank r the owners with a run longer than r, each slot once)."""
+    t = table.on(values.device)
+    p = values[t["entries"].long()]
+    slots, offsets = t["slots"].long(), t["offsets"]
+    for r, k in enumerate(table.alive.tolist()):
+        s = slots[:k]
+        acc[s] = acc[s] + p[offsets[:k] + r]
+    return acc
+
+
+def owner_fold(values: torch.Tensor, table: OwnerTable,
+               acc: torch.Tensor) -> torch.Tensor:
+    """Ordered fold of ready values into a flat buffer, IN PLACE: for every
+    owner i of ``table`` (``owner_table``), ``acc[slots[i]]`` plus the
+    run's values ``values[entries[j]]`` one after the other, each sum
+    rounded on its own.  ``acc`` holds the buffer plus its dump slot.
+
+    The 2-D (member x slab) ingest's slab owner folds every group's shipped
+    payload with it, in global member order, so the slab is bitwise the
+    single-device surplus (``core.distributed.gather_slab_scatter_2d``).
+    On CUDA: one ``owner_fold`` launch, no atomics."""
+    _record(owner_fold, values=values, table=table, acc=acc)
+    _check_fold(values, table, acc)
+    if values.device.type == "cpu":
+        return _owner_fold_plain(values, table, acc)
+    values = _check_stack(values)
+    _cuda_operand(acc, "acc")
+    t = table.on(values.device)
+    fn = _build.kernel("owner_fold", _DTYPE_TAG[values.dtype])
+    _raise_on(fn(t["entries"].data_ptr(), t["slots"].data_ptr(),
+                 t["offsets"].data_ptr(), table.owners, table.long_owners,
+                 values.data_ptr(), values.numel(), acc.data_ptr(),
+                 _stream(values)), "owner_fold")
+    owner_fold.launches += 1
     return acc
 
 
@@ -1402,14 +1499,16 @@ def dehierarchize_nd_fused(a: torch.Tensor) -> torch.Tensor:
 WRAPPERS = (hier_tail_batched, hier_axis0_batched, hier_axis0_scatter_batched,
             dehier_tail_batched, dehier_axis0_batched,
             hier_pole, dehier_pole, apply_axis_matmul, hier_fused_tail,
-            hier_forward_grouped, hier_scatter_grouped, assemble_grouped)
+            hier_forward_grouped, hier_scatter_grouped, assemble_grouped,
+            owner_fold)
 for _w, _plain in zip(WRAPPERS, (_tail_plain, _axis0_plain,
                                  _axis0_scatter_plain, _dehier_tail_plain,
                                  _dehier_axis0_plain, _pole_plain,
                                  _dehier_pole_plain, _axis_matmul_plain,
                                  _fused_tail_plain, _forward_grouped_plain,
                                  _scatter_grouped_plain,
-                                 _assemble_grouped_plain)):
+                                 _assemble_grouped_plain,
+                                 _owner_fold_plain)):
     _w.launches = 0
     _w.plain = _plain
 

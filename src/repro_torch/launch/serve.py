@@ -102,10 +102,13 @@ class CTSurrogate:
     the executor's incremental plan rebuilds; ``submit_query`` /
     ``submit_update`` enqueue on the engine and return futures.
 
-    Execution policy comes as ``spec=ExecSpec(...)``; ``merge=`` and
-    ``fused=`` are deprecated spellings of its fields (they warn once).
-    ``device=`` is the private engine's device (default CUDA); with
-    ``engine=`` it must be the engine's.  ``cluster=`` (a
+    Execution policy comes as ``spec=ExecSpec(...)``; ``merge=``,
+    ``fused=``, ``mesh=`` and ``axis_name=`` are deprecated spellings of
+    its fields (they warn once).  A meshed spec runs the ingest
+    slab-sharded over the mesh (``repro_torch.core.distributed``).
+    ``device=`` is the private engine's device (default: a meshed spec's
+    first mesh device, else CUDA); with ``engine=`` it must be the
+    engine's.  ``cluster=`` (a
     ``repro_torch.runtime.cluster.CTCluster``) registers the tenant through
     the cluster's front door instead, so every call is routed through
     placement, health and failover; ``engine=`` and ``cluster=`` exclude
@@ -124,7 +127,7 @@ class CTSurrogate:
     def __init__(self, scheme, nodal_grids, spec=None, *, engine=None,
                  cluster=None, name: str = "surrogate", store=None,
                  snapshot_interval: int = 16, merge=None, fused=None,
-                 device=None):
+                 mesh=None, axis_name=None, device=None):
         from repro_torch.core.engine import CTEngine
         if engine is not None and cluster is not None:
             raise ValueError("pass engine= or cluster=, not both")
@@ -133,7 +136,8 @@ class CTSurrogate:
                 "store= applies to the surrogate's own engine; a shared "
                 "engine= / cluster= carries its own durability "
                 "(CTEngine(store=...) / CTCluster(durability_dir=...))")
-        spec = resolve_spec("CTSurrogate", spec, merge=merge, fused=fused)
+        spec = resolve_spec("CTSurrogate", spec, merge=merge, fused=fused,
+                            mesh=mesh, axis_name=axis_name)
         if cluster is not None:
             if device is not None and resolve_device(device) != \
                     cluster.device:
@@ -141,6 +145,8 @@ class CTSurrogate:
                                  f"cluster's {cluster.device}")
             engine = cluster            # the engine's serving surface
         elif engine is None:
+            if device is None and spec.mesh is not None:
+                device = spec.mesh.first_device()
             engine = CTEngine(device=device, store=store,
                               snapshot_interval=snapshot_interval)
         elif device is not None and resolve_device(device) != engine.device:

@@ -99,8 +99,12 @@ mid-replay its queries serve the snapshot state with
 ``ClusterFuture.stale_seq`` set.  All cluster-side retry loops share one
 ``repro_torch.runtime.durability.RetryPolicy``.
 
-Not ported: ``over_device_slices`` (hosts meshed over disjoint device
-slices) waits for multi-GPU sharding, ROADMAP A9, and raises naming it.
+Meshes are host properties: ``over_device_slices`` builds hosts whose
+engines mesh disjoint slices of a device list (1-D slab meshes, or 2-D
+member x slab meshes with ``members > 1``), and placement gives each
+tenant its owner host's mesh (``_host_exec_spec``); tenant specs stay
+mesh-free.  A device list may repeat a device, so a fleet of meshed
+hosts runs on one card or on the CPU.
 """
 
 from __future__ import annotations
@@ -613,9 +617,12 @@ class CTCluster:
             raise ValueError(f"replication must be >= 1, got {replication}")
         #: the one device every host engine (and so every tenant) lives on
         self.device = resolve_device(device)
-        # an ExecSpec holds no mesh in the port (ROADMAP A9), so tenant
-        # and host specs are mesh-free by construction
         self._default_spec = spec or ExecSpec()
+        if self._default_spec.mesh is not None:
+            raise ValueError(
+                "the cluster-default tenant spec must be mesh-free; "
+                "meshes are HOST properties — pass per-host ExecSpecs "
+                "via host_specs= (or over_device_slices())")
         self.replication = replication
         self.vnodes, self.seed = vnodes, seed
         self._health = HostHealthTracker(cfg=health or HostHealthConfig())
@@ -665,13 +672,46 @@ class CTCluster:
                            devices=None, axis_name: str = "slab",
                            members: int = 1, member_axis: str = "member",
                            **kwargs) -> "CTCluster":
-        """Hosts meshed over disjoint slices of the local devices, each
-        running its tenants slab-sharded over its own slice.  Not ported:
-        it needs multi-GPU sharding (ROADMAP A9)."""
-        from repro_torch.core.engine import _not_ported
-        raise _not_ported("CTCluster.over_device_slices", "A9",
-                          "hosts meshed over disjoint device slices need "
-                          "slab sharding across cards")
+        """A cluster whose hosts mesh DISJOINT slices of ``devices``
+        (default: every CUDA device): ``n_hosts`` hosts x
+        ``len(devices) // n_hosts`` devices each, every host running its
+        tenants slab-sharded over its own slice.  With ``members > 1``
+        each host's slice is folded into a 2-D (member x slab) mesh, so
+        tenants run the 2-D ingest (hierarchization sharded too).  A
+        device may be listed more than once (``["cpu"] * 8``, or one card
+        repeated).  The hosts' engines live on the slices' device type:
+        ``device`` defaults to the first device."""
+        from repro_torch.core.mesh import make_mesh
+        if devices is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "over_device_slices: no CUDA device; pass devices= "
+                    "(e.g. ['cpu'] * 8) to run on the CPU")
+            devices = [torch.device("cuda", i)
+                       for i in range(torch.cuda.device_count())]
+        devices = [torch.device(d) for d in devices]
+        per = len(devices) // n_hosts
+        if per < 1:
+            raise ValueError(
+                f"{len(devices)} devices cannot back {n_hosts} hosts")
+        if members < 1 or per % members:
+            raise ValueError(
+                f"members={members} must divide the {per} devices of "
+                f"each host slice")
+        specs = []
+        for i in range(n_hosts):
+            sl = devices[i * per:(i + 1) * per]
+            if members > 1:
+                mesh = make_mesh((members, per // members),
+                                 (member_axis, axis_name), devices=sl)
+                specs.append(ExecSpec(mesh=mesh, axis_name=axis_name,
+                                      member_axis=member_axis))
+            else:
+                specs.append(ExecSpec(
+                    mesh=make_mesh((len(sl),), (axis_name,), devices=sl),
+                    axis_name=axis_name))
+        kwargs.setdefault("device", devices[0])
+        return cls(host_specs=specs, **kwargs)
 
     # -- construction helpers ---------------------------------------------
 
@@ -709,10 +749,15 @@ class CTCluster:
 
     def _host_exec_spec(self, host: _Host, tspec: ExecSpec) -> ExecSpec:
         """Placement decides the execution environment: the tenant's
-        exec prefs (merge/fused/dtype/donate) on the host.  Hosts carry no
-        mesh in the port, so this is the tenant's spec without a slab
-        split, as the reference's for a mesh-free host."""
-        return dataclasses.replace(tspec, n_slabs=None)
+        exec prefs (merge/fused/dtype/donate) combined with the HOST's
+        mesh (or lack of one)."""
+        if host.spec.mesh is not None:
+            return dataclasses.replace(tspec, mesh=host.spec.mesh,
+                                       axis_name=host.spec.axis_name,
+                                       member_axis=host.spec.member_axis,
+                                       n_slabs=None)
+        return dataclasses.replace(tspec, mesh=None, member_axis=None,
+                                   n_slabs=None)
 
     # -- introspection ------------------------------------------------------
 
@@ -793,6 +838,10 @@ class CTCluster:
             raise ValueError(f"{PROBE_TENANT!r} is reserved for the "
                              f"health monitor")
         tspec = spec if spec is not None else self._default_spec
+        if tspec.mesh is not None:
+            raise ValueError(
+                "tenant specs must be mesh-free: the cluster assigns "
+                "each owner host's mesh at placement time")
         r = self.replication if replication is None else replication
         with self._lock:
             if name in self._records:

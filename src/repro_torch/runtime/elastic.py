@@ -9,8 +9,9 @@ Port of ``repro.runtime.elastic``:
   current consistent-hash ring after a membership change
   (``CTCluster.add_host``).
 * ``rebalance_engine`` moves an engine's tenants onto another slab mesh
-  through ``CTEngine.rebind``; it needs multi-GPU sharding and raises
-  naming ROADMAP A9.
+  (or off any mesh) through ``CTEngine.rebind``: plans re-shard
+  incrementally and each served surplus carries over without a
+  recompute, so a lost device costs one rebind per tenant.
 """
 
 from __future__ import annotations
@@ -70,11 +71,27 @@ def plan_mesh(num_chips: int, *, chips_per_pod: int = 256,
 def rebalance_engine(engine, mesh=None, *, axis_name: str = "slab",
                      member_axis: Optional[str] = None,
                      names=None) -> Dict[str, str]:
-    """Move engine tenants onto ``mesh`` through ``CTEngine.rebind``.  Not
-    ported: meshes and ``rebind`` need multi-GPU sharding (ROADMAP A9)."""
-    from repro_torch.core.engine import _not_ported
-    raise _not_ported("rebalance_engine", "A9",
-                      "moving tenants onto a slab mesh needs CTEngine.rebind")
+    """Move engine tenants onto ``mesh`` (or OFF any mesh when ``None``)
+    through ``CTEngine.rebind``: no surplus recompute, an incremental plan
+    re-shard, the executable re-bound from the shared signature cache.
+
+    ``member_axis`` names the second (member) axis of a 2-D (member x
+    slab) mesh; it is cleared on the ``mesh=None`` path, so de-meshed
+    tenants fall back to the single-device ingest.  ``names`` restricts
+    the sweep (default: every tenant).  Returns ``{name: outcome}``, the
+    per-tenant ``rebind`` outcome.  Safe with live submitters: each swap
+    is atomic."""
+    outcomes: Dict[str, str] = {}
+    for name in (engine.names() if names is None else tuple(names)):
+        if mesh is None:
+            outcomes[name] = engine.rebind(name, mesh=None, n_slabs=None,
+                                           member_axis=None)
+        else:
+            outcomes[name] = engine.rebind(name, mesh=mesh,
+                                           axis_name=axis_name,
+                                           member_axis=member_axis,
+                                           n_slabs=None)
+    return outcomes
 
 
 def rebalance_cluster(cluster, *, names=None) -> Dict[str, str]:

@@ -423,8 +423,24 @@ def test_surrogate_rides_the_cluster_unchanged():
 
 
 def test_over_device_slices_raises_naming_a9():
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        CTCluster.over_device_slices(4, seed=11)
+    """Twin of the reference's ``test_meshed_hosts_over_disjoint_device_
+    slices`` (once unported, ROADMAP A9): hosts over disjoint slices of 8
+    devices (the CPU repeated), each tenant slab-sharded on its owner's
+    slice, answers bitwise an unmeshed engine's, before and after its
+    primary is killed."""
+    cl = CTCluster.over_device_slices(4, seed=11, devices=["cpu"] * 8)
+    assert all(h.spec.mesh.shape == {"slab": 2}
+               for h in cl._hosts.values())
+    g = _grids(SCHEME, 1)
+    cl.register("t", SCHEME, g)
+    eng = CTEngine(device="cpu", ingest_workers=0)
+    eng.register("t", SCHEME, g)
+    pts = np.random.default_rng(7).random((16, 3))
+    _bitwise(cl.query("t", pts), eng.query("t", pts))
+    victim = cl.owners_of("t")[0]
+    cl.injector.kill(victim)
+    cl.check_health()
+    _bitwise(cl.query("t", pts), eng.query("t", pts))
 
 
 def test_cluster_failover_retry_is_donation_safe():

@@ -146,7 +146,8 @@ def test_wrappers_count_launches(cuda):
                  "dehier_axis0_batched": 0, "hier_pole": 0,
                  "dehier_pole": 0, "apply_axis_matmul": 0,
                  "hier_fused_tail": 0, "hier_forward_grouped": 0,
-                 "hier_scatter_grouped": 0, "assemble_grouped": 0}
+                 "hier_scatter_grouped": 0, "assemble_grouped": 0,
+                 "owner_fold": 0}
     with H.count_launches() as n:
         H.dehierarchize_batched(x, levels)
     assert {k: v for k, v in n.items() if v} == {"dehier_tail_batched": 2,
@@ -982,3 +983,86 @@ def test_cluster_failover_and_restart_on_the_card(cuda, tmp_path):
     assert _same(cl.surplus("t"), oracle.surplus("t"))
     pts = np.random.default_rng(54).random((16, 3))
     np.testing.assert_array_equal(cl.query("t", pts), oracle.query("t", pts))
+
+
+def _card_mesh(cuda, shape, names):
+    from repro_torch.core.mesh import make_mesh
+    return make_mesh(shape, names, devices=[cuda] * int(np.prod(shape)))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_slab_scatter_tables_match_plain(cuda, dtype):
+    """Row 9 slab-local: the grouped scatter on each slab's table into its
+    ``slab_size + 1`` buffer, bitwise its plain version, from a non-zero
+    buffer, and the slabs together bitwise the single-device surplus."""
+    from repro_torch.core import executor as E
+    from repro_torch.core.distributed import slab_scatter_tables
+    rng = np.random.default_rng(31)
+    scheme = CombinationScheme(3, 5)
+    splan = E.shard_plan(build_plan(scheme), 3)
+    grids = {ell: torch.from_numpy(rng.standard_normal(grid_shape(ell))).to(
+        dtype) for ell, _ in scheme.grids}
+    x = E._assemble(grids, splan.buckets, dtype)
+    y = H.hier_forward_grouped(x, E._pass_specs(splan.plan)[0])
+    coeffs = torch.from_numpy(np.concatenate(
+        [b.coeffs for b in splan.buckets])).to(dtype)
+    want = ct_transform_with_plan(grids, splan.plan, device="cpu").reshape(-1)
+    for s, table in enumerate(slab_scatter_tables(splan)):
+        acc = torch.from_numpy(rng.standard_normal(
+            splan.slab_size + 1)).to(dtype)
+        got = H.hier_scatter_grouped(y.to(cuda), table, coeffs.to(cuda),
+                                     acc.to(cuda))
+        plain = H.hier_scatter_grouped(y, table, coeffs, acc.clone())
+        assert _same(got.cpu(), plain)
+        zero = torch.zeros(splan.slab_size + 1, dtype=dtype, device=cuda)
+        H.hier_scatter_grouped(y.to(cuda), table, coeffs.to(cuda), zero)
+        a = s * splan.slab_size
+        n = min(splan.slab_size, splan.fine_size - a)
+        assert _same(zero[:n].cpu(), want[a:a + n])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_owner_fold_matches_plain(cuda, dtype):
+    """``owner_fold`` on runs of one to 200 values (warp-folded past 32),
+    dump entries and a non-zero buffer, bitwise its plain version."""
+    rng = np.random.default_rng(32)
+    size, n = 3000, 60000
+    dst = rng.integers(0, size + 1, n).astype(np.int32)
+    dst[:200] = 5
+    table = H.owner_table([dst], size)
+    assert table.long_owners >= 1
+    vals = torch.from_numpy(rng.choice([-3.0, -1.0, 1.0, 3.0], n)
+                            * rng.standard_normal(n)).to(dtype)
+    acc = torch.from_numpy(rng.standard_normal(size + 1)).to(dtype)
+    before = H.owner_fold.launches
+    got = H.owner_fold(vals.to(cuda), table, acc.to(cuda))
+    assert H.owner_fold.launches == before + 1
+    assert _same(got.cpu(), H.owner_fold(vals, table, acc.clone()))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_sharded_ingests_on_the_card_match_single_device(cuda, dtype):
+    """1-D fused, 1-D unfused and 2-D ingests on meshes that repeat the
+    card: bitwise the card's single-device surplus; the 2-D path folds
+    with one owner_fold launch a slab."""
+    from repro_torch.core.distributed import ct_transform_sharded
+    from repro_torch.core.engine import ExecSpec
+    rng = np.random.default_rng(33)
+    scheme = CombinationScheme(3, 5)
+    grids = {ell: torch.from_numpy(rng.standard_normal(grid_shape(ell))).to(
+        device=cuda, dtype=dtype) for ell, _ in scheme.grids}
+    want = ct_transform_with_plan(grids, build_plan(scheme), device=cuda)
+    m4 = _card_mesh(cuda, (4,), ("slab",))
+    m22 = _card_mesh(cuda, (2, 2), ("member", "slab"))
+    for mesh, kw in ((m4, {}), (m4, {"spec": ExecSpec(fused=False)}),
+                     (m22, {"member_axis": "member"})):
+        with H.count_launches() as n:
+            got = ct_transform_sharded(grids, scheme, mesh, "slab", **kw)
+        assert _same(got, want), kw
+        parts = ct_transform_sharded(grids, scheme, mesh, "slab",
+                                     gather=False, **kw)
+        assert _same(parts.full(), want)
+        if "member_axis" in kw:
+            assert n["owner_fold"] == 2
+        elif not kw:
+            assert n["hier_scatter_grouped"] == 2 * 4

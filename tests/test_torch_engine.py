@@ -219,8 +219,24 @@ def test_execspec_defaults_and_resolution():
     (dict(mesh=object()), "A9"), (dict(n_slabs=4), "A9"),
     (dict(member_axis="member"), "A9")])
 def test_execspec_unported_fields_raise_naming_their_item(fields, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        ExecSpec(**fields)
+    """The sharding fields (once unported, ROADMAP A9) validate and shard
+    as the reference's: a mesh without the slab axis raises its validation
+    error, ``n_slabs`` shards the plan, ``member_axis`` is inert without a
+    mesh."""
+    scheme = CombinationScheme(2, 3)
+    if "mesh" in fields:
+        with pytest.raises(ValueError, match="is not an axis of the mesh"):
+            ExecSpec(**fields)
+        return
+    spec = ExecSpec(**fields)
+    if "n_slabs" in fields:
+        assert (spec.slabs, spec.members, spec.groups) == (4, 1, 1)
+        plan = spec.plan(scheme)
+        assert isinstance(plan, tex.ShardedPlan) and plan.n_slabs == 4
+        assert plan.plan is build_plan(scheme)
+    else:
+        assert (spec.slabs, spec.members, spec.groups) == (1, 1, 1)
+        assert spec.plan(scheme) is build_plan(scheme)
 
 
 def test_execspec_is_hashable_and_plan_constructor():
@@ -628,24 +644,77 @@ def test_plan_cache_contract_and_explicit_clear():
     assert build_plan(scheme) is not p1
 
 
-def _cluster_cpu():
+def _cpu_mesh(shape, names):
+    from repro_torch.core.mesh import make_mesh
+    return make_mesh(shape, names, devices=["cpu"] * int(np.prod(shape)))
+
+
+def _rebind_onto_slabs():
+    """``rebind`` onto a slab mesh carries the surplus; ``n_slabs`` alone,
+    without a mesh, raises as the reference's (it only shapes a plan)."""
+    scheme = CombinationScheme(2, 3)
+    eng = _engine()
+    eng.register("t", scheme, _grids(scheme, 1))
+    before = eng.surplus("t")
+    with pytest.raises(ValueError, match="meshed spec"):
+        eng.rebind("t", n_slabs=2)
+    assert eng.rebind("t", mesh=_cpu_mesh((2,), ("slab",))) == "sharded"
+    assert eng.surplus("t") is before
+    assert isinstance(eng.plan("t"), tex.ShardedPlan)
+    _bitwise(eng.update("t", _grids(scheme, 1)), before.numpy())
+    return True
+
+
+def _over_device_slices():
+    """Hosts over disjoint slices of a repeated CPU device serve a tenant
+    bitwise as a plain engine."""
     from repro_torch.runtime.cluster import CTCluster
-    return CTCluster(1, device="cpu")
+    scheme = CombinationScheme(2, 3)
+    cl = CTCluster.over_device_slices(2, devices=["cpu"] * 4)
+    cl.register("t", scheme, _np_grids(scheme, 2))
+    eng = _engine()
+    eng.register("t", scheme, _np_grids(scheme, 2))
+    pts = np.random.default_rng(3).random((8, 2))
+    np.testing.assert_array_equal(cl.query("t", pts), eng.query("t", pts))
+    return True
 
 
 def _rebalance_engine():
+    """``rebalance_engine`` moves every tenant onto a mesh and off it."""
     from repro_torch.runtime.elastic import rebalance_engine
-    return rebalance_engine(_engine(), mesh=object())
+    scheme = CombinationScheme(2, 3)
+    eng = _engine()
+    for n in ("a", "b"):
+        eng.register(n, scheme, _grids(scheme, 4))
+    before = eng.surplus("a")
+    assert rebalance_engine(eng, _cpu_mesh((3,), ("slab",))) == \
+        {"a": "sharded", "b": "sharded"}
+    assert rebalance_engine(eng, None) == {"a": "unsharded",
+                                           "b": "unsharded"}
+    assert eng.surplus("a") is before and eng.plan("a") is build_plan(scheme)
+    return True
+
+
+def _member_axis():
+    """``member_axis`` on a 2-D mesh compute-shards the plan."""
+    spec = ExecSpec(mesh=_cpu_mesh((2, 2), ("member", "slab")),
+                    member_axis="member")
+    assert (spec.slabs, spec.members, spec.groups) == (2, 2, 4)
+    plan = spec.plan(CombinationScheme(2, 3))
+    assert (plan.n_slabs, plan.n_groups) == (2, 4)
+    return True
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda: _engine().rebind("t", n_slabs=2), "A9"),
-    (lambda: _cluster_cpu().over_device_slices(2), "A9"),
+    (_rebind_onto_slabs, "A9"),
+    (_over_device_slices, "A9"),
     (_rebalance_engine, "A9"),
-    (lambda: ExecSpec(member_axis="member"), "A9")])
+    (_member_axis, "A9")])
 def test_unported_engine_surface_raises_naming_its_item(call, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        call()
+    """The engine surface once unported (ROADMAP A9) now runs:
+    ``rebind``, ``CTCluster.over_device_slices``, ``rebalance_engine`` and
+    ``member_axis``."""
+    assert call() is True
 
 
 def test_probe_and_heartbeat_as_the_reference():

@@ -143,7 +143,8 @@ def test_cpu_path_launches_no_kernel():
                  "dehier_axis0_batched": 0, "hier_pole": 0,
                  "dehier_pole": 0, "apply_axis_matmul": 0,
                  "hier_fused_tail": 0, "hier_forward_grouped": 0,
-                 "hier_scatter_grouped": 0, "assemble_grouped": 0}
+                 "hier_scatter_grouped": 0, "assemble_grouped": 0,
+                 "owner_fold": 0}
 
 
 def test_non_cuda_accelerator_tensor_raises():

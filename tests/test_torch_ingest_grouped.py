@@ -217,11 +217,11 @@ def test_ingest_table_reused_by_identity():
     np.testing.assert_array_equal(
         tex.ct_transform_with_plan(grids, moved, device="cpu").numpy(),
         fresh.numpy())
-    key = tuple(id(b.index) for b in plan.buckets)
-    assert key in tex._INGEST_TABLES
+    key = ("ingest",) + tuple(id(b.index) for b in plan.buckets)
+    assert key in tex._PLAN_TABLES
     del plan, moved, table
     gc.collect()
-    assert key not in tex._INGEST_TABLES      # dropped with the plan
+    assert key not in tex._PLAN_TABLES        # dropped with the plan
 
 
 def test_grouped_wrappers_refuse_what_they_do_not_take():
