@@ -196,6 +196,33 @@ prefill:
   causal pairs' flops at the bf16 tensor-core peak against q, k, v and o
   moved once.
 
+Last, the analysis phase (``repro_torch.analysis``), at ``prod_3d`` in
+f64:
+
+* the port's linter over ``src/repro_torch`` in-process (its Python
+  files and the CUDA sources of the left-fold path): 0 findings; it
+  prints the files scanned and the ``ctlint: ok`` pragmas by rule;
+* the engine load uninstrumented here (launch counts set to 0 just
+  before it and read just after): a started ``CTEngine`` with a
+  ``DurableStore`` in a temporary directory, tenants ``bump`` and
+  ``seeded(7)`` of one signature, 4 submitter threads alternating an
+  ingest and a 64-point query for 5 s, then ``ENGINE_UPDATES`` timed
+  ``update`` calls and one-tenant queries and a last ingest per tenant,
+  whose surplus's sha256 it keeps;
+* the same load again in a child process (``--lockdep-child``) started
+  with ``REPRO_TORCH_LOCKDEP=1``, so every lock, the module-level ones
+  too, is instrumented from import, followed by a 3-host durable
+  ``CTCluster`` under 4 s of open-loop queries with ``fail_host`` of a
+  primary half-way and ``restart_host`` after it; the child fails unless
+  the sanitizer recorded no violation and no cycle, every edge goes up in
+  rank, every future resolved, each ingest kernel launched, the
+  placement came back and every final surplus's sha256 (engine and
+  cluster) is the uninstrumented engine's; this script fails with it;
+* it prints the recorded lock edges with their counts, the
+  ``note_dispatch`` calls, and the sanitized against the uninstrumented
+  ``update`` and one-tenant query medians, beside the card's name and
+  power limit.
+
 The configurations come from ``repro_torch.configs``.  The
 kernel checks and timings replay the wrapper calls that the executor
 itself makes in an ingest or a scatter (``record_calls``).  Each
@@ -319,6 +346,16 @@ CLUSTER = dict(                  # the cluster phase's open-loop load
     # host for seconds; the kill itself is detected on the first pass
     health=dict(heartbeat_timeout_s=5.0, probe_deadline_s=2.0,
                 max_strikes=3))
+LOCKDEP = dict(                  # the analysis phase's sanitized run
+    engine_s=5.0,                # threaded load on the durable engine
+    submitters=4, points=64,
+    cluster_s=4.0,               # open-loop queries; fail_host at 1/2,
+    hosts=3,                     # restart_host at 3/4
+    query_period_s=0.01,
+    window=32,                   # cluster queries in flight at most
+    reps=ENGINE_UPDATES,         # timed update and one-tenant query calls
+    final_k=999,                 # the payload each tenant ends on
+    child_timeout_s=300)
 SCATTER_KERNELS = {  # the scatter path: wrapper -> (source, TPU kernel)
     "dehier_tail_batched": (
         "src/repro_torch/kernels/csrc/axis_pass_inv.cu",
@@ -386,6 +423,298 @@ def seeded(seed: int):
         return out * (a[0] + a[1] * xs[0] + a[2] * xs[-1] ** 2
                       + a[3] * xs[0] * xs[-1])
     return f
+
+
+def lockdep_payloads(scheme, device):
+    """The analysis phase's data: payload ``k`` of tenant ``bump`` or
+    ``wave`` (``seeded(7)``), its sampled grids on ``device`` times
+    ``1 + 0.01 k``."""
+    from repro_torch.core.interpolation import sample_function
+    base = {n: {ell: sample_function(f, ell, device=device)
+                for ell, _ in scheme.grids}
+            for n, f in (("bump", bump), ("wave", seeded(7)))}
+
+    def payload(name, k):
+        return {ell: g * (1.0 + 0.01 * k) for ell, g in base[name].items()}
+    return payload
+
+
+def surplus_sha256(t) -> str:
+    """sha256 of a surplus's bytes (copied to the host)."""
+    import hashlib
+    a = t.detach().contiguous().cpu().numpy()
+    return hashlib.sha256(memoryview(a).cast("B")).hexdigest()
+
+
+def outcome(kind, f, points):
+    """What became of a query or ingest future: ``None`` when it resolved
+    with a value (a query's ``points`` finite values), ``"unresolved"``
+    when not done within 120 s, else the failure.  Read at once, so that
+    no caller keeps an ingest's 1.07 GB surplus alive through its
+    future."""
+    import numpy as np
+    if not f.wait(120.0):
+        return "unresolved"
+    if f.error() is not None:
+        return f"{kind}: {f.error()!r}"
+    if kind == "query":
+        out = f.result()
+        if out.shape != (points,) or not np.isfinite(out).all():
+            return f"query: {out.shape} not {points} finite"
+    return None
+
+
+def tally(outcomes):
+    """``(unresolved, failed)`` of a load's outcomes."""
+    return (sum(o == "unresolved" for o in outcomes),
+            [o for o in outcomes if o not in (None, "unresolved")])
+
+
+def counted_launches(run):
+    """``run()`` with the kernel wrappers' counts set to 0 just before and
+    read just after: ``(its value, launches of the ingest's kernels)``.
+    The counts are not thread-safe; only whether each is 0 is read."""
+    from repro_torch.kernels import hierarchize as H
+    for w in H.WRAPPERS:
+        w.launches = 0
+    out = run()
+    return out, {w.__name__: w.launches for w in H.WRAPPERS if w.launches}
+
+
+def lockdep_engine_load(device, scheme, root) -> dict:
+    """The analysis phase's engine load: a started ``CTEngine`` with a
+    ``DurableStore`` under ``root``, tenants ``bump`` and ``wave`` of one
+    signature, ``submitters`` threads each alternating an ingest and a
+    query of ``points`` points on one tenant for ``engine_s`` seconds;
+    then ``reps`` timed ``update`` calls and one-tenant queries, and a
+    last ingest per tenant of payload ``final_k``.  An exception in the
+    load is a failure of the run; the engine is closed on every path.
+    Returns the futures' counts, the timings (ms) and each final
+    surplus's sha256."""
+    import numpy as np
+    import torch
+    from repro_torch.core.engine import CTEngine
+    from repro_torch.runtime.durability import DurableStore
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    payload = lockdep_payloads(scheme, device)
+    names = ("bump", "wave")
+    engine = CTEngine(device=device, store=DurableStore(root, "h0"),
+                      snapshot_interval=0, host_id="lockdep")
+    for n in names:
+        engine.register(n, scheme, payload(n, 0))
+    engine.start()
+    pts = np.random.default_rng(400).random((LOCKDEP["points"], scheme.dim))
+    outcomes, errors = [], []
+    stop_at = time.monotonic() + LOCKDEP["engine_s"]
+
+    def submitter(i):
+        name, k = names[i % len(names)], 0
+        try:
+            while time.monotonic() < stop_at:
+                k += 1
+                mine = [("ingest", engine.submit_ingest(
+                            name, payload(name, 1000 * (i + 1) + k))),
+                        ("query", engine.submit_query(name, pts))]
+                outcomes.extend((kind, outcome(kind, f, LOCKDEP["points"]))
+                                for kind, f in mine)
+                del mine
+        except Exception as exc:           # reported, never swallowed
+            errors.append(f"submitter {i}: {exc!r}")
+
+    threads = [threading.Thread(target=submitter, args=(i,),
+                                name=f"submitter-{i}")
+               for i in range(LOCKDEP["submitters"])]
+    update_ms, query_ms, failed, sha = [], [], [], {}
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(LOCKDEP["engine_s"] + 240.0)
+        engine.flush()
+        for r in range(LOCKDEP["reps"]):
+            g = payload("bump", 500 + r)
+            sync()
+            t0 = time.perf_counter()
+            engine.update("bump", g)
+            sync()
+            update_ms.append((time.perf_counter() - t0) * 1e3)
+        for _ in range(LOCKDEP["reps"]):
+            t0 = time.perf_counter()
+            out = engine.query("bump", pts)
+            query_ms.append((time.perf_counter() - t0) * 1e3)
+            if out.shape != (LOCKDEP["points"],) \
+                    or not np.isfinite(out).all():
+                failed.append("timed query: not finite")
+        for n in names:
+            engine.update(n, payload(n, LOCKDEP["final_k"]))
+        sha = {n: surplus_sha256(engine.surplus(n)) for n in names}
+    except Exception as exc:               # reported, never swallowed
+        failed.append(f"load: {exc!r}")
+    finally:
+        engine.close()
+    hung_threads = [t.name for t in threads if t.is_alive()]
+    unresolved, failed_futures = tally([o for _, o in outcomes])
+    failed = failed_futures + failed
+    return {"futures": len(outcomes), "unresolved": unresolved,
+            "failed": failed + errors + [f"hung {n}" for n in hung_threads],
+            "ingests": sum(1 for kind, _ in outcomes if kind == "ingest"),
+            "update_ms": update_ms, "query_ms": query_ms, "sha256": sha}
+
+
+def lockdep_cluster_load(device, scheme, root) -> dict:
+    """The analysis phase's cluster load: a durable ``CTCluster`` of
+    ``hosts`` hosts on ``device`` (stores under ``root``, replication 1,
+    seed 7), ``bump`` and ``wave`` registered with payload ``final_k``
+    (host copies), ``start()``-ed, one query of ``points`` points every
+    ``query_period_s`` for ``cluster_s`` seconds (longer while the faults
+    run), ``fail_host`` of ``bump``'s primary half-way and
+    ``restart_host`` of it at three quarters, on a thread of their own.
+    At most ``window`` queries are in flight: when the window is full the
+    load waits for its oldest query, so a host that pauses (a restore, a
+    replay) holds the load back instead of being handed more than its
+    bounded queue takes.  An exception in the load is a failure of the
+    run; the cluster is stopped on every path.  Returns the futures'
+    counts, the longest wait for a window slot, the failover's and the
+    restart's timings, whether placement came back, and each tenant's
+    final surplus's sha256."""
+    import numpy as np
+    from collections import deque
+    from repro_torch.runtime.cluster import CTCluster
+    from repro_torch.runtime.fault_tolerance import HostHealthConfig
+
+    payload = lockdep_payloads(scheme, device)
+    names = ("bump", "wave")
+    cl = CTCluster(LOCKDEP["hosts"], replication=1, seed=7, device=device,
+                   durability_dir=root, snapshot_interval=2,
+                   monitor_interval_s=CLUSTER["monitor_s"],
+                   health=HostHealthConfig(**CLUSTER["health"]))
+    for n in names:
+        cl.register(n, scheme, {ell: g.cpu().numpy() for ell, g in
+                                payload(n, LOCKDEP["final_k"]).items()})
+    before = {n: cl.owners_of(n) for n in names}
+    victim = before["bump"][0]
+    pts = np.random.default_rng(401).random((LOCKDEP["points"], scheme.dim))
+    outcomes, errors = {}, []
+
+    def faults():
+        try:
+            time.sleep(LOCKDEP["cluster_s"] / 2)
+            outcomes["fail_host"] = cl.fail_host(victim, reason="analysis")
+            time.sleep(LOCKDEP["cluster_s"] / 4)
+            outcomes["restart_host"] = cl.restart_host(victim)
+        except Exception as exc:
+            errors.append(f"faults: {exc!r}")
+
+    futs, in_flight, longest_wait_ms = [], deque(), 0.0
+    fault_thread = threading.Thread(target=faults, name="faults")
+    try:
+        cl.start()
+        t_end = time.monotonic() + LOCKDEP["cluster_s"]
+        fault_thread.start()
+        k = 0
+        while (time.monotonic() < t_end or fault_thread.is_alive()) \
+                and time.monotonic() < t_end + 240.0:
+            while in_flight and in_flight[0].done():
+                in_flight.popleft()
+            if len(in_flight) >= LOCKDEP["window"]:
+                t0 = time.monotonic()
+                if not in_flight[0].wait(120.0):
+                    errors.append(f"query {k - len(in_flight)} did not "
+                                  f"resolve within 120 s")
+                    break
+                longest_wait_ms = max(longest_wait_ms,
+                                      (time.monotonic() - t0) * 1e3)
+                continue
+            f = cl.submit_query(names[k % 2], pts)
+            futs.append(("query", f))
+            in_flight.append(f)
+            k += 1
+            time.sleep(LOCKDEP["query_period_s"])
+    except Exception as exc:               # reported, never swallowed
+        errors.append(f"load: {exc!r}")
+    finally:
+        if fault_thread.ident is not None:
+            fault_thread.join(60.0)
+            if fault_thread.is_alive():
+                errors.append("the fault thread hung")
+        cl.stop()
+    unresolved, failed = tally([outcome(kind, f, LOCKDEP["points"])
+                                for kind, f in futs])
+    after = {n: cl.owners_of(n) for n in names}
+    st = cl.stats()
+    sha = {n: surplus_sha256(cl.surplus(n)) for n in names}
+    return {"futures": len(futs), "unresolved": unresolved,
+            "failed": failed + errors, "victim": victim,
+            "outcomes": outcomes, "placement_restored": after == before,
+            "longest_wait_ms": longest_wait_ms,
+            "failover_ms": [f["recovery_ms"] for f in st["failovers"]],
+            "restart_ms": [{k: r[k] for k in ("restore_ms", "replace_ms",
+                                               "replay_ms", "total_ms")}
+                           for r in st["restarts"]],
+            "sha256": sha}
+
+
+def lockdep_child(expect: str) -> int:
+    """``chip_smoke.py --lockdep-child EXPECT``: the analysis phase's
+    sanitized run at ``prod_3d`` on the card, started by the phase with
+    ``REPRO_TORCH_LOCKDEP=1`` in its environment, so that every lock of
+    the port, the module-level ones too, is instrumented from import.
+    ``EXPECT`` is the JSON ``{tenant: sha256}`` of the parent's
+    uninstrumented engine.  Prints one ``lockdep-child: {...}`` line and
+    exits 1 unless the sanitizer recorded no violation and no cycle,
+    every edge goes up in rank, every future resolved, each ingest
+    kernel launched, and every final surplus's sha256 is the parent's."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch.analysis import invariants, lockdep
+    from repro_torch.configs.sparse_grid import CT_CONFIGS
+    from repro_torch.core.levels import CombinationScheme
+
+    if not (lockdep.enabled_by_env() and torch.cuda.is_available()):
+        print("lockdep-child: needs REPRO_TORCH_LOCKDEP=1 and a CUDA "
+              "device", file=sys.stderr)
+        return 2
+    want = json.loads(expect)
+    cuda = torch.device("cuda")
+    prod = CombinationScheme(CT_CONFIGS["prod_3d"].dim,
+                             CT_CONFIGS["prod_3d"].level)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="ct-lockdep-") as root:
+        eng, eng_launches = counted_launches(lambda: lockdep_engine_load(
+            cuda, prod, os.path.join(root, "engine")))
+        clu, clu_launches = counted_launches(lambda: lockdep_cluster_load(
+            cuda, prod, os.path.join(root, "cluster")))
+    rep = lockdep.report()
+    edges = [(e["from"], e["to"], e["count"]) for e in rep["edges"]]
+    down = [e for e in edges if not invariants.LOCK_RANKS.get(e[0], 0)
+            < invariants.LOCK_RANKS.get(e[1], 0)]
+    problems = [f"{len(lockdep.violations())} violations"] * bool(
+        lockdep.violations()) + [f"{len(rep['cycles'])} cycles"] * bool(
+        rep["cycles"]) + [f"edges not up in rank {down}"] * bool(down)
+    for label, r, launched in (("engine", eng, eng_launches),
+                               ("cluster", clu, clu_launches)):
+        if r["unresolved"] or r["failed"]:
+            problems.append(f"{label}: {r['unresolved']} futures "
+                            f"unresolved, failures {r['failed'][:5]}")
+        missing = sorted(set(KERNELS) - set(launched))
+        if missing:
+            problems.append(f"{label}: {missing} not launched")
+        if r["sha256"] != want:
+            problems.append(f"{label}: final surpluses' sha256 {r['sha256']}"
+                            f" differ from the uninstrumented {want}")
+    if not clu["placement_restored"]:
+        problems.append("cluster: placement not restored after the restart")
+    print("lockdep-child: " + json.dumps({
+        "engine": eng, "cluster": clu, "edges": edges,
+        "launches": {"engine": eng_launches, "cluster": clu_launches},
+        "dispatch_notes": rep["dispatch_notes"],
+        "violations": lockdep.violations(), "cycles": rep["cycles"],
+        "seconds": time.perf_counter() - t0, "problems": problems}))
+    return 1 if problems else 0
 
 
 def main() -> int:
@@ -2656,6 +2985,91 @@ def main() -> int:
           + f" profiled  [{card}]")
     print(f"profiler sessions: {sessions['all']}, of which "
           f"{sessions['empty']} recorded no device activity  [{card}]")
+
+    # ------------------------------------------------------------------
+    # The analysis phase: the port's linter over its tree, then the
+    # engine and cluster loads at prod_3d in a child process under the
+    # lock-order sanitizer, held to the same loads uninstrumented here
+    # ------------------------------------------------------------------
+    from repro_torch.analysis import lockdep, locklint
+
+    if lockdep.enabled():
+        fail("the analysis phase's parent must run uninstrumented (unset "
+             "REPRO_TORCH_LOCKDEP)")
+    t0 = time.perf_counter()
+    findings, files = locklint.lint_paths([ROOT / "src" / "repro_torch"])
+    if findings:
+        fail("the port's linter found:\n" + "\n".join(
+            f.render() for f in findings))
+    print(f"analysis: linter over src/repro_torch: {len(files)} files "
+          f"scanned ({sum(f.suffix != '.py' for f in files)} CUDA sources "
+          f"of the left-fold path), 0 findings, pragmas by rule "
+          f"{locklint.pragma_counts([ROOT / 'src' / 'repro_torch'])}, "
+          f"{(time.perf_counter() - t0) * 1e3:.0f} ms")
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    with tempfile.TemporaryDirectory(prefix="ct-lockdep-") as root:
+        plain, plain_launches = counted_launches(
+            lambda: lockdep_engine_load(cuda, prod, root))
+    if plain["unresolved"] or plain["failed"]:
+        fail(f"the uninstrumented engine load: {plain['unresolved']} "
+             f"futures unresolved, failures {plain['failed'][:5]}")
+    if set(KERNELS) - set(plain_launches):
+        fail(f"the uninstrumented engine load launched {plain_launches}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--lockdep-child",
+         json.dumps(plain["sha256"])], cwd=ROOT,
+        env={**os.environ, "REPRO_TORCH_LOCKDEP": "1"},
+        capture_output=True, text=True, timeout=LOCKDEP["child_timeout_s"])
+    child_s = time.perf_counter() - t0
+    got = [line for line in child.stdout.splitlines()
+           if line.startswith("lockdep-child: ")]
+    if child.returncode != 0 or len(got) != 1:
+        fail(f"the sanitized child exited {child.returncode}:\n"
+             f"{child.stdout[-4000:]}\n{child.stderr[-4000:]}")
+    san = json.loads(got[0].split(": ", 1)[1])
+    eng, clu = san["engine"], san["cluster"]
+    if san["violations"] or san["cycles"] or san["problems"] \
+            or eng["sha256"] != plain["sha256"] \
+            or clu["sha256"] != plain["sha256"]:
+        fail(f"the sanitized child: {san['problems']} "
+             f"{san['violations'][:5]} {san['cycles'][:5]}")
+    print(f"analysis: sanitized child (REPRO_TORCH_LOCKDEP=1) at prod_3d, "
+          f"{child_s:.1f} s in all (the parent holding {held} B on the "
+          f"card): 0 violations, 0 cycles; lock edges "
+          + ", ".join(f"{a}->{b} x{n}" for a, b, n in san["edges"])
+          + f" (each up in rank); {san['dispatch_notes']} note_dispatch "
+          f"calls  [{card}]")
+    print(f"analysis: engine load ({LOCKDEP['submitters']} submitters, "
+          f"{LOCKDEP['engine_s']:.0f} s, durable): sanitized "
+          f"{eng['futures']} futures ({eng['ingests']} ingests) all "
+          f"resolved, uninstrumented {plain['futures']} "
+          f"({plain['ingests']} ingests); launches sanitized "
+          f"{san['launches']['engine']}, uninstrumented {plain_launches}; "
+          f"final surpluses' sha256 equal: "
+          + ", ".join(f"{n} {h[:16]}" for n, h in plain["sha256"].items())
+          + f"  [{card}]")
+    print(f"analysis: cluster load ({LOCKDEP['hosts']} durable hosts, "
+          f"fail_host({clu['victim']}) then restart_host): {clu['futures']} "
+          f"query futures all resolved, outcomes {clu['outcomes']}, "
+          f"placement restored, surpluses' sha256 equal to the "
+          f"uninstrumented engine's; launches {san['launches']['cluster']};"
+          f" fail_host {clu['failover_ms']} ms, restart_host "
+          f"{clu['restart_ms']} ms; longest wait for one of "
+          f"{LOCKDEP['window']} query slots {clu['longest_wait_ms']:.1f} ms"
+          f"  [{card}]")
+    print(f"analysis: median of {LOCKDEP['reps']}, sanitized against "
+          f"uninstrumented: engine.update {np.median(eng['update_ms']):.3f}"
+          f" ms vs {np.median(plain['update_ms']):.3f} ms; one-tenant "
+          f"{LOCKDEP['points']}-point query "
+          f"{np.median(eng['query_ms']):.3f} ms vs "
+          f"{np.median(plain['query_ms']):.3f} ms (runs "
+          f"{[round(x, 3) for x in eng['update_ms']]} vs "
+          f"{[round(x, 3) for x in plain['update_ms']]}; "
+          f"{[round(x, 3) for x in eng['query_ms']]} vs "
+          f"{[round(x, 3) for x in plain['query_ms']]})  [{card}]")
     rows.sort(key=lambda r: ROW[r["name"]])
     print(card)
     print(json.dumps({"kernels": rows}))
@@ -2666,4 +3080,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--lockdep-child"] and len(sys.argv) == 3:
+        sys.exit(lockdep_child(sys.argv[2]))
     sys.exit(main())

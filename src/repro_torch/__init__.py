@@ -29,8 +29,11 @@ carries the reference's weights across).  Every TPU kernel of the
 reference is written by hand in CUDA for Hopper (``kernels/csrc``): the
 hierarchization kernels and flash attention, and the ingest's member
 assembly and the 2-D ingest's ordered owner fold are hand-written
-launches too.  Not ported yet: the analysis tooling (A10), and of the LM
-stack the moe, ssm, hybrid, encdec and vlm families, training
+launches too.  The concurrency analysis (``analysis``: the lock registry,
+the static pass ``python -m repro_torch.analysis`` and the runtime
+sanitizer under ``REPRO_TORCH_LOCKDEP=1``) covers every lock of the port.
+Not ported yet: of the LM stack the moe, ssm, hybrid, encdec and vlm
+families, training
 (``launch/train.py``, ``optim``, ``data``, the loss) and ``make_batch``/
 ``input_specs`` (ROADMAP.md, Queue A).  Entry points run on the CUDA
 device unless the caller passes ``device="cpu"``; with no card and no

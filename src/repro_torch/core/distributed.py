@@ -56,12 +56,12 @@ are copies within the device.
 from __future__ import annotations
 
 import dataclasses
-import threading
 from typing import Any, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.analysis import lockdep as _lockdep
 from repro_torch.core.levels import (LevelVector, SchemeLike, fine_levels,
                                      num_points)
 from repro_torch.core.mesh import Mesh, SlabSharded
@@ -242,7 +242,8 @@ class TwoDTables:
     folds: Tuple[OwnerTable, ...]
     preds: tuple
     _on: dict = dataclasses.field(default_factory=dict)
-    _lock: Any = dataclasses.field(default_factory=threading.Lock)
+    _lock: Any = dataclasses.field(
+        default_factory=lambda: _lockdep.make_lock("two-d-tables"))
 
     def group(self, splan, b: int, i: int, device: torch.device) -> tuple:
         """``(ship_src[i], predecessor data)`` of bucket b's group i on
@@ -366,6 +367,7 @@ def gather_slab_scatter(alphas, sharded_plan, mesh: Mesh, axis_name: str, *,
             a, c = a.to(device=dev, dtype=dtype), c.to(dev)
             idx = torch.as_tensor(idx[s]).to(dev)
             for m in range(a.shape[0]):
+                # ctlint: ok(bit-identity-reassoc): idx[m] is injective off the dump slot and the calls run in member order, so each slot's adds are the left fold (tests/test_torch_distributed.py::test_ct_transform_sharded_bitwise_single_device, unfused_1d)
                 buf.index_add_(0, idx[m], c[m] * a[m])
         bufs.append(buf)
     return _finish_slab_gather(bufs, splan, gather, device)

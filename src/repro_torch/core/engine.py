@@ -73,7 +73,12 @@ commit the pool thread synchronises its CUDA stream, so a failed launch
 resolves the owning future.  One engine lock
 (an ``RLock`` under two conditions) guards the registry, queue, watermarks
 and counters; the executable cache's lock is a leaf; no device work runs
-under a lock.  The kernel wrappers' launch counters and ``record_calls``
+under a lock.  The lock classes, their ranks and these rules are
+machine-checked: the registry is ``repro_torch.analysis.invariants``,
+enforced by the static pass (``python -m repro_torch.analysis``) and the
+runtime sanitizer (``REPRO_TORCH_LOCKDEP=1``, whose ``note_dispatch``
+sits in ``_dispatch_ingest`` and ``_dispatch_query_groups``).  The kernel
+wrappers' launch counters and ``record_calls``
 are not thread-safe: count with ``ingest_workers=0`` or one chain at a
 time.
 
@@ -130,6 +135,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.analysis import lockdep as _lockdep
 from repro_torch.core.executor import (ExecutorPlan, MergeConfig,
                                        ShardedPlan, _base, _grids_on,
                                        _ingest_fused, _ingest_table,
@@ -394,7 +400,7 @@ class _IngestExecutable:
         self.member_axis = spec.member_axis \
             if self.sharded and plan.n_groups > 1 else None
         self._on: Dict[torch.device, tuple] = {}
-        self._lock = threading.Lock()
+        self._lock = _lockdep.make_lock("ingest-tables")
 
     def _tables(self, device: torch.device) -> None:
         from repro_torch.kernels.hierarchize import (_assembly_layout,
@@ -477,7 +483,7 @@ class _IngestExecutable:
 _INGEST_EXECUTABLES: "collections.OrderedDict[Tuple, _IngestExecutable]" = \
     collections.OrderedDict()
 _INGEST_CACHE_MAX = 64
-_INGEST_CACHE_LOCK = threading.Lock()
+_INGEST_CACHE_LOCK = _lockdep.make_lock("ingest-cache")
 
 
 def clear_compile_cache() -> None:
@@ -509,7 +515,7 @@ def _ingest_executable(signature: Tuple, plan,
 _DRAIN_TIMEOUT_S = 120.0
 
 _SHARED_POOL: Optional[ThreadPoolExecutor] = None
-_SHARED_POOL_LOCK = threading.Lock()
+_SHARED_POOL_LOCK = _lockdep.make_lock("shared-pool")
 
 
 def _shared_pool() -> ThreadPoolExecutor:
@@ -701,7 +707,7 @@ class CTEngine:
         self._donation_warned: set = set()      # tenants warned of kept grids
         #: name of this engine in error messages and ``stats()``
         self.host_id = host_id
-        self._lock = threading.RLock()
+        self._lock = _lockdep.make_rlock("engine")
         self._work = threading.Condition(self._lock)    # new work / progress
         self._space = threading.Condition(self._lock)   # queue has room
         self._work_seq = 0          # bumped on every submit/progress event
@@ -961,6 +967,7 @@ class CTEngine:
                 f"memory)", stacklevel=3)
 
     def _dispatch_ingest(self, tenant: _Tenant, nodal_grids) -> torch.Tensor:
+        _lockdep.note_dispatch("engine._dispatch_ingest")
         if tenant.spec.donate:
             self._check_not_donated(tenant.name, nodal_grids)
         grids, dtype = _grids_on(nodal_grids, tenant.plan, self.device)
@@ -971,11 +978,12 @@ class CTEngine:
         return surplus
 
     def _journal(self, name: str, seq: int, nodal_grids,
-                 tag: Optional[int]) -> None:
+                 tag: Optional[int]) -> None:  # ctlint: holds(engine)
         """Append an admitted ingest to the store's WAL (the caller holds
         the lock, so journal order is admission order).  Its host copy
         would read a released grid: that raises first."""
         self._check_not_donated(name, nodal_grids)
+        # ctlint: ok(block-under-lock): journal order must equal admission order
         self._store.append(name, seq, nodal_grids, tag=tag)
 
     # -- thread-safe submission ---------------------------------------------
@@ -984,7 +992,7 @@ class CTEngine:
         return f"engine[{self.host_id}]" if self.host_id else "engine"
 
     def _admit(self, block: bool, timeout: Optional[float],
-               name: str) -> None:
+               name: str) -> None:  # ctlint: holds(engine)
         """Bounded-queue admission control; the caller holds the lock."""
         if len(self._pending) < self._max_pending:
             return
@@ -1211,7 +1219,7 @@ class CTEngine:
                     delay = min(delay, next_wake - time.monotonic())
                 self._work.wait(max(delay, 0.001))
 
-    def _take_due(self, now: float) -> Tuple[List[_Request],
+    def _take_due(self, now: float) -> Tuple[List[_Request],  # ctlint: holds(engine)
                                              Optional[float]]:
         """Pull the due requests off the queue; the caller holds the lock.
         Ingests are always due; a query when its tenant's pending batch is
@@ -1349,6 +1357,7 @@ class CTEngine:
                 raise KeyError(f"tenant {name!r} was unregistered before "
                                f"its queued ingest ran")
             # a donated payload released by an earlier attempt raises here
+            # ctlint: ok(donate-reuse): _dispatch_ingest runs _check_not_donated on a donating tenant's payload before anything reads it
             surplus = self._dispatch_ingest(tenant, nodal_grids)
             # device failures surface here, on the owning request
             _synchronize(self.device)
@@ -1461,6 +1470,8 @@ class CTEngine:
         the chunk's futures.  After each chunk the queries queued since
         with a strictly higher priority run at once (``_run_urgent``).
         Runs outside the lock."""
+        _lockdep.note_dispatch("engine._dispatch_query_groups")
+
         def group_rank(item):
             entries = item[1]
             return (-max(r.priority for r, _ in entries),

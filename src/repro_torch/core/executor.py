@@ -62,7 +62,6 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-import threading
 import warnings
 import weakref
 from dataclasses import dataclass
@@ -72,6 +71,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.analysis import lockdep as _lockdep
 from repro_torch.core.levels import (LevelVector, SchemeLike,
                                      canonical_levels, fine_levels,
                                      grid_shape)
@@ -103,7 +103,7 @@ __all__ = ["ExecutorPlan", "Bucket", "ShardedPlan", "SlabBucket",
 #: (function, sorted legacy keywords) families already warned about: each
 #: warns once per process (``reset_legacy_warnings`` rearms them).
 _WARNED_LEGACY: set = set()
-_WARNED_LEGACY_LOCK = threading.Lock()
+_WARNED_LEGACY_LOCK = _lockdep.make_lock("warn-once")
 
 
 def reset_legacy_warnings() -> None:
@@ -573,7 +573,7 @@ class _PlanCache:
 
     def __init__(self, maxsize: int):
         self._data: "collections.OrderedDict" = collections.OrderedDict()
-        self._lock = threading.Lock()
+        self._lock = _lockdep.make_lock("plan-cache")
         self._maxsize = maxsize
 
     def get(self, key):
@@ -811,7 +811,7 @@ class _IngestTable:
 
 
 _PLAN_TABLES: Dict[tuple, Any] = {}
-_PLAN_TABLES_LOCK = threading.Lock()
+_PLAN_TABLES_LOCK = _lockdep.make_lock("plan-tables")
 
 
 def _plan_table(kind: str, arrays, build):
@@ -871,6 +871,7 @@ def _gather_unfused(full: torch.Tensor, x: torch.Tensor,
     g = len(member_levels)
     alpha = hierarchize_batched(x, member_levels).reshape(g, -1)
     for m in range(g):
+        # ctlint: ok(bit-identity-reassoc): idx[m] is injective off the dump slot and the calls run in member order, so each slot's adds are the left fold (tests/test_torch_executor.py::test_ct_transform_bitwise_equals_reference, fused=False)
         full.index_add_(0, idx[m], cs[m] * alpha[m])
     return full
 

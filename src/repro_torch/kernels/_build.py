@@ -21,9 +21,10 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 from pathlib import Path
 from typing import Dict
+
+from repro_torch.analysis import lockdep as _lockdep
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -61,7 +62,7 @@ KERNELS: Dict[str, Dict[str, list]] = {
                         for t in ("f32", "bf16")},
 }
 
-_LOCK = threading.Lock()
+_BUILD_LOCK = _lockdep.make_lock("kernel-build")
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 #: nvcc's ``-Xptxas -v`` report of each loaded library.
@@ -93,7 +94,7 @@ def load_all() -> Dict[str, ctypes.CDLL]:
     """Build (in parallel) every kernel library not built yet and load all.
 
     Raises ``RuntimeError`` with nvcc's output if a build fails."""
-    with _LOCK:
+    with _BUILD_LOCK:
         if len(_LIBS) == len(KERNELS):
             return _LIBS
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

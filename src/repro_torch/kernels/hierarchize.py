@@ -94,12 +94,12 @@ import contextlib
 import ctypes
 import dataclasses
 import functools
-import threading
 from typing import Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.analysis import lockdep as _lockdep
 from repro_torch.kernels import _build, ref
 
 __all__ = [
@@ -344,6 +344,7 @@ def _axis_scatter_plain(x: torch.Tensor, axis: int, pred,
     dump = acc.shape[0] - 1
     for m in range(g):
         keep = idx[m] != dump
+        # ctlint: ok(bit-identity-reassoc): idx[m][keep] is injective (the dump slot dropped) and the calls run in member order, so each slot's adds are the left fold (tests/test_torch_hierarchize.py::test_scatter_plain_equals_row9)
         acc.index_add_(0, idx[m][keep], (coeffs[m] * alpha[m])[keep])
     return acc
 
@@ -831,7 +832,7 @@ class OwnerTable:
         self.alive = np.searchsorted(-counts, -np.arange(
             int(counts.max()) if counts.size else 0), side="left")
         self._on: dict = {}
-        self._lock = threading.Lock()
+        self._lock = _lockdep.make_lock("owner-tables")
 
     @property
     def owners(self) -> int:

@@ -61,7 +61,11 @@ Lock order (for the port's lock checker, ROADMAP A10)
 
 * One cluster ``RLock`` (``CTCluster._lock``) guards the host table, the
   ring, the tenant records and the in-flight set.  Each ``ClusterFuture``
-  has a leaf ``Lock`` (``_flock``) under it.
+  has a leaf ``Lock`` (``_flock``) under it.  The classes, their ranks
+  and the rules are machine-checked: the registry is
+  ``repro_torch.analysis.invariants``, enforced by the static pass
+  (``python -m repro_torch.analysis``) and the runtime sanitizer
+  (``REPRO_TORCH_LOCKDEP=1``).
 * The order is strictly ``cluster -> future`` and ``cluster -> engine``:
   the cluster calls into engines while holding its lock (registration,
   routing, failover), and an engine NEVER calls into the cluster, so the
@@ -73,8 +77,8 @@ Lock order (for the port's lock checker, ROADMAP A10)
 * ``ClusterFuture`` waits hold no lock; they poll the inner engine future
   and take the cluster lock only to finalize.
 * The control-plane barriers that run engine work under the cluster lock
-  on purpose are marked ``# lockdep: allowed dispatch (...)`` and carry
-  the reference's ``# ctlint: ok(...)`` reasons.  Engine teardown
+  on purpose are ``lockdep.allowed_dispatch`` sections and carry the
+  reference's ``# ctlint: ok(...)`` reasons.  Engine teardown
   (``unregister``), the probe warm-up of ``add_host``, the restore and the
   WAL replay of ``restart_host`` run outside the lock.
 * The WAL's device-to-host copies run on the engines' submitters' threads
@@ -122,6 +126,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.analysis import lockdep as _lockdep
 from repro_torch.core.engine import (CTEngine, CTFuture, EngineSaturated,
                                      ExecSpec)
 from repro_torch.core.levels import CombinationScheme, SchemeLike, grid_shape
@@ -314,7 +319,7 @@ class ClusterFuture:
         #: stamp ``done_at`` from the WRONG inner.  Lock order is
         #: strictly ``cluster -> future`` and nothing is called while
         #: holding it, so it cannot deadlock.
-        self._flock = threading.Lock()
+        self._flock = _lockdep.make_lock("future")
 
     # -- state transitions (cluster lock held by callers in CTCluster; the
     #    per-future lock serializes them against each other regardless) ----
@@ -627,7 +632,7 @@ class CTCluster:
         self.vnodes, self.seed = vnodes, seed
         self._health = HostHealthTracker(cfg=health or HostHealthConfig())
         self._monitor_interval_s = monitor_interval_s
-        self._lock = threading.RLock()
+        self._lock = _lockdep.make_rlock("cluster")
         self._hosts: Dict[str, _Host] = {}
         #: host ids reserved by an in-flight add_host (engine build +
         #: probe warmup run OFF the cluster lock; the id must not be
@@ -854,17 +859,17 @@ class CTCluster:
                                 replication=r, owners=owners,
                                 grids=grids_np, deadline_ms=deadline_ms,
                                 priority=priority)
-            # lockdep: allowed dispatch (admission barrier)
-            for hid in owners:
-                host = self._hosts[hid]
-                hspec = self._host_exec_spec(host, tspec)
-                # tag 0 = the tenant's initial state (committed_seq
-                # 0): durable hosts journal the admission under it
-                # ctlint: ok(block-under-lock): admission barrier — the tenant must be live on every owner before register() returns
-                host.engine.register(
-                    name, scheme, grids_np if nodal_grids is not None
-                    else None, spec=hspec, deadline_ms=deadline_ms,
-                    priority=priority, tag=0)
+            with _lockdep.allowed_dispatch("admission barrier"):
+                for hid in owners:
+                    host = self._hosts[hid]
+                    hspec = self._host_exec_spec(host, tspec)
+                    # tag 0 = the tenant's initial state (committed_seq
+                    # 0): durable hosts journal the admission under it
+                    # ctlint: ok(block-under-lock): admission barrier — the tenant must be live on every owner before register() returns
+                    host.engine.register(
+                        name, scheme, grids_np if nodal_grids is not None
+                        else None, spec=hspec, deadline_ms=deadline_ms,
+                        priority=priority, tag=0)
             primary = self._hosts[owners[0]]
             rec.plan = primary.engine.plan(name)
             rec.plan_spec = self._host_exec_spec(primary, tspec)
@@ -1040,12 +1045,12 @@ class CTCluster:
             merged = dict(rec.grids)
             merged.update(new_np)
             primary = self._primary(rec)
-            # lockdep: allowed dispatch (scheme-swap barrier)
-            for hid in rec.owners:
-                host = self._hosts.get(hid)
-                if host is not None and host.alive:
-                    # ctlint: ok(block-under-lock): scheme-swap barrier — serving must not observe half-refitted owners
-                    host.engine.refit(name, scheme, merged)
+            with _lockdep.allowed_dispatch("scheme-swap barrier"):
+                for hid in rec.owners:
+                    host = self._hosts.get(hid)
+                    if host is not None and host.alive:
+                        # ctlint: ok(block-under-lock): scheme-swap barrier — serving must not observe half-refitted owners
+                        host.engine.refit(name, scheme, merged)
             rec.scheme = scheme
             rec.grids = merged
             rec.plan = primary.engine.plan(name)
@@ -1063,12 +1068,12 @@ class CTCluster:
                 merged.update({tuple(ell): _host_copy(v)
                                for ell, v in nodal_grids.items()})
             primary = self._primary(rec)
-            # lockdep: allowed dispatch (recombination barrier)
-            for hid in rec.owners:
-                host = self._hosts.get(hid)
-                if host is not None and host.alive:
-                    # ctlint: ok(block-under-lock): recombination barrier — all owners drop the failed grids atomically
-                    host.engine.drop_grid(name, failed, merged)
+            with _lockdep.allowed_dispatch("recombination barrier"):
+                for hid in rec.owners:
+                    host = self._hosts.get(hid)
+                    if host is not None and host.alive:
+                        # ctlint: ok(block-under-lock): recombination barrier — all owners drop the failed grids atomically
+                        host.engine.drop_grid(name, failed, merged)
             rec.scheme = primary.engine.scheme(name)
             rec.plan = primary.engine.plan(name)
             rec.grids = merged
@@ -1426,29 +1431,29 @@ class CTCluster:
                     outcome = "recombined"
         new_owners = self._ring.owners(rec.name, rec.replication)
         donor = self._hosts[survivors[0]].engine if survivors else None
-        # lockdep: allowed dispatch (failover barrier)
-        for hid in new_owners:
-            host = self._hosts[hid]
-            if rec.name in host.engine:
-                continue
-            hspec = self._host_exec_spec(host, rec.spec)
-            plan = rec.plan if hspec == rec.plan_spec else None
-            if donor is not None:
-                surplus = donor._tenants[rec.name].surplus
-                # ctlint: ok(block-under-lock): failover barrier — serving resumes only once the tenant lives on its new owners
-                host.engine.register(rec.name, rec.scheme, spec=hspec,
-                                     plan=plan, surplus=surplus,
-                                     deadline_ms=rec.deadline_ms,
-                                     priority=rec.priority,
-                                     tag=rec.committed_seq)
-            else:
-                # ctlint: ok(block-under-lock): failover barrier — serving resumes only once the tenant lives on its new owners
-                host.engine.register(rec.name, rec.scheme,
-                                     rec.grids if rec.grids else None,
-                                     spec=hspec, plan=plan,
-                                     deadline_ms=rec.deadline_ms,
-                                     priority=rec.priority,
-                                     tag=rec.committed_seq)
+        with _lockdep.allowed_dispatch("failover barrier"):
+            for hid in new_owners:
+                host = self._hosts[hid]
+                if rec.name in host.engine:
+                    continue
+                hspec = self._host_exec_spec(host, rec.spec)
+                plan = rec.plan if hspec == rec.plan_spec else None
+                if donor is not None:
+                    surplus = donor._tenants[rec.name].surplus
+                    # ctlint: ok(block-under-lock): failover barrier — serving resumes only once the tenant lives on its new owners
+                    host.engine.register(rec.name, rec.scheme, spec=hspec,
+                                         plan=plan, surplus=surplus,
+                                         deadline_ms=rec.deadline_ms,
+                                         priority=rec.priority,
+                                         tag=rec.committed_seq)
+                else:
+                    # ctlint: ok(block-under-lock): failover barrier — serving resumes only once the tenant lives on its new owners
+                    host.engine.register(rec.name, rec.scheme,
+                                         rec.grids if rec.grids else None,
+                                         spec=hspec, plan=plan,
+                                         deadline_ms=rec.deadline_ms,
+                                         priority=rec.priority,
+                                         tag=rec.committed_seq)
         # drop serving copies on live ex-owners the ring walked past
         self._reroute_queries_locked(rec, new_owners)
         for hid in rec.owners:
@@ -1590,25 +1595,25 @@ class CTCluster:
                          and rec.name in self._hosts[o].engine), None)
                     hspec = self._host_exec_spec(host, rec.spec)
                     plan = rec.plan if hspec == rec.plan_spec else None
-                    # lockdep: allowed dispatch (restart adopt)
-                    if donor is not None:
-                        # ctlint: ok(block-under-lock): restart phase 2 — adopt-from-donor must commit before the ring serves this host
-                        engine.register(
-                            rec.name, rec.scheme, spec=hspec,
-                            plan=plan,
-                            surplus=donor._tenants[rec.name].surplus,
-                            deadline_ms=rec.deadline_ms,
-                            priority=rec.priority,
-                            tag=rec.committed_seq)
-                    else:
-                        # ctlint: ok(block-under-lock): restart phase 2 — adopt-from-record must commit before the ring serves this host
-                        engine.register(
-                            rec.name, rec.scheme,
-                            rec.grids if rec.grids else None,
-                            spec=hspec, plan=plan,
-                            deadline_ms=rec.deadline_ms,
-                            priority=rec.priority,
-                            tag=rec.committed_seq)
+                    with _lockdep.allowed_dispatch("restart adopt"):
+                        if donor is not None:
+                            # ctlint: ok(block-under-lock): restart phase 2 — adopt-from-donor must commit before the ring serves this host
+                            engine.register(
+                                rec.name, rec.scheme, spec=hspec,
+                                plan=plan,
+                                surplus=donor._tenants[rec.name].surplus,
+                                deadline_ms=rec.deadline_ms,
+                                priority=rec.priority,
+                                tag=rec.committed_seq)
+                        else:
+                            # ctlint: ok(block-under-lock): restart phase 2 — adopt-from-record must commit before the ring serves this host
+                            engine.register(
+                                rec.name, rec.scheme,
+                                rec.grids if rec.grids else None,
+                                spec=hspec, plan=plan,
+                                deadline_ms=rec.deadline_ms,
+                                priority=rec.priority,
+                                tag=rec.committed_seq)
                 # live ex-owners the restored walk no longer reaches
                 self._reroute_queries_locked(rec, desired)
                 for hid in rec.owners:
@@ -1724,19 +1729,19 @@ class CTCluster:
                 return "kept"
             donor = self._primary(rec).engine
             surplus = donor._tenants[name].surplus
-            # lockdep: allowed dispatch (rebalance barrier)
-            for hid in desired:
-                host = self._hosts[hid]
-                if name in host.engine:
-                    continue
-                hspec = self._host_exec_spec(host, rec.spec)
-                plan = rec.plan if hspec == rec.plan_spec else None
-                # ctlint: ok(block-under-lock): rebalance barrier — new owners adopt before placement commits
-                host.engine.register(name, rec.scheme, spec=hspec,
-                                     plan=plan, surplus=surplus,
-                                     deadline_ms=rec.deadline_ms,
-                                     priority=rec.priority,
-                                     tag=rec.committed_seq)
+            with _lockdep.allowed_dispatch("rebalance barrier"):
+                for hid in desired:
+                    host = self._hosts[hid]
+                    if name in host.engine:
+                        continue
+                    hspec = self._host_exec_spec(host, rec.spec)
+                    plan = rec.plan if hspec == rec.plan_spec else None
+                    # ctlint: ok(block-under-lock): rebalance barrier — new owners adopt before placement commits
+                    host.engine.register(name, rec.scheme, spec=hspec,
+                                         plan=plan, surplus=surplus,
+                                         deadline_ms=rec.deadline_ms,
+                                         priority=rec.priority,
+                                         tag=rec.committed_seq)
             self._reroute_queries_locked(rec, desired)
             for hid in rec.owners:
                 host = self._hosts.get(hid)

@@ -38,9 +38,9 @@ the grids under the keys ``g_<l0>_<l1>...``.
 
 ``RetryPolicy`` (bounded attempts, exponential backoff, jitter from an
 explicit RNG) is the retry loop of the engine's ingest commit.  The
-store's lock is a plain ``threading.RLock``, a leaf: the engine calls in
-holding its own lock, the store never calls out (its lock-order seam
-comes with ROADMAP A10).
+store's lock is an ``RLock`` of class ``store``
+(``repro_torch.analysis.invariants``), under the engine's: the engine
+calls in holding its own lock, the store never calls out.
 """
 
 from __future__ import annotations
@@ -52,7 +52,6 @@ import os
 import re
 import shutil
 import struct
-import threading
 import time
 import zlib
 from dataclasses import dataclass, field
@@ -62,6 +61,7 @@ from typing import (Any, Callable, Dict, Iterable, List, Optional, Sequence,
 import numpy as np
 import torch
 
+from repro_torch.analysis import lockdep as _lockdep
 from repro_torch.checkpoint.checkpoint import (CheckpointCorrupt, list_steps,
                                                restore_checkpoint,
                                                save_checkpoint)
@@ -285,7 +285,7 @@ class DurableStore:
         self.host_id = host_id
         self.fsync_every = fsync_every
         os.makedirs(self.root, exist_ok=True)
-        self._lock = threading.RLock()
+        self._lock = _lockdep.make_rlock("store")
         self._logs: Dict[str, _TenantLog] = {}
         self._counters = {"appends": 0, "fsyncs": 0, "snapshots": 0,
                           "rotations": 0, "replayed": 0,
