@@ -196,6 +196,51 @@ prefill:
   causal pairs' flops at the bf16 tensor-core peak against q, k, v and o
   moved once.
 
+Then the fifth path, dense LM training at ``smollm_360m``'s full width in
+bf16 (``repro_torch.launch.train.train``; random weights from a seed),
+whose attention is row 10's forward with its log-sum-exp
+(``flash_attention_lse``) and row 10's backward (``flash_attention_bwd``,
+two hand-written launches):
+
+* the backward against its plain version at the training shape (4 x 2048
+  tokens, 15 query over 5 KV heads, head_dim 64, causal) in f32 and
+  bf16, and on two ragged cases (keys not a multiple of the tile,
+  ``q_offset`` > 0, full and causal): each of dq, dk and dv within
+  rtol 1e-4 / atol 1e-5 of it element by element and within 1e-4
+  relative L2 as a whole (f32), and in bf16 within rtol 2e-2 plus an
+  atol of 0.1 times the plain result's RMS, and 1e-2 relative L2 (each
+  RMS printed beside its bar); the bf16 check must refuse the kernel's
+  own result at the training shape with one 64 x 64 tile pair (the last
+  query tile against the key tile before it) dropped or doubled in
+  every (batch, head); the log-sum-exp within 1e-4 of the plain
+  logsumexp; the forward's output with it bitwise the output without
+  it;
+* a gradient check at full width, depth 2, 4 x 512 tokens: one train
+  step's gradients and updated parameters with the kernels against the
+  same step with row 10 routed through its plain version (autograd),
+  per-leaf relative L2 within 1e-3 (f32) and 3e-2 (bf16);
+* ``train`` for 6 steps of 4 x 2048 tokens (warmup 2, remat ``full``,
+  a checkpoint every 2 steps into a temporary directory, a NaN injected
+  at step 3), with the launch counts set to 0 just before it: every loss
+  finite, the first within 1 of ln(49152), the trained model's loss on
+  the last step's batch below the first loss and below that batch's loss
+  before its step, and its loss on the first step's batch below the
+  first loss (the stream's near-uniform labels at this vocabulary leave
+  each new batch's loss near ln(49152) over 6 steps), one
+  rollback to step 2 whose restored parameters are bitwise those saved
+  (sha256 per leaf), and per executed step 64 forward launches with the
+  log-sum-exp (the forward and the recompute) and 32 backward pairs, no
+  launch without it; step time, tokens/s, peak memory, checkpoint write
+  and restore times;
+* ``compress_with_feedback(codec="hier")`` on one full-width step's
+  gradients: one row 1 and one row 2 launch per leaf, the decode at
+  truncation 0 equal to the input within the reference's invertibility
+  bar (rtol 1e-4, atol 1e-5);
+* rows ``10 lse`` and ``10 bwd`` timed on one layer's call at the
+  training shape beside their plain versions and
+  ``scaled_dot_product_attention``'s forward (recording its backward's
+  state) and backward (yardsticks the port never calls).
+
 Last, the analysis phase (``repro_torch.analysis``), at ``prod_3d`` in
 f64:
 
@@ -262,8 +307,9 @@ both, their launch counts the tile launches, and ``nonfinite_ms`` is a
 call's device time on a fully non-finite input (row 3 on a 511 x 4096
 bundle, row 4 on a 4095 x 511 grid).  The script fails unless ``cuobjdump -sass`` finds DMMA in the f64
 kernels of rows 3 and 4 (row 4's both operand roles) and HMMA in the two
-kernels of row 10's bf16 entry (head_dim 64 and 128): those products run
-on the tensor cores.
+kernels of row 10's bf16 entry (head_dim 64 and 128, each with and
+without the log-sum-exp) and in the four kernels of its bf16 backward:
+those products run on the tensor cores.
 
 A profiler session can come back with no device activity.  The script
 runs a timing session that records none again, up to ``PROFILE_TRIES``
@@ -277,8 +323,9 @@ fine grid's fill reported beside the device busy time that holds it; the
 assembly's row times its recorded call against the present copy loop (its
 plain version).  It prints the card's name and power limit, the kernels'
 ``-Xptxas -v`` report, the timings, a ``{"kernels": [...]}`` JSON line
-(twelve rows: the ten of ``PERF.md``'s table in its order, then the
-assembly and the owner fold; row 9 also carries its slab-local time as
+(fourteen rows: the ten of ``PERF.md``'s table in its order, row 10's
+forward with its log-sum-exp and its backward, then the assembly and the
+owner fold; row 9 also carries its slab-local time as
 ``slab_ms``, ``slab_plain_ms``, ``slab_wrapper_ms``, ``slab_launches``
 and ``slab_bound_ms``) and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is
@@ -290,6 +337,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -321,6 +369,17 @@ FLASH_CASES = [  # b, sq, skv, h, kv, hd, causal
     (1, 1, 40, 4, 2, 8, False), (1, 128, 128, 8, 8, 32, True),
     (1, 300, 300, 4, 2, 128, True), (2, 96, 130, 2, 2, 128, False)]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the reference's bars
+TRAIN = dict(global_batch=4, seq_len=2048, steps=6, warmup_steps=2,
+             checkpoint_every=2, loss_poison_step=3)   # remat: the config's
+BWD_CASES = [  # b, sq, skv, h, kv, hd, causal, q_offset
+    (4, 2048, 2048, 15, 5, 64, True, 0),      # the training shape
+    (1, 300, 333, 4, 2, 128, False, 17), (2, 200, 333, 6, 2, 64, True, 133)]
+BWD_TOL = {  # dq, dk, dv: every element within rtol |plain| + atol +
+    # atol_rms RMS(plain), and the relative L2 of the whole within rel_l2
+    "float32": dict(rtol=1e-4, atol=1e-5, atol_rms=0.0, rel_l2=1e-4),
+    "bfloat16": dict(rtol=2e-2, atol=0.0, atol_rms=0.1, rel_l2=1e-2)}
+GRAD_CHECK = dict(num_layers=2, seq_len=512, global_batch=4)
+GRAD_TOL = {"float32": 1e-3, "bfloat16": 3e-2}   # per-leaf relative L2
 
 KERNELS = {  # the main path's wrappers -> (CUDA source, TPU kernels)
     "assemble_grouped": (
@@ -368,7 +427,8 @@ ROW = {"hier_pole": 1, "dehier_pole": 2, "apply_axis_matmul": 3,
        "hier_fused_tail": 4, "hier_forward_grouped:tail": 5,
        "dehier_tail_batched": 6, "hier_forward_grouped:axis0": 7,
        "dehier_axis0_batched": 8, "hier_scatter_grouped": 9,
-       "flash_attention": 10, "assemble_grouped": 11, "owner_fold": 12}
+       "flash_attention": 10, "flash_attention_lse": 10.1,
+       "flash_attention_bwd": 10.2, "assemble_grouped": 11, "owner_fold": 12}
 #: The per-bucket wrappers of rows 5, 7 and 9 (one-stack calls of the
 #: grouped kernels), checked on the long-axis stacks: row -> wrapper.
 PER_BUCKET = {"hier_forward_grouped:tail": "hier_tail_batched",
@@ -772,7 +832,8 @@ def main() -> int:
     for lib, instruction, kernel, count in (
             ("axis_operator", "DMMA", "axis_operator_f64_kernel", 1),
             ("fused_tail", "DMMA", "fused_tail_f64_kernel", 2),
-            ("flash_attention", "HMMA", "flash_kernel_mma", 2)):
+            ("flash_attention", "HMMA", "flash_kernel_mma", 4),
+            ("flash_attention_bwd", "HMMA", "_mma", 4)):
         found = {k: v.count(instruction)
                  for k, v in _build.sass(lib).items() if kernel in k}
         if len(found) != count or not all(found.values()):
@@ -2924,6 +2985,457 @@ def main() -> int:
           f"dispatch: kernel {r['wrapper_ms']:.4f} ms, plain "
           f"{r['plain_wrapper_ms']:.4f} ms  [{card}]")
     del q, k, v, qh, kh, vh, flash_args
+
+    # ------------------------------------------------------------------
+    # Fifth path: dense LM training at smollm_360m's full width in bf16
+    # (row 10's forward with its log-sum-exp and its backward kernels),
+    # random weights from a seed
+    # ------------------------------------------------------------------
+    import hashlib
+    import math
+
+    import repro_torch.launch.train as TR
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import attention as ATT
+    from repro_torch.models.transformer import loss_fn as lm_loss
+    from repro_torch.optim.compression import (compress_with_feedback,
+                                               init_error_feedback)
+
+    phase_t0 = time.perf_counter()
+    tgen = torch.Generator(device=cuda)
+    tgen.manual_seed(24)
+
+    def trandn(shape, dtype):
+        return torch.randn(shape, generator=tgen, device=cuda).to(dtype)
+
+    def bar(got, want, rtol, atol):
+        """max |got - want| and whether every element is within atol +
+        rtol |want|."""
+        diff = (got.float() - want.float()).abs()
+        return float(diff.max()), bool(
+            (diff <= atol + rtol * want.float().abs()).all())
+
+    def bwd_bar(got, want, tol):
+        """(max |got - want|, relative L2, RMS of want, pass) under a
+        ``BWD_TOL`` entry."""
+        w = want.float()
+        diff = (got.float() - w).abs()
+        rms = float(w.square().mean().sqrt())
+        rel = float(diff.norm() / w.norm().clamp_min(1e-30))
+        ok = rel <= tol["rel_l2"] and bool((diff <= tol["atol"] + tol[
+            "atol_rms"] * rms + tol["rtol"] * w.abs()).all())
+        return float(diff.max()), rel, rms, ok
+
+    err["flash_attention_lse"] = err["flash_attention_bwd"] = 0.0
+    bwd_args, bwd_rel, bwd_seen = None, {}, {}
+    for case in BWD_CASES:
+        b, sq, skv, h, kvh, hd, causal, q_offset = case
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = (trandn(s_, dtype) for s_ in (
+                (b, sq, h, hd), (b, skv, kvh, hd), (b, skv, kvh, hd),
+                (b, sq, h, hd)))
+            kw = dict(causal=causal, q_offset=q_offset)
+            o, lse = FA.flash_attention_lse(q, k, v, **kw)
+            if not torch.equal(o, FA.flash_attention(q, k, v, **kw)):
+                fail(f"flash_attention_lse's output is not bitwise "
+                     f"flash_attention's ({case} {dtype})")
+            e, ok = bar(lse, FA.flash_attention_lse_ref(q, k, v, **kw)[1],
+                        1e-4, 1e-4)
+            err["flash_attention_lse"] = max(err["flash_attention_lse"], e)
+            if not ok or lse.dtype != torch.float32:
+                fail(f"flash_attention_lse's log-sum-exp differs from the "
+                     f"plain logsumexp by {e} ({case} {dtype})")
+            got = FA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+            want = FA.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+            dname = str(dtype).removeprefix("torch.")
+            tol = BWD_TOL[dname]
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                e, rel, rms, ok = bwd_bar(g, w, tol)
+                err["flash_attention_bwd"] = max(err["flash_attention_bwd"],
+                                                 e)
+                bwd_rel[dname] = max(bwd_rel.get(dname, 0.0), rel)
+                if case == BWD_CASES[0]:
+                    bwd_seen[dname, name] = (rms, rel, e)
+                if not ok or g.dtype != w.dtype or g.shape != w.shape:
+                    fail(f"flash_attention_bwd's {name} differs from its "
+                         f"plain version by {e}, relative L2 {rel} (RMS "
+                         f"{rms}; {case} {dtype}; bar {tol})")
+            if case == BWD_CASES[0] and dtype == torch.bfloat16:
+                bwd_args = dict(q=q, k=k, v=v, o=o, lse=lse, do=do, **kw)
+                # The bar's reach: the kernels' result with one tile pair
+                # (the last query tile against the key tile before it)
+                # dropped or doubled in every (batch, head) must fail it.
+                qt, kt = slice(sq - 64, sq), slice(sq - 128, sq - 64)
+                tile_part = FA.flash_attention_bwd_ref(
+                    q[:, qt], k[:, kt], v[:, kt], o[:, qt], lse[..., qt],
+                    do[:, qt], causal=True, q_offset=64)
+                for sign in (-1.0, 1.0):
+                    for name, g, w, span, piece in zip(
+                            ("dq", "dk", "dv"), got, want, (qt, kt, kt),
+                            tile_part):
+                        mutated = g.clone()
+                        mutated[:, span] = (mutated[:, span].float()
+                                            + sign * piece.float()).to(dtype)
+                        if bwd_bar(mutated, w, tol)[3]:
+                            fail(f"the bf16 backward's bar passes {name} "
+                                 f"with one tile pair "
+                                 f"{'dropped' if sign < 0 else 'doubled'}")
+                del tile_part, mutated
+            del q, k, v, do, o, lse, got, want
+    print(f"flash_attention_bwd: {len(BWD_CASES)} cases (the training shape "
+          f"{BWD_CASES[0][:6]} causal, ragged full and causal with q_offset) "
+          f"in f32 and bf16 within {BWD_TOL} of the plain version; max abs "
+          f"err {err['flash_attention_bwd']}, worst relative L2 {bwd_rel}; "
+          f"at the training shape (RMS of the plain result, relative L2, max"
+          f" abs err): "
+          + "; ".join(f"{d} {n} {r:.4g}, {rl:.3g}, {e:.4g}"
+                      for (d, n), (r, rl, e) in bwd_seen.items())
+          + f"; the bf16 bar refuses one 64 x 64 tile pair dropped or "
+          f"doubled in dq, dk and dv; the log-sum-exp within 1e-4 of the "
+          f"plain logsumexp (max abs err {err['flash_attention_lse']}), the "
+          f"output with it bitwise the output without it")
+
+    # One step at full width and depth 2: the kernels against row 10 routed
+    # through its plain version (autograd through flash_attention_ref).
+    def plain_attention(q, k, v, *, causal=True, q_offset=0):
+        return FA.flash_attention_ref(q, k, v, causal=causal,
+                                      q_offset=q_offset)
+
+    def rel_l2(a, b) -> float:
+        return float(torch.linalg.vector_norm((a.float() - b.float()))
+                     / torch.linalg.vector_norm(b.float()).clamp_min(1e-30))
+
+    grad_rel = {}
+    for dtype in ("float32", "bfloat16"):
+        gcfg = get_config(LM_ARCH).replace(
+            num_layers=GRAD_CHECK["num_layers"], dtype=dtype)
+        gbatch = SyntheticLM(DataConfig(
+            vocab_size=gcfg.vocab_size, seq_len=GRAD_CHECK["seq_len"],
+            global_batch=GRAD_CHECK["global_batch"], seed=1),
+            device=cuda).batch(0)
+        runs = []
+        for attention in (ATT.flash_attention, plain_attention):
+            gparams, gopt = ST.init_train_state(gcfg, seed=1, device=cuda)
+            ATT.flash_attention = attention
+            try:
+                loss, grads = ST.loss_and_grads(gparams, gcfg, gbatch)
+                ST.make_train_step(gcfg, lambda s_: torch.tensor(1e-3))(
+                    gparams, gopt, gbatch)
+            finally:
+                ATT.flash_attention = FA.flash_attention
+            runs.append((float(loss), grads,
+                         {n: p.detach() for n, p in
+                          gparams.named_parameters()}))
+        (lk, gk, pk), (lp, gp, pp) = runs
+        worst = max((rel_l2(gk[n], gp[n]), n) for n in gk)
+        worst_p = max((rel_l2(pk[n], pp[n]), n) for n in pk)
+        grad_rel[dtype] = (worst, worst_p, abs(lk - lp))
+        if not (worst[0] <= GRAD_TOL[dtype] and worst_p[0] <= GRAD_TOL[dtype]
+                and math.isfinite(lk)):
+            fail(f"the {dtype} train step with row 10's kernels differs from "
+                 f"the one through its plain version: worst gradient "
+                 f"{worst}, worst parameter {worst_p} (per-leaf relative L2;"
+                 f" bar {GRAD_TOL[dtype]}), losses {lk}, {lp}")
+        del runs, gk, gp, pk, pp, gparams, gopt, grads
+    print(f"{LM_ARCH} gradient check (depth {GRAD_CHECK['num_layers']}, "
+          f"{GRAD_CHECK['global_batch']} x {GRAD_CHECK['seq_len']} tokens): "
+          f"kernels against row 10's plain version, per-leaf relative L2 "
+          + "; ".join(f"{d}: worst gradient {g[1]} {g[0]:.3e}, worst "
+                      f"updated parameter {p_[1]} {p_[0]:.3e}, |loss diff| "
+                      f"{dl:.3e}" for d, (g, p_, dl) in grad_rel.items())
+          + f" (bars {GRAD_TOL})")
+
+    # The main path: train() at full width, its counts set to 0 just before.
+    def leaf_sha256(t) -> str:
+        t = t.detach().contiguous().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        return hashlib.sha256(t.numpy().tobytes()).hexdigest()
+
+    ckpt_log = {"save": {}, "restore": {}}
+    step_log = []
+    real_save, real_restore = TR.save_checkpoint, TR.restore_checkpoint
+    real_make_step = TR.make_train_step
+
+    def spy_save(directory, step, tree, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_save(directory, step, tree, **kw)
+        ms = (time.perf_counter() - t0) * 1e3
+        ckpt_log["save"][step] = (ms, {n: leaf_sha256(t)
+                                       for n, t in tree[0].items()})
+        return out
+
+    def spy_restore(directory, step, template, **kw):
+        t0 = time.perf_counter()
+        out = real_restore(directory, step, template, **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        ckpt_log["restore"][step] = (ms, {n: leaf_sha256(t)
+                                          for n, t in out[0][0].items()})
+        return out
+
+    def timed_make_step(*a, **kw):
+        inner = real_make_step(*a, **kw)
+
+        def step(params, opt, batch):
+            before = (FA.flash_attention.launches,
+                      FA.flash_attention_lse.launches,
+                      FA.flash_attention_bwd.launches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = inner(params, opt, batch)
+            torch.cuda.synchronize()
+            step_log.append(((time.perf_counter() - t0) * 1e3, tuple(
+                n - b0 for n, b0 in zip((FA.flash_attention.launches,
+                                         FA.flash_attention_lse.launches,
+                                         FA.flash_attention_bwd.launches),
+                                        before))))
+            return out
+        return step
+
+    with tempfile.TemporaryDirectory(prefix="lm-train-") as ckdir:
+        free = shutil.disk_usage(ckdir).free
+        tc = TR.TrainConfig(arch=LM_ARCH, smoke=False, checkpoint_dir=ckdir,
+                            device="cuda", **TRAIN)
+        tcfg = TR.model_config(tc)
+        if not (tcfg.remat and tcfg.remat_policy == "full"):
+            fail(f"{LM_ARCH}'s published config trains with remat "
+                 f"{tcfg.remat} {tcfg.remat_policy!r}, not 'full'")
+        TR.save_checkpoint, TR.restore_checkpoint = spy_save, spy_restore
+        TR.make_train_step = timed_make_step
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        FA.flash_attention.launches = 0
+        FA.flash_attention_lse.launches = 0
+        FA.flash_attention_bwd.launches = 0
+        t0 = time.perf_counter()
+        try:
+            res = TR.train(tc)
+        finally:
+            TR.save_checkpoint, TR.restore_checkpoint = real_save, real_restore
+            TR.make_train_step = real_make_step
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        train_launches = {"flash_attention": FA.flash_attention.launches,
+                          "flash_attention_lse":
+                              FA.flash_attention_lse.launches,
+                          "flash_attention_bwd":
+                              FA.flash_attention_bwd.launches}
+        train_peak = torch.cuda.max_memory_allocated()
+        ckpt_bytes = sum(f.stat().st_size for f in Path(ckdir).rglob("*")
+                         if f.is_file())
+    layers = tcfg.num_layers
+    losses = [res.losses[s_] for s_ in sorted(res.losses)]
+    # The stream's labels are near uniform at this vocabulary (its one
+    # learnable structure, a 49152-entry permutation, is seen about 0.17
+    # times a token a batch), so over 6 steps the loss of each new batch
+    # stays near ln(49152) + 0.19; each step still descends on its own
+    # batch.  The trained model's loss on the last step's batch and on the
+    # first (what the steps learned across batches):
+    stream = SyntheticLM(DataConfig(
+        vocab_size=tcfg.vocab_size, seq_len=TRAIN["seq_len"],
+        global_batch=TRAIN["global_batch"]), device=cuda)
+    last_batch = stream.batch(sorted(res.losses)[-1])
+    first_batch = stream.batch(0)
+    with torch.no_grad():
+        trained_loss = float(lm_loss(res.params, tcfg, last_batch))
+        trained_first = float(lm_loss(res.params, tcfg, first_batch))
+    step_ms = [ms for ms, _ in step_log]
+    warm_ms = float(np.median(step_ms[1:])) if len(step_ms) > 1 else 0.0
+    tokens = TRAIN["global_batch"] * TRAIN["seq_len"]
+    save_ms = [v[0] for _, v in sorted(ckpt_log["save"].items())]
+    restore_ms = [v[0] for _, v in sorted(ckpt_log["restore"].items())]
+    print(f"{LM_ARCH} train (bf16, remat full, {TRAIN['global_batch']} x "
+          f"{TRAIN['seq_len']} tokens, 6 steps, NaN at step 3): losses "
+          + ", ".join(f"{s_}: {res.losses[s_]:.4f}" for s_ in
+                      sorted(res.losses))
+          + f"; the trained model on the last step's batch {trained_loss:.4f}"
+          f", on the first step's batch {trained_first:.4f}"
+          f"; rollbacks {res.rollbacks}; launches {train_launches} (per "
+          f"step: {[c for _, c in step_log]}, as (no lse, lse, backward)); "
+          f"step times " + ", ".join(f"{t:.1f}" for t in step_ms)
+          + f" ms (warm median {warm_ms:.1f} ms, {tokens / warm_ms * 1e3:.0f}"
+          f" tokens/s); train() {train_s:.1f} s; peak device memory "
+          f"{train_peak} B ({train_peak - resident} B above the "
+          f"{resident} B resident before it); checkpoints {ckpt_bytes} B "
+          f"on disk for {len(save_ms)} saves (free before {free} B), save "
+          + ", ".join(f"{t:.0f}" for t in save_ms)
+          + f" ms, restore " + ", ".join(f"{t:.0f}" for t in restore_ms)
+          + f" ms  [{card}]")
+    if sorted(res.losses) != [0, 1, 2, 4, 5] or res.final_step != 6 \
+            or res.rollbacks != 1 \
+            or not any("non-finite" in e for e in res.events):
+        fail(f"train: steps {sorted(res.losses)}, final {res.final_step}, "
+             f"rollbacks {res.rollbacks}, events {res.events}; expected "
+             f"one rollback from the poisoned step 3 to step 2")
+    if not all(math.isfinite(x) for x in losses + [trained_loss,
+                                                    trained_first]):
+        fail(f"train: non-finite losses {res.losses}, {trained_loss}, "
+             f"{trained_first}")
+    # near-uniform logits over the padded vocabulary at random init
+    if not abs(losses[0] - math.log(tcfg.vocab_padded)) <= 1.0:
+        fail(f"train: first loss {losses[0]}, not within 1 of "
+             f"ln({tcfg.vocab_padded}) = {math.log(tcfg.vocab_padded):.3f}")
+    if not trained_loss < min(losses[0], losses[-1]):
+        fail(f"train: the trained model's loss on the last step's batch "
+             f"{trained_loss} is not below the first loss {losses[0]} and "
+             f"that batch's loss before its step {losses[-1]}")
+    if not trained_first < losses[0]:
+        fail(f"train: the trained model's loss on the first step's batch "
+             f"{trained_first} is not below its loss there before the "
+             f"first step {losses[0]}")
+    if list(ckpt_log["restore"]) != [2] or sorted(ckpt_log["save"]) != [2, 6]:
+        fail(f"train: saves {sorted(ckpt_log['save'])}, restores "
+             f"{list(ckpt_log['restore'])}")
+    if ckpt_log["restore"][2][1] != ckpt_log["save"][2][1]:
+        bad = [n for n, h_ in ckpt_log["save"][2][1].items()
+               if ckpt_log["restore"][2][1].get(n) != h_]
+        fail(f"train: the rollback restored parameters other than those "
+             f"saved at step 2: {bad[:5]}")
+    per_step = {(0, 2 * layers, 2 * layers)}     # no lse, lse, backward
+    if len(step_log) != 6 or {c for _, c in step_log} != per_step \
+            or train_launches["flash_attention_lse"] != 6 * 2 * layers \
+            or train_launches["flash_attention_bwd"] != 6 * 2 * layers \
+            or train_launches["flash_attention"]:
+        fail(f"train: row 10's launches per step (no lse, lse, backward) "
+             f"{[c for _, c in step_log]}, in all {train_launches}; "
+             f"predicted {2 * layers} forwards with the log-sum-exp "
+             f"(forward and recompute), {layers} backward pairs and none "
+             f"without it, in each of 6 steps")
+    print(f"{LM_ARCH} train: one rollback to step 2, the restored "
+          f"parameters bitwise those saved (sha256 of "
+          f"{len(ckpt_log['save'][2][1])} leaves); {2 * layers} lse "
+          f"forwards and {layers} backward pairs in each of 6 steps  "
+          f"[{card}]")
+    del last_batch, first_batch, stream
+
+    # Where a step's time goes: one more step of the trained state under
+    # the profiler, and the host's synthetic batch alone.
+    model_t = res.params
+    data_t = SyntheticLM(DataConfig(vocab_size=tcfg.vocab_size,
+                                    seq_len=TRAIN["seq_len"],
+                                    global_batch=TRAIN["global_batch"]),
+                         device=cuda)
+    t0 = time.perf_counter()
+    tbatch = data_t.batch(7)
+    torch.cuda.synchronize()
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    one_step = ST.make_train_step(tcfg, lambda s_: torch.tensor(1e-4))
+    profiled(f"{LM_ARCH} train step ({TRAIN['global_batch']} x "
+             f"{TRAIN['seq_len']} tokens, bf16, remat full; the host's "
+             f"synthetic batch {batch_ms:.1f} ms not included)",
+             lambda: one_step(model_t, res.opt_state, tbatch))
+
+    # The gradient codec on one full-width step's gradients: rows 1 and 2.
+    _, tgrads = ST.loss_and_grads(model_t, tcfg, tbatch)
+    H.hier_pole.launches = H.dehier_pole.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    approx, ef = compress_with_feedback(tgrads, init_error_feedback(tgrads),
+                                        codec="hier", frac=1.0)
+    torch.cuda.synchronize()
+    codec_ms = (time.perf_counter() - t0) * 1e3
+    codec_launches = (H.hier_pole.launches, H.dehier_pole.launches)
+    if codec_launches != (len(tgrads), len(tgrads)):
+        fail(f"compress_with_feedback(hier) launched rows 1 and 2 "
+             f"{codec_launches} times for {len(tgrads)} gradient leaves")
+    codec_err = 0.0
+    for n, g in tgrads.items():
+        e, ok = bar(approx[n], g, 1e-4, 1e-5)
+        codec_err = max(codec_err, e)
+        if not ok:
+            fail(f"the hier codec's decode at truncation 0 differs from "
+                 f"the gradient {n} by {e} (bar rtol 1e-4, atol 1e-5)")
+    print(f"{LM_ARCH} gradient codec (hier, level 8, truncation 0) on one "
+          f"step's {len(tgrads)} bf16 gradient leaves "
+          f"({sum(g.numel() for g in tgrads.values())} values): "
+          f"{codec_launches[0]} hier_pole and {codec_launches[1]} "
+          f"dehier_pole launches, decode within {codec_err} of the input "
+          f"(bar rtol 1e-4, atol 1e-5), {codec_ms:.1f} ms  [{card}]")
+    del approx, ef, tgrads, tbatch, res, model_t
+
+    # Rows "10 lse" and "10 bwd" at the training shape, one layer's call.
+    q, k, v, o, lse, do = (bwd_args[n] for n in ("q", "k", "v", "o", "lse",
+                                                 "do"))
+    b, sq, h, hd = q.shape
+    groups = h // k.shape[2]
+    pairs = sum(min(k.shape[1], i + 1) for i in range(sq))     # causal
+    qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_() for t in (
+        q, k.repeat_interleave(groups, dim=2),
+        v.repeat_interleave(groups, dim=2)))
+    lib_out = torch.nn.functional.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=True)
+    doh = do.transpose(1, 2)
+
+    def lib_fwd():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True)
+
+    def lib_bwd():
+        return torch.autograd.grad(lib_out, (qh, kh, vh), doh,
+                                   retain_graph=True)
+
+    lib_grads = lib_bwd()
+    kern_grads = FA.flash_attention_bwd(**bwd_args)
+    lib_err = max_err(lib_grads[0].transpose(1, 2), kern_grads[0])
+    fwd_args = {n: bwd_args[n] for n in ("q", "k", "v", "causal",
+                                         "q_offset")}
+    esz = q.element_size()
+    lib_label = {"flash_attention_lse": "forward recording its backward",
+                 "flash_attention_bwd": "backward"}
+    no_lse_ms = device_ms(lambda: FA.flash_attention(**fwd_args),
+                          only="flash_kernel")
+    for name, flop_mult, nbytes, kern, plain, lib, only in (
+            ("flash_attention_lse", 4,
+             (2 * q.numel() + k.numel() + v.numel()) * esz + lse.numel() * 4,
+             lambda: FA.flash_attention_lse(**fwd_args),
+             lambda: FA.flash_attention_lse.plain(**fwd_args), lib_fwd,
+             "flash_kernel"),
+            ("flash_attention_bwd", 10,
+             (4 * q.numel() + 2 * k.numel() + 2 * v.numel()) * esz
+             + lse.numel() * 4,
+             lambda: FA.flash_attention_bwd(**bwd_args),
+             lambda: FA.flash_attention_bwd.plain(**bwd_args), lib_bwd,
+             ("bwd_dkdv", "bwd_dq"))):
+        flops = flop_mult * b * h * hd * pairs
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        flops_ms = flops / BF16_FLOP_PER_S * 1e3
+        ms = device_ms(kern, only=only)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/" + (
+                "flash_attention.cu" if name.endswith("lse")
+                else "flash_attention_bwd.cu"),
+            "replaces": "src/repro/kernels/flash_attention.py:38" if
+            name.endswith("lse") else
+            "src/repro/models/attention.py:42 (JAX autodiff of "
+            "attention_chunked; no TPU kernel)",
+            "launches": train_launches[name], "max_abs_err": err[name],
+            "ms": ms, "plain_ms": device_ms(plain),
+            "bound_ms": max(bytes_ms, flops_ms),
+            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+            "library_ms": device_ms(lib),
+            "wrapper_ms": wall_ms(kern), "plain_wrapper_ms": wall_ms(plain)})
+        r = rows[-1]
+        print(f"{name}: device {ms:.4f} ms per call at ({b}x{h}, {sq}, {hd})"
+              f" bf16 causal ({r['launches']} launches in the 6 train steps,"
+              f" {flops / ms / 1e9:.1f} TFLOP/s), bound {r['bound_ms']:.4f} "
+              f"ms by {r['bound_by']} ({flops} flop at 989 TFLOP/s, {nbytes} "
+              f"B at 3.35 TB/s); plain {r['plain_ms']:.4f} ms; library "
+              f"(scaled_dot_product_attention {lib_label[name]}"
+              f", K/V broadcast to {h} heads) {r['library_ms']:.4f} ms; with "
+              f"host dispatch: kernel {r['wrapper_ms']:.4f} ms, plain "
+              f"{r['plain_wrapper_ms']:.4f} ms  [{card}]")
+    print(f"flash_attention_bwd: SDPA's dq differs from the kernel's by "
+          f"{lib_err} (bf16); row 10 without the log-sum-exp on the same "
+          f"inputs {no_lse_ms:.4f} ms; training phase "
+          f"{time.perf_counter() - phase_t0:.1f} s  [{card}]")
+    del q, k, v, o, lse, do, qh, kh, vh, doh, lib_out, lib_grads, kern_grads
+    del bwd_args, fwd_args
+    torch.cuda.empty_cache()
 
     # ------------------------------------------------------------------
     # Where the time goes: ingest, query and scatter under the profiler

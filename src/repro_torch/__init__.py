@@ -25,7 +25,9 @@ transforms (``kernels.ops``) and the iterated combination technique
 ``runtime.fault_tolerance``), and the dense LM's serving steps
 (``models``: ``transformer.DenseLM``/``forward``, ``model.prefill_step``/
 ``serve_step``, ``launch.serve.generate``; ``convert.lm_params_from_numpy``
-carries the reference's weights across).  Every TPU kernel of the
+carries the reference's weights across) and its training
+(``launch.train``, ``launch.steps.make_train_step``, ``optim``, ``data``,
+row 10's backward kernels).  Every TPU kernel of the
 reference is written by hand in CUDA for Hopper (``kernels/csrc``): the
 hierarchization kernels and flash attention, and the ingest's member
 assembly and the 2-D ingest's ordered owner fold are hand-written
@@ -33,11 +35,10 @@ launches too.  The concurrency analysis (``analysis``: the lock registry,
 the static pass ``python -m repro_torch.analysis`` and the runtime
 sanitizer under ``REPRO_TORCH_LOCKDEP=1``) covers every lock of the port.
 Not ported yet: of the LM stack the moe, ssm, hybrid, encdec and vlm
-families, training
-(``launch/train.py``, ``optim``, ``data``, the loss) and ``make_batch``/
-``input_specs`` (ROADMAP.md, Queue A).  Entry points run on the CUDA
-device unless the caller passes ``device="cpu"``; with no card and no
-``device="cpu"`` they raise — there is no silent CPU fallback.
+families and ``make_batch``/``input_specs`` (ROADMAP.md, Queue A).  Entry
+points run on the CUDA device unless the caller passes ``device="cpu"``;
+with no card and no ``device="cpu"`` they raise — there is no silent CPU
+fallback.
 """
 
 from __future__ import annotations

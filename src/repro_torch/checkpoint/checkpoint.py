@@ -18,9 +18,17 @@ leaf, one part per level joined by ``/`` — a dict key (dicts in sorted key
 order, an ``OrderedDict`` in its own order), a sequence index, or a
 namedtuple's or dataclass's field name.  Leaves are tensors (stored
 through ``.detach().cpu().numpy()``), numpy arrays and scalars; ``None``
-holds no leaf.  bfloat16 has no numpy type and raises ``TypeError``:
-training checkpoints come with ROADMAP A11.  ``device=`` takes the place of
-the reference's ``shardings=``: the restored tensors are put there.
+holds no leaf.  ``device=`` takes the place of the reference's
+``shardings=``: the restored tensors are put there.
+
+bfloat16 leaves are stored as the reference stores them (it writes
+``ml_dtypes`` arrays through ``np.savez``): 2-byte void values (npz descr
+``V2``) holding the bf16 bits, ``"dtype": "bfloat16"`` in the manifest and
+the crc32 over those bytes.  numpy has no bf16 type, so the port views a
+tensor's bits as int16 to write them and reads a ``V2`` array back
+through int16 into ``torch.bfloat16``; it needs no ``ml_dtypes``.  A
+manifest-driven restore (``template=None``) returns such an array as
+stored (``V2``) or, with ``device=``, as a bf16 tensor.
 """
 
 from __future__ import annotations
@@ -59,18 +67,27 @@ def _crc32(a: np.ndarray) -> int:
     return zlib.crc32(np.ascontiguousarray(a).reshape(-1).view(np.uint8))
 
 
-def _no_bf16(dtype, key: str) -> None:
-    if dtype in (torch.bfloat16, "bfloat16"):
-        raise TypeError(
-            f"checkpoint leaf {key!r} is bfloat16, which numpy cannot hold: "
-            f"checkpoints of bf16 training state come with ROADMAP A11")
+_BF16_BITS = np.dtype("V2")          # a stored bf16 leaf's numpy type
 
 
-def _to_numpy(leaf, key: str) -> np.ndarray:
+def _to_numpy(leaf) -> Tuple[np.ndarray, str]:
+    """(the array stored for ``leaf``, the manifest's dtype name)."""
     if isinstance(leaf, torch.Tensor):
-        _no_bf16(leaf.dtype, key)
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        leaf = leaf.detach().cpu()
+        if leaf.dtype == torch.bfloat16:
+            return leaf.view(torch.int16).numpy().view(_BF16_BITS), \
+                "bfloat16"
+        a = leaf.numpy()
+    else:
+        a = np.asarray(leaf)
+    return a, str(a.dtype)
+
+
+def _to_tensor(a: np.ndarray) -> torch.Tensor:
+    """A stored array as a tensor (a ``V2`` array as the bf16 it holds)."""
+    if a.dtype == _BF16_BITS:
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def _children(node) -> Optional[List[Tuple[str, Any]]]:
@@ -136,8 +153,8 @@ def save_checkpoint(directory: str, step: int, tree, *,
                     metadata: Optional[Dict[str, Any]] = None) -> str:
     """Write ``tree`` as checkpoint ``step`` under ``directory`` (atomic);
     returns the checkpoint's directory."""
-    flat = _flatten_with_keys(tree)
-    arrays = {k: _to_numpy(v, k) for k, v in flat.items()}
+    stored = {k: _to_numpy(v) for k, v in _flatten_with_keys(tree).items()}
+    arrays = {k: a for k, (a, _) in stored.items()}
     os.makedirs(directory, exist_ok=True)
     tmp = os.path.join(directory, f".tmp.{step}")
     final = os.path.join(directory, f"step_{step:010d}")
@@ -147,9 +164,9 @@ def save_checkpoint(directory: str, step: int, tree, *,
     np.savez(os.path.join(tmp, _PAYLOAD), **arrays)
     manifest = {
         "step": step,
-        "keys": {k: {"shape": list(a.shape), "dtype": str(a.dtype),
+        "keys": {k: {"shape": list(a.shape), "dtype": dtype,
                      "crc32": _crc32(a)}
-                 for k, a in arrays.items()},
+                 for k, (a, dtype) in stored.items()},
         "metadata": metadata or {},
     }
     with open(os.path.join(tmp, _MANIFEST), "w") as f:
@@ -181,8 +198,6 @@ def _load_verified(path: str) -> Tuple[Dict[str, np.ndarray],
     """Load and checksum-verify a checkpoint directory's payload."""
     with open(os.path.join(path, _MANIFEST)) as f:
         manifest = json.load(f)
-    for key, info in manifest["keys"].items():
-        _no_bf16(info.get("dtype"), key)
     try:
         with np.load(os.path.join(path, _PAYLOAD)) as payload:
             arrays = {k: np.array(payload[k]) for k in payload.files}
@@ -225,20 +240,18 @@ def restore_checkpoint(directory: str, step: int, template=None,
     arrays, manifest = _load_verified(path)
     if template is None:
         if device is not None:
-            arrays = {k: torch.from_numpy(a).to(device)
-                      for k, a in arrays.items()}
+            arrays = {k: _to_tensor(a).to(device) for k, a in arrays.items()}
         return arrays, manifest["metadata"]
     leaves = []
     for key, tmpl_leaf in _flatten_with_keys(template).items():
         if key not in arrays:
             raise KeyError(f"checkpoint missing leaf {key!r}")
         dtype = _torch_dtype(tmpl_leaf)
-        _no_bf16(dtype, key)
         arr = arrays[key]
         want = tuple(np.shape(tmpl_leaf))
         if tuple(arr.shape) != want:
             raise ValueError(f"shape mismatch for {key}: ckpt {arr.shape} "
                              f"vs template {want}")
-        leaves.append(torch.from_numpy(arr).to(device=device or "cpu",
-                                               dtype=dtype))
+        leaves.append(_to_tensor(arr).to(device=device or "cpu",
+                                         dtype=dtype))
     return _unflatten(template, iter(leaves)), manifest["metadata"]

@@ -50,6 +50,12 @@
 //   between the two products.  Its bar is 2e-5 against the plain version,
 //   which neither bf16 nor TF32 operands (about 1e-3 relative) can meet.
 //
+// With a non-null `lse` pointer each kernel also writes the f32 natural
+// log-sum-exp of every row's scaled scores, lse = m + log(l), into an
+// (B, H, Sq) array: the state the backward (flash_attention_bwd.cu) needs
+// to recompute the probabilities.  It is a template flag (kLse), so the
+// kernels the serving path launches without it are the code they were.
+//
 // Bound (NVIDIA H100 SXM): operations.  The two products do 4 BH Sq Skv hd
 // flops (about half with `causal`: the pairs q_pos >= k_pos) against the
 // bytes of q, k, v and o read or written once.  At the prefill of
@@ -64,6 +70,7 @@
 #include <stdint.h>
 
 #include "cp_async.cuh"
+#include "hmma_bf16.cuh"
 
 namespace {
 
@@ -94,11 +101,11 @@ constexpr size_t smem_bytes_f32() {
          (size_t(kBlockQ + 2 * kBlockK) * (HD + 1) + kBlockQ * (kBlockK + 1));
 }
 
-template <int HD>
+template <int HD, bool kLse>
 __global__ void __launch_bounds__(kThreads)
     flash_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
-                     Shape s) {
+                     float* __restrict__ lse, Shape s) {
   constexpr int LD = HD + 1;           // padded row stride of q, k, v tiles
   constexpr int LDP = kBlockK + 1;     // of the probabilities
   constexpr int NC = HD / 8;           // output channels per thread
@@ -224,6 +231,9 @@ __global__ void __launch_bounds__(kThreads)
     const int64_t row = q0 + ty * 4 + i;
     if (row >= s.sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    if constexpr (kLse) {
+      if (tx == 0) lse[(bi * s.h + hi) * s.sq + row] = m[i] + logf(l[i]);
+    }
     float* out = o + ((bi * s.sq + row) * s.h + hi) * s.hd;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
@@ -241,53 +251,6 @@ __global__ void __launch_bounds__(kThreads)
 template <int HD>
 constexpr size_t smem_bytes_bf16() {
   return sizeof(bf16) * size_t(kBlockQ + 4 * kBlockK) * (HD + 8);
-}
-
-// Four 8 x 8 bf16 matrices from shared memory, lane i giving the address
-// of row i % 8 of matrix i / 8; register j holds matrix j's (lane / 4,
-// 2 (lane % 4) + {0, 1}), or with .trans its (2 (lane % 4) + {0, 1},
-// lane / 4).
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// d += a . b for one 16 x 8 x 16 bf16 product with f32 sums.  With g =
-// lane / 4, t = lane % 4: a = A(g, 2t..) A(g+8, 2t..) A(g, 2t+8..)
-// A(g+8, 2t+8..), b = B(2t.., g) B(2t+8.., g), d = D(g, 2t..) D(g+8, 2t..).
-__device__ __forceinline__ void hmma_16x8x16(float (&d)[4],
-                                             const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 2^x on the special-function unit (ex2.approx.ftz.f32: about 2 ulp;
-// results below 2^-126 flush to 0, and 2^-1e30 is 0).
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Two f32 values rounded to bf16 and packed, `lo` in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // Rows [0, rows) of a 64 x HD tile whose row r starts at src + r * stride,
@@ -330,11 +293,11 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
 // 3 blocks an SM at head_dim 64 (at most 170 registers a thread), 2 at
 // 128: faster on the card than the compiler's own choice (185 registers,
 // 2 blocks).
-template <int HD>
+template <int HD, bool kLse>
 __global__ void __launch_bounds__(kThreads, HD == 64 ? 3 : 2)
     flash_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ o,
-                     Shape s) {
+                     float* __restrict__ lse, Shape s) {
   constexpr int P = HD + 8;            // padded row pitch of every tile
   constexpr int KQ = HD / 16;          // k-steps of S = Q K^T
   constexpr int NS = kBlockK / 8;      // 8-key column tiles of S
@@ -490,6 +453,12 @@ __global__ void __launch_bounds__(kThreads, HD == 64 ? 3 : 2)
     lt += __shfl_xor_sync(0xffffffffu, lt, 1);
     lt += __shfl_xor_sync(0xffffffffu, lt, 2);
     const float denom = fmaxf(lt, 1e-30f);
+    if constexpr (kLse) {              // m is in log2 units
+      const int64_t lrow = row_g + 8 * r;
+      if (t4 == 0 && lrow < s.sq)
+        lse[(bi * s.h + hi) * s.sq + lrow] =
+            (m[r] + log2f(lt)) * 0.69314718055994531f;
+    }
     bf16* row = qs + (warp * 16 + g + 8 * r) * P + 2 * t4;
 #pragma unroll
     for (int c = 0; c < NO; ++c)
@@ -521,16 +490,16 @@ __global__ void __launch_bounds__(kThreads, HD == 64 ? 3 : 2)
 // Launch
 // ---------------------------------------------------------------------------
 
-template <typename T, int HD>
+template <typename T, int HD, bool kLse>
 int launch_hd(const void* q, const void* k, const void* v, void* o,
-              const Shape& s, cudaStream_t stream) {
+              float* lse, const Shape& s, cudaStream_t stream) {
   constexpr bool kMma = sizeof(T) == 2;
   const size_t bytes = kMma ? smem_bytes_bf16<HD>() : smem_bytes_f32<HD>();
-  void (*kernel)(const T*, const T*, const T*, T*, Shape);
+  void (*kernel)(const T*, const T*, const T*, T*, float*, Shape);
   if constexpr (kMma) {
-    kernel = flash_kernel_mma<HD>;
+    kernel = flash_kernel_mma<HD, kLse>;
   } else {
-    kernel = flash_kernel_f32<HD>;
+    kernel = flash_kernel_f32<HD, kLse>;
   }
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -538,7 +507,7 @@ int launch_hd(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((unsigned int)(s.b * s.h),
                   (unsigned int)((s.sq + kBlockQ - 1) / kBlockQ));
   kernel<<<grid, kThreads, bytes, stream>>>((const T*)q, (const T*)k,
-                                            (const T*)v, (T*)o, s);
+                                            (const T*)v, (T*)o, lse, s);
   return (int)cudaGetLastError();
 }
 
@@ -555,8 +524,9 @@ int copy_align(const void* q, const void* k, const void* v,
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int64_t b,
-           int64_t h, int64_t kvh, int64_t sq, int64_t skv, int64_t hd,
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
+           int64_t b, int64_t h, int64_t kvh, int64_t sq, int64_t skv,
+           int64_t hd,
            int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
            int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
            int64_t v_sh, int64_t causal, int64_t q_offset, void* stream) {
@@ -571,23 +541,28 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t b,
           {v_sb, v_ss, v_sh}, causal, q_offset, (float)scale,
           (float)(scale * 1.4426950408889634), copy_align(q, k, v, strides, 9)};
   cudaStream_t st = (cudaStream_t)stream;
-  return hd <= 64 ? launch_hd<T, 64>(q, k, v, o, s, st)
-                  : launch_hd<T, 128>(q, k, v, o, s, st);
+  float* l = (float*)lse;
+  if (l == nullptr)
+    return hd <= 64 ? launch_hd<T, 64, false>(q, k, v, o, l, s, st)
+                    : launch_hd<T, 128, false>(q, k, v, o, l, s, st);
+  return hd <= 64 ? launch_hd<T, 64, true>(q, k, v, o, l, s, st)
+                  : launch_hd<T, 128, true>(q, k, v, o, l, s, st);
 }
 
 }  // namespace
 
+// `lse`: an f32 (B, H, Sq) array for the rows' log-sum-exp, or null.
 #define FLASH_ENTRY(NAME, T)                                                 \
   extern "C" int NAME(const void* q, const void* k, const void* v, void* o, \
-                      int64_t b, int64_t h, int64_t kvh, int64_t sq,        \
-                      int64_t skv, int64_t hd, int64_t q_sb, int64_t q_ss,  \
-                      int64_t q_sh, int64_t k_sb, int64_t k_ss,             \
-                      int64_t k_sh, int64_t v_sb, int64_t v_ss,             \
-                      int64_t v_sh, int64_t causal, int64_t q_offset,       \
-                      void* stream) {                                       \
-    return launch<T>(q, k, v, o, b, h, kvh, sq, skv, hd, q_sb, q_ss, q_sh,  \
-                     k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal, q_offset,  \
-                     stream);                                               \
+                      void* lse, int64_t b, int64_t h, int64_t kvh,         \
+                      int64_t sq, int64_t skv, int64_t hd, int64_t q_sb,    \
+                      int64_t q_ss, int64_t q_sh, int64_t k_sb,             \
+                      int64_t k_ss, int64_t k_sh, int64_t v_sb,             \
+                      int64_t v_ss, int64_t v_sh, int64_t causal,           \
+                      int64_t q_offset, void* stream) {                     \
+    return launch<T>(q, k, v, o, lse, b, h, kvh, sq, skv, hd, q_sb, q_ss,   \
+                     q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal,      \
+                     q_offset, stream);                                     \
   }
 
 FLASH_ENTRY(flash_attention_f32, float)

@@ -1,4 +1,5 @@
-"""Flash attention (forward, causal or full, GQA): the kernel of row 10.
+"""Flash attention (causal or full, GQA): the kernel of row 10, and its
+gradient.
 
 Port of ``repro.kernels.flash_attention``.  ``flash_attention`` takes the
 model's layout, ``q (B, Sq, H, hd)`` and ``k/v (B, Skv, KV, hd)`` with
@@ -20,6 +21,21 @@ not change the function (the reference's own block-invariance test): they
 are accepted and the card tiles as it wants.  ``q_offset`` exists for
 ``attention_chunked``; a negative one, which would leave rows with no
 visible key, is refused.
+
+Training differentiates it.  ``flash_attention`` called with an input that
+requires a gradient (in grad mode) goes through ``FlashAttention``, an
+autograd Function: its forward is ``flash_attention_lse``, the same
+kernel with its log-sum-exp output on (a template flag of
+``flash_attention.cu``; ``out`` is the same bits), and its backward is
+``flash_attention_bwd``, two hand-written launches of
+``csrc/flash_attention_bwd.cu`` (dq, then dk and dv, FlashAttention-2
+style, no atomics; bf16 on the tensor cores, f32 on the CUDA cores).
+Each wrapper has its plain version (``flash_attention_lse_ref``,
+``flash_attention_bwd_ref``: the same math on the whole score matrix,
+which the CPU runs) and its own ``.launches`` count;
+``flash_attention.launches`` counts only the launches without the
+log-sum-exp, the serving path's.  The plain versions compute in f32, or
+in f64 for f64 inputs (``torch.autograd.gradcheck``).
 """
 
 from __future__ import annotations
@@ -29,7 +45,10 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.hierarchize import _raise_on, _record, _stream
 
-__all__ = ["flash_attention", "flash_attention_bhsd", "flash_attention_ref"]
+__all__ = ["flash_attention", "flash_attention_bhsd", "flash_attention_ref",
+           "flash_attention_lse", "flash_attention_lse_ref",
+           "flash_attention_bwd", "flash_attention_bwd_ref",
+           "FlashAttention"]
 
 _NEG_INF = -1e30
 _DTYPE_TAG = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -54,29 +73,121 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"q_offset must be >= 0, got {q_offset}")
 
 
+def _plain_forward(q, k, v, causal: bool, q_offset: int):
+    """(out, lse) of the plain version: the whole score matrix at once, in
+    f32 (f64 for f64 inputs); lse (B, H, Sq) the rows' natural
+    log-sum-exp of the masked scaled scores."""
+    _check(q, k, v, q_offset)
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    acc = _acc_dtype(q.dtype)
+    qf = (q.to(acc) * hd ** -0.5).reshape(b, sq, kvh, h // kvh, hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.to(acc))
+    if causal:
+        s = s.masked_fill(_causal_mask(sq, skv, q_offset, q.device), _NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(acc))
+    l = p.sum(dim=-1)                                      # (B, KV, g, Sq)
+    out = out / torch.clamp(l.permute(0, 3, 1, 2)[..., None], min=1e-30)
+    lse = (m[..., 0] + torch.log(l)).reshape(b, h, sq)
+    return out.reshape(b, sq, h, hd).to(q.dtype), lse
+
+
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _causal_mask(sq: int, skv: int, q_offset: int, device) -> torch.Tensor:
+    """(Sq, Skv), True where key k lies past query row r: r + q_offset < k."""
+    q_pos = torch.arange(sq, device=device)[:, None] + q_offset
+    return q_pos < torch.arange(skv, device=device)[None, :]
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, q_offset: int = 0
                         ) -> torch.Tensor:
     """The plain version, eager PyTorch on any device: the whole score
-    matrix at once, in f32.  q (B, Sq, H, hd), k/v (B, Skv, KV, hd)."""
+    matrix at once, in f32 (f64 for f64 inputs).  q (B, Sq, H, hd), k/v
+    (B, Skv, KV, hd)."""
+    return _plain_forward(q, k, v, causal, q_offset)[0]
+
+
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, causal: bool = True,
+                            q_offset: int = 0):
+    """``flash_attention_lse``'s plain version: ``flash_attention_ref``'s
+    output (the same bits) and the rows' log-sum-exp."""
+    return _plain_forward(q, k, v, causal, q_offset)
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
+                            q_offset: int = 0):
+    """The backward's plain version, eager PyTorch on any device, in f32
+    (f64 for f64 inputs): ``P = exp(S * scale - lse)`` recomputed whole,
+    ``D = rowsum(do * o)``, ``dv = P^T do``, ``dS = P * (do v^T - D)``,
+    ``dq = dS k * scale``, ``dk = dS^T q * scale``.  Returns ``(dq, dk,
+    dv)`` in the inputs' types."""
     _check(q, k, v, q_offset)
     b, sq, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]
-    qf = (q.float() * hd ** -0.5).reshape(b, sq, kvh, h // kvh, hd)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float())
+    g, acc, scale = h // kvh, _acc_dtype(q.dtype), hd ** -0.5
+    qf = q.to(acc).reshape(b, sq, kvh, g, hd)
+    dof = do.to(acc).reshape(b, sq, kvh, g, hd)
+    kf, vf = k.to(acc), v.to(acc)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf * scale, kf)
     if causal:
-        q_pos = torch.arange(sq, device=q.device)[:, None] + q_offset
-        k_pos = torch.arange(skv, device=q.device)[None, :]
-        s = s.masked_fill(q_pos < k_pos, _NEG_INF)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
-    l = p.sum(dim=-1).permute(0, 3, 1, 2)[..., None]       # (B, Sq, KV, g, 1)
-    out = out / torch.clamp(l, min=1e-30)
-    return out.reshape(b, sq, h, hd).to(q.dtype)
+        s = s.masked_fill(_causal_mask(sq, skv, q_offset, q.device), _NEG_INF)
+    p = torch.exp(s - lse.to(acc).reshape(b, kvh, g, sq)[..., None])
+    d = (dof * o.to(acc).reshape(b, sq, kvh, g, hd)).sum(-1)   # (B,Sq,KV,g)
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dof)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dof, vf)
+    ds = p * (dp - d.permute(0, 2, 3, 1)[..., None])
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, kf) * scale
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qf) * scale
+    return (dq.reshape(b, sq, h, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def _operand(t: torch.Tensor) -> torch.Tensor:
     return t if t.stride(-1) == 1 else t.contiguous()
+
+
+def _device_checks(q, k, v) -> None:
+    """Raise unless q, k, v are CUDA tensors the kernels take (the CPU
+    takes the plain versions before this)."""
+    if not q.device == k.device == v.device:
+        raise ValueError(f"q, k and v must lie on one device, got "
+                         f"{q.device}, {k.device}, {v.device}")
+    if q.device.type != "cuda":
+        raise ValueError(f"the kernel takes CPU or CUDA tensors, got "
+                         f"{q.device}")
+    if q.dtype not in _DTYPE_TAG:
+        raise TypeError(f"the kernel takes float32 or bfloat16, got "
+                        f"{q.dtype}")
+    if q.shape[-1] > _MAX_HEAD_DIM:
+        raise ValueError(f"the kernel takes head_dim up to {_MAX_HEAD_DIM}, "
+                         f"got {q.shape[-1]}")
+
+
+def _launch_forward(q, k, v, causal: bool, q_offset: int, with_lse: bool):
+    """One ``flash_attention.cu`` launch: (out, lse or None)."""
+    _device_checks(q, k, v)
+    b, sq, h, hd = q.shape
+    q, k, v = _operand(q), _operand(k), _operand(v)
+    out = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32,
+                      device=q.device) if with_lse else None
+    _raise_on(_build.kernel("flash_attention", _DTYPE_TAG[q.dtype])(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), b, h, k.shape[2], sq,
+        k.shape[1], hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        int(causal), q_offset, _stream(q)), "flash_attention")
+    return out, lse
+
+
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -85,34 +196,99 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Drop-in for ``attention_chunked``: q (B, Sq, H, hd), k/v (B, Skv,
     KV, hd) -> (B, Sq, H, hd) in q's type.  On CUDA: one launch of
     ``flash_attention.cu``; q, k and v are read through their strides
-    (only the last dimension must be contiguous)."""
+    (only the last dimension must be contiguous).  When an input requires
+    a gradient (and grad mode is on), the call goes through
+    ``FlashAttention``: the forward with its log-sum-exp
+    (``flash_attention_lse``) and the backward kernels."""
     _record(flash_attention, q=q, k=k, v=v, causal=causal, block_q=block_q,
             block_k=block_k, q_offset=q_offset)
     _check(q, k, v, q_offset)
-    if not q.device == k.device == v.device:
-        raise ValueError(f"q, k and v must lie on one device, got "
-                         f"{q.device}, {k.device}, {v.device}")
-    if q.device.type == "cpu":
+    if _needs_grad(q, k, v):
+        return FlashAttention.apply(q, k, v, causal, q_offset)
+    if q.device.type == "cpu" and k.device == v.device == q.device:
         return flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset)
-    if q.device.type != "cuda":
-        raise ValueError(f"the kernel takes CPU or CUDA tensors, got "
-                         f"{q.device}")
-    if q.dtype not in _DTYPE_TAG:
-        raise TypeError(f"the kernel takes float32 or bfloat16, got "
-                        f"{q.dtype}")
-    b, sq, h, hd = q.shape
-    if hd > _MAX_HEAD_DIM:
-        raise ValueError(f"the kernel takes head_dim up to {_MAX_HEAD_DIM}, "
-                         f"got {hd}")
-    q, k, v = _operand(q), _operand(k), _operand(v)
-    out = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
-    _raise_on(_build.kernel("flash_attention", _DTYPE_TAG[q.dtype])(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
-        k.shape[2], sq, k.shape[1], hd, *q.stride()[:3], *k.stride()[:3],
-        *v.stride()[:3], int(causal), q_offset, _stream(q)),
-        "flash_attention")
+    out, _ = _launch_forward(q, k, v, causal, q_offset, with_lse=False)
     flash_attention.launches += 1
     return out
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, q_offset: int = 0):
+    """Row 10's forward with its log-sum-exp: ``(out, lse)``, ``lse`` f32
+    (B, H, Sq), the state the backward needs.  On CUDA: one launch of
+    ``flash_attention.cu`` with its LSE output on (``out`` the same bits as
+    ``flash_attention``'s); on the CPU the plain version."""
+    _record(flash_attention_lse, q=q, k=k, v=v, causal=causal,
+            q_offset=q_offset)
+    _check(q, k, v, q_offset)
+    if q.device.type == "cpu" and k.device == v.device == q.device:
+        return flash_attention_lse_ref(q, k, v, causal=causal,
+                                       q_offset=q_offset)
+    out, lse = _launch_forward(q, k, v, causal, q_offset, with_lse=True)
+    flash_attention_lse.launches += 1
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        q_offset: int = 0):
+    """``(dq, dk, dv)`` of row 10's attention from the forward's inputs, its
+    output ``o``, its ``lse`` and the output's gradient ``do``.  On CUDA:
+    ``flash_attention_bwd.cu``'s two launches (dq, writing D = rowsum(do *
+    o) to a scratch tensor, then dk and dv; each counted in
+    ``flash_attention_bwd.launches``) on contiguous copies of the
+    operands; on the CPU the plain version."""
+    _record(flash_attention_bwd, q=q, k=k, v=v, o=o, lse=lse, do=do,
+            causal=causal, q_offset=q_offset)
+    _check(q, k, v, q_offset)
+    if not (o.shape == do.shape == q.shape and tuple(lse.shape) == (
+            q.shape[0], q.shape[2], q.shape[1])):
+        raise ValueError(f"o and do must have q's shape {tuple(q.shape)} and "
+                         f"lse (B, H, Sq), got {tuple(o.shape)}, "
+                         f"{tuple(do.shape)}, {tuple(lse.shape)}")
+    if all(t.device.type == "cpu" for t in (q, k, v, o, lse, do)):
+        return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                       q_offset=q_offset)
+    _device_checks(q, k, v)
+    if not (o.device == do.device == lse.device == q.device
+            and o.dtype == do.dtype == q.dtype
+            and lse.dtype == torch.float32):
+        raise TypeError(f"o and do must be {q.dtype} and lse float32 on "
+                        f"{q.device}")
+    b, sq, h, hd = q.shape
+    q, k, v, o, do, lse = (t.contiguous() for t in (q, k, v, o, do, lse))
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    dsum = torch.empty_like(lse)        # D = rowsum(do * o), dq's launch
+    _raise_on(_build.kernel("flash_attention_bwd", _DTYPE_TAG[q.dtype])(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, h, k.shape[2], sq, k.shape[1], hd,
+        int(causal), q_offset, _stream(q)), "flash_attention_bwd")
+    flash_attention_bwd.launches += 2
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Row 10 as a differentiable function: ``forward`` launches the kernel
+    with its log-sum-exp (``flash_attention_lse``) and saves q, k, v, the
+    output and the lse; ``backward`` runs ``flash_attention_bwd`` (the two
+    backward kernels on CUDA, the plain version on the CPU).  Nothing falls
+    back: a kernel that fails to build or launch raises."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, q_offset: int):
+        out, lse = flash_attention_lse(q, k, v, causal=causal,
+                                       q_offset=q_offset)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.q_offset = causal, q_offset
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do,
+                                         causal=ctx.causal,
+                                         q_offset=ctx.q_offset)
+        return dq, dk, dv, None, None
 
 
 def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -133,3 +309,7 @@ def _plain(q, k, v, *, causal=True, block_q=512, block_k=512, q_offset=0):
 
 flash_attention.launches = 0
 flash_attention.plain = _plain
+flash_attention_lse.launches = 0
+flash_attention_lse.plain = flash_attention_lse_ref
+flash_attention_bwd.launches = 0
+flash_attention_bwd.plain = flash_attention_bwd_ref

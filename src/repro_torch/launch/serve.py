@@ -9,6 +9,8 @@ sampling draws from a ``torch.Generator`` seeded with ``sc.seed`` (the
 same distribution as the reference's ``jax.random.categorical``, other
 draws), and the log-probabilities are taken in float32 whatever the
 model's type.  Only dense architectures run (``configs.DENSE_ARCH_IDS``).
+``generate`` runs under ``torch.inference_mode()``, so it records no
+autograd graph on a model that also trains.
 
 ``CTSurrogate`` is the port of ``repro.launch.serve.CTSurrogate``: a
 single-tenant view over ``repro_torch.core.engine.CTEngine``.
@@ -40,6 +42,7 @@ class ServeConfig:
     seed: int = 0
 
 
+@torch.inference_mode()
 def generate(sc: ServeConfig, prompts, params: DenseLM | None = None, *,
              device=None) -> Dict[str, np.ndarray]:
     """prompts: (B, T) int token prompts (right-aligned, no padding).

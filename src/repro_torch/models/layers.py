@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["rmsnorm", "layernorm", "rope", "mlp_swiglu", "mlp_gelu",
-           "init_dense"]
+           "init_dense", "cross_entropy"]
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
@@ -88,3 +88,13 @@ def init_dense(generator: torch.Generator, shape, scale: float | None = None,
     w = torch.randn(tuple(shape), generator=generator,
                     device=generator.device, dtype=torch.float32)
     return (w * scale).to(dtype)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  vocab_size: int) -> torch.Tensor:
+    """Mean token cross-entropy; logits may be vocab-padded (padded ids never
+    appear in labels).  Computed in f32."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(logz - gold)

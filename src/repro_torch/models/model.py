@@ -5,7 +5,9 @@ the reference's layout, ``{"segments": [{"k", "v"}]}`` with tensors of
 shape ``(L, B, S_max, KV, hd)``.  Where the reference returns a new cache,
 ``serve_step`` writes the token's K/V into the given one in place and
 returns it: PyTorch tensors are mutable, and a copy of the cache per
-token would double its memory traffic.
+token would double its memory traffic.  Both steps run under
+``torch.inference_mode()``: they record no autograd graph, also on a
+model whose parameters take gradients (one that trains).
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
         for _kind, _n in segment_plan(cfg)]}
 
 
+@torch.inference_mode()
 def prefill_step(params: DenseLM, cfg: ModelConfig, batch) -> torch.Tensor:
     """Inference prefill: forward logits for the full prompt
     ``batch["tokens"]`` (B, S); its attention is the flash kernel."""
@@ -58,6 +61,7 @@ def _decode_dense_segment(x, blocks, kc, vc, cfg: ModelConfig, pos: int):
     return x
 
 
+@torch.inference_mode()
 def serve_step(params: DenseLM, cfg: ModelConfig, cache, batch
                ) -> Tuple[torch.Tensor, Any]:
     """One decode step: new token ``batch["token"]`` (B, 1) at position

@@ -7,8 +7,15 @@ holds the embedding, the final norm, the LM head (unless tied) and an
 ``ln2``, ``mlp``), so ``p["attn"]["wq"]`` reads as in the reference.
 Weights keep the reference's ``(d_in, d_out)`` layout, so every product
 stays ``x @ w``, and ``lax.scan`` over the layer stack becomes a Python
-loop.  The parameters take no gradient: this slice serves, and training
-is a later one.
+loop.  The parameters are made with ``requires_grad=False``: serving needs
+no graph.  Training (``repro_torch.launch.steps.init_train_state``) turns
+gradients on for its own state; ``forward`` then runs each layer under the
+reference's rematerialisation (``cfg.remat``, ``cfg.remat_policy``):
+``"full"`` is ``torch.utils.checkpoint`` (non-reentrant), ``"dots"``
+selective checkpointing that saves the 2-D matrix products (the
+projections: ``checkpoint_dots_with_no_batch_dims``; attention's batched
+products are recomputed), ``"none"`` the plain forward.  ``loss_fn`` is
+the mean token cross-entropy of the logits.
 
 Only the dense family runs.  ``segment_plan``, ``forward`` and the
 serving steps raise ``NotImplementedError`` for any other family (moe,
@@ -17,19 +24,22 @@ ssm, hybrid, encdec, vlm; ROADMAP.md, Queue A 11).
 
 from __future__ import annotations
 
+import functools
 from typing import List, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch import resolve_device
 from repro_torch.models.attention import attention_chunked
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import init_dense, layernorm, rmsnorm, rope
+from repro_torch.models.layers import (cross_entropy, init_dense, layernorm,
+                                      rmsnorm, rope)
 
 __all__ = ["DenseBlock", "DenseLM", "segment_plan", "init_params", "forward",
-           "check_dense"]
+           "check_dense", "loss_fn", "reference_rank"]
 
 
 def check_dense(cfg: ModelConfig) -> None:
@@ -96,6 +106,15 @@ class DenseLM(nn.Module):
     def forward(self, tokens) -> torch.Tensor:
         """tokens (B, S) -> logits (B, S, vocab_padded)."""
         return forward(self, self.cfg, tokens)
+
+
+def reference_rank(name: str, p: torch.Tensor) -> int:
+    """The rank of the reference's leaf that holds ``DenseLM`` parameter
+    ``name``: the reference stacks the layers' leaves along a leading L
+    axis, so a per-layer tensor (``blocks.<i>.*``) is one rank short of
+    its reference leaf (a norm scale of shape (d,) is the reference's
+    (L, d))."""
+    return p.ndim + 1 if name.startswith("blocks.") else p.ndim
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -213,12 +232,47 @@ def _logits(x, params: DenseLM, cfg: ModelConfig):
     return x @ head
 
 
+#: The 2-D matrix products that ``remat_policy="dots"`` saves.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (_ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _layer_fn(cfg: ModelConfig):
+    """How ``forward`` runs one layer: plain, or under the config's
+    rematerialisation when autograd records a graph."""
+    if not (cfg.remat and cfg.remat_policy != "none"
+            and torch.is_grad_enabled()):
+        return _dense_block
+    if cfg.remat_policy == "full":
+        context = _ckpt.noop_context_fn
+    elif cfg.remat_policy == "dots":
+        context = functools.partial(
+            _ckpt.create_selective_checkpoint_contexts, _save_dots)
+    else:
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+    return functools.partial(_ckpt.checkpoint, _dense_block,
+                             use_reentrant=False, context_fn=context)
+
+
 def forward(params: DenseLM, cfg: ModelConfig, tokens) -> torch.Tensor:
     """tokens (B, S) -> logits (B, S, Vp), on the device of ``params``."""
     check_dense(cfg)
     tokens = torch.as_tensor(tokens, device=params.device).long()
     x = params.embed[tokens]
     positions = torch.arange(tokens.shape[1], device=params.device)[None]
+    layer = _layer_fn(cfg)
     for block in params.blocks:
-        x = _dense_block(x, block, cfg, positions)
+        x = layer(x, block, cfg, positions)
     return _logits(x, params, cfg)
+
+
+def loss_fn(params: DenseLM, cfg: ModelConfig, batch) -> torch.Tensor:
+    """Mean token cross-entropy (f32) of ``batch["tokens"]`` against
+    ``batch["labels"]`` (B, S)."""
+    logits = forward(params, cfg, batch["tokens"])
+    labels = torch.as_tensor(batch["labels"], device=params.device)
+    return cross_entropy(logits, labels, cfg.vocab_size)

@@ -3,7 +3,10 @@ the CPU: the scenarios of the reference's ``tests/test_checkpoint.py``
 (atomicity, manifests, restore, placement with ``device=`` in place of
 ``shardings=``, the per-array crc32), and two cross-package tests, each
 bitwise: a checkpoint the port writes restores through the reference's
-``restore_checkpoint``, and the reverse.
+``restore_checkpoint``, and the reverse; the same both ways for trees
+with bf16 leaves (stored as the reference stores them, 2-byte void
+values), and the reference's own failure to restore those into a
+template.
 """
 
 import json
@@ -181,7 +184,9 @@ def test_pre_checksum_manifest_restores_unverified(tmp_path):
 def test_keys_crc32_and_bf16_as_specified(tmp_path):
     """Leaf keys are the reference's (sorted dict keys, sequence indices,
     namedtuple fields, ``None`` holds no leaf), the crc32 is the
-    reference's ``tobytes`` one, and a bf16 leaf raises naming A11."""
+    reference's ``tobytes`` one, and a bf16 leaf is stored as the
+    reference stores it: 2-byte void values holding its bits, manifest
+    dtype ``bfloat16``, the crc32 over those bytes; it restores bitwise."""
     Pair = namedtuple("Pair", "left right")
     tree = {"z": [np.zeros(1), (np.ones(2), None)], "a": Pair(1.0, 2),
             "c": {"x.": np.arange(3), "'q'": np.ones(1)},
@@ -191,10 +196,19 @@ def test_keys_crc32_and_bf16_as_specified(tmp_path):
     for a in (np.arange(12.0).reshape(3, 4)[:, ::2], np.asarray(7, np.int32),
               np.zeros(0)):
         assert _crc32(a) == rckpt._crc32(a)
-    with pytest.raises(TypeError, match="ROADMAP A11"):
-        save_checkpoint(str(tmp_path), 1,
-                        {"w": torch.zeros(2, dtype=torch.bfloat16)})
-    assert list_steps(str(tmp_path)) == []
+    w = torch.tensor([1.5, -2.25, 3e-3], dtype=torch.bfloat16)
+    save_checkpoint(str(tmp_path), 1, {"w": w})
+    with open(tmp_path / "step_0000000001" / "MANIFEST.json") as f:
+        info = json.load(f)["keys"]["w"]
+    bits = w.view(torch.int16).numpy()
+    assert info["dtype"] == "bfloat16" and info["shape"] == [3]
+    assert info["crc32"] == rckpt._crc32(bits)
+    stored, _ = restore_checkpoint(str(tmp_path), 1)
+    assert stored["w"].dtype == np.dtype("V2")
+    assert stored["w"].tobytes() == bits.tobytes()
+    back, _ = restore_checkpoint(str(tmp_path), 1, {"w": w})
+    assert back["w"].dtype == torch.bfloat16
+    assert torch.equal(back["w"].view(torch.int16), w.view(torch.int16))
 
 
 # ---------------------------------------------------------------------------
@@ -246,3 +260,88 @@ def test_reference_checkpoint_restores_in_the_port(tmp_path):
     assert meta == {"by": "reference"}
     for a, b in zip(_leaves(want), _leaves(got)):
         _bitwise(b.numpy(), a)
+
+
+# ---------------------------------------------------------------------------
+# bf16 leaves across the packages (training checkpoints)
+# ---------------------------------------------------------------------------
+
+def _bf16_tree(seed):
+    """{name: f32 array} whose "w" and "b" leaves are stored as bf16; the
+    bf16 values as their uint16 bits (what both packages must agree on)."""
+    rng = np.random.default_rng(seed)
+    w32 = rng.standard_normal((5, 3)).astype(np.float32)
+    b32 = rng.standard_normal(4).astype(np.float32)
+    m = rng.standard_normal((5, 3)).astype(np.float32)
+    return w32, b32, m
+
+
+def test_reference_bf16_checkpoint_restores_bitwise_in_the_port(tmp_path):
+    """A tree the reference writes with bf16 (``ml_dtypes``) and f32
+    leaves: the port restores it bitwise into bf16 and f32 tensors, every
+    checksum verified (a flipped byte of a bf16 leaf raises)."""
+    w32, b32, m = _bf16_tree(3)
+    ref_tree = {"params": {"w": jnp.asarray(w32, jnp.bfloat16),
+                           "b": jnp.asarray(b32, jnp.bfloat16)},
+                "opt": {"m": jnp.asarray(m)}}
+    rckpt.save_checkpoint(str(tmp_path), 4, ref_tree)
+    template = {"params": {"w": torch.zeros((5, 3), dtype=torch.bfloat16),
+                           "b": torch.zeros(4, dtype=torch.bfloat16)},
+                "opt": {"m": torch.zeros((5, 3))}}
+    got, _ = restore_checkpoint(str(tmp_path), 4, template)
+    for k in ("w", "b"):
+        want_bits = np.asarray(ref_tree["params"][k]).view(np.uint16)
+        assert got["params"][k].dtype == torch.bfloat16
+        np.testing.assert_array_equal(
+            got["params"][k].view(torch.int16).numpy().view(np.uint16),
+            want_bits)
+    _bitwise(got["opt"]["m"].numpy(), m)
+    # the port writes the same bytes and manifest for the same tree
+    save_checkpoint(str(tmp_path / "port"), 4, got)
+    for name in ("MANIFEST.json",):
+        a = json.load(open(tmp_path / "step_0000000004" / name))["keys"]
+        b = json.load(open(tmp_path / "port" / "step_0000000004" / name))[
+            "keys"]
+        assert a == b
+    path = tmp_path / "step_0000000004" / "arrays.npz"
+    raw = bytearray(path.read_bytes())
+    i = raw.index(np.asarray(ref_tree["params"]["w"]).tobytes()[:8])
+    raw[i] ^= 0x01
+    path.write_bytes(bytes(raw))
+    with pytest.raises(CheckpointCorrupt):
+        restore_checkpoint(str(tmp_path), 4, template)
+
+
+def test_port_bf16_checkpoint_restores_bitwise_in_the_reference(tmp_path):
+    """A tree the port writes with bf16 and f32 leaves: the reference's
+    manifest-driven restore verifies every crc32 and reads the bf16 bits
+    back (as ``ml_dtypes.bfloat16``) bitwise."""
+    import ml_dtypes
+    w32, b32, m = _bf16_tree(4)
+    tree = {"params": {"w": torch.from_numpy(w32).bfloat16(),
+                       "b": torch.from_numpy(b32).bfloat16()},
+            "opt": {"m": torch.from_numpy(m)}}
+    save_checkpoint(str(tmp_path), 9, tree, metadata={"by": "port"})
+    flat, meta = rckpt.restore_checkpoint(str(tmp_path), 9)
+    assert meta == {"by": "port"}
+    for k in ("w", "b"):
+        got = flat[f"params/{k}"].view(ml_dtypes.bfloat16)
+        np.testing.assert_array_equal(
+            got.view(np.uint16),
+            tree["params"][k].view(torch.int16).numpy().view(np.uint16))
+        np.testing.assert_array_equal(got.astype(np.float32),
+                                      tree["params"][k].float().numpy())
+    _bitwise(flat["opt/m"], m)
+
+
+def test_reference_cannot_restore_bf16_into_a_template(tmp_path):
+    """Pins a fault of the reference (ROADMAP Queue C): its own bf16
+    checkpoint does not restore into a template, since numpy cannot cast
+    the stored 2-byte void values to bfloat16; the port restores it."""
+    tree = {"w": jnp.asarray([1.5, -2.0], jnp.bfloat16)}
+    rckpt.save_checkpoint(str(tmp_path), 1, tree)
+    with pytest.raises(ValueError):
+        rckpt.restore_checkpoint(str(tmp_path), 1, tree)
+    got, _ = restore_checkpoint(str(tmp_path), 1, {
+        "w": torch.zeros(2, dtype=torch.bfloat16)})
+    assert got["w"].tolist() == [1.5, -2.0]

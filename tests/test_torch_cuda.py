@@ -821,12 +821,77 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
 
 
 def test_flash_bf16_runs_on_hmma(cuda):
-    """The bf16 entry's kernels (head_dim 64 and 128) run both products on
-    the bf16 tensor cores (HMMA); the f32 entry's kernels do not."""
+    """The bf16 entry's kernels (head_dim 64 and 128, each with and without
+    the log-sum-exp output) run both products on the bf16 tensor cores
+    (HMMA), and so do the backward's bf16 kernels (dq, dk/dv); the f32
+    entries' kernels do not."""
     mma = _kernels_holding("flash_attention", "HMMA", "flash_kernel_mma")
-    assert len(mma) == 2 and all(mma.values()), mma
+    assert len(mma) == 4 and all(mma.values()), mma
     f32 = _kernels_holding("flash_attention", "HMMA", "flash_kernel_f32")
-    assert len(f32) == 2 and not any(f32.values()), f32
+    assert len(f32) == 4 and not any(f32.values()), f32
+    bwd = _kernels_holding("flash_attention_bwd", "HMMA", "bwd_d")
+    mma = {k: n for k, n in bwd.items() if "_mma" in k}
+    assert len(bwd) == 8 and len(mma) == 4 and all(mma.values()), bwd
+    assert not any(n for k, n in bwd.items() if k not in mma), bwd
+
+
+BWD_CASES = [  # b, sq, skv, h, kv, hd, causal, q_offset
+    (2, 200, 200, 15, 5, 64, True, 0), (1, 70, 133, 4, 2, 128, False, 9),
+    (2, 65, 130, 6, 2, 20, True, 65), (1, 1, 40, 3, 3, 8, True, 39)]
+BWD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
+           torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", BWD_CASES, ids=str)
+def test_flash_lse_and_bwd_kernels_match_plain(cuda, case, dtype):
+    """Row 10's forward with its log-sum-exp (the output bitwise the
+    forward's without it) and its backward kernels against their plain
+    versions on the same inputs."""
+    b, sq, skv, h, kv, hd, causal, q_offset = case
+    rng = np.random.default_rng(11)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(dtype).to(cuda) for s in (
+        (b, sq, h, hd), (b, skv, kv, hd), (b, skv, kv, hd), (b, sq, h, hd)))
+    kw = dict(causal=causal, q_offset=q_offset)
+    before = (F.flash_attention_lse.launches, F.flash_attention_bwd.launches)
+    o, lse = F.flash_attention_lse(q, k, v, **kw)
+    assert torch.equal(o, F.flash_attention(q, k, v, **kw))
+    np.testing.assert_allclose(
+        lse.cpu().numpy(), F.flash_attention_lse_ref(q, k, v, **kw)[1]
+        .cpu().numpy(), rtol=1e-4, atol=1e-4)
+    got = F.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert (F.flash_attention_lse.launches, F.flash_attention_bwd.launches) \
+        == (before[0] + 1, before[1] + 2)
+    want = F.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        np.testing.assert_allclose(g.float().cpu().numpy(),
+                                   w.float().cpu().numpy(), **BWD_TOL[dtype])
+
+
+def test_train_gradients_on_the_card_match_cpu(cuda):
+    """One f32 smoke step's loss and gradients (remat full: row 10's
+    forward with its log-sum-exp twice a layer, its backward once) on the
+    card against the CPU."""
+    from repro_torch.launch.steps import init_train_state, loss_and_grads
+    cfg = get_smoke_config("smollm_360m").replace(remat=True)
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (2, 33)))
+    out = []
+    for device in ("cpu", cuda):
+        params, _ = init_train_state(cfg, seed=0, device="cpu")
+        before = F.flash_attention_bwd.launches
+        loss, grads = loss_and_grads(params.to(device), cfg, {
+            "tokens": tokens[:, :-1].to(device),
+            "labels": tokens[:, 1:].to(device)})
+        out.append((float(loss), {n: g.cpu() for n, g in grads.items()}))
+    assert F.flash_attention_bwd.launches == before + 2 * cfg.num_layers
+    np.testing.assert_allclose(out[1][0], out[0][0], rtol=1e-5)
+    for n, g in out[0][1].items():
+        np.testing.assert_allclose(out[1][1][n].numpy(), g.numpy(),
+                                   rtol=1e-4, atol=1e-6)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -1,0 +1,152 @@
+"""Row 10's gradient on the CPU: the plain versions of the port's
+``flash_attention_lse`` (the forward with its log-sum-exp) and
+``flash_attention_bwd`` (the backward), and the autograd Function
+``FlashAttention`` that joins them, against the reference.
+
+Inputs are made with numpy from a seed.  ``flash_attention_bwd_ref`` is
+held to ``torch.autograd`` through ``flash_attention_ref`` and to
+``jax.vjp`` of the reference's ``attention_chunked`` (chunked over 8 keys,
+so its online softmax spans several chunks) in f32, at rtol 1e-5 / atol
+1e-6: both sides compute in f32 and sum in other orders.  Cases: causal
+and full, GQA groups 1 and 3, ragged lengths (not multiples of 8 or 64),
+``q_offset`` > 0.  The log-sum-exp is held to ``torch.logsumexp`` of the
+masked scaled scores in f64 (rtol 1e-6), and ``torch.autograd.gradcheck``
+checks the Function in f64 (the plain versions compute in f64 for f64
+inputs).  The CUDA kernels are held to these plain versions on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.models.attention import attention_chunked as ref_attention
+from repro_torch.kernels import flash_attention as F
+from repro_torch.models import attention as A
+
+TOL = dict(rtol=1e-5, atol=1e-6)
+
+# b, sq, skv, h, kv, hd, causal, q_offset
+CASES = [(2, 16, 16, 4, 4, 8, True, 0), (1, 37, 37, 6, 2, 16, True, 0),
+         (2, 13, 29, 3, 1, 20, False, 0), (1, 21, 50, 6, 2, 8, True, 29),
+         (2, 9, 71, 4, 4, 12, False, 5), (1, 70, 70, 3, 3, 64, True, 0)]
+
+
+def _inputs(case, seed=0):
+    b, sq, skv, h, kv, hd, _, _ = case
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32) for s in (
+        (b, sq, h, hd), (b, skv, kv, hd), (b, skv, kv, hd), (b, sq, h, hd))]
+
+
+@pytest.fixture(scope="module")
+def jax_grads():
+    """jax.vjp of the reference's attention_chunked, every case, once."""
+    out = {}
+    for case in CASES:
+        q, k, v, do = (jnp.asarray(a) for a in _inputs(case))
+        causal, q_offset = case[6], case[7]
+        o, vjp = jax.vjp(lambda q, k, v: ref_attention(
+            q, k, v, causal=causal, q_offset=q_offset, kv_chunk=8), q, k, v)
+        out[case] = (np.asarray(o), *(np.asarray(g) for g in vjp(do)))
+    return out
+
+
+def _port_grads(case):
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(case))
+    causal, q_offset = case[6], case[7]
+    o, lse = F.flash_attention_lse_ref(q, k, v, causal=causal,
+                                       q_offset=q_offset)
+    return o, F.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                        q_offset=q_offset)
+
+
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_bwd_ref_matches_jax_grad_of_the_reference(case, jax_grads):
+    o, grads = _port_grads(case)
+    want_o, *want = jax_grads[case]
+    np.testing.assert_allclose(o.numpy(), want_o, **TOL)
+    for got, w in zip(grads, want):
+        assert got.dtype == torch.float32 and got.shape == w.shape
+        np.testing.assert_allclose(got.numpy(), w, **TOL)
+
+
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_bwd_ref_matches_autograd_through_the_plain_forward(case):
+    q, k, v, do = (torch.from_numpy(a).requires_grad_() for a in
+                   _inputs(case))
+    out = F.flash_attention_ref(q, k, v, causal=case[6], q_offset=case[7])
+    want = torch.autograd.grad(out, (q, k, v), do.detach())
+    _, got = _port_grads(case)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_lse_is_the_masked_logsumexp(case):
+    q, k, v, _ = (torch.from_numpy(a) for a in _inputs(case))
+    b, sq, skv, h, kv, hd, causal, q_offset = case
+    o, lse = F.flash_attention_lse_ref(q, k, v, causal=causal,
+                                       q_offset=q_offset)
+    assert torch.equal(o, F.flash_attention_ref(q, k, v, causal=causal,
+                                                q_offset=q_offset))
+    kk = k.double().repeat_interleave(h // kv, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double(), kk) * hd ** -0.5
+    if causal:
+        mask = (torch.arange(sq)[:, None] + q_offset
+                < torch.arange(skv)[None, :])
+        s = s.masked_fill(mask, float("-inf"))
+    assert lse.dtype == torch.float32 and lse.shape == (b, h, sq)
+    np.testing.assert_allclose(lse.double().numpy(),
+                               torch.logsumexp(s, -1).numpy(), rtol=1e-6)
+
+
+@pytest.mark.parametrize("causal,q_offset", [(True, 0), (True, 3),
+                                             (False, 2)])
+def test_gradcheck_the_function_in_f64(causal, q_offset):
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s)).requires_grad_()
+               for s in ((1, 4, 4, 3), (1, 6, 2, 3), (1, 6, 2, 3)))
+    assert torch.autograd.gradcheck(
+        lambda q, k, v: F.FlashAttention.apply(q, k, v, causal, q_offset),
+        (q, k, v))
+
+
+def test_flash_attention_goes_through_the_function_only_for_grads():
+    case = CASES[1]
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(case))
+    plain = F.flash_attention(q, k, v)
+    assert plain.grad_fn is None
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    with torch.no_grad():
+        assert F.flash_attention(qg, kg, vg).grad_fn is None
+    out = F.flash_attention(qg, kg, vg)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    assert torch.equal(out.detach(), plain)          # the same bits
+    got = torch.autograd.grad(out, (qg, kg, vg), do)
+    _, want = _port_grads((*case[:6], True, 0))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_attention_chunked_is_differentiable():
+    """The model's prefill attention takes row 10's gradient."""
+    case = CASES[3]
+    q, k, v, do = (torch.from_numpy(a).requires_grad_() for a in
+                   _inputs(case))
+    out = A.attention_chunked(q, k, v, causal=True, q_offset=case[7])
+    got = torch.autograd.grad(out, (q, k, v), do.detach())
+    _, want = _port_grads(case)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_bwd_refuses_mismatched_shapes():
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(CASES[0]))
+    o, lse = F.flash_attention_lse_ref(q, k, v)
+    with pytest.raises(ValueError, match="lse"):
+        F.flash_attention_bwd(q, k, v, o, lse[:, :, 1:], do)
+    with pytest.raises(ValueError, match="lse"):
+        F.flash_attention_bwd(q, k, v, o[:, 1:], lse, do)
