@@ -204,17 +204,19 @@ two hand-written launches):
 
 * the backward against its plain version at the training shape (4 x 2048
   tokens, 15 query over 5 KV heads, head_dim 64, causal) in f32 and
-  bf16, and on two ragged cases (keys not a multiple of the tile,
-  ``q_offset`` > 0, full and causal): each of dq, dk and dv within
+  bf16, on two ragged cases (keys not a multiple of the tile,
+  ``q_offset`` > 0, full and causal) and on one whose rows TMA cannot
+  describe as they are (head_dim 20: the wrapper pads the channels to
+  24): each of dq, dk and dv within
   rtol 1e-4 / atol 1e-5 of it element by element and within 1e-4
   relative L2 as a whole (f32), and in bf16 within rtol 2e-2 plus an
   atol of 0.1 times the plain result's RMS, and 1e-2 relative L2 (each
   RMS printed beside its bar); the bf16 check must refuse the kernel's
   own result at the training shape with one 64 x 64 tile pair (the last
   query tile against the key tile before it) dropped or doubled in
-  every (batch, head); the log-sum-exp within 1e-4 of the plain
-  logsumexp; the forward's output with it bitwise the output without
-  it;
+  every (batch, head); two bf16 calls on the training shape's inputs
+  bitwise equal; the log-sum-exp within 1e-4 of the plain logsumexp;
+  the forward's output with it bitwise the output without it;
 * a gradient check at full width, depth 2, 4 x 512 tokens: one train
   step's gradients and updated parameters with the kernels against the
   same step with row 10 routed through its plain version (autograd),
@@ -239,13 +241,19 @@ two hand-written launches):
 * rows ``10 lse`` and ``10 bwd`` timed on one layer's call at the
   training shape beside their plain versions and
   ``scaled_dot_product_attention``'s forward (recording its backward's
-  state) and backward (yardsticks the port never calls).
+  state) and backward (yardsticks the port never calls); beside the
+  profiler's device time, ``events_ms``: CUDA events around back-to-back
+  calls queued behind a sleep kernel that holds the stream until the
+  host has queued them all, so that the host's dispatch does not show.
+  A profiler session for these rows that records fewer device ops than
+  the calls launched lost some and is run again, as an empty one is.
 
 Last, the analysis phase (``repro_torch.analysis``), at ``prod_3d`` in
 f64:
 
 * the port's linter over ``src/repro_torch`` in-process (its Python
-  files and the CUDA sources of the left-fold path): 0 findings; it
+  files and the CUDA sources of the left-fold path and of row 10's
+  backward): 0 findings; it
   prints the files scanned and the ``ctlint: ok`` pragmas by rule;
 * the engine load uninstrumented here (launch counts set to 0 just
   before it and read just after): a started ``CTEngine`` with a
@@ -306,10 +314,13 @@ repair launch, which returns at once on finite input: their ``ms`` holds
 both, their launch counts the tile launches, and ``nonfinite_ms`` is a
 call's device time on a fully non-finite input (row 3 on a 511 x 4096
 bundle, row 4 on a 4095 x 511 grid).  The script fails unless ``cuobjdump -sass`` finds DMMA in the f64
-kernels of rows 3 and 4 (row 4's both operand roles) and HMMA in the two
-kernels of row 10's bf16 entry (head_dim 64 and 128, each with and
-without the log-sum-exp) and in the four kernels of its bf16 backward:
-those products run on the tensor cores.
+kernels of rows 3 and 4 (row 4's both operand roles) and HMMA in the
+four kernels of row 10's bf16 entry (head_dim 64 and 128, each with and
+without the log-sum-exp), and HGMMA (the warpgroup products) and no
+HMMA in the four kernels of its bf16 backward (dq and dk/dv, head_dim 64
+and 128): those products run on the tensor cores.  It prints the bf16
+backward kernels' registers, spill bytes and dynamic shared memory, and
+fails if ptxas reports a spill in them.
 
 A profiler session can come back with no device activity.  The script
 runs a timing session that records none again, up to ``PROFILE_TRIES``
@@ -337,6 +348,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -373,7 +385,8 @@ TRAIN = dict(global_batch=4, seq_len=2048, steps=6, warmup_steps=2,
              checkpoint_every=2, loss_poison_step=3)   # remat: the config's
 BWD_CASES = [  # b, sq, skv, h, kv, hd, causal, q_offset
     (4, 2048, 2048, 15, 5, 64, True, 0),      # the training shape
-    (1, 300, 333, 4, 2, 128, False, 17), (2, 200, 333, 6, 2, 64, True, 133)]
+    (1, 300, 333, 4, 2, 128, False, 17), (2, 200, 333, 6, 2, 64, True, 133),
+    (1, 129, 257, 3, 3, 20, True, 128)]       # rows of 120 B: padded
 BWD_TOL = {  # dq, dk, dv: every element within rtol |plain| + atol +
     # atol_rms RMS(plain), and the relative L2 of the whole within rel_l2
     "float32": dict(rtol=1e-4, atol=1e-5, atol_rms=0.0, rel_l2=1e-4),
@@ -453,6 +466,26 @@ POLE_KERNELS = ("hier_pole", "dehier_pole")
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def ptxas_kernels(log: str, kernel: str):
+    """[(mangled name, registers, spill bytes stored and loaded)] of the
+    kernels in an ``-Xptxas -v`` report whose name contains ``kernel``."""
+    out, name, spill = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spill = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name and kernel in name:
+            out.append((name, int(m.group(1)), spill))
+            name = None
+    return out
 
 
 def smi() -> str:
@@ -828,19 +861,36 @@ def main() -> int:
             if "ptxas" in line or "spill" in line:
                 print(f"[{name}] {line.strip()}")
     # The tensor-core products: rows 3 and 4 in f64 on DMMA (row 4's both
-    # operand roles), row 10's bf16 entry on HMMA (head_dim 64 and 128).
+    # operand roles), row 10's bf16 entry on HMMA (head_dim 64 and 128),
+    # its bf16 backward on the warpgroup products (HGMMA) and nothing else.
     for lib, instruction, kernel, count in (
             ("axis_operator", "DMMA", "axis_operator_f64_kernel", 1),
             ("fused_tail", "DMMA", "fused_tail_f64_kernel", 2),
             ("flash_attention", "HMMA", "flash_kernel_mma", 4),
-            ("flash_attention_bwd", "HMMA", "_mma", 4)):
-        found = {k: v.count(instruction)
-                 for k, v in _build.sass(lib).items() if kernel in k}
+            ("flash_attention_bwd", "HGMMA", "_wgmma", 4)):
+        code = {k: v for k, v in _build.sass(lib).items() if kernel in k}
+        found = {k: v.count(instruction) for k, v in code.items()}
         if len(found) != count or not all(found.values()):
             fail(f"{lib}: expected {instruction} in each of {count} "
                  f"{kernel} kernels' SASS, found {found}")
+        if instruction == "HGMMA" and any("HMMA" in v for v in code.values()):
+            fail(f"{lib}: HMMA left in the {kernel} kernels' SASS")
         print(f"[{lib}] {sorted(found.values())} {instruction} instructions "
               f"in the SASS of its {count} {kernel} kernels")
+    # The bf16 backward's kernels: registers, spills, shared memory.
+    bwd_smem = _build.load_all()["flash_attention_bwd"].flash_attention_bwd_smem
+    for name, regs, spill in ptxas_kernels(
+            _build.PTXAS_LOG["flash_attention_bwd"], "_wgmma"):
+        hd = 128 if "ILi128E" in name else 64
+        which = 0 if "bwd_dq_" in name else 1
+        label = f"{'bwd_dq_wgmma' if which == 0 else 'bwd_dkdv_wgmma'}<{hd}>"
+        print(f"[flash_attention_bwd] {label}: {regs} registers a thread at "
+              f"entry (the producer warpgroup down to 24 and the consumers "
+              f"up by setmaxnreg), {spill} spill bytes, "
+              f"{bwd_smem(hd, which)} B of dynamic shared memory")
+        if spill:
+            fail(f"flash_attention_bwd: ptxas spills {spill} bytes in "
+                 f"{label}")
 
     bits = {torch.float64: torch.int64, torch.float32: torch.int32}
 
@@ -863,7 +913,7 @@ def main() -> int:
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3 / reps
 
-    sessions = {"all": 0, "empty": 0}
+    sessions = {"all": 0, "empty": 0, "short": 0}
 
     def traced(fn):
         """``fn`` once under the profiler, ending in a synchronise:
@@ -2311,13 +2361,36 @@ def main() -> int:
         stop.synchronize()
         return start.elapsed_time(stop) / TIMING_REPS
 
-    def device_ms(fn, only=None) -> float:
+    def events_ms(fn) -> float:
+        """CUDA events around TIMING_REPS back-to-back calls of ``fn``, queued
+        behind a sleep kernel that holds the stream until the host has
+        queued them all: device time without the host's dispatch."""
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        host_s = (time.perf_counter() - t0) / 2     # a call, host and device
+        torch.cuda._sleep(int(2e9 * (TIMING_REPS * host_s + 0.005)))
+        start.record()
+        for _ in range(TIMING_REPS):
+            fn()
+        stop.record()
+        stop.synchronize()
+        return start.elapsed_time(stop) / TIMING_REPS
+
+    def device_ms(fn, only=None, launches=None) -> float:
         """Device time of ``fn``: the profiler's device activity (kernels,
         copies, fills) summed over TIMING_REPS calls.  With ``only`` (a
         name or a tuple of names), every device op must have one of them
-        in its name.  A session that records no
-        device activity is run again, up to PROFILE_TRIES in all; if none
-        records any, the time is ``wall_ms`` (CUDA events) instead."""
+        in its name.  A session that records no device activity, or with
+        ``launches`` (the kernels a call launches) fewer device ops than
+        the calls launched, lost some: it is run again, up to
+        PROFILE_TRIES in all; if none records them all, the time is
+        ``wall_ms`` (CUDA events) instead."""
         fn()
 
         def reps():
@@ -2326,12 +2399,16 @@ def main() -> int:
 
         for _ in range(PROFILE_TRIES):
             ops, _ = traced(reps)
-            if ops:
+            short = launches is not None and \
+                len(ops) < launches * TIMING_REPS
+            sessions["short"] += bool(ops) and short
+            if ops and not short:
                 break
         else:
             ms = wall_ms(fn)
             print(f"device_ms: {PROFILE_TRIES} profiler sessions recorded "
-                  f"no device activity; CUDA events around the calls "
+                  f"no device activity, or fewer device ops than the calls "
+                  f"launched; CUDA events around the calls "
                   f"instead: {ms:.4f} ms (device time plus launch gaps"
                   + (f"; not checked that only {only} ran" if only else "")
                   + f")  [{card}]")
@@ -3063,6 +3140,11 @@ def main() -> int:
                          f"{rms}; {case} {dtype}; bar {tol})")
             if case == BWD_CASES[0] and dtype == torch.bfloat16:
                 bwd_args = dict(q=q, k=k, v=v, o=o, lse=lse, do=do, **kw)
+                again = FA.flash_attention_bwd(**bwd_args)
+                if not all(torch.equal(a_, g_) for a_, g_ in zip(again, got)):
+                    fail("flash_attention_bwd: two bf16 calls on the same "
+                         "inputs differ")
+                del again
                 # The bar's reach: the kernels' result with one tile pair
                 # (the last query tile against the key tile before it)
                 # dropped or doubled in every (batch, head) must fail it.
@@ -3084,7 +3166,8 @@ def main() -> int:
                 del tile_part, mutated
             del q, k, v, do, o, lse, got, want
     print(f"flash_attention_bwd: {len(BWD_CASES)} cases (the training shape "
-          f"{BWD_CASES[0][:6]} causal, ragged full and causal with q_offset) "
+          f"{BWD_CASES[0][:6]} causal, ragged full and causal with q_offset, "
+          f"head_dim 20 padded to 24) "
           f"in f32 and bf16 within {BWD_TOL} of the plain version; max abs "
           f"err {err['flash_attention_bwd']}, worst relative L2 {bwd_rel}; "
           f"at the training shape (RMS of the plain result, relative L2, max"
@@ -3092,7 +3175,8 @@ def main() -> int:
           + "; ".join(f"{d} {n} {r:.4g}, {rl:.3g}, {e:.4g}"
                       for (d, n), (r, rl, e) in bwd_seen.items())
           + f"; the bf16 bar refuses one 64 x 64 tile pair dropped or "
-          f"doubled in dq, dk and dv; the log-sum-exp within 1e-4 of the "
+          f"doubled in dq, dk and dv; two bf16 calls bitwise equal; the "
+          f"log-sum-exp within 1e-4 of the "
           f"plain logsumexp (max abs err {err['flash_attention_lse']}), the "
           f"output with it bitwise the output without it")
 
@@ -3388,22 +3472,22 @@ def main() -> int:
                  "flash_attention_bwd": "backward"}
     no_lse_ms = device_ms(lambda: FA.flash_attention(**fwd_args),
                           only="flash_kernel")
-    for name, flop_mult, nbytes, kern, plain, lib, only in (
+    for name, flop_mult, nbytes, kern, plain, lib, only, calls_launch in (
             ("flash_attention_lse", 4,
              (2 * q.numel() + k.numel() + v.numel()) * esz + lse.numel() * 4,
              lambda: FA.flash_attention_lse(**fwd_args),
              lambda: FA.flash_attention_lse.plain(**fwd_args), lib_fwd,
-             "flash_kernel"),
+             "flash_kernel", 1),
             ("flash_attention_bwd", 10,
              (4 * q.numel() + 2 * k.numel() + 2 * v.numel()) * esz
              + lse.numel() * 4,
              lambda: FA.flash_attention_bwd(**bwd_args),
              lambda: FA.flash_attention_bwd.plain(**bwd_args), lib_bwd,
-             ("bwd_dkdv", "bwd_dq"))):
+             ("bwd_dkdv_wgmma", "bwd_dq_wgmma"), 2)):
         flops = flop_mult * b * h * hd * pairs
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         flops_ms = flops / BF16_FLOP_PER_S * 1e3
-        ms = device_ms(kern, only=only)
+        ms = device_ms(kern, only=only, launches=calls_launch)
         rows.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/" + (
@@ -3417,12 +3501,16 @@ def main() -> int:
             "ms": ms, "plain_ms": device_ms(plain),
             "bound_ms": max(bytes_ms, flops_ms),
             "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
-            "library_ms": device_ms(lib),
+            "library_ms": device_ms(lib), "events_ms": events_ms(kern),
+            "library_events_ms": events_ms(lib),
             "wrapper_ms": wall_ms(kern), "plain_wrapper_ms": wall_ms(plain)})
         r = rows[-1]
         print(f"{name}: device {ms:.4f} ms per call at ({b}x{h}, {sq}, {hd})"
               f" bf16 causal ({r['launches']} launches in the 6 train steps,"
-              f" {flops / ms / 1e9:.1f} TFLOP/s), bound {r['bound_ms']:.4f} "
+              f" {flops / ms / 1e9:.1f} TFLOP/s); CUDA events over "
+              f"{TIMING_REPS} back-to-back calls {r['events_ms']:.4f} ms "
+              f"(library {r['library_events_ms']:.4f}); bound "
+              f"{r['bound_ms']:.4f} "
               f"ms by {r['bound_by']} ({flops} flop at 989 TFLOP/s, {nbytes} "
               f"B at 3.35 TB/s); plain {r['plain_ms']:.4f} ms; library "
               f"(scaled_dot_product_attention {lib_label[name]}"
@@ -3496,7 +3584,9 @@ def main() -> int:
           + ", ".join(f"{k} {v:.2f} ms" for k, v in drop_ms.items())
           + f" profiled  [{card}]")
     print(f"profiler sessions: {sessions['all']}, of which "
-          f"{sessions['empty']} recorded no device activity  [{card}]")
+          f"{sessions['empty']} recorded no device activity and "
+          f"{sessions['short']} fewer device ops than the calls launched "
+          f"(rows 10 lse and 10 bwd, run again)  [{card}]")
 
     # ------------------------------------------------------------------
     # The analysis phase: the port's linter over its tree, then the
@@ -3515,7 +3605,8 @@ def main() -> int:
             f.render() for f in findings))
     print(f"analysis: linter over src/repro_torch: {len(files)} files "
           f"scanned ({sum(f.suffix != '.py' for f in files)} CUDA sources "
-          f"of the left-fold path), 0 findings, pragmas by rule "
+          f"of the left-fold path and row 10's backward), 0 findings, "
+          f"pragmas by rule "
           f"{locklint.pragma_counts([ROOT / 'src' / 'repro_torch'])}, "
           f"{(time.perf_counter() - t0) * 1e3:.0f} ms")
     torch.cuda.empty_cache()

@@ -329,13 +329,17 @@ FORBIDDEN_REASSOC_NAMES = frozenset({
     "scatter_reduce", "scatter_reduce_", "index_put_",
 })
 
-#: The CUDA sources on the left-fold path (paths under the package
-#: root); their kernels are the bodies of the bit-critical wrappers.
+#: The CUDA sources whose sums must run in a fixed order (paths under
+#: the package root): the left-fold path's, the bodies of the
+#: bit-critical wrappers, and row 10's backward with the helpers it
+#: includes, whose gradient is the same bits from run to run.
 BIT_CRITICAL_CUDA_SOURCES = (
     "kernels/csrc/axis_pass_scatter_fwd.cu",
     "kernels/csrc/owner_fold.cu",
     "kernels/csrc/hier3.cuh",
     "kernels/csrc/assemble_members.cu",
+    "kernels/csrc/flash_attention_bwd.cu",
+    "kernels/csrc/wgmma_tma.cuh",
 )
 
 #: Atomic read-modify-write adds that reorder a fold in CUDA C++ or

@@ -20,9 +20,10 @@ Two passes per module:
    :data:`invariants.INVARIANTS`.
 
 The left-fold kernels' bodies are CUDA in the port, so
-``bit-identity-reassoc`` also scans the CUDA sources of that path
-(:data:`invariants.BIT_CRITICAL_CUDA_SOURCES`) for atomic adds, comments
-stripped.
+``bit-identity-reassoc`` also scans the CUDA sources of that path, and
+those of row 10's backward, whose gradient is the same bits from run to
+run (:data:`invariants.BIT_CRITICAL_CUDA_SOURCES`), for atomic adds,
+comments stripped.
 
 Findings are suppressed by ``# ctlint: ok(<rule>[,<rule>...])`` (``//``
 in CUDA) on the offending line or the line directly above it.
@@ -558,9 +559,9 @@ def lint_cuda_text(source, path):
             continue
         findings.append(Finding(
             rule=rule, path=path, line=i,
-            message="%r is an atomic add in a CUDA source of the left-fold "
-                    "scatter path: the adds of one slot would run in no "
-                    "fixed order" % m.group(0).strip()))
+            message="%r is an atomic add in a CUDA source whose sums "
+                    "run in a fixed order: the adds of one slot would run "
+                    "in no fixed order" % m.group(0).strip()))
     return findings
 
 

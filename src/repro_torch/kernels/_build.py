@@ -61,8 +61,9 @@ KERNELS: Dict[str, Dict[str, list]] = {
     "flash_attention": {f"flash_attention_{t}": [_P] * 5 + [_I] * 17 + [_P]
                         for t in ("f32", "bf16")},
     "flash_attention_bwd": {
-        f"flash_attention_bwd_{t}": [_P] * 10 + [_I] * 8 + [_P]
-        for t in ("f32", "bf16")},
+        **{f"flash_attention_bwd_{t}": [_P] * 10 + [_I] * 10 + [_P]
+           for t in ("f32", "bf16")},
+        "flash_attention_bwd_smem": [_I, _I]},
 }
 
 _BUILD_LOCK = _lockdep.make_lock("kernel-build")

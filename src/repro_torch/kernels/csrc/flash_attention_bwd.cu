@@ -19,32 +19,44 @@
 //   dv = P^T do,  dS = P * (do v^T - D),  dq = dS k * scale,
 //   dk = dS^T q * scale.
 // Two launches, each writing every element of its outputs once, with no
-// atomics, so the gradient is the same bits from run to run:
-// * bwd_dq first: one block per (batch, head, 64-row query tile), looping
-//   over the key tiles its rows can see (the forward's kv_end), dq in
-//   registers.  It computes D of its rows from do and o once and writes it
-//   to `dsum` (f32, (B, H, Sq), scratch the wrapper allocates).
-// * bwd_dkdv then: one block per (batch, KV head, 64-key tile).  It loops
-//   over the group's query heads and, for each, over the 64-row query tiles
-//   that the mask lets see the key tile, recomputing P and dS^T tile by
-//   tile from the tile's lse and D; dk and dv of its keys stay in registers
-//   across the whole loop.
+// atomic operation at all, so the gradient is the same bits from run to
+// run (the analysis linter scans this file for atomic adds):
+// * the dq launch first: one block per (batch, head, 64-row query tile),
+//   looping over the key tiles its rows can see (the forward's kv_end), dq
+//   in registers.  It computes D of its rows once and writes it to `dsum`
+//   (f32, (B, H, Sq) at a pitch the wrapper chooses, scratch).
+// * the dk/dv launch then: one block per (batch, KV head, 64-key tile).  It
+//   loops over the group's query heads and, for each, over the 64-row
+//   query tiles that the mask lets see the key tile, recomputing P^T and
+//   dS^T tile by tile from the tile's lse and D; dk and dv of its keys stay
+//   in registers across the whole loop.
 // head_dim is at most 128; each kernel is built for 64 or 128 channels,
-// the channels past hd zero.  Which type runs where, as in the forward:
-// * bf16 (flash_attention_bwd_bf16): the five products on the bf16 tensor
-//   cores (HMMA, mma.sync.aligned.m16n8k16, f32 sums; the forward's
-//   fragments, hmma_bf16.cuh), 4 warps, each owning 16 rows of its block's
-//   own tile (queries in bwd_dq_mma, keys in bwd_dkdv_mma).  Tiles sit in
-//   shared memory as bf16 rows padded to hd + 8 values, and the tiles a
-//   block loops over (K and V, or Q and dO with lse and D) are
-//   double-buffered by cp.async, the next tile in flight while the current
-//   one is multiplied.  The score-side products (S and do v^T, or their
-//   transposes) come out in f32 registers, P and dS are computed there
-//   (2^x on the special-function unit against lse in log2 units) and
-//   rounded to bf16 as the A fragments of the value-side products (the C
-//   layout of m16n8k16 is its A layout), whose B fragments come from
-//   ldmatrix.trans.  Rounding P and dS to bf16 is what FlashAttention-2
-//   does; it stays inside the reference's bf16 bar.
+// the channels past hd zero.  Which type runs where:
+// * bf16 (flash_attention_bwd_bf16), for Hopper (bwd_dq_wgmma,
+//   bwd_dkdv_wgmma): every product on the warpgroup products
+//   (wgmma.mma_async m64nNk16, bf16 in, f32 sums; wgmma_tma.cuh).  A block
+//   is two warpgroups.  The producer warpgroup gives back its registers
+//   (setmaxnreg, down to 24) and one of its threads brings every tile in
+//   by TMA (cp.async.bulk.tensor from the wrapper's tensor maps): the
+//   block's own tiles once (Q, dO and O, or K and V), the tiles it loops
+//   over (K and V, or Q, dO, lse and D) into a two-slot ring of full and
+//   empty mbarriers.  Tiles land 128-byte swizzled, zero past the rows'
+//   end and past hd.  The consumer warpgroup (registers up to 232, or 240
+//   at 128 channels) owns the block's 64 rows: the score-side products
+//   (S and dO V^T, or their transposes) read both operands from shared
+//   memory through descriptors (m64n64k16, K-major); P and dS are
+//   computed in f32 registers (2^x on the special-function unit against
+//   lse in log2 units; the mask tested only on the tiles it cuts, against
+//   per-row bounds) and rounded to bf16 as the A operands of the
+//   value-side products, from registers (the accumulator's layout is the
+//   A layout), whose B operands (K, or dO and Q) are read MN-major (the
+//   transpose flag).  Rounding P and dS to bf16 is what FlashAttention-2
+//   does; it stays inside the reference's bf16 bar.  Two blocks an SM at
+//   64 channels.  TMA needs 16-byte aligned operands with rows of whole
+//   16-byte units: the wrapper prepares them (kernels/flash_attention.py,
+//   _tma_operands: aligned contiguous copies, hd padded to a multiple of
+//   8, lse lines to a multiple of 4 values) and the scale comes from the
+//   true hd (scale_hd).
 // * f32 (flash_attention_bwd_f32): every product on the CUDA cores in
 //   f32, 256 threads, (ty, tx) = (tid / 16, tid % 16): a thread owns rows
 //   4 ty .. 4 ty + 3 of its block's tile, columns tx + 16 j (j < 4) of the
@@ -57,9 +69,10 @@
 // forward's), against q, k, v, o, do, lse read once and dq, dk, dv written
 // once.  At smollm_360m's training shape (B = 4, H = 15, S = 2048, hd =
 // 64, causal, bf16) that is 8.1e10 flops, 0.082 ms at the 989 TFLOP/s of
-// the bf16 tensor cores (reached only by wgmma), against 0.11 GB, 0.034 ms
-// at 3.35 TB/s.  The kernels do seven products (bwd_dq recomputes S and
-// do v^T).
+// the bf16 tensor cores, against 0.11 GB, 0.034 ms at 3.35 TB/s.  Without
+// atomics the kernels do seven products (the dq launch recomputes S and
+// do v^T), 1.13e11 flops, 0.114 ms at that rate: this design's floor
+// (1.16e11 counting the diagonal tiles whole).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,6 +81,7 @@
 
 #include "cp_async.cuh"
 #include "hmma_bf16.cuh"
+#include "wgmma_tma.cuh"
 
 namespace {
 
@@ -75,14 +89,13 @@ typedef __nv_bfloat16 bf16;
 
 constexpr int kTile = 64;            // query rows and keys of a tile
 constexpr int kThreads = 256;        // f32: 16 row groups x 16 column lanes
-constexpr int kMmaThreads = 128;     // bf16: 4 warps of 16 rows
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct Shape {
   int64_t b, h, kvh, sq, skv, hd, causal, q_offset;
-  float scale;                       // hd^-0.5
-  float scale_log2;                  // hd^-0.5 * log2(e) (bf16 kernels)
-  int vec;                           // bf16 rows copy in 16-byte runs
+  int64_t stat_pitch;                // lse and dsum: values between lines
+  float scale;                       // scale_hd^-0.5
+  float scale_log2;                  // the scale times log2(e) (bf16)
 };
 
 __device__ __forceinline__ bool visible(int64_t row, int64_t key,
@@ -159,7 +172,7 @@ __global__ void __launch_bounds__(kThreads)
   const int hd = int(s.hd);
   const int64_t q_off = (bi * s.sq * s.h + hi) * s.hd;
   const int64_t kv_off = (bi * s.skv * s.kvh + kv) * s.hd;
-  const int64_t stat = (bi * s.h + hi) * s.sq;
+  const int64_t stat = (bi * s.h + hi) * s.stat_pitch;
 
   load_tile<HD>(qs, q + q_off, qstride, q0, s.sq, hd);
   load_tile<HD>(dos, dout + q_off, qstride, q0, s.sq, hd);
@@ -295,7 +308,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int64_t g = 0; g < groups; ++g) {
     const int64_t hi = kv * groups + g;
     const int64_t q_off = (bi * s.sq * s.h + hi) * s.hd;
-    const int64_t stat = (bi * s.h + hi) * s.sq;
+    const int64_t stat = (bi * s.h + hi) * s.stat_pitch;
     for (int64_t q0 = first_q_tile(k0, s); q0 < s.sq; q0 += kTile) {
       __syncthreads();                 // the last tile's readers are done
       load_tile<HD>(qs, q + q_off, qstride, q0, s.sq, hd);
@@ -386,335 +399,448 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// bf16: the tensor cores (HMMA)
+// bf16: the warpgroup products (wgmma) on TMA-fed tiles
 // ---------------------------------------------------------------------------
 
-// Starts the copy of rows r0 .. r0 + 63 of a (rows, heads, hd) slab (row r
-// at base + r * stride) into shared memory at a pitch of HD + 8 values,
-// zero past n_rows and hd: by cp.async in 16-byte runs when `vec` (hd % 8
-// == 0, 16-byte aligned rows), else by plain loads and stores.
-template <int HD>
-__device__ __forceinline__ void copy_tile(bf16* dst, const bf16* base,
-                                          int64_t stride, int64_t r0,
-                                          int64_t n_rows, int hd, int vec) {
-  constexpr int P = HD + 8, CH = HD / 8;
-  if (vec) {
-    for (int e = threadIdx.x; e < kTile * CH; e += kMmaThreads) {
-      const int r = e / CH, c = (e % CH) * 8;
-      const int64_t row = r0 + r;
-      const bool in = row < n_rows && c < hd;
-      cp_async<16>(dst + r * P + c, in ? base + row * stride + c : base,
-                   in ? 16 : 0);
-    }
-  } else {
-    for (int e = threadIdx.x; e < kTile * HD; e += kMmaThreads) {
-      const int r = e / HD, c = e % HD;
-      const int64_t row = r0 + r;
-      dst[r * P + c] = (row < n_rows && c < hd) ? base[row * stride + c]
-                                                : __float2bfloat16_rn(0.f);
-    }
-  }
-}
+constexpr int kWarpgroup = 128;              // 64 rows of a product
+constexpr int kStages = 2;                   // ring slots of the looped tiles
+constexpr int kProducerRegs = 24;
 
-// Starts the copy of 64 values of an f32 row vector from r0 (zero past n).
-__device__ __forceinline__ void copy_stats(float* dst, const float* src,
-                                           int64_t r0, int64_t n) {
-  if (threadIdx.x < kTile) {
-    const int64_t row = r0 + threadIdx.x;
-    cp_async<4>(dst + threadIdx.x, row < n ? src + row : src,
-                row < n ? 4 : 0);
-  }
-}
+// Threads: one consumer warpgroup (64 rows of every product) and one
+// producer warpgroup a block.  Blocks an SM: two at 64 channels, one at
+// 128, where dk and dv alone hold 128 registers a thread.  With them the
+// registers a thread at entry (the launch bounds) and what the consumers
+// take from the producer (setmaxnreg): 232 at 64 channels, 240 at 128.
+constexpr int kBlockThreads = 2 * kWarpgroup;
 
 template <int HD>
-constexpr size_t smem_bytes_mma() {  // six bf16 tiles, two stats slots
-  return sizeof(bf16) * 6 * size_t(kTile) * (HD + 8) +
-         sizeof(float) * 4 * kTile;
+struct Budget {
+  static constexpr int kBlocks = HD == 64 ? 2 : 1;
+  static constexpr int kFree = 65536 / (kBlockThreads * kBlocks);
+  static constexpr int kEntry = (kFree > 255 ? 255 : kFree) / 8 * 8;
+  static constexpr int kSpare =
+      (kEntry * kBlockThreads - kProducerRegs * kWarpgroup) / kWarpgroup /
+      8 * 8;
+  static constexpr int kConsumer = kSpare > 240 ? 240 : kSpare;
+};
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
 }
 
-// acc (16 rows of the warp x 64 columns, C layout) += A . B^T over hd:
-// A rows from `a` (this warp's 16 rows), B rows from `b` (64 rows), both
-// in shared memory at a pitch of HD + 8.
+// Whether a 64 x 64 (query, key) tile holds a pair the mask hides.
+__device__ __forceinline__ bool needs_mask(int64_t q0, int64_t k0,
+                                           const Shape& s) {
+  return q0 + kTile > s.sq || k0 + kTile > s.skv ||
+         (s.causal && k0 + kTile - 1 > q0 + s.q_offset);
+}
+
+// The consumer warpgroup's 128 threads (named barrier 1).
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kWarpgroup) : "memory");
+}
+
+// d (64 x HD) += A . B: A (64 x 16) from registers, B rows 16 kk .. of a
+// swizzled tile read MN-major (`tile` its desc_mn_major).
 template <int HD>
-__device__ __forceinline__ void rows_by_rows(float (&acc)[kTile / 8][4],
-                                             const bf16* a, const bf16* b) {
-  constexpr int P = HD + 8;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int lr = lane & 7, lm = lane >> 3;
+__device__ __forceinline__ void rs_rows(float (&d)[HD / 2],
+                                        const uint32_t (&a)[4],
+                                        uint64_t tile, int kk) {
+  if constexpr (HD == 64)
+    wg::rs_m64n64k16(d, a, tile + wg::mn_major_step(kk));
+  else
+    wg::rs_m64n128k16(d, a, tile + wg::mn_major_step(kk));
+}
+
+// d (64 x 64) = A . B^T over hd: the rows of two swizzled tiles, both
+// read K-major.
+template <int HD>
+__device__ __forceinline__ void ss_rows(float (&d)[32],
+                                        const unsigned char* a,
+                                        const unsigned char* b) {
+  const uint64_t da = wg::desc_k_major(a), db = wg::desc_k_major(b);
+  wg::ss_m64n64k16_first(d, da, db);
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    uint32_t af[4];
-    ldsm_x4(af, a + (warp * 16 + lr + (lm & 1) * 8) * P + kk * 16 +
-                    (lm >> 1) * 8);
-#pragma unroll
-    for (int np = 0; np < kTile / 16; ++np) {
-      uint32_t bf[4];
-      ldsm_x4(bf, b + (16 * np + lr + (lm >> 1) * 8) * P + kk * 16 +
-                      (lm & 1) * 8);
-      hmma_16x8x16(acc[2 * np], af, bf[0], bf[1]);
-      hmma_16x8x16(acc[2 * np + 1], af, bf[2], bf[3]);
-    }
-  }
+  for (int kk = 1; kk < HD / 16; ++kk)
+    wg::ss_m64n64k16(d, da + wg::k_major_step(kk),
+                        db + wg::k_major_step(kk));
 }
 
-// out (16 rows x HD, C layout) += X . B over the tile's 64 columns: X this
-// warp's 16 x 64 values in C layout (rounded to bf16 as A fragments), B
-// rows from `b` (64 rows x HD) in shared memory at a pitch of HD + 8.
-template <int HD>
-__device__ __forceinline__ void c_by_rows(float (&out)[HD / 8][4],
-                                          const float (&x)[kTile / 8][4],
-                                          const bf16* b) {
-  constexpr int P = HD + 8;
-  const int lane = threadIdx.x & 31;
-  const int lr = lane & 7, lm = lane >> 3;
+// A 64 x 64 f32 accumulator rounded to bf16 as the A operands of the four
+// 16-deep steps over its columns (the accumulator's layout is the A
+// layout).
+__device__ __forceinline__ void to_a(uint32_t (&a)[4][4],
+                                     const float (&x)[32]) {
 #pragma unroll
-  for (int kk = 0; kk < kTile / 16; ++kk) {
-    const uint32_t af[4] = {pack_bf16(x[2 * kk][0], x[2 * kk][1]),
-                            pack_bf16(x[2 * kk][2], x[2 * kk][3]),
-                            pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
-                            pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
+  for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-    for (int cp = 0; cp < HD / 16; ++cp) {
-      uint32_t bf[4];
-      ldsm_x4_trans(bf, b + (16 * kk + lr + (lm & 1) * 8) * P + 16 * cp +
-                            (lm >> 1) * 8);
-      hmma_16x8x16(out[2 * cp], af, bf[0], bf[1]);
-      hmma_16x8x16(out[2 * cp + 1], af, bf[2], bf[3]);
-    }
-  }
+    for (int i = 0; i < 4; ++i)
+      a[kk][i] = pack_bf16(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1]);
 }
 
-// Rows row0 + g and row0 + g + 8 of a C-layout (16 x HD) block, times
-// `mul`, into the bf16 rows of `dst` (row r at dst + r * stride), rows
-// past n_rows and channels past hd left out.
+// Rows g and g + 8 of this thread's warp of a (64 x HD) accumulator,
+// times `mul`, into the bf16 rows of `dst` (row r at dst + r * stride,
+// row0 the warp's first row), rows past n_rows and channels past hd left
+// out.
 template <int HD>
-__device__ __forceinline__ void store_c(bf16* dst, int64_t stride,
-                                        int64_t row0, int64_t n_rows, int hd,
-                                        const float (&acc)[HD / 8][4],
-                                        float mul) {
+__device__ __forceinline__ void store_rows(bf16* dst, int64_t stride,
+                                           int64_t row0, int64_t n_rows,
+                                           int hd, const float (&acc)[HD / 2],
+                                           float mul) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int64_t row = row0 + g + 8 * r;
+  for (int i = 0; i < 2; ++i) {
+    const int64_t row = row0 + g + 8 * i;
     if (row >= n_rows) continue;
 #pragma unroll
-    for (int c = 0; c < HD / 8; ++c) {
-      const int ch = 8 * c + 2 * t4;
+    for (int j = 0; j < HD / 8; ++j) {
+      const int ch = 8 * j + 2 * t4;
       if (ch < hd)
-        dst[row * stride + ch] = __float2bfloat16_rn(acc[c][2 * r] * mul);
-      if (ch + 1 < hd)
-        dst[row * stride + ch + 1] =
-            __float2bfloat16_rn(acc[c][2 * r + 1] * mul);
+        *reinterpret_cast<uint32_t*>(dst + row * stride + ch) =
+            pack_bf16(acc[4 * j + 2 * i] * mul, acc[4 * j + 2 * i + 1] * mul);
     }
   }
 }
 
-// dq of one (batch, head, query tile), warp w owning queries q0 + 16 w ..;
-// D of its rows into dsum.
 template <int HD>
-__global__ void __launch_bounds__(kMmaThreads)
-    bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, const bf16* __restrict__ o,
-               const bf16* __restrict__ dout, const float* __restrict__ lse,
-               float* __restrict__ dsum, bf16* __restrict__ dq, Shape s) {
-  constexpr int P = HD + 8, NS = kTile / 8, NO = HD / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dos = qs + kTile * P;
-  bf16* ks = dos + kTile * P;          // two slots
-  bf16* vs = ks + 2 * kTile * P;       // two slots
-  float* lse_s = reinterpret_cast<float*>(vs + 2 * kTile * P);
-  float* d_s = lse_s + kTile;
+constexpr size_t smem_bytes_dq() {   // Q, dO, O, the K and V ring, D, bars
+  return 1024 + size_t(3 + 2 * kStages) * kTile * HD * 2 + 4 * kTile +
+         8 * (1 + 2 * kStages);
+}
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
+template <int HD>
+constexpr size_t smem_bytes_dkdv() {  // K, V, the Q and dO ring, lse and D
+  return 1024 + size_t(2 + 2 * kStages) * kTile * HD * 2 +
+         size_t(2 * kStages) * 4 * kTile + 8 * (1 + 2 * kStages);
+}
+
+// Barriers: one for the block's own tiles, a full and an empty one a slot
+// (the empty one waits for every consumer thread).
+__device__ __forceinline__ void init_ring(uint64_t* bars) {
+  if (threadIdx.x == 0) {
+    wg::mbar_init(bars, 1);
+    for (int i = 0; i < kStages; ++i) {
+      wg::mbar_init(bars + 1 + i, 1);
+      wg::mbar_init(bars + 1 + kStages + i, kWarpgroup);
+    }
+    wg::mbar_init_fence();
+  }
+  __syncthreads();
+}
+
+// dq of one (batch, head, 64-row query tile), D of its rows into dsum.
+// Warpgroup 0 multiplies; warpgroup 1 gives back its registers and one of
+// its threads loads Q, dO and O once and K and V tile by tile into the
+// ring.
+template <int HD>
+__global__ void __launch_bounds__(kBlockThreads, Budget<HD>::kBlocks)
+    bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 const __grid_constant__ CUtensorMap tdo,
+                 const __grid_constant__ CUtensorMap to,
+                 const float* __restrict__ lse, float* __restrict__ dsum,
+                 bf16* __restrict__ dq, Shape s) {
+  constexpr int TB = kTile * HD * 2;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* qs = align1024(smem_raw);
+  unsigned char* dos = qs + TB;
+  unsigned char* os = dos + TB;
+  unsigned char* ks = os + TB;                      // kStages slots
+  unsigned char* vs = ks + kStages * TB;            // kStages slots
+  float* d_s = reinterpret_cast<float*>(vs + kStages * TB);
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(d_s + kTile);
+  uint64_t* full = bar_q + 1;
+  uint64_t* empty = full + kStages;
+
   const int64_t bi = int64_t(blockIdx.x) / s.h;
   const int64_t hi = int64_t(blockIdx.x) % s.h;
   const int64_t kv = hi / (s.h / s.kvh);
   const int64_t tile = s.causal ? int64_t(gridDim.y) - 1 - blockIdx.y
                                 : int64_t(blockIdx.y);
   const int64_t q0 = tile * kTile;
-  const int64_t kstride = s.kvh * s.hd, qstride = s.h * s.hd;
-  const int hd = int(s.hd);
-  const int64_t q_off = (bi * s.sq * s.h + hi) * s.hd;
-  const int64_t kv_off = (bi * s.skv * s.kvh + kv) * s.hd;
-  const int64_t stat = (bi * s.h + hi) * s.sq;
   const int n_tiles = int((kv_end(q0, s) + kTile - 1) / kTile);
+  init_ring(bar_q);
 
-  auto load_kv = [&](int slot, int t) {
-    copy_tile<HD>(ks + slot * kTile * P, k + kv_off, kstride,
-                  int64_t(t) * kTile, s.skv, hd, s.vec);
-    copy_tile<HD>(vs + slot * kTile * P, v + kv_off, kstride,
-                  int64_t(t) * kTile, s.skv, hd, s.vec);
-  };
-
-  // Q, dO and, in the second V slot (free until tile 1), o; then D.
-  copy_tile<HD>(qs, q + q_off, qstride, q0, s.sq, hd, s.vec);
-  copy_tile<HD>(dos, dout + q_off, qstride, q0, s.sq, hd, s.vec);
-  copy_tile<HD>(vs + kTile * P, o + q_off, qstride, q0, s.sq, hd, s.vec);
-  copy_stats(lse_s, lse + stat, q0, s.sq);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  {
-    // two threads a row, each over half the channels
-    const int r = threadIdx.x >> 1, half = threadIdx.x & 1;
-    const bf16* os = vs + kTile * P;
-    float d = 0.f;
-    for (int c = half; c < hd; c += 2)
-      d += __bfloat162float(dos[r * P + c]) * __bfloat162float(os[r * P + c]);
-    d += __shfl_xor_sync(0xffffffffu, d, 1);
-    if (half == 0) {
-      d_s[r] = d;
-      lse_s[r] *= kLog2e;
-      if (q0 + r < s.sq) dsum[stat + q0 + r] = d;
-    }
-  }
-  __syncthreads();                     // o's slot is refilled below
-  if (n_tiles > 0) load_kv(0, 0);
-  cp_async_commit();
-
-  float dq_acc[NO][4];
+  if (threadIdx.x >= kWarpgroup) {
+    wg::regs_dec<kProducerRegs>();
+    if (threadIdx.x == kWarpgroup) {
+      wg::mbar_expect_tx(bar_q, 3 * TB);
 #pragma unroll
-  for (int c = 0; c < NO; ++c)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq_acc[c][e] = 0.f;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int slot = t & 1;
-    if (t + 1 < n_tiles) load_kv(slot ^ 1, t + 1);
-    cp_async_commit();
-    cp_async_wait<1>();                // tile t has landed
-    __syncthreads();
-    const bf16* kt = ks + slot * kTile * P;
-    const int64_t k0 = int64_t(t) * kTile;
-
-    // S = Q K^T and do v^T: queries of this warp x keys.
-    float sc[NS][4], dp[NS][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
-    rows_by_rows<HD>(sc, qs, kt);
-    rows_by_rows<HD>(dp, dos, vs + slot * kTile * P);
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = warp * 16 + g + 8 * (e >> 1);
-        const int64_t key = k0 + 8 * j + 2 * t4 + (e & 1);
-        const float p = visible(q0 + r, key, s)
-                            ? exp2_approx(sc[j][e] * s.scale_log2 - lse_s[r])
-                            : 0.f;
-        sc[j][e] = p * (dp[j][e] - d_s[r]);          // dS
+      for (int c = 0; c < HD / 64; ++c) {
+        const int at = c * wg::kBlockBytes;
+        wg::tma_load_4d(qs + at, &tq, bar_q, 64 * c, int(hi), int(q0),
+                        int(bi));
+        wg::tma_load_4d(dos + at, &tdo, bar_q, 64 * c, int(hi), int(q0),
+                        int(bi));
+        wg::tma_load_4d(os + at, &to, bar_q, 64 * c, int(hi), int(q0),
+                        int(bi));
       }
-    c_by_rows<HD>(dq_acc, sc, kt);     // dq += dS k over the tile's keys
-    __syncthreads();                   // the slot is refilled next tile
+      for (int t = 0; t < n_tiles; ++t) {
+        const int slot = t % kStages;
+        if (t >= kStages) wg::mbar_wait(empty + slot, (t / kStages - 1) & 1);
+        wg::mbar_expect_tx(full + slot, 2 * TB);
+#pragma unroll
+        for (int c = 0; c < HD / 64; ++c) {
+          wg::tma_load_4d(ks + slot * TB + c * wg::kBlockBytes, &tk,
+                          full + slot, 64 * c, int(kv), t * kTile, int(bi));
+          wg::tma_load_4d(vs + slot * TB + c * wg::kBlockBytes, &tv,
+                          full + slot, 64 * c, int(kv), t * kTile, int(bi));
+        }
+      }
+    }
+  } else {
+    wg::regs_inc<Budget<HD>::kConsumer>();
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int64_t qstride = s.h * s.hd;
+    const int64_t q_off = (bi * s.sq * s.h + hi) * s.hd;
+    const int64_t stat = (bi * s.h + hi) * s.stat_pitch;
+    wg::mbar_wait(bar_q, 0);
+
+    // D = rowsum(do * o) of the tile's rows from the swizzled tiles, two
+    // threads a row, each over every other 16-byte chunk (the channels
+    // past hd and the rows past sq read as zero).
+    {
+      const int r = tid >> 1, half = tid & 1;
+      const int64_t row = q0 + r;
+      float d = 0.f;
+#pragma unroll
+      for (int c = half; c < HD / 8; c += 2) {
+        const int at = (c >> 3) * wg::kBlockBytes + r * 128 +
+                       (((c & 7) ^ (r & 7)) << 4);
+        const uint4 x = *reinterpret_cast<const uint4*>(dos + at);
+        const uint4 y = *reinterpret_cast<const uint4*>(os + at);
+        const __nv_bfloat162* xa = reinterpret_cast<const __nv_bfloat162*>(&x);
+        const __nv_bfloat162* ya = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 a = __bfloat1622float2(xa[i]);
+          const float2 b = __bfloat1622float2(ya[i]);
+          d = fmaf(a.x, b.x, d);
+          d = fmaf(a.y, b.y, d);
+        }
+      }
+      d += __shfl_xor_sync(0xffffffffu, d, 1);
+      if (half == 0) {
+        d_s[r] = d;
+        if (row < s.sq) dsum[stat + row] = d;
+      }
+    }
+    consumer_sync();
+    // This thread's rows g and g + 8 of its warp: log2-scaled lse, D, and
+    // the end of the keys each sees (0 past sq).
+    float lse2[2], dd[2];
+    int key_end[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = warp * 16 + g + 8 * i;
+      const int64_t row = q0 + r;
+      lse2[i] = row < s.sq ? lse[stat + row] * kLog2e : 0.f;
+      dd[i] = d_s[r];
+      const int64_t end = s.causal && row + s.q_offset + 1 < s.skv
+                              ? row + s.q_offset + 1
+                              : s.skv;
+      key_end[i] = row < s.sq ? int(end) : 0;
+    }
+
+    float dq_acc[HD / 2], sc[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) dq_acc[i] = 0.f;
+
+    for (int t = 0; t < n_tiles; ++t) {
+      const int slot = t % kStages;
+      const unsigned char* kt = ks + slot * TB;
+      wg::mbar_wait(full + slot, (t / kStages) & 1);
+      // S = Q K^T and dP = dO V^T: this warp's 16 queries x 64 keys.
+      wg::fence();
+      ss_rows<HD>(sc, qs, kt);
+      ss_rows<HD>(dp, dos, vs + slot * TB);
+      wg::commit();
+      wg::wait<0>();
+      wg::fence_regs(sc);
+      wg::fence_regs(dp);
+      const int k0 = t * kTile;
+      if (needs_mask(q0, k0, s)) {
+        const int key = k0 + 2 * t4;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * j + e;
+            const float p =
+                key + 8 * j + (e & 1) < key_end[e >> 1]
+                    ? exp2_approx(sc[i] * s.scale_log2 - lse2[e >> 1])
+                    : 0.f;
+            sc[i] = p * (dp[i] - dd[e >> 1]);         // dS
+          }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const float p =
+              exp2_approx(sc[i] * s.scale_log2 - lse2[(i >> 1) & 1]);
+          sc[i] = p * (dp[i] - dd[(i >> 1) & 1]);
+        }
+      }
+      uint32_t a[4][4];
+      to_a(a, sc);
+      // dq += dS K over the tile's 64 keys.
+      const uint64_t kd = wg::desc_mn_major(kt);
+      wg::fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) rs_rows<HD>(dq_acc, a[kk], kd, kk);
+      wg::commit();
+      wg::wait<0>();
+      wg::fence_regs(dq_acc);
+      wg::mbar_arrive(empty + slot);
+    }
+    store_rows<HD>(dq + q_off, qstride, q0 + warp * 16, s.sq, int(s.hd),
+                   dq_acc, s.scale);
   }
-  cp_async_wait<0>();
-  store_c<HD>(dq + q_off, qstride, q0 + warp * 16, s.sq, hd, dq_acc,
-              s.scale);
 }
 
-// dk, dv of one (batch, KV head, key tile), warp w owning keys k0 + 16 w
-// ..; the query tiles (Q, dO, lse, D) double-buffered.
+// dk, dv of one (batch, KV head, 64-key tile), looping over the group's
+// query heads and the query tiles the mask lets see the keys.  Warpgroup
+// 0 multiplies; one thread of warpgroup 1 loads K and V once and Q, dO,
+// lse and D tile by tile into the ring.
 template <int HD>
-__global__ void __launch_bounds__(kMmaThreads)
-    bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                 const float* __restrict__ lse,
-                 const float* __restrict__ dsum, bf16* __restrict__ dk,
-                 bf16* __restrict__ dv, Shape s) {
-  constexpr int P = HD + 8, NS = kTile / 8, NO = HD / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* vs = ks + kTile * P;
-  bf16* qs = vs + kTile * P;           // two slots
-  bf16* dos = qs + 2 * kTile * P;      // two slots
-  float* lse_s = reinterpret_cast<float*>(dos + 2 * kTile * P);  // two
-  float* d_s = lse_s + 2 * kTile;                                // two
+__global__ void __launch_bounds__(kBlockThreads, Budget<HD>::kBlocks)
+    bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap tdo,
+                   const __grid_constant__ CUtensorMap tlse,
+                   const __grid_constant__ CUtensorMap tdsum,
+                   bf16* __restrict__ dk, bf16* __restrict__ dv, Shape s) {
+  constexpr int TB = kTile * HD * 2;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* ks = align1024(smem_raw);
+  unsigned char* vs = ks + TB;
+  unsigned char* qs = vs + TB;                      // kStages slots
+  unsigned char* dos = qs + kStages * TB;           // kStages slots
+  float* lse_s = reinterpret_cast<float*>(dos + kStages * TB);  // slots
+  float* d_s = lse_s + kStages * kTile;                          // slots
+  uint64_t* bar_kv = reinterpret_cast<uint64_t*>(d_s + kStages * kTile);
+  uint64_t* full = bar_kv + 1;
+  uint64_t* empty = full + kStages;
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
   const int64_t bi = int64_t(blockIdx.x) / s.kvh;
   const int64_t kv = int64_t(blockIdx.x) % s.kvh;
   const int64_t k0 = int64_t(blockIdx.y) * kTile;
   const int64_t groups = s.h / s.kvh;
-  const int64_t kstride = s.kvh * s.hd, qstride = s.h * s.hd;
-  const int hd = int(s.hd);
-  const int64_t kv_off = (bi * s.skv * s.kvh + kv) * s.hd;
   const int64_t q_first = first_q_tile(k0, s);
   const int per_head = int((s.sq - q_first + kTile - 1) / kTile);
   const int n_tiles = int(groups) * (per_head > 0 ? per_head : 0);
+  init_ring(bar_kv);
 
-  // Tile t: query head kv * groups + t / per_head, rows from q_first +
-  // 64 (t % per_head).
-  auto load_q = [&](int slot, int t) {
-    const int64_t hi = kv * groups + t / per_head;
-    const int64_t q0 = q_first + int64_t(t % per_head) * kTile;
-    const int64_t q_off = (bi * s.sq * s.h + hi) * s.hd;
-    const int64_t stat = (bi * s.h + hi) * s.sq;
-    copy_tile<HD>(qs + slot * kTile * P, q + q_off, qstride, q0, s.sq, hd,
-                  s.vec);
-    copy_tile<HD>(dos + slot * kTile * P, dout + q_off, qstride, q0, s.sq,
-                  hd, s.vec);
-    copy_stats(lse_s + slot * kTile, lse + stat, q0, s.sq);
-    copy_stats(d_s + slot * kTile, dsum + stat, q0, s.sq);
-  };
-
-  copy_tile<HD>(ks, k + kv_off, kstride, k0, s.skv, hd, s.vec);
-  copy_tile<HD>(vs, v + kv_off, kstride, k0, s.skv, hd, s.vec);
-  if (n_tiles > 0) load_q(0, 0);
-  cp_async_commit();                   // K and V with the first query tile
-
-  float dk_acc[NO][4], dv_acc[NO][4];
+  if (threadIdx.x >= kWarpgroup) {
+    wg::regs_dec<kProducerRegs>();
+    if (threadIdx.x == kWarpgroup) {
+      wg::mbar_expect_tx(bar_kv, 2 * TB);
 #pragma unroll
-  for (int c = 0; c < NO; ++c)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[c][e] = dv_acc[c][e] = 0.f;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int slot = t & 1;
-    if (t + 1 < n_tiles) load_q(slot ^ 1, t + 1);
-    cp_async_commit();
-    cp_async_wait<1>();                // tile t (and K, V) have landed
-    __syncthreads();
-    const bf16* qt = qs + slot * kTile * P;
-    const bf16* dot = dos + slot * kTile * P;
-    const float* lt = lse_s + slot * kTile;
-    const float* dt = d_s + slot * kTile;
-    const int64_t q0 = q_first + int64_t(t % per_head) * kTile;
-
-    // S^T = K Q^T and (do v^T)^T = V dO^T: keys of this warp x queries.
-    float st[NS][4], dpt[NS][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-    rows_by_rows<HD>(st, ks, qt);
-    rows_by_rows<HD>(dpt, vs, dot);
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qc = 8 * j + 2 * t4 + (e & 1);
-        const int64_t key = k0 + warp * 16 + g + 8 * (e >> 1);
-        const float p = visible(q0 + qc, key, s)
-                            ? exp2_approx(st[j][e] * s.scale_log2 -
-                                          lt[qc] * kLog2e)
-                            : 0.f;
-        st[j][e] = p;                                // P^T
-        dpt[j][e] = p * (dpt[j][e] - dt[qc]);        // dS^T
+      for (int c = 0; c < HD / 64; ++c) {
+        wg::tma_load_4d(ks + c * wg::kBlockBytes, &tk, bar_kv, 64 * c,
+                        int(kv), int(k0), int(bi));
+        wg::tma_load_4d(vs + c * wg::kBlockBytes, &tv, bar_kv, 64 * c,
+                        int(kv), int(k0), int(bi));
       }
-    // dv += P^T do, dk += dS^T q over the tile's 64 queries.
-    c_by_rows<HD>(dv_acc, st, dot);
-    c_by_rows<HD>(dk_acc, dpt, qt);
-    __syncthreads();                   // the slot is refilled next tile
+      // Tile t: query head kv * groups + t / per_head, rows from q_first
+      // + 64 (t % per_head).
+      for (int t = 0; t < n_tiles; ++t) {
+        const int slot = t % kStages;
+        const int hi = int(kv * groups) + t / per_head;
+        const int q0 = int(q_first) + (t % per_head) * kTile;
+        if (t >= kStages) wg::mbar_wait(empty + slot, (t / kStages - 1) & 1);
+        wg::mbar_expect_tx(full + slot, 2 * TB + 2 * 4 * kTile);
+#pragma unroll
+        for (int c = 0; c < HD / 64; ++c) {
+          wg::tma_load_4d(qs + slot * TB + c * wg::kBlockBytes, &tq,
+                          full + slot, 64 * c, hi, q0, int(bi));
+          wg::tma_load_4d(dos + slot * TB + c * wg::kBlockBytes, &tdo,
+                          full + slot, 64 * c, hi, q0, int(bi));
+        }
+        wg::tma_load_2d(lse_s + slot * kTile, &tlse, full + slot, q0,
+                        int(bi * s.h) + hi);
+        wg::tma_load_2d(d_s + slot * kTile, &tdsum, full + slot, q0,
+                        int(bi * s.h) + hi);
+      }
+    }
+  } else {
+    wg::regs_inc<Budget<HD>::kConsumer>();
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int64_t kstride = s.kvh * s.hd;
+    const int64_t kv_off = (bi * s.skv * s.kvh + kv) * s.hd;
+    // This thread's keys g and g + 8 of its warp: the queries that see
+    // each, [q_lo, q_hi) (empty past skv).
+    int q_lo[2], q_hi[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int64_t key = k0 + warp * 16 + g + 8 * i;
+      q_lo[i] = s.causal && key > s.q_offset ? int(key - s.q_offset) : 0;
+      q_hi[i] = key < s.skv ? int(s.sq) : 0;
+    }
+
+    float dk_acc[HD / 2], dv_acc[HD / 2], st[32], dpt[32];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    wg::mbar_wait(bar_kv, 0);
+
+    for (int t = 0; t < n_tiles; ++t) {
+      const int slot = t % kStages;
+      const unsigned char* qt = qs + slot * TB;
+      const unsigned char* dot = dos + slot * TB;
+      wg::mbar_wait(full + slot, (t / kStages) & 1);
+      // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x 64 queries.
+      wg::fence();
+      ss_rows<HD>(st, ks, qt);
+      ss_rows<HD>(dpt, vs, dot);
+      wg::commit();
+      wg::wait<0>();
+      wg::fence_regs(st);
+      wg::fence_regs(dpt);
+      const float* lt = lse_s + slot * kTile;
+      const float* dt = d_s + slot * kTile;
+      const int q0 = int(q_first) + (t % per_head) * kTile;
+      const bool edge = needs_mask(q0, k0, s);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int qc = 8 * j + 2 * t4;
+        const float2 l2 = *reinterpret_cast<const float2*>(lt + qc);
+        const float2 d2 = *reinterpret_cast<const float2*>(dt + qc);
+        const float lg[2] = {l2.x * kLog2e, l2.y * kLog2e};
+        const float dl[2] = {d2.x, d2.y};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e, q = q0 + qc + (e & 1);
+          float p = exp2_approx(st[i] * s.scale_log2 - lg[e & 1]);
+          if (edge && !(q >= q_lo[e >> 1] && q < q_hi[e >> 1])) p = 0.f;
+          st[i] = p;                                  // P^T
+          dpt[i] = p * (dpt[i] - dl[e & 1]);          // dS^T
+        }
+      }
+      uint32_t ap[4][4], ads[4][4];
+      to_a(ap, st);
+      to_a(ads, dpt);
+      // dv += P^T dO, dk += dS^T Q over the tile's 64 queries.
+      const uint64_t dod = wg::desc_mn_major(dot), qd = wg::desc_mn_major(qt);
+      wg::fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        rs_rows<HD>(dv_acc, ap[kk], dod, kk);
+        rs_rows<HD>(dk_acc, ads[kk], qd, kk);
+      }
+      wg::commit();
+      wg::wait<0>();
+      wg::fence_regs(dv_acc);
+      wg::fence_regs(dk_acc);
+      wg::mbar_arrive(empty + slot);
+    }
+    store_rows<HD>(dk + kv_off, kstride, k0 + warp * 16, s.skv, int(s.hd),
+                   dk_acc, s.scale);
+    store_rows<HD>(dv + kv_off, kstride, k0 + warp * 16, s.skv, int(s.hd),
+                   dv_acc, 1.f);
   }
-  cp_async_wait<0>();
-  store_c<HD>(dk + kv_off, kstride, k0 + warp * 16, s.skv, hd, dk_acc,
-              s.scale);
-  store_c<HD>(dv + kv_off, kstride, k0 + warp * 16, s.skv, hd, dv_acc, 1.f);
 }
 
 // ---------------------------------------------------------------------------
@@ -758,32 +884,60 @@ struct Kernels<float> {
 
 template <>
 struct Kernels<bf16> {
+  // The consumers' setmaxnreg.inc waits for the registers the producer
+  // warpgroup gives back: true when a kernel's entry count pays for it.
+  template <int HD, typename K>
+  static bool pool_balances(K kernel) {
+    cudaFuncAttributes a;
+    return cudaFuncGetAttributes(&a, kernel) == cudaSuccess &&
+           a.numRegs * kBlockThreads >=
+               (Budget<HD>::kConsumer + kProducerRegs) * kWarpgroup;
+  }
+
   template <int HD>
   static int run(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
                  const bf16* dout, const float* lse, float* dsum, bf16* dq,
                  bf16* dk, bf16* dv, const Shape& s, cudaStream_t stream) {
-    const size_t bytes = smem_bytes_mma<HD>();
+    CUtensorMap mq{}, mk{}, mv{}, mdo{}, mo{}, mlse{}, mds{};
+    bool ok = true;
+    if (s.sq > 0)
+      ok = wg::rows_map(&mq, q, s.b, s.sq, s.h, s.hd) &&
+           wg::rows_map(&mdo, dout, s.b, s.sq, s.h, s.hd) &&
+           wg::rows_map(&mo, o, s.b, s.sq, s.h, s.hd) &&
+           wg::stats_map(&mlse, lse, s.b * s.h, s.sq, s.stat_pitch) &&
+           wg::stats_map(&mds, dsum, s.b * s.h, s.sq, s.stat_pitch);
+    if (ok && s.skv > 0)
+      ok = wg::rows_map(&mk, k, s.b, s.skv, s.kvh, s.hd) &&
+           wg::rows_map(&mv, v, s.b, s.skv, s.kvh, s.hd);
+    if (!ok) return (int)cudaErrorInvalidValue;
+    auto dq_kernel = bwd_dq_wgmma<HD>;
+    auto dkdv_kernel = bwd_dkdv_wgmma<HD>;
+    static const bool balanced =
+        pool_balances<HD>(dq_kernel) && pool_balances<HD>(dkdv_kernel);
+    if (!balanced) return (int)cudaErrorInvalidConfiguration;
+    const size_t dq_bytes = smem_bytes_dq<HD>();
+    const size_t dkdv_bytes = smem_bytes_dkdv<HD>();
     cudaError_t err = cudaFuncSetAttribute(
-        bwd_dq_mma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
+        dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)dq_bytes);
     if (err != cudaSuccess) return (int)err;
-    err = cudaFuncSetAttribute(
-        bwd_dkdv_mma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
+    err = cudaFuncSetAttribute(dkdv_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)dkdv_bytes);
     if (err != cudaSuccess) return (int)err;
     if (s.sq > 0) {
-      bwd_dq_mma<HD><<<dim3((unsigned int)(s.b * s.h),
-                            (unsigned int)((s.sq + kTile - 1) / kTile)),
-                       kMmaThreads, bytes, stream>>>(q, k, v, o, dout, lse,
-                                                     dsum, dq, s);
+      dq_kernel<<<dim3((unsigned int)(s.b * s.h),
+                       (unsigned int)((s.sq + kTile - 1) / kTile)),
+                  kBlockThreads, dq_bytes, stream>>>(mq, mk, mv, mdo, mo,
+                                                     lse, dsum, dq, s);
       err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
     }
     if (s.skv > 0)
-      bwd_dkdv_mma<HD><<<dim3((unsigned int)(s.b * s.kvh),
-                              (unsigned int)((s.skv + kTile - 1) / kTile)),
-                         kMmaThreads, bytes, stream>>>(q, k, v, dout, lse,
-                                                       dsum, dk, dv, s);
+      dkdv_kernel<<<dim3((unsigned int)(s.b * s.kvh),
+                         (unsigned int)((s.skv + kTile - 1) / kTile)),
+                    kBlockThreads, dkdv_bytes, stream>>>(
+          mq, mk, mv, mdo, mlse, mds, dk, dv, s);
     return (int)cudaGetLastError();
   }
 };
@@ -793,50 +947,64 @@ int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const void* lse, void* dsum, void* dq, void* dk,
            void* dv, int64_t b, int64_t h, int64_t kvh, int64_t sq,
            int64_t skv, int64_t hd, int64_t causal, int64_t q_offset,
-           void* stream) {
+           int64_t scale_hd, int64_t stat_pitch, void* stream) {
   if (b == 0 || h == 0) return (int)cudaGetLastError();
   if (hd < 1 || hd > 128 || kvh < 1 || h % kvh != 0 || q_offset < 0 ||
-      b * h > INT32_MAX || (sq + kTile - 1) / kTile > 65535 ||
-      (skv + kTile - 1) / kTile > 65535)
+      scale_hd < 1 || stat_pitch < sq || b * h > INT32_MAX ||
+      sq > INT32_MAX || skv > INT32_MAX ||
+      (sq + kTile - 1) / kTile > 65535 || (skv + kTile - 1) / kTile > 65535)
     return (int)cudaErrorInvalidValue;
-  // bf16 rows copy in 16-byte runs when every base pointer and row stride
-  // allows it (the rows are contiguous (rows, heads, hd) slabs).
-  const uint64_t bits =
-      uint64_t(uintptr_t(q)) | uint64_t(uintptr_t(k)) |
-      uint64_t(uintptr_t(v)) | uint64_t(uintptr_t(o)) |
-      uint64_t(uintptr_t(dout)) | uint64_t(h * hd * sizeof(T)) |
-      uint64_t(kvh * hd * sizeof(T)) | uint64_t(hd * sizeof(T));
-  const double scale = pow((double)hd, -0.5);
-  const Shape s{b, h, kvh, sq, skv, hd, causal, q_offset, (float)scale,
-                (float)(scale * 1.4426950408889634),
-                int(hd % 8 == 0 && (bits & 15) == 0)};
+  if (sizeof(T) == 2) {
+    // TMA boxes need hd % 8 == 0, 16-byte aligned bases and lse/dsum
+    // lines at a pitch of whole 16 bytes (the wrapper's _tma_operands).
+    const uint64_t bits = uint64_t(uintptr_t(q)) | uint64_t(uintptr_t(k)) |
+                          uint64_t(uintptr_t(v)) | uint64_t(uintptr_t(o)) |
+                          uint64_t(uintptr_t(dout)) |
+                          uint64_t(uintptr_t(lse)) | uint64_t(uintptr_t(dsum));
+    if (hd % 8 != 0 || (bits & 15) != 0 || stat_pitch % 4 != 0)
+      return (int)cudaErrorInvalidValue;
+  }
+  const double scale = pow((double)scale_hd, -0.5);
+  const Shape s{b, h, kvh, sq, skv, hd, causal, q_offset, stat_pitch,
+                (float)scale, (float)(scale * 1.4426950408889634)};
   cudaStream_t st = (cudaStream_t)stream;
   const T *tq = (const T*)q, *tk = (const T*)k, *tv = (const T*)v,
           *to = (const T*)o, *tdo = (const T*)dout;
   const float* l = (const float*)lse;
   float* ds = (float*)dsum;
   T *tdq = (T*)dq, *tdk = (T*)dk, *tdv = (T*)dv;
-  return hd <= 64 ? Kernels<T>::template run<64>(tq, tk, tv, to, tdo, l, ds,
-                                                 tdq, tdk, tdv, s, st)
-                  : Kernels<T>::template run<128>(tq, tk, tv, to, tdo, l,
-                                                  ds, tdq, tdk, tdv, s, st);
+  return hd <= 64 ? Kernels<T>::template run<64>(
+                        tq, tk, tv, to, tdo, l, ds, tdq, tdk, tdv, s, st)
+                  : Kernels<T>::template run<128>(
+                        tq, tk, tv, to, tdo, l, ds, tdq, tdk, tdv, s, st);
 }
 
 }  // namespace
 
 // q, o, do, dq: contiguous (B, Sq, H, hd); k, v, dk, dv: contiguous (B,
 // Skv, KV, hd); lse and dsum (scratch for D = rowsum(do * o)): f32 (B, H,
-// Sq).  Two launches on `stream`: dq (writing dsum), then dk and dv.
+// Sq) lines at a pitch of stat_pitch values.  The scale is scale_hd^-0.5
+// (the true head_dim where the wrapper padded the channels).  Two launches
+// on `stream`: dq (writing dsum), then dk and dv.
 #define FLASH_BWD_ENTRY(NAME, T)                                             \
   extern "C" int NAME(const void* q, const void* k, const void* v,          \
                       const void* o, const void* dout, const void* lse,     \
                       void* dsum, void* dq, void* dk, void* dv, int64_t b,  \
                       int64_t h, int64_t kvh, int64_t sq, int64_t skv,      \
                       int64_t hd, int64_t causal, int64_t q_offset,         \
-                      void* stream) {                                       \
+                      int64_t scale_hd, int64_t stat_pitch, void* stream) { \
     return launch<T>(q, k, v, o, dout, lse, dsum, dq, dk, dv, b, h, kvh,    \
-                     sq, skv, hd, causal, q_offset, stream);                \
+                     sq, skv, hd, causal, q_offset, scale_hd, stat_pitch,   \
+                     stream);                                               \
   }
 
 FLASH_BWD_ENTRY(flash_attention_bwd_f32, float)
 FLASH_BWD_ENTRY(flash_attention_bwd_bf16, bf16)
+
+// The dynamic shared memory (bytes) of a bf16 kernel for head_dim hd:
+// kernel 0 the dq launch's, 1 the dk/dv launch's.
+extern "C" int flash_attention_bwd_smem(int64_t hd, int64_t kernel) {
+  if (hd <= 64)
+    return int(kernel == 0 ? smem_bytes_dq<64>() : smem_bytes_dkdv<64>());
+  return int(kernel == 0 ? smem_bytes_dq<128>() : smem_bytes_dkdv<128>());
+}

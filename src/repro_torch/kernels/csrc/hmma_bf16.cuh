@@ -1,7 +1,8 @@
-// bf16 tensor-core building blocks shared by row 10's forward
-// (flash_attention.cu) and backward (flash_attention_bwd.cu): ldmatrix
-// loads of 8 x 8 bf16 matrices from shared memory, the m16n8k16 HMMA with
-// f32 sums, 2^x on the special-function unit and bf16 packing.
+// bf16 tensor-core building blocks of row 10's forward
+// (flash_attention.cu): ldmatrix loads of 8 x 8 bf16 matrices from shared
+// memory, the m16n8k16 HMMA with f32 sums, 2^x on the special-function
+// unit and bf16 packing (the last two also row 10's backward's,
+// flash_attention_bwd.cu, whose products are wgmma_tma.cuh's).
 #pragma once
 
 #include <cuda_bf16.h>

@@ -29,7 +29,8 @@ kernel with its log-sum-exp output on (a template flag of
 ``flash_attention.cu``; ``out`` is the same bits), and its backward is
 ``flash_attention_bwd``, two hand-written launches of
 ``csrc/flash_attention_bwd.cu`` (dq, then dk and dv, FlashAttention-2
-style, no atomics; bf16 on the tensor cores, f32 on the CUDA cores).
+style, no atomics; bf16 on the warpgroup tensor-core products (wgmma) fed
+by TMA, f32 on the CUDA cores).
 Each wrapper has its plain version (``flash_attention_lse_ref``,
 ``flash_attention_bwd_ref``: the same math on the whole score matrix,
 which the CPU runs) and its own ``.launches`` count;
@@ -122,16 +123,17 @@ def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
 
 
 def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
-                            q_offset: int = 0):
+                            q_offset: int = 0, scale: float | None = None):
     """The backward's plain version, eager PyTorch on any device, in f32
     (f64 for f64 inputs): ``P = exp(S * scale - lse)`` recomputed whole,
     ``D = rowsum(do * o)``, ``dv = P^T do``, ``dS = P * (do v^T - D)``,
-    ``dq = dS k * scale``, ``dk = dS^T q * scale``.  Returns ``(dq, dk,
-    dv)`` in the inputs' types."""
+    ``dq = dS k * scale``, ``dk = dS^T q * scale``; ``scale`` defaults to
+    ``hd**-0.5``.  Returns ``(dq, dk, dv)`` in the inputs' types."""
     _check(q, k, v, q_offset)
     b, sq, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]
-    g, acc, scale = h // kvh, _acc_dtype(q.dtype), hd ** -0.5
+    g, acc = h // kvh, _acc_dtype(q.dtype)
+    scale = hd ** -0.5 if scale is None else scale
     qf = q.to(acc).reshape(b, sq, kvh, g, hd)
     dof = do.to(acc).reshape(b, sq, kvh, g, hd)
     kf, vf = k.to(acc), v.to(acc)
@@ -147,6 +149,37 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
     dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qf) * scale
     return (dq.reshape(b, sq, h, hd).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
+
+
+def _tma_operands(q, k, v, o, do, lse):
+    """The bf16 backward kernels' operands as TMA describes them: ``(q, k,
+    v, o, do, lse, pitch)``.
+
+    TMA reads q, k, v, o and do as boxes of contiguous (B, S, heads, hd)
+    arrays, which needs a 16-byte aligned base and strides that are
+    multiples of 16 bytes, so hd a multiple of 8; and lse (and the kernels'
+    D scratch) as lines of 64 values at a pitch of a multiple of 16 bytes.
+    An operand that is not so already becomes an aligned contiguous copy:
+    its channels zero-padded to the next multiple of 8 when hd is not one
+    (the kernels then run at the padded hd with the true hd's scale, and
+    the wrapper slices the gradients back), lse's lines zero-padded to a
+    ``pitch`` that is a multiple of 4 values.  Pure torch on any device."""
+    hd, sq = q.shape[-1], q.shape[1]
+    pad = -hd % 8
+
+    def rows(t):
+        t = t.contiguous()
+        if pad:
+            return torch.nn.functional.pad(t, (0, pad))
+        return t if t.data_ptr() % 16 == 0 else t.clone()
+
+    pitch = sq + -sq % 4
+    lse = lse.contiguous()
+    if pitch != sq:
+        lse = torch.nn.functional.pad(lse, (0, pitch - sq))
+    elif lse.data_ptr() % 16:
+        lse = lse.clone()
+    return (*(rows(t) for t in (q, k, v, o, do)), lse, pitch)
 
 
 def _operand(t: torch.Tensor) -> torch.Tensor:
@@ -235,8 +268,13 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     output ``o``, its ``lse`` and the output's gradient ``do``.  On CUDA:
     ``flash_attention_bwd.cu``'s two launches (dq, writing D = rowsum(do *
     o) to a scratch tensor, then dk and dv; each counted in
-    ``flash_attention_bwd.launches``) on contiguous copies of the
-    operands; on the CPU the plain version."""
+    ``flash_attention_bwd.launches``); on the CPU the plain version.  f32
+    operands are read as contiguous copies.  bf16 operands go through
+    ``_tma_operands`` first: an operand whose base is not 16-byte aligned,
+    or whose rows TMA cannot describe (hd not a multiple of 8), becomes an
+    aligned contiguous copy, its channels zero-padded to a multiple of 8
+    (the gradients then come back as slices of the padded ones), and lse's
+    lines are padded to a multiple of 4 values."""
     _record(flash_attention_bwd, q=q, k=k, v=v, o=o, lse=lse, do=do,
             causal=causal, q_offset=q_offset)
     _check(q, k, v, q_offset)
@@ -255,15 +293,22 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         raise TypeError(f"o and do must be {q.dtype} and lse float32 on "
                         f"{q.device}")
     b, sq, h, hd = q.shape
-    q, k, v, o, do, lse = (t.contiguous() for t in (q, k, v, o, do, lse))
+    if q.dtype == torch.bfloat16:
+        q, k, v, o, do, lse, pitch = _tma_operands(q, k, v, o, do, lse)
+    else:
+        q, k, v, o, do, lse = (t.contiguous() for t in (q, k, v, o, do, lse))
+        pitch = sq
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    dsum = torch.empty_like(lse)        # D = rowsum(do * o), dq's launch
+    dsum = torch.empty((b, h, pitch), dtype=torch.float32, device=q.device)
     _raise_on(_build.kernel("flash_attention_bwd", _DTYPE_TAG[q.dtype])(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), b, h, k.shape[2], sq, k.shape[1], hd,
-        int(causal), q_offset, _stream(q)), "flash_attention_bwd")
+        dk.data_ptr(), dv.data_ptr(), b, h, k.shape[2], sq, k.shape[1],
+        q.shape[-1], int(causal), q_offset, hd, pitch, _stream(q)),
+        "flash_attention_bwd")
     flash_attention_bwd.launches += 2
+    if q.shape[-1] != hd:
+        dq, dk, dv = (t[..., :hd] for t in (dq, dk, dv))
     return dq, dk, dv
 
 

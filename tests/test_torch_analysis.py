@@ -481,6 +481,27 @@ __global__ void mark(unsigned* ws, unsigned lines) {
     ("cuda_off_fold_path_not_scanned", """
 __global__ void tile(double* acc, double v) { atomicAdd(acc, v); }
 """, "kernels/csrc/operator_slab_tile.cuh", "clean", None),
+    ("cuda_atomic_add_in_flash_bwd_detected", """
+__global__ void fold_dq(float* dq, const float* part, int n) {
+  atomicAdd(&dq[threadIdx.x], part[blockIdx.x * n + threadIdx.x]);
+}
+""", "kernels/csrc/flash_attention_bwd.cu", "flags",
+     "bit-identity-reassoc"),
+    ("cuda_ptx_red_add_in_wgmma_helpers_detected", """
+__device__ void add(float* p, float v) {
+  asm volatile("red.global.add.f32 [%0], %1;" :: "l"(p), "f"(v));
+}
+""", "kernels/csrc/wgmma_tma.cuh", "flags", "bit-identity-reassoc"),
+    ("cuda_mbarrier_and_tma_clean", """
+__device__ void ring(unsigned bar, unsigned dst, unsigned long long map) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], 64;"
+               :: "r"(bar));
+  asm volatile("cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier"
+               "::complete_tx::bytes [%0], [%1, {0, 0}], [%2];"
+               :: "r"(dst), "l"(map), "r"(bar));
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" :: "r"(bar));
+}
+""", "kernels/csrc/flash_attention_bwd.cu", "clean", None),
 ]
 
 

@@ -823,21 +823,25 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
 def test_flash_bf16_runs_on_hmma(cuda):
     """The bf16 entry's kernels (head_dim 64 and 128, each with and without
     the log-sum-exp output) run both products on the bf16 tensor cores
-    (HMMA), and so do the backward's bf16 kernels (dq, dk/dv); the f32
-    entries' kernels do not."""
+    (HMMA); the backward's bf16 kernels (dq, dk/dv, head_dim 64 and 128)
+    run every product on the warpgroup products (HGMMA) and hold no HMMA;
+    the f32 entries' kernels hold neither."""
     mma = _kernels_holding("flash_attention", "HMMA", "flash_kernel_mma")
     assert len(mma) == 4 and all(mma.values()), mma
     f32 = _kernels_holding("flash_attention", "HMMA", "flash_kernel_f32")
     assert len(f32) == 4 and not any(f32.values()), f32
-    bwd = _kernels_holding("flash_attention_bwd", "HMMA", "bwd_d")
-    mma = {k: n for k, n in bwd.items() if "_mma" in k}
-    assert len(bwd) == 8 and len(mma) == 4 and all(mma.values()), bwd
-    assert not any(n for k, n in bwd.items() if k not in mma), bwd
+    bwd = _kernels_holding("flash_attention_bwd", "HGMMA", "bwd_d")
+    wgmma = {k: n for k, n in bwd.items() if "_wgmma" in k}
+    assert len(bwd) == 8 and len(wgmma) == 4 and all(wgmma.values()), bwd
+    assert not any(n for k, n in bwd.items() if k not in wgmma), bwd
+    hmma = _kernels_holding("flash_attention_bwd", "HMMA", "bwd_d")
+    assert len(hmma) == 8 and not any(hmma.values()), hmma
 
 
 BWD_CASES = [  # b, sq, skv, h, kv, hd, causal, q_offset
     (2, 200, 200, 15, 5, 64, True, 0), (1, 70, 133, 4, 2, 128, False, 9),
-    (2, 65, 130, 6, 2, 20, True, 65), (1, 1, 40, 3, 3, 8, True, 39)]
+    (2, 65, 130, 6, 2, 20, True, 65), (1, 1, 40, 3, 3, 8, True, 39),
+    (1, 129, 257, 3, 3, 20, True, 128)]     # rows of 120 B: padded
 BWD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
            torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
 
@@ -864,6 +868,54 @@ def test_flash_lse_and_bwd_kernels_match_plain(cuda, case, dtype):
     torch.cuda.synchronize()
     assert (F.flash_attention_lse.launches, F.flash_attention_bwd.launches) \
         == (before[0] + 1, before[1] + 2)
+    want = F.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        np.testing.assert_allclose(g.float().cpu().numpy(),
+                                   w.float().cpu().numpy(), **BWD_TOL[dtype])
+
+
+def _bwd_inputs(case, dtype, cuda, seed=11):
+    b, sq, skv, h, kv, hd, causal, q_offset = case
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(dtype).to(cuda) for s in (
+        (b, sq, h, hd), (b, skv, kv, hd), (b, skv, kv, hd), (b, sq, h, hd)))
+    kw = dict(causal=causal, q_offset=q_offset)
+    o, lse = F.flash_attention_lse(q, k, v, **kw)
+    return (q, k, v, o, lse, do), kw
+
+
+def test_flash_bwd_bits_fixed_run_to_run(cuda):
+    """Two bf16 backward calls on the same causal GQA inputs give the same
+    bits: each output element is written once, by one block, with no
+    atomics."""
+    args, kw = _bwd_inputs((2, 300, 300, 15, 5, 64, True, 0),
+                           torch.bfloat16, cuda)
+    first = F.flash_attention_bwd(*args, **kw)
+    second = F.flash_attention_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_on_unaligned_views(cuda, dtype):
+    """Operands that are contiguous views at an offset that is not 16-byte
+    aligned: the bf16 wrapper copies them to aligned tensors before the
+    TMA loads; the result is the plain version's within BWD_TOL."""
+    case = (2, 200, 200, 15, 5, 64, True, 0)
+    args, kw = _bwd_inputs(case, dtype, cuda, seed=5)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    q, k, v, o, lse, do = (shifted(t) for t in args)
+    assert all(t.data_ptr() % 16 for t in (q, k, v, o, do))
+    got = F.flash_attention_bwd(q, k, v, o, lse, do, **kw)
     want = F.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.shape == w.shape

@@ -14,6 +14,15 @@ masked scaled scores in f64 (rtol 1e-6), and ``torch.autograd.gradcheck``
 checks the Function in f64 (the plain versions compute in f64 for f64
 inputs).  The CUDA kernels are held to these plain versions on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+
+The bf16 kernels read their operands through TMA, which needs aligned
+rows; ``_tma_operands``, the helper the wrapper runs before the launch,
+is checked here on the CPU: its tensors are 16-byte aligned with row
+strides of whole 16-byte units, the channels it pads (to a multiple of 8)
+and the lse values past Sq are zero, and the plain backward on the
+prepared operands, with the true head_dim's scale and sliced back, is the
+plain backward on the originals in f32 (rtol 1e-6, atol 1e-7: the padded
+channels change how einsum blocks its sums, a few f32 ulps).
 """
 
 import jax
@@ -150,3 +159,58 @@ def test_bwd_refuses_mismatched_shapes():
         F.flash_attention_bwd(q, k, v, o, lse[:, :, 1:], do)
     with pytest.raises(ValueError, match="lse"):
         F.flash_attention_bwd(q, k, v, o[:, 1:], lse, do)
+
+
+# b, sq, skv, h, kv, hd, causal, q_offset: padded channels (hd 20, 12, 7),
+# lse lines padded (sq 13, 9, 7), and hd 16 / sq 12 taken as they are.
+PREP_CASES = [(1, 13, 29, 3, 3, 20, True, 5), (2, 9, 17, 4, 2, 12, False, 0),
+              (1, 12, 12, 2, 1, 16, True, 0), (2, 7, 30, 6, 3, 7, False, 3)]
+
+
+def _shifted(t):
+    """``t`` as a contiguous view one element into a new buffer (not
+    16-byte aligned)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", PREP_CASES, ids=str)
+def test_tma_operands_are_aligned_and_zero_padded(case, dtype):
+    b, sq, skv, h, kv, hd, causal, q_offset = case
+    q, k, v, do = (_shifted(torch.from_numpy(a).to(dtype))
+                   for a in _inputs(case))
+    o, lse = F.flash_attention_lse_ref(q, k, v, causal=causal,
+                                       q_offset=q_offset)
+    o, lse = _shifted(o), _shifted(lse)
+    *rows, lse_p, pitch = F._tma_operands(q, k, v, o, do, lse)
+    for t, orig in zip(rows, (q, k, v, o, do)):
+        assert t.is_contiguous() and t.data_ptr() % 16 == 0
+        assert all(st * t.element_size() % 16 == 0 for st in t.stride()[:-1])
+        assert t.shape[:-1] == orig.shape[:-1]
+        assert t.shape[-1] % 8 == 0 and 0 <= t.shape[-1] - hd < 8
+        assert torch.equal(t[..., :hd], orig)
+        assert not t[..., hd:].any()
+    assert pitch % 4 == 0 and 0 <= pitch - sq < 4
+    assert lse_p.shape == (b, h, pitch) and lse_p.data_ptr() % 16 == 0
+    assert torch.equal(lse_p[..., :sq], lse) and not lse_p[..., sq:].any()
+
+
+@pytest.mark.parametrize("case", PREP_CASES, ids=str)
+def test_bwd_ref_on_prepared_operands_is_the_plain_backward(case):
+    b, sq, skv, h, kv, hd, causal, q_offset = case
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(case, seed=3))
+    kw = dict(causal=causal, q_offset=q_offset)
+    o, lse = F.flash_attention_lse_ref(q, k, v, **kw)
+    *rows, lse_p, _ = F._tma_operands(q, k, v, o, do, lse)
+    qp, kp, vp, op, dop = rows
+    got = F.flash_attention_bwd_ref(qp, kp, vp, op, lse_p[..., :sq], dop,
+                                    scale=hd ** -0.5, **kw)
+    want = F.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    for g, w in zip(got, want):
+        g = g[..., :hd]
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-6,
+                                   atol=1e-7)
