@@ -204,8 +204,9 @@ two hand-written launches):
 
 * the backward against its plain version at the training shape (4 x 2048
   tokens, 15 query over 5 KV heads, head_dim 64, causal) in f32 and
-  bf16, on two ragged cases (keys not a multiple of the tile,
-  ``q_offset`` > 0, full and causal) and on one whose rows TMA cannot
+  bf16 (as training calls it: in bf16 with the forward's output
+  residual, D = rowsum(do * (o + o_lo))), on two ragged cases (keys not a
+  multiple of the tile, ``q_offset`` > 0, full and causal) and on one whose rows TMA cannot
   describe as they are (head_dim 20: the wrapper pads the channels to
   24): each of dq, dk and dv within
   rtol 1e-4 / atol 1e-5 of it element by element and within 1e-4
@@ -247,6 +248,37 @@ two hand-written launches):
   host has queued them all, so that the host's dispatch does not show.
   A profiler session for these rows that records fewer device ops than
   the calls launched lost some and is run again, as an empty one is.
+
+Then the sixth path, the encoder-decoder and vision-language families in
+bf16 (random weights from a seed), each driven with row 10's count set to
+0 just before and read just after:
+
+* ``whisper_small`` at full width and depth (12 encoder and 12 decoder
+  layers, d 768, 12 heads of 64): ``prefill_step`` of 4 x 448 text
+  tokens over 4 x 1500 stub frames makes 36 row-10 launches (12 encoder
+  full over 1500 keys, 12 decoder causal, 12 cross-attention full, 448
+  queries over 1500 keys, which are not a multiple of the 64-key tile);
+  finite logits; the warm median of 5 and peak memory; every call
+  replayed against the plain version in bf16 (2e-2 element by element
+  and 1e-2 relative L2 as a whole) and f32 (2e-5), the max error and the
+  relative L2 printed by kind, and the relative-L2 bar must refuse the
+  cross call's plain output with the keys' 36 zero pads let through the
+  mask; cache parity of 2 x 64 tokens, token-by-
+  token ``serve_step`` over ``encode_for_decode``'s cross cache against
+  the prefill (bar 3x the bf16 prefill's distance from f32); ``generate``
+  of 4 x (16 + 64) tokens twice, equal; row 10 at the encoder's shape
+  (4 x 12, 1500, 64) and the cross shape (448 x 1500) by CUDA events
+  beside ``scaled_dot_product_attention`` and the flop bound; a train
+  step at depth 2 + 2, 4 x 448 tokens over 1500 frames, with the kernels
+  (row 10's forward with its log-sum-exp and its backward over the cross
+  shape) against row 10 through its plain version, per-leaf relative L2
+  within ``GRAD_TOL``, with the launches counted;
+* ``llava_next_34b`` at full width cut to 4 of its 60 layers (the cut is
+  printed: 60 layers are about 68 GB of bf16 weights on the 80 GB card):
+  ``prefill_step`` of 2 x (576 patches + 1024 text tokens), 4 launches
+  (causal, head_dim 128, 7 query heads a KV head), logits of the text
+  positions (2, 1024, 65536) finite, each call within 2e-2 of the plain
+  version element by element and 1e-2 in relative L2.
 
 Last, the analysis phase (``repro_torch.analysis``), at ``prod_3d`` in
 f64:
@@ -381,6 +413,7 @@ FLASH_CASES = [  # b, sq, skv, h, kv, hd, causal
     (1, 1, 40, 4, 2, 8, False), (1, 128, 128, 8, 8, 32, True),
     (1, 300, 300, 4, 2, 128, True), (2, 96, 130, 2, 2, 128, False)]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the reference's bars
+FLASH_REL_L2 = 1e-2   # a bf16 call's output as a whole, as BWD_TOL's
 TRAIN = dict(global_batch=4, seq_len=2048, steps=6, warmup_steps=2,
              checkpoint_every=2, loss_poison_step=3)   # remat: the config's
 BWD_CASES = [  # b, sq, skv, h, kv, hd, causal, q_offset
@@ -393,6 +426,15 @@ BWD_TOL = {  # dq, dk, dv: every element within rtol |plain| + atol +
     "bfloat16": dict(rtol=2e-2, atol=0.0, atol_rms=0.1, rel_l2=1e-2)}
 GRAD_CHECK = dict(num_layers=2, seq_len=512, global_batch=4)
 GRAD_TOL = {"float32": 1e-3, "bfloat16": 3e-2}   # per-leaf relative L2
+ENCDEC_ARCH = "whisper_small"    # encdec, full width and depth, bf16
+ENCDEC_PREFILL = (4, 448)        # prompts x text tokens, over 1500 frames
+ENCDEC_PARITY = (2, 64)          # prefill against token-by-token decode
+ENCDEC_SERVE = dict(requests=4, prompt=16, new_tokens=64)
+ENCDEC_GRAD = dict(encoder_layers=2, num_layers=2, global_batch=4,
+                   seq_len=448)  # the gradient check's depth and tokens
+VLM_ARCH = "llava_next_34b"      # vlm, full width, bf16, cut in depth:
+VLM_LAYERS = 4                   # 60 layers are ~68 GB of bf16 weights
+VLM_PREFILL = (2, 1024)          # prompts x text tokens, after 576 patches
 
 KERNELS = {  # the main path's wrappers -> (CUDA source, TPU kernels)
     "assemble_grouped": (
@@ -3113,7 +3155,8 @@ def main() -> int:
                 (b, sq, h, hd), (b, skv, kvh, hd), (b, skv, kvh, hd),
                 (b, sq, h, hd)))
             kw = dict(causal=causal, q_offset=q_offset)
-            o, lse = FA.flash_attention_lse(q, k, v, **kw)
+            # the training call: with the bf16 output's residual
+            o, lse, lo = FA.flash_attention_lse(q, k, v, **kw)
             if not torch.equal(o, FA.flash_attention(q, k, v, **kw)):
                 fail(f"flash_attention_lse's output is not bitwise "
                      f"flash_attention's ({case} {dtype})")
@@ -3123,8 +3166,9 @@ def main() -> int:
             if not ok or lse.dtype != torch.float32:
                 fail(f"flash_attention_lse's log-sum-exp differs from the "
                      f"plain logsumexp by {e} ({case} {dtype})")
-            got = FA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
-            want = FA.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+            got = FA.flash_attention_bwd(q, k, v, o, lse, do, o_lo=lo, **kw)
+            want = FA.flash_attention_bwd_ref(q, k, v, o, lse, do, o_lo=lo,
+                                              **kw)
             dname = str(dtype).removeprefix("torch.")
             tol = BWD_TOL[dname]
             for name, g, w in zip(("dq", "dk", "dv"), got, want):
@@ -3139,7 +3183,8 @@ def main() -> int:
                          f"plain version by {e}, relative L2 {rel} (RMS "
                          f"{rms}; {case} {dtype}; bar {tol})")
             if case == BWD_CASES[0] and dtype == torch.bfloat16:
-                bwd_args = dict(q=q, k=k, v=v, o=o, lse=lse, do=do, **kw)
+                bwd_args = dict(q=q, k=k, v=v, o=o, lse=lse, do=do, o_lo=lo,
+                                **kw)
                 again = FA.flash_attention_bwd(**bwd_args)
                 if not all(torch.equal(a_, g_) for a_, g_ in zip(again, got)):
                     fail("flash_attention_bwd: two bf16 calls on the same "
@@ -3151,7 +3196,7 @@ def main() -> int:
                 qt, kt = slice(sq - 64, sq), slice(sq - 128, sq - 64)
                 tile_part = FA.flash_attention_bwd_ref(
                     q[:, qt], k[:, kt], v[:, kt], o[:, qt], lse[..., qt],
-                    do[:, qt], causal=True, q_offset=64)
+                    do[:, qt], causal=True, q_offset=64, o_lo=lo[:, qt])
                 for sign in (-1.0, 1.0):
                     for name, g, w, span, piece in zip(
                             ("dq", "dk", "dv"), got, want, (qt, kt, kt),
@@ -3164,7 +3209,7 @@ def main() -> int:
                                  f"with one tile pair "
                                  f"{'dropped' if sign < 0 else 'doubled'}")
                 del tile_part, mutated
-            del q, k, v, do, o, lse, got, want
+            del q, k, v, do, o, lse, lo, got, want
     print(f"flash_attention_bwd: {len(BWD_CASES)} cases (the training shape "
           f"{BWD_CASES[0][:6]} causal, ragged full and causal with q_offset, "
           f"head_dim 20 padded to 24) "
@@ -3472,14 +3517,15 @@ def main() -> int:
                  "flash_attention_bwd": "backward"}
     no_lse_ms = device_ms(lambda: FA.flash_attention(**fwd_args),
                           only="flash_kernel")
+    # as training calls them: the output's residual written, then read
     for name, flop_mult, nbytes, kern, plain, lib, only, calls_launch in (
             ("flash_attention_lse", 4,
-             (2 * q.numel() + k.numel() + v.numel()) * esz + lse.numel() * 4,
+             (3 * q.numel() + k.numel() + v.numel()) * esz + lse.numel() * 4,
              lambda: FA.flash_attention_lse(**fwd_args),
-             lambda: FA.flash_attention_lse.plain(**fwd_args), lib_fwd,
-             "flash_kernel", 1),
+             lambda: FA.flash_attention_lse.plain(**fwd_args),
+             lib_fwd, "flash_kernel", 1),
             ("flash_attention_bwd", 10,
-             (4 * q.numel() + 2 * k.numel() + 2 * v.numel()) * esz
+             (5 * q.numel() + 2 * k.numel() + 2 * v.numel()) * esz
              + lse.numel() * 4,
              lambda: FA.flash_attention_bwd(**bwd_args),
              lambda: FA.flash_attention_bwd.plain(**bwd_args), lib_bwd,
@@ -3519,10 +3565,436 @@ def main() -> int:
               f"{r['plain_wrapper_ms']:.4f} ms  [{card}]")
     print(f"flash_attention_bwd: SDPA's dq differs from the kernel's by "
           f"{lib_err} (bf16); row 10 without the log-sum-exp on the same "
-          f"inputs {no_lse_ms:.4f} ms; training phase "
-          f"{time.perf_counter() - phase_t0:.1f} s  [{card}]")
+          f"inputs {no_lse_ms:.4f} ms; training phase {time.perf_counter() - phase_t0:.1f} s  "
+          f"[{card}]")
     del q, k, v, o, lse, do, qh, kh, vh, doh, lib_out, lib_grads, kern_grads
     del bwd_args, fwd_args
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------------
+    # Sixth path: the encoder-decoder and vision-language families in bf16,
+    # random weights from a seed: whisper_small at full width and depth
+    # (row 10 full over 1500 stub frames in the encoder, causal in the
+    # decoder, full cross-attention of 448 queries over 1500 keys), then
+    # llava_next_34b at full width cut to VLM_LAYERS of its 60 layers
+    # (causal over 576 patches and the text, head_dim 128, GQA 7:1)
+    # ------------------------------------------------------------------
+    from repro_torch.launch.train import stub_frontends
+
+    phase_t0 = time.perf_counter()
+    wcfg = get_config(ENCDEC_ARCH)
+    wmodel = init_params(wcfg, seed=0, device=cuda)
+    wgen = torch.Generator(device=cuda)
+    wgen.manual_seed(26)
+
+    def stub_audio(b):
+        return (torch.randn((b, wcfg.encoder_seq, wcfg.d_model),
+                            generator=wgen, device=cuda) * 0.02).to(
+            torch.bfloat16)
+
+    def attention_kind(args):
+        """encoder (full, Sq = Skv), self (causal) or cross (full, Sq !=
+        Skv): the three places the whisper prefill calls row 10."""
+        if args["causal"]:
+            return "self"
+        return "encoder" if args["q"].shape[1] == args["k"].shape[1] \
+            else "cross"
+
+    torch.cuda.synchronize()
+    wweight_bytes = sum(p.numel() * p.element_size()
+                        for p in wmodel.parameters())
+    wb, wtext = ENCDEC_PREFILL
+    wbatch = {"tokens": torch.randint(0, wcfg.vocab_size, ENCDEC_PREFILL,
+                                      generator=wgen, device=cuda),
+              "audio_embeds": stub_audio(wb)}
+    FA.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    with H.record_calls() as wcalls:
+        wlogits = LM.prefill_step(wmodel, wcfg, wbatch)
+    torch.cuda.synchronize()
+    wfirst_ms = (time.perf_counter() - t0) * 1e3
+    wlaunches = FA.flash_attention.launches
+    kinds = [attention_kind(a) for _, a in wcalls]
+    want_kinds = {"encoder": wcfg.encoder_layers, "self": wcfg.num_layers,
+                  "cross": wcfg.num_layers}
+    if wlaunches != sum(want_kinds.values()) or len(wcalls) != wlaunches \
+            or {k: kinds.count(k) for k in want_kinds} != want_kinds:
+        fail(f"{ENCDEC_ARCH} prefill_step launched flash_attention "
+             f"{wlaunches} times ({len(wcalls)} calls: "
+             f"{ {k: kinds.count(k) for k in want_kinds} }), expected "
+             f"{want_kinds}")
+    if tuple(wlogits.shape) != ENCDEC_PREFILL + (wcfg.vocab_padded,) or \
+            wlogits.dtype != torch.bfloat16 or \
+            not bool(torch.isfinite(wlogits).all()):
+        fail(f"{ENCDEC_ARCH} prefill logits {wlogits.dtype}"
+             f"{tuple(wlogits.shape)} are not finite bf16 of shape "
+             f"{ENCDEC_PREFILL + (wcfg.vocab_padded,)}")
+    del wlogits
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    wprefill_ms = []
+    for _ in range(PREFILL_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        LM.prefill_step(wmodel, wcfg, wbatch)
+        torch.cuda.synchronize()
+        wprefill_ms.append((time.perf_counter() - t0) * 1e3)
+    wpeak = torch.cuda.max_memory_allocated() - resident
+    print(f"{ENCDEC_ARCH} prefill_step {wb} x {wtext} tokens over {wb} x "
+          f"{wcfg.encoder_seq} stub frames ({wcfg.encoder_layers} + "
+          f"{wcfg.num_layers} layers, d {wcfg.d_model}, {wcfg.num_heads} "
+          f"heads of {wcfg.resolved_head_dim}): {wlaunches} flash_attention "
+          f"launches ({', '.join(f'{k} {n}' for k, n in want_kinds.items())}"
+          f"); first call {wfirst_ms:.1f} ms, warm median "
+          f"{float(np.median(wprefill_ms)):.2f} ms ("
+          f"{', '.join(f'{t:.2f}' for t in wprefill_ms)}); peak device "
+          f"memory {wpeak} B above the resident state, beside "
+          f"{wweight_bytes} B of weights  [{card}]")
+    werr, wrel = {}, {}
+    for (_w, args), kind in zip(wcalls, kinds):   # every call, both types
+        f32 = {**args, **{n: args[n].float() for n in "qkv"}}
+        for label, a in (("bf16", args), ("f32 replay", f32)):
+            got, want = FA.flash_attention(**a), FA.flash_attention.plain(**a)
+            e = hold_flash(got, want, f"{ENCDEC_ARCH} prefill {kind} {label}")
+            werr[kind, label] = max(werr.get((kind, label), 0.0), e)
+            if label == "bf16":   # and as a whole: a small uniform error
+                rel = rel_l2(got, want)       # passes the element bar
+                wrel[kind] = max(wrel.get(kind, 0.0), rel)
+                if not rel <= FLASH_REL_L2:
+                    fail(f"flash_attention ({ENCDEC_ARCH} prefill {kind} "
+                         f"bf16) is {rel} from its plain version in relative"
+                         f" L2 (bar {FLASH_REL_L2})")
+            del got, want
+    shape_args = {k: next(a for (_w, a), k2 in zip(wcalls, kinds) if k2 == k)
+                  for k in ("encoder", "cross")}
+    del wcalls
+    # The whole-output bar's reach: the cross call's plain output with the
+    # keys' tail padded with zeros to whole 64-key tiles and let through
+    # the mask (the fault the ragged keys could hide) must fail it.
+    a = shape_args["cross"]
+    pad = -a["k"].shape[1] % 64
+    leaky = FA.flash_attention.plain(**{**a, **{
+        n: torch.nn.functional.pad(a[n], (0, 0, 0, 0, 0, pad))
+        for n in "kv"}})
+    plain_c = FA.flash_attention.plain(**a).float()
+    leak_rel = rel_l2(leaky, plain_c)
+    tol = FLASH_TOL["bfloat16"]
+    leak_elem = bool(((leaky.float() - plain_c).abs()
+                      <= tol + tol * plain_c.abs()).all())
+    if not leak_rel > FLASH_REL_L2:
+        fail(f"the relative-L2 bar {FLASH_REL_L2} lets through the cross "
+             f"call with {pad} zero keys unmasked ({leak_rel})")
+    del leaky, plain_c
+    print(f"flash_attention: the {ENCDEC_ARCH} prefill's {wlaunches} calls "
+          f"within 2e-2 (bf16) and 2e-5 (f32 replay) of the plain version; "
+          f"max abs err by kind: "
+          + ", ".join(f"{k} {lb} {e:.3g}" for (k, lb), e in werr.items())
+          + f"; bf16 relative L2 by kind (bar {FLASH_REL_L2}): "
+          + ", ".join(f"{k} {r_:.3e}" for k, r_ in wrel.items())
+          + f"; the cross call with its {pad} padded keys unmasked reads "
+          f"{leak_rel:.3e}, refused (the element bar alone "
+          f"{'lets it through' if leak_elem else 'refuses it too'})")
+
+    # Cache parity: prefill against token-by-token serve_step over
+    # encode_for_decode's cross cache, bf16; the bar as the dense phase's.
+    pb, pt = ENCDEC_PARITY
+    ptoks = torch.randint(0, wcfg.vocab_size, ENCDEC_PARITY, generator=wgen,
+                          device=cuda)
+    paudio = stub_audio(pb)
+    pbatch = {"tokens": ptoks, "audio_embeds": paudio}
+    want = LM.prefill_step(wmodel, wcfg, pbatch).float()
+    exact = LM.prefill_step(wmodel.float(), wcfg.replace(dtype="float32"), {
+        "tokens": ptoks, "audio_embeds": paudio.float()}).float()
+    wmodel = wmodel.bfloat16()       # .float() converted in place
+    cache = LM.init_decode_cache(wcfg, pb, pt, device=cuda)
+    cache["cross"] = LM.encode_for_decode(wmodel, wcfg, paudio)
+    steps = []
+    for pos in range(pt):
+        lg, cache = LM.serve_step(wmodel, wcfg, cache,
+                                  {"token": ptoks[:, pos:pos + 1], "pos": pos})
+        steps.append(lg[:, 0].float())
+    got = torch.stack(steps, dim=1)
+    wparity = float((got - want).abs().max())
+    wrounding = float((want - exact).abs().max())
+    wagree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    if not wparity <= 3 * wrounding:
+        fail(f"{ENCDEC_ARCH} decode differs from prefill by {wparity}, above "
+             f"3x the bf16 rounding {wrounding}")
+    print(f"{ENCDEC_ARCH} cache parity {ENCDEC_PARITY}: token-by-token "
+          f"serve_step logits over encode_for_decode's cross cache within "
+          f"{wparity} of prefill_step's (bar 3 x {wrounding}, the bf16 "
+          f"prefill's distance from f32); argmax agrees on {wagree:.4f} of "
+          f"positions")
+    del want, exact, got, cache, steps, pbatch
+
+    # generate: the stub audio drawn and encoded once, then token by token
+    wsc = ServeConfig(arch=ENCDEC_ARCH, smoke=False,
+                      max_new_tokens=ENCDEC_SERVE["new_tokens"])
+    wprompts = lm_rng.integers(0, wcfg.vocab_size, (
+        ENCDEC_SERVE["requests"], ENCDEC_SERVE["prompt"])).astype(np.int32)
+    wserved, wserve_ms = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wserved.append(generate(wsc, wprompts, params=wmodel))
+        wserve_ms.append((time.perf_counter() - t0) * 1e3)
+    toks = wserved[0]["tokens"]
+    if toks.shape != (ENCDEC_SERVE["requests"], ENCDEC_SERVE["prompt"]
+                      + ENCDEC_SERVE["new_tokens"]) \
+            or not (toks[:, :ENCDEC_SERVE["prompt"]] == wprompts).all() \
+            or not ((toks >= 0) & (toks < wcfg.vocab_size)).all() \
+            or not np.isfinite(wserved[0]["logprobs"]).all():
+        fail(f"{ENCDEC_ARCH} generate returned tokens {toks.shape} that do "
+             f"not extend the prompts with in-vocabulary tokens, or "
+             f"non-finite logprobs")
+    if not (np.array_equal(toks, wserved[1]["tokens"]) and np.array_equal(
+            wserved[0]["logprobs"], wserved[1]["logprobs"])):
+        fail(f"two {ENCDEC_ARCH} generate runs from one seed differ")
+    wn_steps = ENCDEC_SERVE["prompt"] + ENCDEC_SERVE["new_tokens"] - 1
+    wnew = ENCDEC_SERVE["requests"] * ENCDEC_SERVE["new_tokens"]
+    print(f"{ENCDEC_ARCH} generate: {ENCDEC_SERVE['requests']} requests of "
+          f"{ENCDEC_SERVE['prompt']} prompt tokens + "
+          f"{ENCDEC_SERVE['new_tokens']} greedy new tokens over "
+          f"{wcfg.encoder_seq} stub frames in {wserve_ms[0]:.1f}, "
+          f"{wserve_ms[1]:.1f} ms (the encoder once, then {wn_steps} "
+          f"serve_steps, {wserve_ms[1] / wn_steps:.2f} ms a step); "
+          f"{wnew / wserve_ms[1] * 1e3:.1f} generated tokens/s; the two runs "
+          f"equal  [{card}]")
+
+    # Row 10 at the encoder's shape and the cross shape, by CUDA events,
+    # beside scaled_dot_product_attention (a yardstick the port never calls)
+    shape_rows = {}
+    for kind, args in shape_args.items():
+        q, k, v = (args[n] for n in "qkv")
+        b, sq, h, hd = q.shape
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))   # H = KV here
+        kernel = lambda: FA.flash_attention(**args)
+        plain = lambda: FA.flash_attention.plain(**args)
+        library = lambda: torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh)
+        lib_err = max_err(library().transpose(1, 2), kernel())
+        if not lib_err <= 2e-2 * max(1.0, float(q.abs().max())):
+            fail(f"scaled_dot_product_attention differs from flash_attention "
+                 f"by {lib_err} at the {kind} shape")
+        flops = 4 * b * h * hd * sq * k.shape[1]                # full
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        flops_ms = flops / BF16_FLOP_PER_S * 1e3
+        ms = events_ms(kernel)
+        shape_rows[kind] = {
+            "shape": [b * h, sq, k.shape[1], hd], "events_ms": ms,
+            "plain_events_ms": events_ms(plain),
+            "library_events_ms": events_ms(library),
+            "bound_ms": max(bytes_ms, flops_ms),
+            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations"}
+        r = shape_rows[kind]
+        print(f"flash_attention at the {ENCDEC_ARCH} {kind} shape ({b}x{h}, "
+              f"{sq} queries over {k.shape[1]} keys, {hd}) bf16 full: CUDA "
+              f"events over {TIMING_REPS} back-to-back calls {ms:.4f} ms "
+              f"({flops / ms / 1e9:.1f} TFLOP/s); bound {r['bound_ms']:.4f} "
+              f"ms by {r['bound_by']} ({flops} flop at 989 TFLOP/s, {nbytes} "
+              f"B at 3.35 TB/s); library (scaled_dot_product_attention) "
+              f"{r['library_events_ms']:.4f} ms (max abs diff {lib_err}); "
+              f"plain {r['plain_events_ms']:.4f} ms  [{card}]")
+        del q, k, v, qh, kh, vh
+    del shape_args
+
+    # A train step at full width and depth 2 + 2, the kernels (row 10's
+    # forward with its log-sum-exp and residual, and its backward, full over
+    # the frames and 448 x 1500 across) against row 10 through its plain
+    # version.  In bf16 the worst leaves are also held beside the f32
+    # gradient of the same weights (plain attention), with SDPA's flash
+    # attention (a yardstick the port never calls) for scale: a record.
+    def sdpa_attention(q, k, v, *, causal=True, q_offset=0):
+        if q_offset:
+            raise ValueError("the yardstick takes q_offset 0 only")
+        g = q.shape[2] // k.shape[2]
+        qh, kh, vh = (t.transpose(1, 2) for t in (
+            q, k.repeat_interleave(g, 2), v.repeat_interleave(g, 2)))
+        with torch.nn.attention.sdpa_kernel(
+                torch.nn.attention.SDPBackend.FLASH_ATTENTION):
+            return torch.nn.functional.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=causal).transpose(1, 2)
+
+    def grads_with(attention, params, c, batch):
+        ATT.flash_attention = attention
+        try:
+            return ST.loss_and_grads(params, c, batch)
+        finally:
+            ATT.flash_attention = FA.flash_attention
+
+    wgrad_rel, wgrad_launches, wgrad_f32 = {}, None, {}
+    for dtype in ("float32", "bfloat16"):
+        gcfg = wcfg.replace(dtype=dtype, **{k_: ENCDEC_GRAD[k_] for k_ in (
+            "num_layers", "encoder_layers")})
+        gbatch = SyntheticLM(DataConfig(
+            vocab_size=gcfg.vocab_size, seq_len=ENCDEC_GRAD["seq_len"],
+            global_batch=ENCDEC_GRAD["global_batch"], seed=1),
+            device=cuda).batch(0)
+        gbatch.update(stub_frontends(gcfg, ENCDEC_GRAD["global_batch"], 1, 0,
+                                     cuda))
+        runs = []
+        for attention in (ATT.flash_attention, plain_attention):
+            gparams, gopt = ST.init_train_state(gcfg, seed=1, device=cuda)
+            # Adam's first step moves a zero-initialized leaf (the biases)
+            # by lr times the gradient's sign alone: its gradient is held,
+            # its updated value is not
+            zero_init = {n for n, p_ in gparams.named_parameters()
+                         if not bool(p_.any())}
+            FA.flash_attention.launches = 0
+            FA.flash_attention_lse.launches = 0
+            FA.flash_attention_bwd.launches = 0
+            loss, grads = grads_with(attention, gparams, gcfg, gbatch)
+            ATT.flash_attention = attention
+            try:
+                ST.make_train_step(gcfg, lambda s_: torch.tensor(1e-3))(
+                    gparams, gopt, gbatch)
+            finally:
+                ATT.flash_attention = FA.flash_attention
+            if attention is ATT.flash_attention:
+                wgrad_launches = (FA.flash_attention.launches,
+                                  FA.flash_attention_lse.launches,
+                                  FA.flash_attention_bwd.launches)
+            runs.append((float(loss), grads,
+                         {n: p.detach() for n, p in
+                          gparams.named_parameters()}))
+        calls = gcfg.encoder_layers + 2 * gcfg.num_layers
+        if wgrad_launches != (0, 2 * 2 * calls, 2 * 2 * calls):
+            fail(f"the {ENCDEC_ARCH} train steps launched row 10 (no lse, "
+                 f"lse, backward) {wgrad_launches} times; predicted "
+                 f"{(0, 4 * calls, 4 * calls)}: two passes, each {calls} "
+                 f"attention calls run forward twice (remat full) and "
+                 f"backward once (two launches)")
+        (lk, gk, pk), (lp, gp, pp) = runs
+        worst = max((rel_l2(gk[n], gp[n]), n) for n in gk)
+        worst_p = max((rel_l2(pk[n], pp[n]), n) for n in pk
+                      if n not in zero_init)
+        wgrad_rel[dtype] = (worst, worst_p, abs(lk - lp))
+        if not (worst[0] <= GRAD_TOL[dtype] and worst_p[0] <= GRAD_TOL[dtype]
+                and math.isfinite(lk)):
+            fail(f"the {dtype} {ENCDEC_ARCH} train step with row 10's kernels "
+                 f"differs from the one through its plain version: worst "
+                 f"gradient {worst}, worst parameter {worst_p} (per-leaf "
+                 f"relative L2; bar {GRAD_TOL[dtype]}), losses {lk}, {lp}")
+        if dtype == "bfloat16":
+            tparams, _ = ST.init_train_state(gcfg, seed=1, device=cuda)
+            _, gt = grads_with(plain_attention, tparams.float(),
+                               gcfg.replace(dtype="float32"),
+                               {**gbatch, "audio_embeds":
+                                gbatch["audio_embeds"].float()})
+            sparams, _ = ST.init_train_state(gcfg, seed=1, device=cuda)
+            _, gs = grads_with(sdpa_attention, sparams, gcfg, gbatch)
+            for n in sorted(gk, key=lambda n_: -rel_l2(gk[n_], gt[n_]))[:3]:
+                wgrad_f32[n] = (rel_l2(gk[n], gt[n]), rel_l2(gp[n], gt[n]),
+                                rel_l2(gs[n], gt[n]))
+            del tparams, sparams, gt, gs
+        del runs, gk, gp, pk, pp, gparams, gopt, grads, gbatch
+    print(f"{ENCDEC_ARCH} gradient check (depth {ENCDEC_GRAD['encoder_layers']}"
+          f" + {ENCDEC_GRAD['num_layers']}, {ENCDEC_GRAD['global_batch']} x "
+          f"{ENCDEC_GRAD['seq_len']} tokens over {wcfg.encoder_seq} frames): "
+          f"row 10 launches (no lse, lse, backward) {wgrad_launches} in two "
+          f"passes; kernels against row 10's plain version, per-leaf "
+          f"relative L2 (updated parameters: the {len(zero_init)} leaves "
+          f"that start at zero left out, their gradients held) "
+          + "; ".join(f"{d}: worst gradient {g[1]} {g[0]:.3e}, worst "
+                      f"updated parameter {p_[1]} {p_[0]:.3e}, |loss diff| "
+                      f"{dl:.3e}" for d, (g, p_, dl) in wgrad_rel.items())
+          + f" (bars {GRAD_TOL}); the bf16 gradients farthest from the f32 "
+          f"gradient of the same weights, relative L2 (kernels, plain, "
+          f"SDPA's flash attention): "
+          + ", ".join(f"{n} {k_:.3e}, {p_:.3e}, {s_:.3e}"
+                      for n, (k_, p_, s_) in wgrad_f32.items())
+          + f"  [{card}]")
+    del wmodel, wbatch, paudio
+    torch.cuda.empty_cache()
+
+    # llava_next_34b at full width, cut to VLM_LAYERS of its 60 layers
+    vfull = get_config(VLM_ARCH)
+    vcfg = vfull.replace(num_layers=VLM_LAYERS)
+    t0 = time.perf_counter()
+    vmodel = init_params(vcfg, seed=0, device=cuda)
+    torch.cuda.synchronize()
+    vinit_s = time.perf_counter() - t0
+    vweight_bytes = sum(p.numel() * p.element_size()
+                        for p in vmodel.parameters())
+    print(f"{VLM_ARCH} cut: depth {vfull.num_layers} -> {VLM_LAYERS} (the "
+          f"published {vfull.num_layers} layers are about "
+          f"{vfull.param_count() * 2 / 1e9:.1f} GB of bf16 weights on the "
+          f"80 GB card, and their random init would eat the script's time); "
+          f"widths as published: d {vcfg.d_model}, {vcfg.num_heads} query "
+          f"over {vcfg.num_kv_heads} KV heads of {vcfg.resolved_head_dim}, "
+          f"d_ff {vcfg.d_ff}, vocab {vcfg.vocab_size}; {vweight_bytes} B of "
+          f"weights drawn in {vinit_s:.1f} s")
+    vb, vtext = VLM_PREFILL
+    vbatch = {"tokens": torch.randint(0, vcfg.vocab_size, VLM_PREFILL,
+                                      generator=wgen, device=cuda),
+              "patch_embeds": (torch.randn(
+                  (vb, vcfg.vision_patches, vcfg.d_model), generator=wgen,
+                  device=cuda) * 0.02).to(torch.bfloat16)}
+    FA.flash_attention.launches = 0
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with H.record_calls() as vcalls:
+        vlogits = LM.prefill_step(vmodel, vcfg, vbatch)
+    torch.cuda.synchronize()
+    vfirst_ms = (time.perf_counter() - t0) * 1e3
+    vpeak = torch.cuda.max_memory_allocated() - resident
+    vlaunches = FA.flash_attention.launches
+    if vlaunches != VLM_LAYERS or len(vcalls) != VLM_LAYERS:
+        fail(f"{VLM_ARCH} prefill_step launched flash_attention {vlaunches} "
+             f"times ({len(vcalls)} calls), one per layer is {VLM_LAYERS}")
+    if tuple(vlogits.shape) != VLM_PREFILL + (vcfg.vocab_padded,) or \
+            vlogits.dtype != torch.bfloat16 or \
+            not bool(torch.isfinite(vlogits).all()):
+        fail(f"{VLM_ARCH} prefill logits {vlogits.dtype}"
+             f"{tuple(vlogits.shape)} are not finite bf16 of shape "
+             f"{VLM_PREFILL + (vcfg.vocab_padded,)} (text positions only)")
+    del vlogits
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    LM.prefill_step(vmodel, vcfg, vbatch)
+    torch.cuda.synchronize()
+    vwarm_ms = (time.perf_counter() - t0) * 1e3
+    verr = vrel = 0.0
+    for _w, args in vcalls:
+        if not (args["causal"] and args["q"].shape[1] == vcfg.vision_patches
+                + vtext and args["q"].shape[-1] == 128
+                and args["q"].shape[2] // args["k"].shape[2] == 7):
+            fail(f"{VLM_ARCH}: row 10 called at q {tuple(args['q'].shape)}, "
+                 f"k {tuple(args['k'].shape)}, causal {args['causal']}")
+        got, want = FA.flash_attention(**args), FA.flash_attention.plain(**args)
+        verr = max(verr, hold_flash(got, want, f"{VLM_ARCH} prefill"))
+        rel = rel_l2(got, want)
+        vrel = max(vrel, rel)
+        if not rel <= FLASH_REL_L2:
+            fail(f"flash_attention ({VLM_ARCH} prefill) is {rel} from its "
+                 f"plain version in relative L2 (bar {FLASH_REL_L2})")
+        del got, want
+    del vcalls
+    print(f"{VLM_ARCH} prefill_step {vb} x ({vcfg.vision_patches} patches + "
+          f"{vtext} text tokens), depth {VLM_LAYERS}: {vlaunches} "
+          f"flash_attention launches (one a layer, causal, head_dim 128, "
+          f"{vcfg.num_heads // vcfg.num_kv_heads} query heads a KV head), "
+          f"logits {VLM_PREFILL + (vcfg.vocab_padded,)} finite; each call "
+          f"within 2e-2 of the plain version (max abs err {verr}) and "
+          f"{FLASH_REL_L2} as a whole (relative L2 at most {vrel:.3e}); "
+          f"first call "
+          f"{vfirst_ms:.1f} ms, then {vwarm_ms:.1f} ms; peak device memory "
+          f"{vpeak} B above the resident state; the encdec and vlm phase "
+          f"{time.perf_counter() - phase_t0:.1f} s  [{card}]")
+    fa_row = next(r for r in rows if r["name"] == "flash_attention")
+    fa_row.update({
+        "whisper_small_prefill_launches": wlaunches,
+        "whisper_small_shapes": shape_rows,
+        "llava_next_34b_cut_prefill_launches": vlaunches})
+    for r in rows:
+        if r["name"] in ("flash_attention_lse", "flash_attention_bwd"):
+            r["whisper_small_grad_check_launches"] = wgrad_launches[
+                1 if r["name"].endswith("lse") else 2]
+    del vmodel, vbatch
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------------

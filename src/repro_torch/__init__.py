@@ -22,10 +22,12 @@ on meshes that may repeat one device), the per-grid
 transforms (``kernels.ops``) and the iterated combination technique
 (``core.iterated``), the scatter phase with adaptivity
 (``core.executor.ct_scatter``, ``core.adaptive``,
-``runtime.fault_tolerance``), and the dense LM's serving steps
-(``models``: ``transformer.DenseLM``/``forward``, ``model.prefill_step``/
-``serve_step``, ``launch.serve.generate``; ``convert.lm_params_from_numpy``
-carries the reference's weights across) and its training
+``runtime.fault_tolerance``), and the LM stack's dense, encdec and vlm
+families: serving (``models``: ``transformer.LM``/``forward``,
+``model.prefill_step``/``serve_step``/``encode_for_decode``, the model
+API ``input_specs``/``make_batch``/``decode_cache_specs``,
+``launch.serve.generate``; ``convert.lm_params_from_numpy`` carries the
+reference's weights across) and training
 (``launch.train``, ``launch.steps.make_train_step``, ``optim``, ``data``,
 row 10's backward kernels).  Every TPU kernel of the
 reference is written by hand in CUDA for Hopper (``kernels/csrc``): the

@@ -3,8 +3,10 @@
 ``sparse_grid`` holds the combination technique's configurations.  The
 LM architectures keep the reference's registry: ``get_config(arch_id)``
 returns the FULL published config, ``get_smoke_config(arch_id)`` the
-reduced same-family config of the CPU tests.  Only the dense family is
-ported; any other architecture raises ``NotImplementedError``.
+reduced same-family config of the CPU tests.  Each architecture's module
+is the reference's, copied; an architecture whose family the model code
+does not run (``models.transformer.FAMILIES``: moe, ssm and hybrid are
+not there yet) raises ``NotImplementedError`` from both getters.
 """
 
 from __future__ import annotations
@@ -14,7 +16,8 @@ from typing import List
 
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["ARCH_IDS", "DENSE_ARCH_IDS", "get_config", "get_smoke_config"]
+__all__ = ["ARCH_IDS", "DENSE_ARCH_IDS", "get_config", "get_smoke_config",
+           "ported_arch_ids"]
 
 ARCH_IDS: List[str] = [
     "whisper_small",
@@ -29,21 +32,20 @@ ARCH_IDS: List[str] = [
     "llava_next_34b",
 ]
 
-#: The architectures of the dense family, the only one ported.
+#: The architectures of the dense family.
 DENSE_ARCH_IDS: List[str] = ["chatglm3_6b", "glm4_9b", "smollm_360m",
                              "codeqwen15_7b"]
 
 
+
 def _module(arch_id: str):
+    from repro_torch.models.transformer import check_family
     if arch_id not in ARCH_IDS:
         raise KeyError(f"unknown architecture {arch_id!r}; known: "
                        f"{', '.join(ARCH_IDS)}")
-    if arch_id not in DENSE_ARCH_IDS:
-        raise NotImplementedError(
-            f"{arch_id} is not of the dense family, the only one the port "
-            f"runs yet (ROADMAP.md, Queue A 11: the LM stack's other "
-            f"families)")
-    return importlib.import_module(f"repro_torch.configs.{arch_id}")
+    module = importlib.import_module(f"repro_torch.configs.{arch_id}")
+    check_family(module.CONFIG)
+    return module
 
 
 def get_config(arch_id: str) -> ModelConfig:
@@ -52,3 +54,10 @@ def get_config(arch_id: str) -> ModelConfig:
 
 def get_smoke_config(arch_id: str) -> ModelConfig:
     return _module(arch_id).smoke_config()
+
+
+def ported_arch_ids() -> List[str]:
+    """The architectures the port runs, in ``ARCH_IDS``' order."""
+    from repro_torch.models.transformer import runs_family
+    return [a for a in ARCH_IDS if runs_family(importlib.import_module(
+        f"repro_torch.configs.{a}").CONFIG)]

@@ -4,28 +4,41 @@ The CT system has no weights: its state is the nodal component grids and
 the served surplus.  ``state_from_numpy`` turns the reference's
 ``{ell: np.ndarray}`` grids and a served surplus (``np.asarray(ref.surplus)``)
 into the port's tensors, so both packages compute from identical state.
-``lm_params_from_numpy`` does the same for the dense LM's parameters and
-``train_state_from_numpy`` for its train state (parameters and AdamW's
-moments); ``lm_params_to_numpy`` and ``train_state_to_numpy`` carry the
-port's back into the reference's layout (the layer stack along a leading
-L axis), so the tests compare leaf by leaf.
+``lm_params_from_numpy`` does the same for the LM's parameters (the
+dense, encdec and vlm families) and ``train_state_from_numpy`` for its
+train state (parameters and AdamW's moments); ``lm_params_to_numpy`` and
+``train_state_to_numpy`` carry the port's back into the reference's
+layout (each layer stack along a leading L axis), so the tests compare
+leaf by leaf.
+
+``reference_key`` names the reference's leaf that holds an ``LM``
+parameter, as the reference's checkpoint manifests spell it
+(``segments/0/attn/wq`` for ``blocks.<i>.attn.wq``, ``encoder/stack/...``
+for ``encoder.blocks.<i>...``), with the layer's index along its stacked
+axis; ``stack_by_reference_key`` groups ``{parameter name: leaf}`` into
+``{reference key: stacked leaf}`` (the port's training checkpoints are
+written so, under the reference's names).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Tuple, Union
+from typing import (Callable, Dict, List, Mapping, Optional, Tuple, TypeVar,
+                    Union)
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import DenseLM, check_dense
+from repro_torch.models.transformer import LM, Encoder, check_family
 from repro_torch.optim.adamw import AdamWState
 
 __all__ = ["state_from_numpy", "lm_params_from_numpy",
            "train_state_from_numpy", "lm_params_to_numpy",
-           "train_state_to_numpy"]
+           "train_state_to_numpy", "reference_key",
+           "stack_by_reference_key", "unstack_by_reference_key"]
+
+T = TypeVar("T")
 
 
 def _tensor(a, device: torch.device,
@@ -56,54 +69,159 @@ def state_from_numpy(nodal_grids: Mapping[tuple, np.ndarray],
     return grids, None if surplus is None else conv(surplus)
 
 
-def lm_params_from_numpy(params_np: Mapping, cfg: ModelConfig, *, device,
-                         dtype: Optional[torch.dtype] = None) -> DenseLM:
-    """The reference's dense-LM parameter pytree, as numpy
-    (``jax.tree.map(np.asarray, params)``), as the port's ``DenseLM`` on
-    ``device``, value for value: each array keeps its dtype unless
-    ``dtype`` is given.  The stacked layer segment (leading axis L) is
-    split into one ``DenseBlock`` per layer."""
-    check_dense(cfg)
-    device = resolve_device(device)
-    conv = lambda a: _tensor(a, device, dtype)
-    (stack,) = params_np["segments"]
-    layers = [{part: {name: conv(a[i]) for name, a in group.items()}
-               for part, group in stack.items()}
-              for i in range(cfg.num_layers)]
-    head = params_np.get("lm_head")
-    return DenseLM(cfg, conv(params_np["embed"]),
-                   {k: conv(a) for k, a in params_np["final_norm"].items()},
-                   layers, None if head is None else conv(head))
+# ---------------------------------------------------------------------------
+# Parameter names: the port's against the reference's key paths
+# ---------------------------------------------------------------------------
+
+#: The port's per-layer prefixes and the reference's stacked leaves.
+_STACKS = (("blocks", ("segments", "0")), ("encoder.blocks",
+                                           ("encoder", "stack")))
 
 
-def _named_from_tree(tree: Mapping, cfg: ModelConfig) -> Dict[str, object]:
-    """The reference's dense-LM pytree (any leaves) by ``DenseLM``
-    parameter name, the stacked layer segment split per layer."""
-    out = {"embed": tree["embed"]}
-    out.update({f"final_norm.{k}": a for k, a in tree["final_norm"].items()})
-    if "lm_head" in tree:
-        out["lm_head"] = tree["lm_head"]
-    (stack,) = tree["segments"]
-    for i in range(cfg.num_layers):
-        for part, group in stack.items():
-            for name, a in group.items():
-                out[f"blocks.{i}.{part}.{name}"] = a[i]
+def reference_key(name: str) -> Tuple[str, Optional[int]]:
+    """``(key, layer)``: the reference's key path of the leaf that holds
+    ``LM`` parameter ``name``, joined by ``/`` as its checkpoint manifests
+    spell it, and the layer's index along that leaf's stacked axis (None
+    for a leaf that is not stacked)."""
+    for prefix, ref in _STACKS:
+        if name.startswith(prefix + "."):
+            layer, rest = name[len(prefix) + 1:].split(".", 1)
+            return "/".join(ref + tuple(rest.split("."))), int(layer)
+    return name.replace(".", "/"), None
+
+
+def stack_by_reference_key(named: Mapping[str, T],
+                           stack: Callable[[List[T]], T],
+                           leaf: Callable[[T], T] = lambda t: t
+                           ) -> Dict[str, T]:
+    """``{parameter name: leaf}`` (parameters, gradients, moments) as
+    ``{reference key: leaf}``: each layer stack's leaves joined by
+    ``stack`` (given them in layer order), every other leaf passed through
+    ``leaf``."""
+    groups: Dict[str, list] = {}
+    for name, t in named.items():
+        key, layer = reference_key(name)
+        groups.setdefault(key, []).append((layer, t))
+    return {key: leaf(ts[0][1]) if ts[0][0] is None
+            else stack([t for _, t in sorted(ts, key=lambda x: x[0])])
+            for key, ts in groups.items()}
+
+
+def unstack_by_reference_key(flat: Mapping[str, T],
+                             names) -> Dict[str, T]:
+    """The inverse of ``stack_by_reference_key``: ``{name: leaf}`` for
+    each parameter name of ``names``, a stacked leaf indexed by layer."""
+    out = {}
+    for name in names:
+        key, layer = reference_key(name)
+        out[name] = flat[key] if layer is None else flat[key][layer]
     return out
+
+
+def _flatten(tree, path=()) -> Dict[str, object]:
+    """The reference's pytree of dicts and lists as ``{key path: leaf}``."""
+    if isinstance(tree, Mapping):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {"/".join(path): tree}
+    out = {}
+    for k, v in items:
+        out.update(_flatten(v, path + (str(k),)))
+    return out
+
+
+def _nest(flat: Mapping[str, object]) -> Dict:
+    """``{key path: leaf}`` as the reference's pytree: dicts, with the
+    ``segments`` list."""
+    tree: Dict = {}
+    for key, a in flat.items():
+        node = tree
+        *parents, last = key.split("/")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[last] = a
+    if "segments" in tree:
+        tree["segments"] = [tree["segments"][str(i)]
+                            for i in range(len(tree["segments"]))]
+    return tree
+
+
+def _named_from_tree(tree: Mapping) -> Dict[str, object]:
+    """The reference's LM pytree (any leaves) by ``LM`` parameter name,
+    each stacked layer segment split per layer."""
+    out = {}
+    for key, a in _flatten(tree).items():
+        for prefix, ref in _STACKS:
+            head = "/".join(ref) + "/"
+            if key.startswith(head):
+                rest = key[len(head):].replace("/", ".")
+                out.update({f"{prefix}.{i}.{rest}": a[i]
+                            for i in range(len(a))})
+                break
+        else:
+            out[key.replace("/", ".")] = a
+    return out
+
+
+def _layers(named: Mapping[str, torch.Tensor], prefix: str, n: int):
+    layers = [{} for _ in range(n)]
+    for name, t in named.items():
+        if name.startswith(prefix + "."):
+            layer, part, leaf = name[len(prefix) + 1:].split(".")
+            layers[int(layer)].setdefault(part, {})[leaf] = t
+    return layers
+
+
+def _group(named: Mapping[str, torch.Tensor], prefix: str):
+    return {n[len(prefix) + 1:]: t for n, t in named.items()
+            if n.startswith(prefix + ".") and n.count(".") == 1 +
+            prefix.count(".")}
+
+
+def _lm_from_named(named: Mapping[str, torch.Tensor], cfg: ModelConfig) -> LM:
+    encoder = None
+    if cfg.family == "encdec":
+        encoder = Encoder(cfg, named["encoder.pos"],
+                          _layers(named, "encoder.blocks",
+                                  cfg.encoder_layers),
+                          _group(named, "encoder.final_norm"))
+    return LM(cfg, named["embed"], _group(named, "final_norm"),
+              _layers(named, "blocks", cfg.num_layers), named.get("lm_head"),
+              encoder=encoder, dec_pos=named.get("dec_pos"))
+
+
+# ---------------------------------------------------------------------------
+# Parameters and train states across the packages
+# ---------------------------------------------------------------------------
+
+def lm_params_from_numpy(params_np: Mapping, cfg: ModelConfig, *, device,
+                         dtype: Optional[torch.dtype] = None) -> LM:
+    """The reference's LM parameter pytree, as numpy
+    (``jax.tree.map(np.asarray, params)``), as the port's ``LM`` on
+    ``device``, value for value: each array keeps its dtype unless
+    ``dtype`` is given.  Each stacked layer segment (leading axis L) is
+    split into one block per layer."""
+    check_family(cfg)
+    device = resolve_device(device)
+    return _lm_from_named({n: _tensor(a, device, dtype) for n, a in
+                           _named_from_tree(params_np).items()}, cfg)
 
 
 def train_state_from_numpy(params_np: Mapping, opt_np, cfg: ModelConfig, *,
                            device, dtype: Optional[torch.dtype] = None
-                           ) -> Tuple[DenseLM, AdamWState]:
+                           ) -> Tuple[LM, AdamWState]:
     """The reference's train state ``(params, AdamWState)``, as numpy
-    (``jax.tree.map(np.asarray, state)``), as the port's: a ``DenseLM``
-    whose parameters take gradients (``dtype`` as in
-    ``lm_params_from_numpy``) and an ``AdamWState`` with the moments by
-    parameter name (float32, as stored) and the step as int32."""
+    (``jax.tree.map(np.asarray, state)``), as the port's: an ``LM`` whose
+    parameters take gradients (``dtype`` as in ``lm_params_from_numpy``)
+    and an ``AdamWState`` with the moments by parameter name (float32, as
+    stored) and the step as int32."""
     params = lm_params_from_numpy(params_np, cfg, device=device,
                                   dtype=dtype).requires_grad_(True)
     device = params.device
     moments = [{k: _tensor(a, device, torch.float32)
-                for k, a in _named_from_tree(tree, cfg).items()}
+                for k, a in _named_from_tree(tree).items()}
                for tree in (opt_np.m, opt_np.v)]
     step = torch.tensor(int(np.asarray(opt_np.step)), dtype=torch.int32,
                         device=device)
@@ -117,37 +235,20 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
-def lm_params_to_numpy(params: Union[DenseLM, Mapping[str, torch.Tensor]],
+def lm_params_to_numpy(params: Union[LM, Mapping[str, torch.Tensor]],
                        cfg: ModelConfig) -> Dict:
-    """A ``DenseLM``, or any ``{parameter name: tensor}`` mapping of its
+    """An ``LM``, or any ``{parameter name: tensor}`` mapping of its
     shapes (gradients, AdamW's moments), in the reference's pytree layout
-    as numpy: the layers' tensors stacked along a leading L axis, bf16
-    widened to float32."""
-    check_dense(cfg)
+    as numpy: each layer stack's tensors stacked along a leading L axis,
+    bf16 widened to float32."""
+    check_family(cfg)
     named = dict(params.named_parameters()) if isinstance(
-        params, DenseLM) else dict(params)
-    tree = {"embed": _numpy(named["embed"]),
-            "final_norm": {k.split(".", 1)[1]: _numpy(t)
-                           for k, t in named.items()
-                           if k.startswith("final_norm.")},
-            "segments": []}
-    if "lm_head" in named:
-        tree["lm_head"] = _numpy(named["lm_head"])
-    stack: Dict[str, Dict[str, list]] = {}
-    for k, t in named.items():
-        if k.startswith("blocks."):
-            _, i, part, name = k.split(".")
-            stack.setdefault(part, {}).setdefault(name, []).append(
-                (int(i), _numpy(t)))
-    tree["segments"].append({
-        part: {name: np.stack([a for _, a in sorted(layers,
-                                                     key=lambda x: x[0])])
-               for name, layers in group.items()}
-        for part, group in stack.items()})
-    return tree
+        params, LM) else dict(params)
+    return _nest(stack_by_reference_key(
+        {n: _numpy(t) for n, t in named.items()}, np.stack))
 
 
-def train_state_to_numpy(params: DenseLM, opt: AdamWState,
+def train_state_to_numpy(params: LM, opt: AdamWState,
                          cfg: ModelConfig) -> Tuple[Dict, AdamWState]:
     """The port's train state in the reference's layout as numpy:
     ``(params tree, AdamWState(step, m tree, v tree))``."""

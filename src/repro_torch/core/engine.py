@@ -95,7 +95,13 @@ ack (copied to the host, written as npz, checksummed), and
 engine's device and replays the newer WAL entries through the normal
 ingest, so the restored surplus is bitwise that of an engine that never
 crashed.  The store's bytes are the reference's: a store written by either
-package restores in the other.
+package restores in the other.  One deliberate difference (ROADMAP Queue C,
+C16): ``snapshot_interval`` must be an int >= 0 (0 turns snapshots off)
+and anything else is refused at construction, and a snapshot that raises
+is logged and counted (``stats()["durability"]["snapshot_errors"]``)
+without ending the ingest chain; the reference's ``snapshot_interval=None``
+raises on the pool thread after the ack and strands the tenant's later
+queued ingests, whose futures never resolve.
 
 Donation
 --------
@@ -691,6 +697,15 @@ class CTEngine:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         if max_pending < 1:
             raise ValueError(f"max_pending must be >= 1, got {max_pending}")
+        if isinstance(snapshot_interval, bool) or not isinstance(
+                snapshot_interval, int):
+            raise TypeError(f"CTEngine: snapshot_interval must be an int "
+                            f"(0 turns snapshots off), got "
+                            f"{snapshot_interval!r}")
+        if snapshot_interval < 0:
+            raise ValueError(f"CTEngine: snapshot_interval must be >= 0 "
+                             f"(0 turns snapshots off), got "
+                             f"{snapshot_interval}")
         self.device = resolve_device(device)
         self._default_spec = spec or ExecSpec()
         self._default_spec.resolve_interpret(self.device)
@@ -717,7 +732,7 @@ class CTEngine:
         self._ingest_done: Dict[str, int] = {}
         self._counters = {"ingests": 0, "queries": 0, "eval_batches": 0,
                           "coalesced_queries": 0, "cache_hits": 0,
-                          "cache_misses": 0}
+                          "cache_misses": 0, "snapshot_errors": 0}
         self._sched = {"dispatch_deadline": 0, "dispatch_batch_full": 0,
                        "flushes": 0, "rejected": 0, "requeued": 0,
                        "ingest_retries": 0, "promoted": 0}
@@ -1332,9 +1347,12 @@ class CTEngine:
                     self._work.notify_all()
             if committed is not None:
                 # after the ack: a snapshot speeds up a later recovery and
-                # never fails an ingest that succeeded
-                self._maybe_snapshot(req.name, req.ingest_seq, tag,
-                                     committed)
+                # never fails an ingest that succeeded, nor ends the chain
+                try:
+                    self._maybe_snapshot(req.name, req.ingest_seq, tag,
+                                         committed)
+                except Exception as exc:
+                    self._snapshot_failed(req.name, req.ingest_seq, exc)
 
     def _ingest_one(self, name: str, nodal_grids, check_finite: bool,
                     seq: int = 0) -> torch.Tensor:
@@ -1667,15 +1685,22 @@ class CTEngine:
                 name, seq, surplus, tag=-1 if tag is None else int(tag),
                 scheme=scheme, full_levels=full_levels)
         except Exception as exc:
-            self._store.events.append(
-                f"{self._host()}: snapshot of tenant {name!r} at seq "
-                f"{seq} failed ({exc!r}); previous snapshot + WAL still "
-                f"cover all acked ingests")
+            self._snapshot_failed(name, seq, exc)
             return None
         with self._lock:
             if seq > self._snap_seq.get(name, 0):
                 self._snap_seq[name] = seq
         return path
+
+    def _snapshot_failed(self, name: str, seq: int, exc: Exception) -> None:
+        """Record a snapshot that raised: an event in the store's log and
+        the ``snapshot_errors`` count of ``stats()["durability"]``."""
+        with self._lock:
+            self._counters["snapshot_errors"] += 1
+        self._store.events.append(
+            f"{self._host()}: snapshot of tenant {name!r} at seq {seq} "
+            f"failed ({exc!r}); previous snapshot + WAL still cover all "
+            f"acked ingests")
 
     def _maybe_snapshot(self, name: str, seq: int, tag: Optional[int],
                         surplus) -> None:
@@ -1893,6 +1918,7 @@ class CTEngine:
             },
             "durability": (None if self._store is None else {
                 "snapshot_interval": self._snapshot_interval,
+                "snapshot_errors": counters["snapshot_errors"],
                 "replay_pending": {n: len(v) for n, v
                                    in self._replay_pending.items()},
                 **self._store.stats(),

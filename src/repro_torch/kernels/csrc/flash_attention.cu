@@ -55,6 +55,16 @@
 // (B, H, Sq) array: the state the backward (flash_attention_bwd.cu) needs
 // to recompute the probabilities.  It is a template flag (kLse), so the
 // kernels the serving path launches without it are the code they were.
+// With it, the bf16 kernel also writes the
+// output's rounding residual o_lo = bf16(acc / l - o) in the layout of o:
+// o + o_lo holds the f32 output to about 2^-17, from which the backward
+// takes D = rowsum(do * o).  Where the rows of o share a large common
+// part (whisper's decoder, whose cross-attention over 1500 frames gives
+// every query nearly the mean of V), D from the bf16 o alone carries an
+// error of about 2^-9 |o| |do| that dS = P (dP - D) does not cancel, and
+// the gradients of the layers below drift 3-4% (relative L2) from the
+// f32 ones, as those of FlashAttention-2-style backwards that keep only
+// the bf16 output do.
 //
 // Bound (NVIDIA H100 SXM): operations.  The two products do 4 BH Sq Skv hd
 // flops (about half with `causal`: the pairs q_pos >= k_pos) against the
@@ -89,6 +99,7 @@ struct Shape {
   float scale;                       // hd^-0.5 (f32 kernel)
   float scale_log2;                  // hd^-0.5 * log2(e) (bf16 kernel)
   int align;                         // bf16 kernel's copy width, bytes
+  void* o_lo;                        // bf16 kLse: o's residual
 };
 
 // ---------------------------------------------------------------------------
@@ -447,12 +458,13 @@ __global__ void __launch_bounds__(kThreads, HD == 64 ? 3 : 2)
   // Epilogue: acc / max(l, 1e-30) in bf16, staged in the Q tile's rows.
   cp_async_wait<0>();
   __syncthreads();
+  float denom[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float lt = l[r];
     lt += __shfl_xor_sync(0xffffffffu, lt, 1);
     lt += __shfl_xor_sync(0xffffffffu, lt, 2);
-    const float denom = fmaxf(lt, 1e-30f);
+    denom[r] = fmaxf(lt, 1e-30f);
     if constexpr (kLse) {              // m is in log2 units
       const int64_t lrow = row_g + 8 * r;
       if (t4 == 0 && lrow < s.sq)
@@ -463,26 +475,48 @@ __global__ void __launch_bounds__(kThreads, HD == 64 ? 3 : 2)
 #pragma unroll
     for (int c = 0; c < NO; ++c)
       *reinterpret_cast<__nv_bfloat162*>(row + 8 * c) = __floats2bfloat162_rn(
-          acc[c][2 * r] / denom, acc[c][2 * r + 1] / denom);
+          acc[c][2 * r] / denom[r], acc[c][2 * r + 1] / denom[r]);
   }
   __syncwarp();
   const int64_t ostride = s.h * s.hd;  // o is contiguous (B, Sq, H, hd)
-  bf16* ob = o + ((bi * s.sq + q0) * s.h + hi) * s.hd;
+  const int64_t o_at = ((bi * s.sq + q0) * s.h + hi) * s.hd;
   const int hd = int(s.hd);
   const int rows = int(s.sq - q0 < kBlockQ ? s.sq - q0 : kBlockQ);
-  if (hd % 8 == 0) {                   // 16-byte runs
-    const int cpr = hd / 8;
-    for (int e = lane; e < 16 * cpr; e += 32) {
-      const int r = warp * 16 + e / cpr, c = (e % cpr) * 8;
-      if (r < rows)
-        *reinterpret_cast<uint4*>(ob + r * ostride + c) =
-            *reinterpret_cast<const uint4*>(qs + r * P + c);
+  // This warp's 16 staged rows into dst (B, Sq, H, hd).
+  auto store_rows = [&](bf16* ob) {
+    if (hd % 8 == 0) {                 // 16-byte runs
+      const int cpr = hd / 8;
+      for (int e = lane; e < 16 * cpr; e += 32) {
+        const int r = warp * 16 + e / cpr, c = (e % cpr) * 8;
+        if (r < rows)
+          *reinterpret_cast<uint4*>(ob + r * ostride + c) =
+              *reinterpret_cast<const uint4*>(qs + r * P + c);
+      }
+    } else {
+      for (int e = lane; e < 16 * hd; e += 32) {
+        const int r = warp * 16 + e / hd, c = e % hd;
+        if (r < rows) ob[r * ostride + c] = qs[r * P + c];
+      }
     }
-  } else {
-    for (int e = lane; e < 16 * hd; e += 32) {
-      const int r = warp * 16 + e / hd, c = e % hd;
-      if (r < rows) ob[r * ostride + c] = qs[r * P + c];
+  };
+  store_rows(o + o_at);
+  if constexpr (kLse) {                // the residual, staged the same way
+    __syncwarp();
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      bf16* row = qs + (warp * 16 + g + 8 * r) * P + 2 * t4;
+#pragma unroll
+      for (int c = 0; c < NO; ++c) {
+        const float a = acc[c][2 * r] / denom[r];
+        const float b = acc[c][2 * r + 1] / denom[r];
+        const float2 h =
+            __bfloat1622float2(__floats2bfloat162_rn(a, b));
+        *reinterpret_cast<__nv_bfloat162*>(row + 8 * c) =
+            __floats2bfloat162_rn(a - h.x, b - h.y);
+      }
     }
+    __syncwarp();
+    store_rows(reinterpret_cast<bf16*>(s.o_lo) + o_at);
   }
 }
 
@@ -525,21 +559,23 @@ int copy_align(const void* q, const void* k, const void* v,
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           int64_t b, int64_t h, int64_t kvh, int64_t sq, int64_t skv,
+           void* o_lo, int64_t b, int64_t h, int64_t kvh, int64_t sq, int64_t skv,
            int64_t hd,
            int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
            int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
            int64_t v_sh, int64_t causal, int64_t q_offset, void* stream) {
   if (b * h == 0 || sq == 0) return (int)cudaGetLastError();
   if (hd < 1 || hd > 128 || kvh < 1 || h % kvh != 0 || q_offset < 0 ||
-      b * h > INT32_MAX || (sq + kBlockQ - 1) / kBlockQ > 65535)
+      b * h > INT32_MAX || (sq + kBlockQ - 1) / kBlockQ > 65535 ||
+      (o_lo != nullptr) != (lse != nullptr && sizeof(T) == 2))
     return (int)cudaErrorInvalidValue;
   const int64_t strides[9] = {q_sb, q_ss, q_sh, k_sb, k_ss,
                               k_sh, v_sb, v_ss, v_sh};
   const double scale = pow((double)hd, -0.5);
   Shape s{b, h, kvh, sq, skv, hd, {q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh},
           {v_sb, v_ss, v_sh}, causal, q_offset, (float)scale,
-          (float)(scale * 1.4426950408889634), copy_align(q, k, v, strides, 9)};
+          (float)(scale * 1.4426950408889634), copy_align(q, k, v, strides, 9),
+          o_lo};
   cudaStream_t st = (cudaStream_t)stream;
   float* l = (float*)lse;
   if (l == nullptr)
@@ -551,18 +587,20 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
 
 }  // namespace
 
-// `lse`: an f32 (B, H, Sq) array for the rows' log-sum-exp, or null.
+// `lse`: an f32 (B, H, Sq) array for the rows' log-sum-exp, or null;
+// `o_lo`: with `lse` in bf16, o's rounding residual, contiguous as o;
+// null otherwise.
 #define FLASH_ENTRY(NAME, T)                                                 \
   extern "C" int NAME(const void* q, const void* k, const void* v, void* o, \
-                      void* lse, int64_t b, int64_t h, int64_t kvh,         \
-                      int64_t sq, int64_t skv, int64_t hd, int64_t q_sb,    \
-                      int64_t q_ss, int64_t q_sh, int64_t k_sb,             \
-                      int64_t k_ss, int64_t k_sh, int64_t v_sb,             \
-                      int64_t v_ss, int64_t v_sh, int64_t causal,           \
-                      int64_t q_offset, void* stream) {                     \
-    return launch<T>(q, k, v, o, lse, b, h, kvh, sq, skv, hd, q_sb, q_ss,   \
-                     q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal,      \
-                     q_offset, stream);                                     \
+                      void* lse, void* o_lo, int64_t b, int64_t h,          \
+                      int64_t kvh, int64_t sq, int64_t skv, int64_t hd,     \
+                      int64_t q_sb, int64_t q_ss, int64_t q_sh,             \
+                      int64_t k_sb, int64_t k_ss, int64_t k_sh,             \
+                      int64_t v_sb, int64_t v_ss, int64_t v_sh,             \
+                      int64_t causal, int64_t q_offset, void* stream) {     \
+    return launch<T>(q, k, v, o, lse, o_lo, b, h, kvh, sq, skv, hd, q_sb,  \
+                     q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,        \
+                     causal, q_offset, stream);                             \
   }
 
 FLASH_ENTRY(flash_attention_f32, float)

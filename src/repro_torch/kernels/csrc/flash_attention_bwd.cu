@@ -24,7 +24,12 @@
 // * the dq launch first: one block per (batch, head, 64-row query tile),
 //   looping over the key tiles its rows can see (the forward's kv_end), dq
 //   in registers.  It computes D of its rows once and writes it to `dsum`
-//   (f32, (B, H, Sq) at a pitch the wrapper chooses, scratch).
+//   (f32, (B, H, Sq) at a pitch the wrapper chooses, scratch).  In bf16
+//   it takes the forward's output residual `o_lo` (flash_attention.cu): D =
+//   rowsum(do * (o + o_lo)): o + o_lo is the f32 output to about 2^-17,
+//   where the bf16 o alone leaves D an error of about 2^-9 |o| |do| that
+//   dS = P (dP - D) does not cancel when the rows of o share a large
+//   common part.
 // * the dk/dv launch then: one block per (batch, KV head, 64-key tile).  It
 //   loops over the group's query heads and, for each, over the 64-row
 //   query tiles that the mask lets see the key tile, recomputing P^T and
@@ -38,7 +43,8 @@
 //   is two warpgroups.  The producer warpgroup gives back its registers
 //   (setmaxnreg, down to 24) and one of its threads brings every tile in
 //   by TMA (cp.async.bulk.tensor from the wrapper's tensor maps): the
-//   block's own tiles once (Q, dO and O, or K and V), the tiles it loops
+//   block's own tiles once (Q, dO, O and O's residual, or K and V), the
+//   tiles it loops
 //   over (K and V, or Q, dO, lse and D) into a two-slot ring of full and
 //   empty mbarriers.  Tiles land 128-byte swizzled, zero past the rows'
 //   end and past hd.  The consumer warpgroup (registers up to 232, or 240
@@ -503,8 +509,8 @@ __device__ __forceinline__ void store_rows(bf16* dst, int64_t stride,
 }
 
 template <int HD>
-constexpr size_t smem_bytes_dq() {   // Q, dO, O, the K and V ring, D, bars
-  return 1024 + size_t(3 + 2 * kStages) * kTile * HD * 2 + 4 * kTile +
+constexpr size_t smem_bytes_dq() {   // Q, dO, O, O_lo, the K, V ring, D, bars
+  return 1024 + size_t(4 + 2 * kStages) * kTile * HD * 2 + 4 * kTile +
          8 * (1 + 2 * kStages);
 }
 
@@ -530,8 +536,8 @@ __device__ __forceinline__ void init_ring(uint64_t* bars) {
 
 // dq of one (batch, head, 64-row query tile), D of its rows into dsum.
 // Warpgroup 0 multiplies; warpgroup 1 gives back its registers and one of
-// its threads loads Q, dO and O once and K and V tile by tile into the
-// ring.
+// its threads loads Q, dO and O (and O's residual) once and K and V tile
+// by tile into the ring.
 template <int HD>
 __global__ void __launch_bounds__(kBlockThreads, Budget<HD>::kBlocks)
     bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
@@ -539,6 +545,7 @@ __global__ void __launch_bounds__(kBlockThreads, Budget<HD>::kBlocks)
                  const __grid_constant__ CUtensorMap tv,
                  const __grid_constant__ CUtensorMap tdo,
                  const __grid_constant__ CUtensorMap to,
+                 const __grid_constant__ CUtensorMap tol,
                  const float* __restrict__ lse, float* __restrict__ dsum,
                  bf16* __restrict__ dq, Shape s) {
   constexpr int TB = kTile * HD * 2;
@@ -546,7 +553,8 @@ __global__ void __launch_bounds__(kBlockThreads, Budget<HD>::kBlocks)
   unsigned char* qs = align1024(smem_raw);
   unsigned char* dos = qs + TB;
   unsigned char* os = dos + TB;
-  unsigned char* ks = os + TB;                      // kStages slots
+  unsigned char* ols = os + TB;                     // O's residual
+  unsigned char* ks = ols + TB;                     // kStages slots
   unsigned char* vs = ks + kStages * TB;            // kStages slots
   float* d_s = reinterpret_cast<float*>(vs + kStages * TB);
   uint64_t* bar_q = reinterpret_cast<uint64_t*>(d_s + kTile);
@@ -565,7 +573,7 @@ __global__ void __launch_bounds__(kBlockThreads, Budget<HD>::kBlocks)
   if (threadIdx.x >= kWarpgroup) {
     wg::regs_dec<kProducerRegs>();
     if (threadIdx.x == kWarpgroup) {
-      wg::mbar_expect_tx(bar_q, 3 * TB);
+      wg::mbar_expect_tx(bar_q, 4 * TB);
 #pragma unroll
       for (int c = 0; c < HD / 64; ++c) {
         const int at = c * wg::kBlockBytes;
@@ -574,6 +582,8 @@ __global__ void __launch_bounds__(kBlockThreads, Budget<HD>::kBlocks)
         wg::tma_load_4d(dos + at, &tdo, bar_q, 64 * c, int(hi), int(q0),
                         int(bi));
         wg::tma_load_4d(os + at, &to, bar_q, 64 * c, int(hi), int(q0),
+                        int(bi));
+        wg::tma_load_4d(ols + at, &tol, bar_q, 64 * c, int(hi), int(q0),
                         int(bi));
       }
       for (int t = 0; t < n_tiles; ++t) {
@@ -598,9 +608,10 @@ __global__ void __launch_bounds__(kBlockThreads, Budget<HD>::kBlocks)
     const int64_t stat = (bi * s.h + hi) * s.stat_pitch;
     wg::mbar_wait(bar_q, 0);
 
-    // D = rowsum(do * o) of the tile's rows from the swizzled tiles, two
-    // threads a row, each over every other 16-byte chunk (the channels
-    // past hd and the rows past sq read as zero).
+    // D = rowsum(do * (o + o_lo)) of the tile's rows from the swizzled
+    // tiles, two threads a row, each over every other
+    // 16-byte chunk (the channels past hd and the rows past sq read as
+    // zero).
     {
       const int r = tid >> 1, half = tid & 1;
       const int64_t row = q0 + r;
@@ -611,14 +622,17 @@ __global__ void __launch_bounds__(kBlockThreads, Budget<HD>::kBlocks)
                        (((c & 7) ^ (r & 7)) << 4);
         const uint4 x = *reinterpret_cast<const uint4*>(dos + at);
         const uint4 y = *reinterpret_cast<const uint4*>(os + at);
+        const uint4 z = *reinterpret_cast<const uint4*>(ols + at);
         const __nv_bfloat162* xa = reinterpret_cast<const __nv_bfloat162*>(&x);
         const __nv_bfloat162* ya = reinterpret_cast<const __nv_bfloat162*>(&y);
+        const __nv_bfloat162* za = reinterpret_cast<const __nv_bfloat162*>(&z);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const float2 a = __bfloat1622float2(xa[i]);
           const float2 b = __bfloat1622float2(ya[i]);
-          d = fmaf(a.x, b.x, d);
-          d = fmaf(a.y, b.y, d);
+          const float2 e = __bfloat1622float2(za[i]);
+          d = fmaf(a.x, b.x + e.x, d);
+          d = fmaf(a.y, b.y + e.y, d);
         }
       }
       d += __shfl_xor_sync(0xffffffffu, d, 1);
@@ -854,9 +868,9 @@ template <>
 struct Kernels<float> {
   template <int HD>
   static int run(const float* q, const float* k, const float* v,
-                 const float* o, const float* dout, const float* lse,
-                 float* dsum, float* dq, float* dk, float* dv,
-                 const Shape& s, cudaStream_t stream) {
+                 const float* o, const float* /* o_lo: bf16 only */,
+                 const float* dout, const float* lse, float* dsum, float* dq,
+                 float* dk, float* dv, const Shape& s, cudaStream_t stream) {
     const size_t bytes = smem_bytes<HD>();
     cudaError_t err = cudaFuncSetAttribute(
         bwd_dq<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -896,14 +910,16 @@ struct Kernels<bf16> {
 
   template <int HD>
   static int run(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
-                 const bf16* dout, const float* lse, float* dsum, bf16* dq,
-                 bf16* dk, bf16* dv, const Shape& s, cudaStream_t stream) {
-    CUtensorMap mq{}, mk{}, mv{}, mdo{}, mo{}, mlse{}, mds{};
+                 const bf16* o_lo, const bf16* dout, const float* lse,
+                 float* dsum, bf16* dq, bf16* dk, bf16* dv, const Shape& s,
+                 cudaStream_t stream) {
+    CUtensorMap mq{}, mk{}, mv{}, mdo{}, mo{}, mol{}, mlse{}, mds{};
     bool ok = true;
     if (s.sq > 0)
       ok = wg::rows_map(&mq, q, s.b, s.sq, s.h, s.hd) &&
            wg::rows_map(&mdo, dout, s.b, s.sq, s.h, s.hd) &&
            wg::rows_map(&mo, o, s.b, s.sq, s.h, s.hd) &&
+           wg::rows_map(&mol, o_lo, s.b, s.sq, s.h, s.hd) &&
            wg::stats_map(&mlse, lse, s.b * s.h, s.sq, s.stat_pitch) &&
            wg::stats_map(&mds, dsum, s.b * s.h, s.sq, s.stat_pitch);
     if (ok && s.skv > 0)
@@ -929,7 +945,7 @@ struct Kernels<bf16> {
       dq_kernel<<<dim3((unsigned int)(s.b * s.h),
                        (unsigned int)((s.sq + kTile - 1) / kTile)),
                   kBlockThreads, dq_bytes, stream>>>(mq, mk, mv, mdo, mo,
-                                                     lse, dsum, dq, s);
+                                                     mol, lse, dsum, dq, s);
       err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
     }
@@ -944,7 +960,8 @@ struct Kernels<bf16> {
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* dout, const void* lse, void* dsum, void* dq, void* dk,
+           const void* o_lo, const void* dout, const void* lse, void* dsum,
+           void* dq, void* dk,
            void* dv, int64_t b, int64_t h, int64_t kvh, int64_t sq,
            int64_t skv, int64_t hd, int64_t causal, int64_t q_offset,
            int64_t scale_hd, int64_t stat_pitch, void* stream) {
@@ -952,13 +969,15 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   if (hd < 1 || hd > 128 || kvh < 1 || h % kvh != 0 || q_offset < 0 ||
       scale_hd < 1 || stat_pitch < sq || b * h > INT32_MAX ||
       sq > INT32_MAX || skv > INT32_MAX ||
-      (sq + kTile - 1) / kTile > 65535 || (skv + kTile - 1) / kTile > 65535)
+      (sq + kTile - 1) / kTile > 65535 || (skv + kTile - 1) / kTile > 65535 ||
+      (o_lo != nullptr) != (sizeof(T) == 2))
     return (int)cudaErrorInvalidValue;
   if (sizeof(T) == 2) {
     // TMA boxes need hd % 8 == 0, 16-byte aligned bases and lse/dsum
     // lines at a pitch of whole 16 bytes (the wrapper's _tma_operands).
     const uint64_t bits = uint64_t(uintptr_t(q)) | uint64_t(uintptr_t(k)) |
                           uint64_t(uintptr_t(v)) | uint64_t(uintptr_t(o)) |
+                          uint64_t(uintptr_t(o_lo)) |
                           uint64_t(uintptr_t(dout)) |
                           uint64_t(uintptr_t(lse)) | uint64_t(uintptr_t(dsum));
     if (hd % 8 != 0 || (bits & 15) != 0 || stat_pitch % 4 != 0)
@@ -966,36 +985,41 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   }
   const double scale = pow((double)scale_hd, -0.5);
   const Shape s{b, h, kvh, sq, skv, hd, causal, q_offset, stat_pitch,
-                (float)scale, (float)(scale * 1.4426950408889634)};
+                (float)scale,
+                (float)(scale * 1.4426950408889634)};
   cudaStream_t st = (cudaStream_t)stream;
   const T *tq = (const T*)q, *tk = (const T*)k, *tv = (const T*)v,
-          *to = (const T*)o, *tdo = (const T*)dout;
+          *to = (const T*)o, *tol = (const T*)o_lo, *tdo = (const T*)dout;
   const float* l = (const float*)lse;
   float* ds = (float*)dsum;
   T *tdq = (T*)dq, *tdk = (T*)dk, *tdv = (T*)dv;
   return hd <= 64 ? Kernels<T>::template run<64>(
-                        tq, tk, tv, to, tdo, l, ds, tdq, tdk, tdv, s, st)
+                        tq, tk, tv, to, tol, tdo, l, ds, tdq, tdk, tdv, s,
+                        st)
                   : Kernels<T>::template run<128>(
-                        tq, tk, tv, to, tdo, l, ds, tdq, tdk, tdv, s, st);
+                        tq, tk, tv, to, tol, tdo, l, ds, tdq, tdk, tdv, s,
+                        st);
 }
 
 }  // namespace
 
 // q, o, do, dq: contiguous (B, Sq, H, hd); k, v, dk, dv: contiguous (B,
-// Skv, KV, hd); lse and dsum (scratch for D = rowsum(do * o)): f32 (B, H,
-// Sq) lines at a pitch of stat_pitch values.  The scale is scale_hd^-0.5
-// (the true head_dim where the wrapper padded the channels).  Two launches
-// on `stream`: dq (writing dsum), then dk and dv.
+// Skv, KV, hd); o_lo: in bf16 o's rounding residual laid out as o, null
+// in f32; lse and dsum (scratch for D = rowsum(do * o)): f32 (B, H, Sq)
+// lines at a pitch of stat_pitch values.  The scale is scale_hd^-0.5 (the
+// true head_dim where the wrapper padded the channels).  Two launches on
+// `stream`: dq (writing dsum), then dk and dv.
 #define FLASH_BWD_ENTRY(NAME, T)                                             \
   extern "C" int NAME(const void* q, const void* k, const void* v,          \
-                      const void* o, const void* dout, const void* lse,     \
-                      void* dsum, void* dq, void* dk, void* dv, int64_t b,  \
-                      int64_t h, int64_t kvh, int64_t sq, int64_t skv,      \
-                      int64_t hd, int64_t causal, int64_t q_offset,         \
-                      int64_t scale_hd, int64_t stat_pitch, void* stream) { \
-    return launch<T>(q, k, v, o, dout, lse, dsum, dq, dk, dv, b, h, kvh,    \
-                     sq, skv, hd, causal, q_offset, scale_hd, stat_pitch,   \
-                     stream);                                               \
+                      const void* o, const void* o_lo, const void* dout,    \
+                      const void* lse, void* dsum, void* dq, void* dk,      \
+                      void* dv, int64_t b, int64_t h, int64_t kvh,          \
+                      int64_t sq, int64_t skv, int64_t hd, int64_t causal,  \
+                      int64_t q_offset, int64_t scale_hd,                   \
+                      int64_t stat_pitch, void* stream) {                   \
+    return launch<T>(q, k, v, o, o_lo, dout, lse, dsum, dq, dk, dv, b, h,   \
+                     kvh, sq, skv, hd, causal, q_offset, scale_hd,          \
+                     stat_pitch, stream);                                   \
   }
 
 FLASH_BWD_ENTRY(flash_attention_bwd_f32, float)

@@ -31,6 +31,14 @@ kernel with its log-sum-exp output on (a template flag of
 ``csrc/flash_attention_bwd.cu`` (dq, then dk and dv, FlashAttention-2
 style, no atomics; bf16 on the warpgroup tensor-core products (wgmma) fed
 by TMA, f32 on the CUDA cores).
+In bf16 ``flash_attention_lse`` also returns the output's rounding
+residual (``o_lo = bf16(o_f32 - o)``, written by the same launch) and the
+backward takes ``D = rowsum(do * (o + o_lo))`` from it (``o_lo=``,
+required in bf16): from the bf16 ``o`` alone,
+D is off by about 2^-9 |o| |do|, which ``dS = P (dP - D)`` does not cancel
+where the rows of ``o`` share a large common part (whisper's decoder after
+its cross-attention over 1500 frames), and the gradients below drift
+3-4% (relative L2) from the f32 ones.
 Each wrapper has its plain version (``flash_attention_lse_ref``,
 ``flash_attention_bwd_ref``: the same math on the whole score matrix,
 which the CPU runs) and its own ``.launches`` count;
@@ -75,9 +83,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _plain_forward(q, k, v, causal: bool, q_offset: int):
-    """(out, lse) of the plain version: the whole score matrix at once, in
-    f32 (f64 for f64 inputs); lse (B, H, Sq) the rows' natural
-    log-sum-exp of the masked scaled scores."""
+    """(out, lse, out_lo) of the plain version: the whole score matrix at
+    once, in f32 (f64 for f64 inputs); lse (B, H, Sq) the rows' natural
+    log-sum-exp of the masked scaled scores; out_lo the f32 output less
+    ``out``, in bf16 for bf16 inputs and None otherwise."""
     _check(q, k, v, q_offset)
     b, sq, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]
@@ -92,7 +101,11 @@ def _plain_forward(q, k, v, causal: bool, q_offset: int):
     l = p.sum(dim=-1)                                      # (B, KV, g, Sq)
     out = out / torch.clamp(l.permute(0, 3, 1, 2)[..., None], min=1e-30)
     lse = (m[..., 0] + torch.log(l)).reshape(b, h, sq)
-    return out.reshape(b, sq, h, hd).to(q.dtype), lse
+    full = out.reshape(b, sq, h, hd)
+    out = full.to(q.dtype)
+    lo = (full - out.to(acc)).to(q.dtype) if q.dtype == torch.bfloat16 \
+        else None
+    return out, lse, lo
 
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -118,17 +131,20 @@ def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, *, causal: bool = True,
                             q_offset: int = 0):
     """``flash_attention_lse``'s plain version: ``flash_attention_ref``'s
-    output (the same bits) and the rows' log-sum-exp."""
+    output (the same bits), the rows' log-sum-exp and the output's
+    rounding residual (None outside bf16)."""
     return _plain_forward(q, k, v, causal, q_offset)
 
 
 def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
-                            q_offset: int = 0, scale: float | None = None):
+                            q_offset: int = 0, scale: float | None = None,
+                            o_lo=None):
     """The backward's plain version, eager PyTorch on any device, in f32
     (f64 for f64 inputs): ``P = exp(S * scale - lse)`` recomputed whole,
-    ``D = rowsum(do * o)``, ``dv = P^T do``, ``dS = P * (do v^T - D)``,
-    ``dq = dS k * scale``, ``dk = dS^T q * scale``; ``scale`` defaults to
-    ``hd**-0.5``.  Returns ``(dq, dk, dv)`` in the inputs' types."""
+    ``D = rowsum(do * o)`` (``o + o_lo`` with the forward's residual),
+    ``dv = P^T do``, ``dS = P * (do v^T - D)``, ``dq = dS k * scale``,
+    ``dk = dS^T q * scale``; ``scale`` defaults to ``hd**-0.5``.  Returns
+    ``(dq, dk, dv)`` in the inputs' types."""
     _check(q, k, v, q_offset)
     b, sq, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]
@@ -141,7 +157,8 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
     if causal:
         s = s.masked_fill(_causal_mask(sq, skv, q_offset, q.device), _NEG_INF)
     p = torch.exp(s - lse.to(acc).reshape(b, kvh, g, sq)[..., None])
-    d = (dof * o.to(acc).reshape(b, sq, kvh, g, hd)).sum(-1)   # (B,Sq,KV,g)
+    of = o.to(acc) if o_lo is None else o.to(acc) + o_lo.to(acc)
+    d = (dof * of.reshape(b, sq, kvh, g, hd)).sum(-1)          # (B,Sq,KV,g)
     dv = torch.einsum("bkgqs,bqkgd->bskd", p, dof)
     dp = torch.einsum("bqkgd,bskd->bkgqs", dof, vf)
     ds = p * (dp - d.permute(0, 2, 3, 1)[..., None])
@@ -151,9 +168,10 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
             dv.to(v.dtype))
 
 
-def _tma_operands(q, k, v, o, do, lse):
+def _tma_operands(q, k, v, o, do, lse, o_lo=None):
     """The bf16 backward kernels' operands as TMA describes them: ``(q, k,
-    v, o, do, lse, pitch)``.
+    v, o, do, lse, pitch)``, or ``(q, k, v, o, do, o_lo, lse, pitch)`` with
+    the forward's residual ``o_lo``.
 
     TMA reads q, k, v, o and do as boxes of contiguous (B, S, heads, hd)
     arrays, which needs a 16-byte aligned base and strides that are
@@ -179,7 +197,8 @@ def _tma_operands(q, k, v, o, do, lse):
         lse = torch.nn.functional.pad(lse, (0, pitch - sq))
     elif lse.data_ptr() % 16:
         lse = lse.clone()
-    return (*(rows(t) for t in (q, k, v, o, do)), lse, pitch)
+    ts = (q, k, v, o, do) if o_lo is None else (q, k, v, o, do, o_lo)
+    return (*(rows(t) for t in ts), lse, pitch)
 
 
 def _operand(t: torch.Tensor) -> torch.Tensor:
@@ -204,19 +223,23 @@ def _device_checks(q, k, v) -> None:
 
 
 def _launch_forward(q, k, v, causal: bool, q_offset: int, with_lse: bool):
-    """One ``flash_attention.cu`` launch: (out, lse or None)."""
+    """One ``flash_attention.cu`` launch: (out, lse or None, out_lo or
+    None); out_lo is written in bf16 with the lse."""
     _device_checks(q, k, v)
     b, sq, h, hd = q.shape
     q, k, v = _operand(q), _operand(k), _operand(v)
     out = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32,
                       device=q.device) if with_lse else None
+    lo = torch.empty_like(out) if with_lse and q.dtype == torch.bfloat16 \
+        else None
     _raise_on(_build.kernel("flash_attention", _DTYPE_TAG[q.dtype])(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), b, h, k.shape[2], sq,
+        None if lse is None else lse.data_ptr(),
+        None if lo is None else lo.data_ptr(), b, h, k.shape[2], sq,
         k.shape[1], hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         int(causal), q_offset, _stream(q)), "flash_attention")
-    return out, lse
+    return out, lse, lo
 
 
 def _needs_grad(*ts) -> bool:
@@ -240,15 +263,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return FlashAttention.apply(q, k, v, causal, q_offset)
     if q.device.type == "cpu" and k.device == v.device == q.device:
         return flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset)
-    out, _ = _launch_forward(q, k, v, causal, q_offset, with_lse=False)
+    out, _, _ = _launch_forward(q, k, v, causal, q_offset, with_lse=False)
     flash_attention.launches += 1
     return out
 
 
 def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, q_offset: int = 0):
-    """Row 10's forward with its log-sum-exp: ``(out, lse)``, ``lse`` f32
-    (B, H, Sq), the state the backward needs.  On CUDA: one launch of
+    """Row 10's forward with the state its backward needs: ``(out, lse,
+    out_lo)``, ``lse`` f32 (B, H, Sq), ``out_lo`` the output's bf16
+    rounding residual (None for f32 inputs, whose output is exact).  On
+    CUDA: one launch of
     ``flash_attention.cu`` with its LSE output on (``out`` the same bits as
     ``flash_attention``'s); on the CPU the plain version."""
     _record(flash_attention_lse, q=q, k=k, v=v, causal=causal,
@@ -257,13 +282,13 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu" and k.device == v.device == q.device:
         return flash_attention_lse_ref(q, k, v, causal=causal,
                                        q_offset=q_offset)
-    out, lse = _launch_forward(q, k, v, causal, q_offset, with_lse=True)
+    out, lse, lo = _launch_forward(q, k, v, causal, q_offset, with_lse=True)
     flash_attention_lse.launches += 1
-    return out, lse
+    return out, lse, lo
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
-                        q_offset: int = 0):
+                        q_offset: int = 0, o_lo=None):
     """``(dq, dk, dv)`` of row 10's attention from the forward's inputs, its
     output ``o``, its ``lse`` and the output's gradient ``do``.  On CUDA:
     ``flash_attention_bwd.cu``'s two launches (dq, writing D = rowsum(do *
@@ -274,18 +299,28 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     or whose rows TMA cannot describe (hd not a multiple of 8), becomes an
     aligned contiguous copy, its channels zero-padded to a multiple of 8
     (the gradients then come back as slices of the padded ones), and lse's
-    lines are padded to a multiple of 4 values."""
+    lines are padded to a multiple of 4 values.  ``o_lo``: the forward's
+    output residual, required in bf16 (D is taken from ``o + o_lo``) and
+    refused otherwise."""
     _record(flash_attention_bwd, q=q, k=k, v=v, o=o, lse=lse, do=do,
-            causal=causal, q_offset=q_offset)
+            causal=causal, q_offset=q_offset, o_lo=o_lo)
     _check(q, k, v, q_offset)
     if not (o.shape == do.shape == q.shape and tuple(lse.shape) == (
             q.shape[0], q.shape[2], q.shape[1])):
         raise ValueError(f"o and do must have q's shape {tuple(q.shape)} and "
                          f"lse (B, H, Sq), got {tuple(o.shape)}, "
                          f"{tuple(do.shape)}, {tuple(lse.shape)}")
+    bf16 = q.dtype == torch.bfloat16
+    if (o_lo is not None) != bf16 or bf16 and (
+            o_lo.shape != o.shape or o_lo.dtype != o.dtype):
+        got = None if o_lo is None else f"{o_lo.dtype}{tuple(o_lo.shape)}"
+        raise ValueError(f"o_lo, the forward's output residual, must be "
+                         f"bf16 of o's shape {tuple(o.shape)} for bf16 "
+                         f"inputs and None otherwise, got {got} for "
+                         f"{q.dtype}")
     if all(t.device.type == "cpu" for t in (q, k, v, o, lse, do)):
         return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
-                                       q_offset=q_offset)
+                                       q_offset=q_offset, o_lo=o_lo)
     _device_checks(q, k, v)
     if not (o.device == do.device == lse.device == q.device
             and o.dtype == do.dtype == q.dtype
@@ -293,8 +328,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         raise TypeError(f"o and do must be {q.dtype} and lse float32 on "
                         f"{q.device}")
     b, sq, h, hd = q.shape
-    if q.dtype == torch.bfloat16:
-        q, k, v, o, do, lse, pitch = _tma_operands(q, k, v, o, do, lse)
+    if bf16 and o_lo.device != q.device:
+        raise TypeError(f"o_lo must lie on {q.device}")
+    if bf16:
+        q, k, v, o, do, o_lo, lse, pitch = _tma_operands(q, k, v, o, do, lse,
+                                                         o_lo)
     else:
         q, k, v, o, do, lse = (t.contiguous() for t in (q, k, v, o, do, lse))
         pitch = sq
@@ -302,6 +340,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     dsum = torch.empty((b, h, pitch), dtype=torch.float32, device=q.device)
     _raise_on(_build.kernel("flash_attention_bwd", _DTYPE_TAG[q.dtype])(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        None if o_lo is None else o_lo.data_ptr(),
         do.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), b, h, k.shape[2], sq, k.shape[1],
         q.shape[-1], int(causal), q_offset, hd, pitch, _stream(q)),
@@ -314,25 +353,27 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
 
 class FlashAttention(torch.autograd.Function):
     """Row 10 as a differentiable function: ``forward`` launches the kernel
-    with its log-sum-exp (``flash_attention_lse``) and saves q, k, v, the
-    output and the lse; ``backward`` runs ``flash_attention_bwd`` (the two
-    backward kernels on CUDA, the plain version on the CPU).  Nothing falls
-    back: a kernel that fails to build or launch raises."""
+    with its log-sum-exp and, in bf16, the output's residual
+    (``flash_attention_lse``) and saves q, k, v, the output, the lse and
+    the residual; ``backward`` runs
+    ``flash_attention_bwd`` with it (the two backward kernels on CUDA, the
+    plain version on the CPU).  Nothing falls back: a kernel that fails to
+    build or launch raises."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, q_offset: int):
-        out, lse = flash_attention_lse(q, k, v, causal=causal,
-                                       q_offset=q_offset)
-        ctx.save_for_backward(q, k, v, out, lse)
+        out, lse, lo = flash_attention_lse(q, k, v, causal=causal,
+                                           q_offset=q_offset)
+        ctx.save_for_backward(q, k, v, out, lse, lo)
         ctx.causal, ctx.q_offset = causal, q_offset
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out, lse = ctx.saved_tensors
+        q, k, v, out, lse, lo = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do,
                                          causal=ctx.causal,
-                                         q_offset=ctx.q_offset)
+                                         q_offset=ctx.q_offset, o_lo=lo)
         return dq, dk, dv, None, None
 
 

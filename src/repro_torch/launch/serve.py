@@ -1,16 +1,21 @@
-"""Serving drivers: the dense LM's token-by-token ``generate``, and
-sparse-grid surrogate serving on the batched executor (``CTSurrogate``).
+"""Serving drivers: the LM's token-by-token ``generate``, and sparse-grid
+surrogate serving on the batched executor (``CTSurrogate``).
 
 Port of ``repro.launch.serve``.  ``generate`` keeps the reference's
 semantics: one batch of prompts is prefilled token by token through
 ``serve_step`` and then extended by greedy or temperature sampling, with
-the log-probability of each chosen token.  Two differences: temperature
-sampling draws from a ``torch.Generator`` seeded with ``sc.seed`` (the
-same distribution as the reference's ``jax.random.categorical``, other
-draws), and the log-probabilities are taken in float32 whatever the
-model's type.  Only dense architectures run (``configs.DENSE_ARCH_IDS``).
-``generate`` runs under ``torch.inference_mode()``, so it records no
-autograd graph on a model that also trains.
+the log-probability of each chosen token; for an encdec model the stub
+audio frames (normal times 0.02, in the model's type) are drawn first and
+encoded once into the cache's ``"cross"`` entry (``encode_for_decode``).
+Two differences: temperature sampling and the stub audio draw from
+``torch.Generator``s seeded with ``sc.seed`` (the same distributions as
+the reference's ``jax.random``, other draws; ``audio_embeds=`` hands in
+given frames instead), and the log-probabilities are taken in float32
+whatever the model's type.  The dense, encdec and vlm architectures run
+(``models.transformer.FAMILIES``; a vlm decodes its text as the reference
+does, without patches).  ``generate`` runs under
+``torch.inference_mode()``, so it records no autograd graph on a model
+that also trains.
 
 ``CTSurrogate`` is the port of ``repro.launch.serve.CTSurrogate``: a
 single-tenant view over ``repro_torch.core.engine.CTEngine``.
@@ -28,7 +33,7 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.executor import resolve_spec
 from repro_torch.models import model as M
-from repro_torch.models.transformer import DenseLM, init_params
+from repro_torch.models.transformer import LM, init_params
 
 __all__ = ["ServeConfig", "generate", "CTSurrogate"]
 
@@ -43,14 +48,15 @@ class ServeConfig:
 
 
 @torch.inference_mode()
-def generate(sc: ServeConfig, prompts, params: DenseLM | None = None, *,
-             device=None) -> Dict[str, np.ndarray]:
+def generate(sc: ServeConfig, prompts, params: LM | None = None, *,
+             device=None, audio_embeds=None) -> Dict[str, np.ndarray]:
     """prompts: (B, T) int token prompts (right-aligned, no padding).
 
     Runs on the device of ``params`` or, without them, on ``device``
-    (default CUDA) with weights from ``init_params(seed=sc.seed)``.
-    Returns dict with "tokens" (B, T + max_new) int32 and "logprobs"
-    (B, max_new) float32."""
+    (default CUDA) with weights from ``init_params(seed=sc.seed)``.  An
+    encdec model encodes ``audio_embeds`` (B, encoder_seq, d), by default
+    stub frames drawn from ``sc.seed``.  Returns dict with "tokens" (B, T
+    + max_new) int32 and "logprobs" (B, max_new) float32."""
     cfg = get_smoke_config(sc.arch) if sc.smoke else get_config(sc.arch)
     if params is None:
         params = init_params(cfg, seed=sc.seed, device=device)
@@ -62,6 +68,14 @@ def generate(sc: ServeConfig, prompts, params: DenseLM | None = None, *,
     if t == 0:
         raise ValueError("generate needs at least one prompt token")
     cache = M.init_decode_cache(cfg, b, t + sc.max_new_tokens, device=device)
+    if cfg.family == "encdec":
+        if audio_embeds is None:
+            agen = torch.Generator(device=device)
+            agen.manual_seed(sc.seed)
+            audio_embeds = (torch.randn(
+                (b, cfg.encoder_seq, cfg.d_model), generator=agen,
+                device=device) * 0.02).to(getattr(torch, cfg.dtype))
+        cache["cross"] = M.encode_for_decode(params, cfg, audio_embeds)
     gen = None
     if sc.temperature > 0:
         gen = torch.Generator(device=device)

@@ -1,8 +1,8 @@
-"""Step functions: the dense LM's train, prefill and serve steps and the
+"""Step functions: the LM's train, prefill and serve steps and the
 combination-technique steps, as plain functions (PyTorch runs eagerly, so
 nothing is jitted).
 
-Port of ``repro.launch.steps``.  The train state is ``(DenseLM,
+Port of ``repro.launch.steps``.  The train state is ``(LM,
 AdamWState)``: the model's parameters take gradients, the moments are
 float32 by parameter name.  ``make_train_step``'s step differentiates
 ``transformer.loss_fn`` (row 10's backward kernels through
@@ -24,7 +24,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import (DenseLM, init_params, loss_fn,
+from repro_torch.models.transformer import (LM, init_params, loss_fn,
                                             reference_rank)
 from repro_torch.optim.adamw import (AdamWState, adamw_init, adamw_update,
                                      clip_by_global_norm)
@@ -35,27 +35,29 @@ __all__ = ["make_train_step", "make_prefill_step", "make_serve_step",
 
 
 def init_train_state(cfg: ModelConfig, *, seed: int = 0,
-                     device=None) -> Tuple[DenseLM, AdamWState]:
+                     device=None) -> Tuple[LM, AdamWState]:
     """Random weights (``init_params``) that take gradients, and AdamW's
     zero state, on ``device`` (default CUDA)."""
     params = init_params(cfg, seed=seed, device=device).requires_grad_(True)
     return params, adamw_init(dict(params.named_parameters()))
 
 
-def decay_mask(params: DenseLM) -> Dict[str, bool]:
+def decay_mask(params: LM) -> Dict[str, bool]:
     """Which parameters take weight decay, by name.  The reference decays
     its leaves of rank >= 2 and stacks each layer's leaves along a leading
-    L axis, so every layer's norm scales and biases ((L, d) there) are
-    decayed and only the final norm's (d,) is not: the rank that counts
-    is the reference leaf's (``transformer.reference_rank``)."""
+    L axis, so every layer's norm scales and biases ((L, d) there), the
+    encoder's as the decoder's, are decayed and only the final norms'
+    (d,) are not: the rank that counts is the reference leaf's
+    (``transformer.reference_rank``)."""
     return {n: reference_rank(n, p) >= 2
             for n, p in params.named_parameters()}
 
 
-def loss_and_grads(params: DenseLM, cfg: ModelConfig, batch,
+def loss_and_grads(params: LM, cfg: ModelConfig, batch,
                    grad_accum: int = 1
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """(mean loss, {name: gradient}) of ``loss_fn`` over ``batch``.  With
+    """(mean loss, {name: gradient}) of ``loss_fn`` over ``batch`` (its
+    stub frontends, ``audio_embeds`` or ``patch_embeds``, included).  With
     ``grad_accum`` > 1 the batch is split into that many microbatches run
     one after the other, their gradients summed in f32 and divided, as the
     reference's scan does."""
@@ -87,7 +89,7 @@ def make_train_step(cfg: ModelConfig, lr_fn: Callable,
     """(params, opt_state, batch) -> (params, opt_state, metrics), the
     parameters and ``opt_state``'s moment mappings updated in place."""
 
-    def step(params: DenseLM, opt_state: AdamWState, batch):
+    def step(params: LM, opt_state: AdamWState, batch):
         loss, grads = loss_and_grads(params, cfg, batch, grad_accum)
         grads, gnorm = clip_by_global_norm(grads, grad_clip)
         lr = lr_fn(opt_state.step)

@@ -1,4 +1,5 @@
-"""Training driver: the fault-tolerant loop of the dense LM.
+"""Training driver: the fault-tolerant loop of the LM (the dense, encdec
+and vlm families).
 
 Port of ``repro.launch.train``.  It wires together the data pipeline
 (deterministic addressing: ``data.pipeline.SyntheticLM``), the train step
@@ -12,10 +13,19 @@ from the latest checkpoint.
 
 The reference jits its step on a device mesh; the port runs it eagerly on
 one device (``TrainConfig.device``, default CUDA; ``"cpu"`` for the tests)
-and updates the parameters in place.  Only the dense family runs: any
-other ``arch`` raises ``NotImplementedError`` (ROADMAP.md, Queue A 11).
-``train`` takes an optional initial state, so a run can start from given
-weights (the tests start it from the reference's).
+and updates the parameters in place.  The encdec and vlm families get
+their stub frontends every step, as the reference's loop gives them
+(``stub_frontends``: ``audio_embeds`` or ``patch_embeds``, normal times
+0.02 in the model's type, from a ``torch.Generator`` seeded by the run's
+seed and the step; the reference folds the step into its key, so the
+draws differ).  The moe, ssm and hybrid families raise
+``NotImplementedError`` (ROADMAP.md, Queue A 11).  A checkpoint holds the
+train state under the reference's names and layout
+(``convert.stack_by_reference_key``: ``0/segments/0/attn/wq`` a stacked
+leaf, ``1/m/...`` AdamW's first moments), so the reference's
+manifest-driven restore reads it.  ``train`` takes an optional initial
+state, so a run can start from given weights (the tests start it from
+the reference's).
 """
 
 from __future__ import annotations
@@ -31,15 +41,18 @@ from repro_torch import resolve_device
 from repro_torch.checkpoint.checkpoint import (latest_step, restore_checkpoint,
                                                save_checkpoint)
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.convert import (stack_by_reference_key,
+                                 unstack_by_reference_key)
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.launch.steps import init_train_state, make_train_step
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import DenseLM
+from repro_torch.models.transformer import LM
 from repro_torch.optim.adamw import AdamWState
 from repro_torch.optim.schedule import warmup_cosine
 from repro_torch.runtime.fault_tolerance import HealthConfig, HealthMonitor
 
-__all__ = ["TrainConfig", "TrainResult", "train", "model_config"]
+__all__ = ["TrainConfig", "TrainResult", "train", "model_config",
+           "stub_frontends"]
 
 
 @dataclass(frozen=True)
@@ -82,25 +95,65 @@ def model_config(tc: TrainConfig) -> ModelConfig:
     return get_smoke_config(tc.arch) if tc.smoke else get_config(tc.arch)
 
 
-def _ckpt_tree(params: DenseLM, opt: AdamWState):
-    return dict(params.named_parameters()), opt
+def stub_frontends(cfg: ModelConfig, batch_size: int, seed: int, step: int,
+                   device) -> Dict[str, torch.Tensor]:
+    """Step ``step``'s stub frontend inputs: ``audio_embeds`` (B,
+    encoder_seq, d) for encdec, ``patch_embeds`` (B, vision_patches, d)
+    for vlm, nothing for dense; normal times 0.02 in the model's type."""
+    n = {"encdec": cfg.encoder_seq, "vlm": cfg.vision_patches}.get(
+        cfg.family)
+    if n is None:
+        return {}
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed * 1_000_003 + step)
+    x = torch.randn((batch_size, n, cfg.d_model), generator=gen,
+                    device=device) * 0.02
+    name = "audio_embeds" if cfg.family == "encdec" else "patch_embeds"
+    return {name: x.to(getattr(torch, cfg.dtype))}
 
 
-def _restore(directory: str, step: int, params: DenseLM,
+def _host_stack(ts):
+    return torch.stack([t.detach().cpu() for t in ts])
+
+
+def _meta(t):
+    return torch.empty(t.shape, dtype=t.dtype, device="meta")
+
+
+def _ckpt_tree(params: LM, opt: AdamWState, *, template: bool = False):
+    """The train state as its checkpoint holds it, under the reference's
+    key paths: ``({key: leaf}, AdamWState(step, {key: m}, {key: v}))``,
+    each layer stack's leaves stacked on the host; with ``template`` the
+    same tree of ``meta`` tensors (a restore's template)."""
+    if template:
+        stack = lambda ts: torch.empty((len(ts),) + tuple(ts[0].shape),
+                                       dtype=ts[0].dtype, device="meta")
+        leaf = _meta
+    else:
+        stack, leaf = _host_stack, lambda t: t
+    ref = lambda named: stack_by_reference_key(named, stack, leaf)
+    return (ref(dict(params.named_parameters())),
+            AdamWState(leaf(opt.step), ref(opt.m), ref(opt.v)))
+
+
+def _restore(directory: str, step: int, params: LM,
              opt: AdamWState) -> AdamWState:
     """Checkpoint ``step`` into ``params`` (in place); returns its
-    optimizer state."""
-    (named, opt), _ = restore_checkpoint(directory, step,
-                                         _ckpt_tree(params, opt),
-                                         device=params.device)
+    optimizer state (each moment a view of its stacked leaf)."""
+    (named, ropt), _ = restore_checkpoint(
+        directory, step, _ckpt_tree(params, opt, template=True),
+        device=params.device)
     with torch.no_grad():
+        restored = unstack_by_reference_key(
+            named, [n for n, _ in params.named_parameters()])
         for n, p in params.named_parameters():
-            p.copy_(named[n])
-    return opt
+            p.copy_(restored[n])
+    return AdamWState(ropt.step, unstack_by_reference_key(ropt.m, opt.m),
+                      unstack_by_reference_key(ropt.v, opt.v))
 
 
 def train(tc: TrainConfig, *,
-          state: Optional[Tuple[DenseLM, AdamWState]] = None
+          state: Optional[Tuple[LM, AdamWState]] = None
           ) -> TrainResult:
     cfg = model_config(tc)
     device = resolve_device(tc.device)
@@ -129,7 +182,10 @@ def train(tc: TrainConfig, *,
     step = start
     while step < tc.steps:
         t0 = time.time()
-        params, opt, metrics = step_fn(params, opt, data.batch(step))
+        batch = data.batch(step)
+        batch.update(stub_frontends(cfg, tc.global_batch, tc.seed, step,
+                                    device))
+        params, opt, metrics = step_fn(params, opt, batch)
         loss = float(metrics["loss"])
         if tc.loss_poison_step is not None and step == tc.loss_poison_step:
             loss = float("nan")   # simulated bad node / bit flip

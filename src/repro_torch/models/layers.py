@@ -1,6 +1,6 @@
 """Shared neural-net building blocks, plain PyTorch.
 
-Port of ``repro.models.layers`` for the dense family.  ``shard_act`` is
+Port of ``repro.models.layers`` for the LM families.  ``shard_act`` is
 left out: it pins an activation's sharding on a device mesh, and on one
 device it is the identity.  ``init_dense`` takes a ``torch.Generator``
 where the reference takes a JAX key; the two draw different numbers, so

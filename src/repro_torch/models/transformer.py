@@ -1,25 +1,34 @@
-"""The dense decoder: parameters as ``nn.Module``s and the forward pass.
+"""The decoder LM and its encoder: parameters as ``nn.Module``s and the
+forward pass.
 
-Port of the dense parts of ``repro.models.transformer``.  ``DenseLM``
-holds the embedding, the final norm, the LM head (unless tied) and an
-``nn.ModuleList`` of ``DenseBlock``s; a block is an ``nn.ModuleDict`` of
-``nn.ParameterDict``s with the reference's names (``attn``, ``ln1``,
-``ln2``, ``mlp``), so ``p["attn"]["wq"]`` reads as in the reference.
+Port of the dense, encdec and vlm parts of ``repro.models.transformer``.
+``LM`` holds the embedding, the final norm, the LM head (unless tied) and
+an ``nn.ModuleList`` of decoder blocks; a ``DenseBlock`` is an
+``nn.ModuleDict`` of ``nn.ParameterDict``s with the reference's names
+(``attn``, ``ln1``, ``ln2``, ``mlp``), so ``p["attn"]["wq"]`` reads as in
+the reference.  The encdec family (``whisper_small``) decodes with
+``CrossBlock``s (a ``DenseBlock`` plus ``cross``, its cross-attention
+projections, and ``ln3``) over an ``Encoder`` (``pos``, a positional
+table over the stub audio frames, ``blocks`` of ``DenseBlock``s run with
+full attention, ``final_norm``), and adds ``dec_pos`` (32768 x d) to the
+token embeddings; the vlm family (``llava_next_34b``) prepends the stub
+patch embeddings to the text and keeps the text positions' logits.
 Weights keep the reference's ``(d_in, d_out)`` layout, so every product
-stays ``x @ w``, and ``lax.scan`` over the layer stack becomes a Python
+stays ``x @ w``, and ``lax.scan`` over a layer stack becomes a Python
 loop.  The parameters are made with ``requires_grad=False``: serving needs
 no graph.  Training (``repro_torch.launch.steps.init_train_state``) turns
-gradients on for its own state; ``forward`` then runs each layer under the
-reference's rematerialisation (``cfg.remat``, ``cfg.remat_policy``):
-``"full"`` is ``torch.utils.checkpoint`` (non-reentrant), ``"dots"``
-selective checkpointing that saves the 2-D matrix products (the
-projections: ``checkpoint_dots_with_no_batch_dims``; attention's batched
-products are recomputed), ``"none"`` the plain forward.  ``loss_fn`` is
-the mean token cross-entropy of the logits.
+gradients on for its own state; ``forward`` then runs each layer, of the
+encoder as of the decoder, under the reference's rematerialisation
+(``cfg.remat``, ``cfg.remat_policy``): ``"full"`` is
+``torch.utils.checkpoint`` (non-reentrant), ``"dots"`` selective
+checkpointing that saves the 2-D matrix products (the projections:
+``checkpoint_dots_with_no_batch_dims``; attention's batched products are
+recomputed), ``"none"`` the plain forward.  ``loss_fn`` is the mean token
+cross-entropy of the logits.
 
-Only the dense family runs.  ``segment_plan``, ``forward`` and the
-serving steps raise ``NotImplementedError`` for any other family (moe,
-ssm, hybrid, encdec, vlm; ROADMAP.md, Queue A 11).
+The moe, ssm and hybrid families do not run yet: ``segment_plan``,
+``forward`` and the serving steps raise ``NotImplementedError`` for them
+(ROADMAP.md, Queue A 11).
 """
 
 from __future__ import annotations
@@ -38,20 +47,33 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (cross_entropy, init_dense, layernorm,
                                       rmsnorm, rope)
 
-__all__ = ["DenseBlock", "DenseLM", "segment_plan", "init_params", "forward",
-           "check_dense", "loss_fn", "reference_rank"]
+__all__ = ["DenseBlock", "CrossBlock", "Encoder", "LM", "FAMILIES",
+           "segment_plan", "init_params", "forward", "runs_family",
+           "check_family", "loss_fn", "reference_rank"]
+
+#: The families the port runs (``configs`` admits an architecture by its
+#: config's family).
+FAMILIES = ("dense", "encdec", "vlm")
+
+#: Rows of the decoder's positional table (the reference's).
+DEC_POS_ROWS = 32768
 
 
-def check_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.is_moe:
+def runs_family(cfg: ModelConfig) -> bool:
+    return cfg.family in FAMILIES and not cfg.is_moe
+
+
+def check_family(cfg: ModelConfig) -> None:
+    if not runs_family(cfg):
         raise NotImplementedError(
-            f"{cfg.name} is of the {cfg.family} family; the port runs only "
-            f"the dense family yet (ROADMAP.md, Queue A 11)")
+            f"{cfg.name} is of the {cfg.family} family; the port runs the "
+            f"{', '.join(FAMILIES)} families yet (ROADMAP.md, Queue A 11: "
+            f"the LM stack's other families)")
 
 
 def segment_plan(cfg: ModelConfig) -> List[Tuple[str, int]]:
     """(kind, n_layers) segments of the decoder stack."""
-    check_dense(cfg)
+    check_family(cfg)
     return [("dense", cfg.num_layers)]
 
 
@@ -69,52 +91,92 @@ class DenseBlock(nn.ModuleDict):
     bv with ``qkv_bias``, q_norm and k_norm with ``qk_norm``), ``ln1``,
     ``ln2`` and ``mlp`` (wi_gate, wi_up, wo; or wi, bi, wo, bo for gelu)."""
 
+    PARTS = ("attn", "ln1", "ln2", "mlp")
+
     def __init__(self, layer: Mapping[str, Mapping[str, torch.Tensor]]):
         super().__init__({part: _param_dict(layer[part])
-                          for part in ("attn", "ln1", "ln2", "mlp")})
+                          for part in self.PARTS})
 
 
-class DenseLM(nn.Module):
-    """The dense decoder's weights, in the reference's pytree layout with
-    the layer stack split into ``blocks``.  Build one with ``init_params``
-    (random, seeded) or ``repro_torch.convert.lm_params_from_numpy`` (the
-    reference's values); it runs on the device its tensors lie on."""
+class CrossBlock(DenseBlock):
+    """An encdec decoder layer: a ``DenseBlock`` plus ``cross`` (the
+    cross-attention's projections, shaped as ``attn``) and ``ln3``."""
+
+    PARTS = DenseBlock.PARTS + ("cross", "ln3")
+
+
+class Encoder(nn.Module):
+    """The encdec encoder: ``pos`` (encoder_seq, d), ``blocks`` (one
+    ``DenseBlock`` a layer, run with full attention) and ``final_norm``."""
+
+    def __init__(self, cfg: ModelConfig, pos: torch.Tensor,
+                 layers: List[Mapping[str, Mapping[str, torch.Tensor]]],
+                 final_norm: Mapping[str, torch.Tensor]):
+        super().__init__()
+        if len(layers) != cfg.encoder_layers:
+            raise ValueError(f"{cfg.name} has {cfg.encoder_layers} encoder "
+                             f"layers, got {len(layers)}")
+        self.pos = nn.Parameter(pos, requires_grad=False)
+        self.blocks = nn.ModuleList(DenseBlock(layer) for layer in layers)
+        self.final_norm = _param_dict(final_norm)
+
+
+class LM(nn.Module):
+    """The LM's weights, in the reference's pytree layout with each layer
+    stack split into ``blocks``: the decoder's (``CrossBlock``s for the
+    encdec family) and, for encdec, ``encoder`` and ``dec_pos``.  Build
+    one with ``init_params`` (random, seeded) or
+    ``repro_torch.convert.lm_params_from_numpy`` (the reference's values);
+    it runs on the device its tensors lie on."""
 
     def __init__(self, cfg: ModelConfig, embed: torch.Tensor,
                  final_norm: Mapping[str, torch.Tensor],
                  layers: List[Mapping[str, Mapping[str, torch.Tensor]]],
-                 lm_head: Optional[torch.Tensor] = None):
+                 lm_head: Optional[torch.Tensor] = None, *,
+                 encoder: Optional[Encoder] = None,
+                 dec_pos: Optional[torch.Tensor] = None):
         super().__init__()
-        check_dense(cfg)
+        check_family(cfg)
         if len(layers) != cfg.num_layers:
             raise ValueError(f"{cfg.name} has {cfg.num_layers} layers, got "
                              f"{len(layers)}")
         if (lm_head is None) != cfg.tie_embeddings:
             raise ValueError(f"{cfg.name}: an LM head is needed exactly when "
                              f"the embeddings are not tied")
+        encdec = cfg.family == "encdec"
+        if (encoder is not None, dec_pos is not None) != (encdec, encdec):
+            raise ValueError(f"{cfg.name}: an encoder and dec_pos are needed "
+                             f"exactly for the encdec family")
         self.cfg = cfg
         self.embed = nn.Parameter(embed, requires_grad=False)
         self.final_norm = _param_dict(final_norm)
         self.lm_head = (None if lm_head is None
                         else nn.Parameter(lm_head, requires_grad=False))
-        self.blocks = nn.ModuleList(DenseBlock(layer) for layer in layers)
+        block = CrossBlock if encdec else DenseBlock
+        self.blocks = nn.ModuleList(block(layer) for layer in layers)
+        self.encoder = encoder
+        self.dec_pos = (None if dec_pos is None
+                        else nn.Parameter(dec_pos, requires_grad=False))
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
 
-    def forward(self, tokens) -> torch.Tensor:
+    def forward(self, tokens, *, audio_embeds=None,
+                patch_embeds=None) -> torch.Tensor:
         """tokens (B, S) -> logits (B, S, vocab_padded)."""
-        return forward(self, self.cfg, tokens)
+        return forward(self, self.cfg, tokens, audio_embeds=audio_embeds,
+                       patch_embeds=patch_embeds)
 
 
 def reference_rank(name: str, p: torch.Tensor) -> int:
-    """The rank of the reference's leaf that holds ``DenseLM`` parameter
-    ``name``: the reference stacks the layers' leaves along a leading L
-    axis, so a per-layer tensor (``blocks.<i>.*``) is one rank short of
-    its reference leaf (a norm scale of shape (d,) is the reference's
-    (L, d))."""
-    return p.ndim + 1 if name.startswith("blocks.") else p.ndim
+    """The rank of the reference's leaf that holds ``LM`` parameter
+    ``name``: the reference stacks each layer stack's leaves along a
+    leading L axis, so a per-layer tensor (``blocks.<i>.*``,
+    ``encoder.blocks.<i>.*``) is one rank short of its reference leaf (a
+    norm scale of shape (d,) is the reference's (L, d))."""
+    stacked = name.startswith(("blocks.", "encoder.blocks."))
+    return p.ndim + 1 if stacked else p.ndim
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -157,24 +219,44 @@ def _norm_params(cfg: ModelConfig, device) -> dict:
     return p
 
 
+def _layer_params(gen: torch.Generator, cfg: ModelConfig, device,
+                  cross: bool = False) -> dict:
+    p = {"attn": _attn_params(gen, cfg), "ln1": _norm_params(cfg, device),
+         "ln2": _norm_params(cfg, device), "mlp": _mlp_params(gen, cfg)}
+    if cross:
+        p.update(cross=_attn_params(gen, cfg), ln3=_norm_params(cfg, device))
+    return p
+
+
 def init_params(cfg: ModelConfig, *, seed: int = 0,
-                device=None) -> DenseLM:
+                device=None) -> LM:
     """Random weights from a ``torch.Generator`` seeded with ``seed``, drawn
     on ``device`` (default CUDA): the reference's shapes, scales and types,
     not its numbers."""
-    check_dense(cfg)
+    check_family(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     dt = _dtype(cfg)
+    encdec = cfg.family == "encdec"
     embed = init_dense(gen, (cfg.vocab_padded, cfg.d_model), scale=0.02,
                        dtype=dt)
     lm_head = None if cfg.tie_embeddings else init_dense(
         gen, (cfg.d_model, cfg.vocab_padded), dtype=dt)
-    layers = [{"attn": _attn_params(gen, cfg), "ln1": _norm_params(cfg, device),
-               "ln2": _norm_params(cfg, device), "mlp": _mlp_params(gen, cfg)}
+    layers = [_layer_params(gen, cfg, device, cross=encdec)
               for _ in range(cfg.num_layers)]
-    return DenseLM(cfg, embed, _norm_params(cfg, device), layers, lm_head)
+    encoder = dec_pos = None
+    if encdec:
+        encoder = Encoder(
+            cfg, init_dense(gen, (cfg.encoder_seq, cfg.d_model), scale=0.02,
+                            dtype=dt),
+            [_layer_params(gen, cfg, device)
+             for _ in range(cfg.encoder_layers)],
+            _norm_params(cfg, device))
+        dec_pos = init_dense(gen, (DEC_POS_ROWS, cfg.d_model), scale=0.02,
+                             dtype=dt)
+    return LM(cfg, embed, _norm_params(cfg, device), layers, lm_head,
+              encoder=encoder, dec_pos=dec_pos)
 
 
 # ---------------------------------------------------------------------------
@@ -226,7 +308,34 @@ def _dense_block(x, p, cfg: ModelConfig, positions, causal: bool = True):
     return x + _mlp(_norm_apply(x, p["ln2"], cfg), p["mlp"], cfg)
 
 
-def _logits(x, params: DenseLM, cfg: ModelConfig):
+def _encoder_block(x, p, cfg: ModelConfig, positions):
+    return _dense_block(x, p, cfg, positions, causal=False)
+
+
+def _cross_project(enc_out, p, cfg: ModelConfig):
+    """The cross-attention's K and V (B, S_enc, KV, hd) of the encoder's
+    output, one layer's ``cross`` weights."""
+    b, kv, hd = enc_out.shape[0], cfg.num_kv_heads, cfg.resolved_head_dim
+    return ((enc_out @ p["wk"]).reshape(b, -1, kv, hd),
+            (enc_out @ p["wv"]).reshape(b, -1, kv, hd))
+
+
+def _cross_block(x, p, cfg: ModelConfig, positions, enc_out):
+    """Self-attention (causal), cross-attention (full) over the encoder's
+    output, then the MLP."""
+    x = x + _self_attn(_norm_apply(x, p["ln1"], cfg), p["attn"], cfg,
+                       positions, causal=True)
+    h = _norm_apply(x, p["ln3"], cfg)
+    b, s, _ = x.shape
+    q = (h @ p["cross"]["wq"]).reshape(b, s, cfg.num_heads,
+                                       cfg.resolved_head_dim)
+    kk, vv = _cross_project(enc_out, p["cross"], cfg)
+    out = attention_chunked(q, kk, vv, causal=False, kv_chunk=cfg.attn_chunk)
+    x = x + out.reshape(b, s, -1) @ p["cross"]["wo"]
+    return x + _mlp(_norm_apply(x, p["ln2"], cfg), p["mlp"], cfg)
+
+
+def _logits(x, params: LM, cfg: ModelConfig):
     x = _norm_apply(x, params.final_norm, cfg)
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
     return x @ head
@@ -241,12 +350,12 @@ def _save_dots(ctx, op, *args, **kwargs):
             else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def _layer_fn(cfg: ModelConfig):
-    """How ``forward`` runs one layer: plain, or under the config's
-    rematerialisation when autograd records a graph."""
+def _layer_fn(cfg: ModelConfig, block_fn=_dense_block):
+    """How ``forward`` runs one layer of ``block_fn``: plain, or under the
+    config's rematerialisation when autograd records a graph."""
     if not (cfg.remat and cfg.remat_policy != "none"
             and torch.is_grad_enabled()):
-        return _dense_block
+        return block_fn
     if cfg.remat_policy == "full":
         context = _ckpt.noop_context_fn
     elif cfg.remat_policy == "dots":
@@ -254,25 +363,67 @@ def _layer_fn(cfg: ModelConfig):
             _ckpt.create_selective_checkpoint_contexts, _save_dots)
     else:
         raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
-    return functools.partial(_ckpt.checkpoint, _dense_block,
+    return functools.partial(_ckpt.checkpoint, block_fn,
                              use_reentrant=False, context_fn=context)
 
 
-def forward(params: DenseLM, cfg: ModelConfig, tokens) -> torch.Tensor:
-    """tokens (B, S) -> logits (B, S, Vp), on the device of ``params``."""
-    check_dense(cfg)
-    tokens = torch.as_tensor(tokens, device=params.device).long()
-    x = params.embed[tokens]
-    positions = torch.arange(tokens.shape[1], device=params.device)[None]
-    layer = _layer_fn(cfg)
-    for block in params.blocks:
+def _frontend(embeds, params: LM, name: str) -> torch.Tensor:
+    if embeds is None:
+        raise ValueError(f"{params.cfg.name} ({params.cfg.family}) needs "
+                         f"{name}")
+    return torch.as_tensor(embeds, device=params.device)
+
+
+def _run_encoder(params: LM, cfg: ModelConfig, audio_embeds) -> torch.Tensor:
+    """The encoder over the stub audio frames (B, encoder_seq, d): the
+    positional table added, full attention, the final norm."""
+    enc = params.encoder
+    x = _frontend(audio_embeds, params, "audio_embeds") + enc.pos[None]
+    positions = torch.arange(x.shape[1], device=params.device)[None]
+    layer = _layer_fn(cfg, _encoder_block)
+    for block in enc.blocks:
         x = layer(x, block, cfg, positions)
+    return _norm_apply(x, enc.final_norm, cfg)
+
+
+def forward(params: LM, cfg: ModelConfig, tokens, *, audio_embeds=None,
+            patch_embeds=None) -> torch.Tensor:
+    """tokens (B, S) -> logits (B, S, Vp), on the device of ``params``.
+    The stub frontends feed ``audio_embeds`` (encdec: (B, encoder_seq, d))
+    or ``patch_embeds`` (vlm: (B, vision_patches, d), prepended to the
+    text; attention is causal over the whole sequence and the logits are
+    the text positions')."""
+    check_family(cfg)
+    tokens = torch.as_tensor(tokens, device=params.device).long()
+    s_text = tokens.shape[1]
+    x = params.embed[tokens]
+    n_prefix = 0
+    if cfg.family == "vlm":
+        patches = _frontend(patch_embeds, params, "patch_embeds")
+        n_prefix = patches.shape[1]
+        x = torch.cat([patches.to(x.dtype), x], dim=1)
+    positions = torch.arange(x.shape[1], device=params.device)[None]
+    if cfg.family == "encdec":
+        x = x + params.dec_pos[:s_text][None]
+        enc_out = _run_encoder(params, cfg, audio_embeds)
+        layer = _layer_fn(cfg, _cross_block)
+        for block in params.blocks:
+            x = layer(x, block, cfg, positions, enc_out)
+    else:
+        layer = _layer_fn(cfg)
+        for block in params.blocks:
+            x = layer(x, block, cfg, positions)
+    if n_prefix:
+        x = x[:, n_prefix:]
     return _logits(x, params, cfg)
 
 
-def loss_fn(params: DenseLM, cfg: ModelConfig, batch) -> torch.Tensor:
+def loss_fn(params: LM, cfg: ModelConfig, batch) -> torch.Tensor:
     """Mean token cross-entropy (f32) of ``batch["tokens"]`` against
-    ``batch["labels"]`` (B, S)."""
-    logits = forward(params, cfg, batch["tokens"])
+    ``batch["labels"]`` (B, S); the stub frontends ride in the batch as
+    ``audio_embeds`` / ``patch_embeds``."""
+    logits = forward(params, cfg, batch["tokens"],
+                     audio_embeds=batch.get("audio_embeds"),
+                     patch_embeds=batch.get("patch_embeds"))
     labels = torch.as_tensor(batch["labels"], device=params.device)
     return cross_entropy(logits, labels, cfg.vocab_size)

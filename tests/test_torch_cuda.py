@@ -859,16 +859,16 @@ def test_flash_lse_and_bwd_kernels_match_plain(cuda, case, dtype):
         (b, sq, h, hd), (b, skv, kv, hd), (b, skv, kv, hd), (b, sq, h, hd)))
     kw = dict(causal=causal, q_offset=q_offset)
     before = (F.flash_attention_lse.launches, F.flash_attention_bwd.launches)
-    o, lse = F.flash_attention_lse(q, k, v, **kw)
+    o, lse, lo = F.flash_attention_lse(q, k, v, **kw)
     assert torch.equal(o, F.flash_attention(q, k, v, **kw))
     np.testing.assert_allclose(
         lse.cpu().numpy(), F.flash_attention_lse_ref(q, k, v, **kw)[1]
         .cpu().numpy(), rtol=1e-4, atol=1e-4)
-    got = F.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    got = F.flash_attention_bwd(q, k, v, o, lse, do, o_lo=lo, **kw)
     torch.cuda.synchronize()
     assert (F.flash_attention_lse.launches, F.flash_attention_bwd.launches) \
         == (before[0] + 1, before[1] + 2)
-    want = F.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    want = F.flash_attention_bwd_ref(q, k, v, o, lse, do, o_lo=lo, **kw)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.shape == w.shape
         np.testing.assert_allclose(g.float().cpu().numpy(),
@@ -882,8 +882,8 @@ def _bwd_inputs(case, dtype, cuda, seed=11):
         np.float32)).to(dtype).to(cuda) for s in (
         (b, sq, h, hd), (b, skv, kv, hd), (b, skv, kv, hd), (b, sq, h, hd)))
     kw = dict(causal=causal, q_offset=q_offset)
-    o, lse = F.flash_attention_lse(q, k, v, **kw)
-    return (q, k, v, o, lse, do), kw
+    o, lse, lo = F.flash_attention_lse(q, k, v, **kw)
+    return (q, k, v, o, lse, do), dict(kw, o_lo=lo)
 
 
 def test_flash_bwd_bits_fixed_run_to_run(cuda):
@@ -914,6 +914,8 @@ def test_flash_bwd_on_unaligned_views(cuda, dtype):
         return out
 
     q, k, v, o, lse, do = (shifted(t) for t in args)
+    if kw["o_lo"] is not None:
+        kw["o_lo"] = shifted(kw["o_lo"])
     assert all(t.data_ptr() % 16 for t in (q, k, v, o, do))
     got = F.flash_attention_bwd(q, k, v, o, lse, do, **kw)
     want = F.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
@@ -994,6 +996,148 @@ def test_generate_card_matches_cpu(cuda):
     np.testing.assert_array_equal(got["tokens"], want["tokens"])
     np.testing.assert_allclose(got["logprobs"], want["logprobs"], rtol=1e-4,
                                atol=1e-4)
+
+
+def _whisper_inputs(cfg, b, s, seed):
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s + 1)))
+    audio = torch.from_numpy((rng.standard_normal(
+        (b, cfg.encoder_seq, cfg.d_model)) * 0.02).astype(np.float32))
+    return tokens, audio
+
+
+def test_whisper_prefill_card_matches_cpu(cuda):
+    """The encdec smoke prefill: 3 row-10 launches a layer pair (encoder
+    full, decoder causal, cross full), logits the CPU's."""
+    cfg = get_smoke_config("whisper_small")
+    model = init_params(cfg, seed=0, device="cpu")
+    tokens, audio = _whisper_inputs(cfg, 2, 40, 6)
+    want = M.prefill_step(model, cfg, {"tokens": tokens,
+                                       "audio_embeds": audio})
+    before = F.flash_attention.launches
+    got = M.prefill_step(model.to(cuda), cfg, {
+        "tokens": tokens.to(cuda), "audio_embeds": audio.to(cuda)})
+    assert F.flash_attention.launches == \
+        before + cfg.encoder_layers + 2 * cfg.num_layers
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_whisper_train_step_card_matches_cpu(cuda):
+    """One f32 encdec smoke step (remat full) on the card against the CPU:
+    its loss and gradients, row 10's forward with its log-sum-exp twice and
+    its backward once for each of the encoder's, the decoder's and the
+    cross attention calls."""
+    from repro_torch.launch.steps import (init_train_state, loss_and_grads,
+                                          make_train_step)
+    from repro_torch.optim.adamw import adamw_init
+    cfg = get_smoke_config("whisper_small").replace(remat=True)
+    tokens, audio = _whisper_inputs(cfg, 2, 24, 7)
+    calls = cfg.encoder_layers + 2 * cfg.num_layers
+    out = []
+    for device in ("cpu", cuda):
+        params, _ = init_train_state(cfg, seed=0, device="cpu")
+        params = params.to(device)
+        opt = adamw_init(dict(params.named_parameters()))
+        batch = {"tokens": tokens[:, :-1].to(device),
+                 "labels": tokens[:, 1:].to(device),
+                 "audio_embeds": audio.to(device)}
+        before = (F.flash_attention_lse.launches,
+                  F.flash_attention_bwd.launches)
+        loss, grads = loss_and_grads(params, cfg, batch)
+        launches = (F.flash_attention_lse.launches - before[0],
+                    F.flash_attention_bwd.launches - before[1])
+        params, opt, metrics = make_train_step(
+            cfg, lambda s_: torch.tensor(1e-3))(params, opt, batch)
+        assert int(opt.step) == 1 and bool(torch.isfinite(metrics["loss"]))
+        out.append((float(loss), {n: g.cpu() for n, g in grads.items()},
+                    launches))
+    assert out[1][2] == (2 * calls, 2 * calls)
+    np.testing.assert_allclose(out[1][0], out[0][0], rtol=1e-5)
+    for n, g in out[0][1].items():
+        np.testing.assert_allclose(out[1][1][n].numpy(), g.numpy(),
+                                   rtol=1e-4, atol=1e-6)
+
+
+#: Row 10 where the encdec and vlm families call it at full size: the
+#: cross-attention (448 queries over 1500 keys, full) and the cut llava
+#: prefill (576 patches + 1024 tokens, causal, head_dim 128, GQA 7:1).
+FAMILY_SHAPES = [(1, 448, 1500, 12, 12, 64, False),
+                 (1, 1600, 1600, 56, 8, 128, True)]
+#: dq, dk, dv: every element within rtol |plain| + atol_rms RMS(plain) +
+#: atol, and the relative L2 of the whole within rel_l2 (chip_smoke's bar).
+FAMILY_BWD_TOL = {
+    torch.float32: dict(rtol=1e-4, atol=1e-5, atol_rms=0.0, rel_l2=1e-4),
+    torch.bfloat16: dict(rtol=2e-2, atol=0.0, atol_rms=0.1, rel_l2=1e-2)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FAMILY_SHAPES, ids=str)
+def test_flash_forward_and_backward_at_the_family_shapes(cuda, case, dtype):
+    b, sq, skv, h, kv, hd, causal = case
+    q, k, v = (t.to(cuda) for t in _qkv(case, dtype, seed=8))
+    do = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (b, sq, h, hd)).astype(np.float32)).to(dtype).to(cuda)
+    tol = FLASH_TOL[dtype]
+    got = F.flash_attention(q, k, v, causal=causal)
+    want = F.flash_attention_ref(q, k, v, causal=causal)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol,
+                               atol=tol)
+    o, lse, lo = F.flash_attention_lse(q, k, v, causal=causal)  # training's
+    assert torch.equal(o, got) and (lo is None) == (dtype == torch.float32)
+    np.testing.assert_allclose(
+        lse.cpu().numpy(), F.flash_attention_lse_ref(
+            q, k, v, causal=causal)[1].cpu().numpy(), rtol=1e-4, atol=1e-4)
+    bar = FAMILY_BWD_TOL[dtype]
+    for g, w in zip(F.flash_attention_bwd(q, k, v, o, lse, do,
+                                          causal=causal, o_lo=lo),
+                    F.flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                              causal=causal, o_lo=lo)):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        w = w.float()
+        diff = (g.float() - w).abs()
+        rms = float(w.square().mean().sqrt())
+        assert float(diff.norm() / w.norm()) <= bar["rel_l2"]
+        assert bool((diff <= bar["atol"] + bar["atol_rms"] * rms
+                     + bar["rtol"] * w.abs()).all())
+
+
+@pytest.mark.parametrize("case", [(2, 200, 300, 4, 4, 64, False),
+                                  (1, 130, 130, 6, 2, 20, True),
+                                  (1, 97, 150, 7, 1, 128, False)], ids=str)
+def test_flash_residual_restores_d_on_a_common_part(cuda, case):
+    """bf16 inputs whose values share a large common part (v = 4 + noise,
+    so each output row is nearly the mean of v): the forward's residual
+    (out + o_lo the plain f32 output within the bf16 bar; |o_lo| at most
+    2^-8 |out|; out bitwise the serving launch's), and the backward with
+    it within 1e-2 (relative L2) of the plain backward given the f32
+    output, where the plain backward from the bf16 output alone puts dq
+    farther than 2e-2 off."""
+    b, sq, skv, h, kv, hd, causal = case
+    rng = np.random.default_rng(12)
+    q, k, do = (torch.from_numpy(rng.standard_normal(sh).astype(
+        np.float32)).to(cuda) for sh in ((b, sq, h, hd), (b, skv, kv, hd),
+                                         (b, sq, h, hd)))
+    v = torch.from_numpy((4.0 + 0.3 * rng.standard_normal(
+        (b, skv, kv, hd))).astype(np.float32)).to(cuda)
+    bq, bk, bv, bdo = (t.to(torch.bfloat16) for t in (q, k, v, do))
+    o, lse, lo = F.flash_attention_lse(bq, bk, bv, causal=causal)
+    assert torch.equal(o, F.flash_attention(bq, bk, bv, causal=causal))
+    args = (bq.float(), bk.float(), bv.float())
+    full = F.flash_attention_ref(*args, causal=causal)
+    np.testing.assert_allclose((o.float() + lo.float()).cpu().numpy(),
+                               full.cpu().numpy(), rtol=2e-2, atol=2e-2)
+    assert bool((lo.float().abs() <= o.float().abs() * 2.0 ** -8).all())
+    want = F.flash_attention_bwd_ref(*args, full, lse, bdo.float(),
+                                     causal=causal)
+    rel = lambda a, w: float((a.float() - w).norm() / w.norm())
+    with_lo = F.flash_attention_bwd(bq, bk, bv, o, lse, bdo, causal=causal,
+                                    o_lo=lo)
+    without = F.flash_attention_bwd_ref(bq, bk, bv, o, lse, bdo,
+                                        causal=causal)
+    assert all(rel(g, w) <= 1e-2 for g, w in zip(with_lo, want))
+    assert rel(without[0], want[0]) > 2e-2
 
 
 def _prod_3d_grids(seed, device):

@@ -339,6 +339,50 @@ def test_engine_stats_expose_durability(tmp_path):
     assert _engine(host_id="plain").stats()["durability"] is None
 
 
+@pytest.mark.parametrize("bad,error", [(None, TypeError), (2.5, TypeError),
+                                       (True, TypeError), (-1, ValueError)])
+def test_engine_refuses_a_bad_snapshot_interval(tmp_path, bad, error):
+    """ROADMAP Queue C, C16: the port refuses at construction what the
+    reference takes and fails on later, on the pool thread."""
+    with pytest.raises(error, match="snapshot_interval"):
+        _engine(store=DurableStore(str(tmp_path), "h0"),
+                snapshot_interval=bad)
+    _engine(store=DurableStore(str(tmp_path), "h1"), snapshot_interval=0)
+
+
+def test_a_failing_snapshot_does_not_strand_the_chain(tmp_path):
+    """C16.  A snapshot that raises on the ingest pool's thread (here the
+    reference's own trigger, ``snapshot_interval=None`` set past the
+    constructor's check) is logged and counted, and the tenant's later
+    queued ingests still run.  The reference's chain ends at the first
+    snapshot: its second ingest's future never resolves."""
+    payloads = [_grids(s) for s in range(4)]
+    store = DurableStore(str(tmp_path / "port"), "h0")
+    eng = CTEngine(device="cpu", ingest_workers=1, store=store,
+                   snapshot_interval=2)
+    eng._snapshot_interval = None
+    eng.register("t", SCHEME, payloads[0])
+    futs = [eng.submit_ingest("t", g) for g in payloads[1:]]
+    eng.pump()
+    for f in futs:
+        f.result(timeout=30.0)
+    _bitwise(eng.surplus("t"), _oracle(payloads).surplus("t").numpy())
+    assert eng.stats()["durability"]["snapshot_errors"] == 3
+    assert sum("TypeError" in e for e in store.events) == 3
+    eng.close()
+
+    ref = rengine.CTEngine(store=rdur.DurableStore(str(tmp_path / "ref"),
+                                                   "h0"),
+                           snapshot_interval=None, ingest_workers=1)
+    ref.register("t", rlev.CombinationScheme(2, 3), payloads[0])
+    first, second = (ref.submit_ingest("t", g) for g in payloads[1:3])
+    ref.pump()
+    first.result(timeout=30.0)
+    with pytest.raises(TimeoutError):
+        second.result(timeout=1.0)
+    ref.close()
+
+
 # ---------------------------------------------------------------------------
 # Across the packages: one store format
 # ---------------------------------------------------------------------------

@@ -66,8 +66,8 @@ def jax_grads():
 def _port_grads(case):
     q, k, v, do = (torch.from_numpy(a) for a in _inputs(case))
     causal, q_offset = case[6], case[7]
-    o, lse = F.flash_attention_lse_ref(q, k, v, causal=causal,
-                                       q_offset=q_offset)
+    o, lse, _ = F.flash_attention_lse_ref(q, k, v, causal=causal,
+                                          q_offset=q_offset)
     return o, F.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
                                         q_offset=q_offset)
 
@@ -97,8 +97,9 @@ def test_bwd_ref_matches_autograd_through_the_plain_forward(case):
 def test_lse_is_the_masked_logsumexp(case):
     q, k, v, _ = (torch.from_numpy(a) for a in _inputs(case))
     b, sq, skv, h, kv, hd, causal, q_offset = case
-    o, lse = F.flash_attention_lse_ref(q, k, v, causal=causal,
-                                       q_offset=q_offset)
+    o, lse, lo = F.flash_attention_lse_ref(q, k, v, causal=causal,
+                                           q_offset=q_offset)
+    assert lo is None                   # f32: the output is exact
     assert torch.equal(o, F.flash_attention_ref(q, k, v, causal=causal,
                                                 q_offset=q_offset))
     kk = k.double().repeat_interleave(h // kv, dim=2)
@@ -154,7 +155,7 @@ def test_attention_chunked_is_differentiable():
 
 def test_bwd_refuses_mismatched_shapes():
     q, k, v, do = (torch.from_numpy(a) for a in _inputs(CASES[0]))
-    o, lse = F.flash_attention_lse_ref(q, k, v)
+    o, lse, _ = F.flash_attention_lse_ref(q, k, v)
     with pytest.raises(ValueError, match="lse"):
         F.flash_attention_bwd(q, k, v, o, lse[:, :, 1:], do)
     with pytest.raises(ValueError, match="lse"):
@@ -182,8 +183,8 @@ def test_tma_operands_are_aligned_and_zero_padded(case, dtype):
     b, sq, skv, h, kv, hd, causal, q_offset = case
     q, k, v, do = (_shifted(torch.from_numpy(a).to(dtype))
                    for a in _inputs(case))
-    o, lse = F.flash_attention_lse_ref(q, k, v, causal=causal,
-                                       q_offset=q_offset)
+    o, lse, _ = F.flash_attention_lse_ref(q, k, v, causal=causal,
+                                          q_offset=q_offset)
     o, lse = _shifted(o), _shifted(lse)
     *rows, lse_p, pitch = F._tma_operands(q, k, v, o, do, lse)
     for t, orig in zip(rows, (q, k, v, o, do)):
@@ -203,7 +204,7 @@ def test_bwd_ref_on_prepared_operands_is_the_plain_backward(case):
     b, sq, skv, h, kv, hd, causal, q_offset = case
     q, k, v, do = (torch.from_numpy(a) for a in _inputs(case, seed=3))
     kw = dict(causal=causal, q_offset=q_offset)
-    o, lse = F.flash_attention_lse_ref(q, k, v, **kw)
+    o, lse, _ = F.flash_attention_lse_ref(q, k, v, **kw)
     *rows, lse_p, _ = F._tma_operands(q, k, v, o, do, lse)
     qp, kp, vp, op, dop = rows
     got = F.flash_attention_bwd_ref(qp, kp, vp, op, lse_p[..., :sq], dop,
@@ -214,3 +215,89 @@ def test_bwd_ref_on_prepared_operands_is_the_plain_backward(case):
         assert g.shape == w.shape
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-6,
                                    atol=1e-7)
+
+
+# ---------------------------------------------------------------------------
+# The bf16 output's residual: D from o + o_lo
+# ---------------------------------------------------------------------------
+
+def _common_part_inputs(seed=4):
+    """bf16 q, k, v, do whose values share a large common part (v = 4 +
+    noise): each output row is nearly the mean of v, as the whisper
+    decoder's cross-attention over its frames gives."""
+    rng = np.random.default_rng(seed)
+    b, sq, skv, h, hd = 2, 24, 80, 3, 16
+    q, k, do = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                for s in ((b, sq, h, hd), (b, skv, h, hd), (b, sq, h, hd)))
+    v = torch.from_numpy((4.0 + 0.3 * rng.standard_normal(
+        (b, skv, h, hd))).astype(np.float32))
+    return [t.to(torch.bfloat16) for t in (q, k, v, do)]
+
+
+def test_residual_holds_the_f32_output():
+    q, k, v, _ = _common_part_inputs()
+    out, lse, lo = F.flash_attention_lse_ref(q, k, v, causal=False)
+    assert torch.equal(out, F.flash_attention_ref(q, k, v, causal=False))
+    assert lo.dtype == torch.bfloat16 and lo.shape == out.shape
+    full = F.flash_attention_ref(q.float(), k.float(), v.float(),
+                                 causal=False)
+    # the residual is the rounding: at most half an ulp of out (2^-9 of
+    # it), and out + lo is the f32 output to bf16 rounding of lo itself
+    assert bool((lo.float().abs() <= out.float().abs() * 2.0 ** -8).all())
+    np.testing.assert_allclose((out.float() + lo.float()).numpy(),
+                               full.numpy(), rtol=2.0 ** -15, atol=0)
+    f32 = F.flash_attention_lse_ref(q.float(), k.float(), v.float(),
+                                    causal=False)
+    assert f32[2] is None
+
+
+def test_bwd_with_the_residual_takes_d_from_the_f32_output():
+    """With the residual the plain backward is within 2e-4 (relative L2)
+    of the one given the f32 output (o + o_lo holds it to about 2^-17,
+    and the common part amplifies that); from the bf16 output alone dq and
+    dk are 3-5% off it on these inputs."""
+    q, k, v, do = _common_part_inputs()
+    out, lse, lo = F.flash_attention_lse_ref(q, k, v, causal=False)
+    full = F.flash_attention_ref(q.float(), k.float(), v.float(),
+                                 causal=False)
+    args = (q.float(), k.float(), v.float())
+    want = F.flash_attention_bwd_ref(*args, full, lse, do.float(),
+                                     causal=False)
+    got = F.flash_attention_bwd_ref(*args, out, lse, do.float(),
+                                    causal=False, o_lo=lo)
+    plain = F.flash_attention_bwd_ref(*args, out, lse, do.float(),
+                                      causal=False)
+    rel = lambda a, b: float((a - b).norm() / b.norm())
+    for g, p, w in zip(got[:2], plain[:2], want[:2]):
+        assert rel(g, w) <= 2e-4 and rel(p, w) > 2e-2
+    assert torch.equal(got[2], want[2])          # dv takes no D
+    # the wrapper takes the residual in bf16, and only there
+    for args, o_lo in (((q, k, v, out), lo.float()), ((q, k, v, out), None),
+                       (tuple(t.float() for t in (q, k, v, out)), lo)):
+        with pytest.raises(ValueError, match="o_lo"):
+            F.flash_attention_bwd(*args, lse, do.to(args[0].dtype),
+                                  causal=False, o_lo=o_lo)
+
+
+def test_flash_attention_function_passes_the_residual():
+    """In bf16 the autograd Function saves the forward's residual and its
+    backward hands it to flash_attention_bwd; in f32 there is none."""
+    from repro_torch.kernels import hierarchize as H
+    for dtype, has_lo in ((torch.bfloat16, True), (torch.float32, False)):
+        q, k, v, do = (t.to(dtype) for t in _common_part_inputs())
+        q.requires_grad_(True)
+        with H.record_calls() as calls:
+            F.flash_attention(q, k, v, causal=True).backward(do)
+        bwd = [a for w, a in calls if w is F.flash_attention_bwd]
+        assert len(bwd) == 1 and (bwd[0]["o_lo"] is not None) == has_lo
+
+
+def test_tma_operands_pad_the_residual_as_o():
+    q, k, v, do = _common_part_inputs()
+    q, k, v, do = (t[..., :12].contiguous() for t in (q, k, v, do))
+    out, lse, lo = F.flash_attention_lse_ref(q, k, v, causal=False)
+    *rows, lse_p, pitch = F._tma_operands(q, k, v, out, do, lse, _shifted(lo))
+    assert len(rows) == 6
+    lo_p = rows[5]
+    assert lo_p.data_ptr() % 16 == 0 and lo_p.shape[-1] == 16
+    assert torch.equal(lo_p[..., :12], lo) and not lo_p[..., 12:].any()

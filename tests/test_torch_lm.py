@@ -32,7 +32,7 @@ from repro.models.config import model_flops as ref_model_flops
 from repro.models.transformer import forward as ref_forward
 from repro.models.transformer import init_params as ref_init_params
 from repro_torch.configs import (ARCH_IDS, DENSE_ARCH_IDS, get_config,
-                                 get_smoke_config)
+                                 get_smoke_config, ported_arch_ids)
 from repro_torch.convert import lm_params_from_numpy
 from repro_torch.kernels import flash_attention as tflash
 from repro_torch.launch import serve as tserve
@@ -48,7 +48,7 @@ _PARAMS = {}
 
 
 def _params(arch, dtype="float32"):
-    """(reference params, port DenseLM, cfg) of an arch's smoke config,
+    """(reference params, port LM, cfg) of an arch's smoke config,
     built once per module."""
     if (arch, dtype) not in _PARAMS:
         cfg = ref_get_smoke_config(arch).replace(dtype=dtype)
@@ -69,7 +69,7 @@ def _tokens(cfg, shape, seed=0):
 # Configurations
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", DENSE_ARCH_IDS)
+@pytest.mark.parametrize("arch", ported_arch_ids())
 def test_configs_equal_the_reference(arch):
     for mine, ref in ((get_config(arch), ref_get_config(arch)),
                       (get_smoke_config(arch), ref_get_smoke_config(arch))):
@@ -89,7 +89,7 @@ def test_smollm_width():
 
 
 @pytest.mark.parametrize("arch", [a for a in ARCH_IDS
-                                  if a not in DENSE_ARCH_IDS])
+                                  if a not in ported_arch_ids()])
 def test_other_families_raise(arch):
     for get in (get_config, get_smoke_config):
         with pytest.raises(NotImplementedError, match="Queue A 11"):
