@@ -257,7 +257,7 @@ bf16 (random weights from a seed), each driven with row 10's count set to
   layers, d 768, 12 heads of 64): ``prefill_step`` of 4 x 448 text
   tokens over 4 x 1500 stub frames makes 36 row-10 launches (12 encoder
   full over 1500 keys, 12 decoder causal, 12 cross-attention full, 448
-  queries over 1500 keys, which are not a multiple of the 64-key tile);
+  queries over 1500 keys, which are not a multiple of the key tiles);
   finite logits; the warm median of 5 and peak memory; every call
   replayed against the plain version in bf16 (2e-2 element by element
   and 1e-2 relative L2 as a whole) and f32 (2e-5), the max error and the
@@ -280,12 +280,25 @@ bf16 (random weights from a seed), each driven with row 10's count set to
   positions (2, 1024, 65536) finite, each call within 2e-2 of the plain
   version element by element and 1e-2 in relative L2.
 
+Then row 10 and row 10 lse in one phase at the four shapes the LM paths
+give them (``FLASH_SHAPES``: the ``smollm_360m`` prefill, 4 x 15 query
+over 5 KV heads, 2048, head_dim 64, causal; ``whisper_small``'s encoder,
+4 x 12, 1500, full; its cross-attention, 448 queries over 1500 keys;
+``llava_next_34b``'s prefill, 2 x 56 query over 8 KV heads, 1600,
+head_dim 128, causal), on bf16 inputs drawn from a seed: each output
+within 2e-2 and 1e-2 relative L2 of the plain version, a second call and
+the call with the log-sum-exp the same bits, and each timed by CUDA
+events behind the sleep kernel (``events_ms``) beside
+``scaled_dot_product_attention``'s forward, plain and recording its
+backward, and the flop bound (the ``events_by_shape`` keys of the two
+rows).
+
 Last, the analysis phase (``repro_torch.analysis``), at ``prod_3d`` in
 f64:
 
 * the port's linter over ``src/repro_torch`` in-process (its Python
   files and the CUDA sources of the left-fold path and of row 10's
-  backward): 0 findings; it
+  forward and backward): 0 findings; it
   prints the files scanned and the ``ctlint: ok`` pragmas by rule;
 * the engine load uninstrumented here (launch counts set to 0 just
   before it and read just after): a started ``CTEngine`` with a
@@ -346,13 +359,15 @@ repair launch, which returns at once on finite input: their ``ms`` holds
 both, their launch counts the tile launches, and ``nonfinite_ms`` is a
 call's device time on a fully non-finite input (row 3 on a 511 x 4096
 bundle, row 4 on a 4095 x 511 grid).  The script fails unless ``cuobjdump -sass`` finds DMMA in the f64
-kernels of rows 3 and 4 (row 4's both operand roles) and HMMA in the
-four kernels of row 10's bf16 entry (head_dim 64 and 128, each with and
-without the log-sum-exp), and HGMMA (the warpgroup products) and no
-HMMA in the four kernels of its bf16 backward (dq and dk/dv, head_dim 64
-and 128): those products run on the tensor cores.  It prints the bf16
-backward kernels' registers, spill bytes and dynamic shared memory, and
-fails if ptxas reports a spill in them.
+kernels of rows 3 and 4 (row 4's both operand roles), HGMMA (the
+warpgroup products) and no HMMA in the six kernels of row 10's bf16
+forward (head_dim 64 with two or three consumer warpgroups and 128 with
+two, each with and without the log-sum-exp)
+and in the four of its bf16 backward (dq and dk/dv, head_dim 64 and
+128), and neither in row 10's four f32 forward kernels.  It prints the
+bf16 forward and backward kernels' registers, spill bytes and dynamic
+shared memory, and fails if ptxas reports a spill in them or a
+serialized wgmma (C7515, C7512) in the forward.
 
 A profiler session can come back with no device activity.  The script
 runs a timing session that records none again, up to ``PROFILE_TRIES``
@@ -435,6 +450,11 @@ ENCDEC_GRAD = dict(encoder_layers=2, num_layers=2, global_batch=4,
 VLM_ARCH = "llava_next_34b"      # vlm, full width, bf16, cut in depth:
 VLM_LAYERS = 4                   # 60 layers are ~68 GB of bf16 weights
 VLM_PREFILL = (2, 1024)          # prompts x text tokens, after 576 patches
+FLASH_SHAPES = {  # row 10's timed shapes: b, sq, skv, h, kv, hd, causal
+    "smollm_360m prefill": (4, 2048, 2048, 15, 5, 64, True),
+    "whisper_small encoder": (4, 1500, 1500, 12, 12, 64, False),
+    "whisper_small cross": (4, 448, 1500, 12, 12, 64, False),
+    "llava_next_34b prefill": (2, 1600, 1600, 56, 8, 128, True)}
 
 KERNELS = {  # the main path's wrappers -> (CUDA source, TPU kernels)
     "assemble_grouped": (
@@ -903,12 +923,12 @@ def main() -> int:
             if "ptxas" in line or "spill" in line:
                 print(f"[{name}] {line.strip()}")
     # The tensor-core products: rows 3 and 4 in f64 on DMMA (row 4's both
-    # operand roles), row 10's bf16 entry on HMMA (head_dim 64 and 128),
-    # its bf16 backward on the warpgroup products (HGMMA) and nothing else.
+    # operand roles), row 10's bf16 forward and backward on the warpgroup
+    # products (HGMMA) and nothing else, its f32 kernels on neither.
     for lib, instruction, kernel, count in (
             ("axis_operator", "DMMA", "axis_operator_f64_kernel", 1),
             ("fused_tail", "DMMA", "fused_tail_f64_kernel", 2),
-            ("flash_attention", "HMMA", "flash_kernel_mma", 4),
+            ("flash_attention", "HGMMA", "flash_kernel_wgmma", 6),
             ("flash_attention_bwd", "HGMMA", "_wgmma", 4)):
         code = {k: v for k, v in _build.sass(lib).items() if kernel in k}
         found = {k: v.count(instruction) for k, v in code.items()}
@@ -919,20 +939,42 @@ def main() -> int:
             fail(f"{lib}: HMMA left in the {kernel} kernels' SASS")
         print(f"[{lib}] {sorted(found.values())} {instruction} instructions "
               f"in the SASS of its {count} {kernel} kernels")
-    # The bf16 backward's kernels: registers, spills, shared memory.
-    bwd_smem = _build.load_all()["flash_attention_bwd"].flash_attention_bwd_smem
-    for name, regs, spill in ptxas_kernels(
-            _build.PTXAS_LOG["flash_attention_bwd"], "_wgmma"):
-        hd = 128 if "ILi128E" in name else 64
-        which = 0 if "bwd_dq_" in name else 1
-        label = f"{'bwd_dq_wgmma' if which == 0 else 'bwd_dkdv_wgmma'}<{hd}>"
-        print(f"[flash_attention_bwd] {label}: {regs} registers a thread at "
-              f"entry (the producer warpgroup down to 24 and the consumers "
-              f"up by setmaxnreg), {spill} spill bytes, "
-              f"{bwd_smem(hd, which)} B of dynamic shared memory")
-        if spill:
-            fail(f"flash_attention_bwd: ptxas spills {spill} bytes in "
-                 f"{label}")
+    f32 = {k: ("HMMA" in v) + ("HGMMA" in v) for k, v in
+           _build.sass("flash_attention").items() if "flash_kernel_f32" in k}
+    if len(f32) != 4 or any(f32.values()):
+        fail(f"flash_attention: the 4 f32 kernels hold tensor-core products "
+             f"({f32})")
+    # The bf16 kernels of row 10: registers, spills, shared memory; no
+    # wgmma serialized (ptxas C7515, C7512) in the forward.
+    libs = _build.load_all()
+    smem = {"flash_attention": lambda hd, name: libs[
+                "flash_attention"].flash_attention_smem(
+                    hd, 3 if "ELi3E" in name else 2, int("Lb1E" in name)),
+            "flash_attention_bwd": lambda hd, name: libs[
+                "flash_attention_bwd"].flash_attention_bwd_smem(
+                    hd, 0 if "bwd_dq_" in name else 1)}
+    for lib, kernel in (("flash_attention", "flash_kernel_wgmma"),
+                        ("flash_attention_bwd", "_wgmma")):
+        for name, regs, spill in ptxas_kernels(_build.PTXAS_LOG[lib],
+                                               kernel):
+            hd = 128 if "ILi128E" in name else 64
+            label = (f"flash_kernel_wgmma<{hd}, "
+                     f"{3 if 'ELi3E' in name else 2}"
+                     f"{', lse' if 'Lb1E' in name else ''}>"
+                     if lib == "flash_attention" else
+                     f"bwd_dq_wgmma<{hd}>" if "bwd_dq_" in name
+                     else f"bwd_dkdv_wgmma<{hd}>")
+            print(f"[{lib}] {label}: {regs} registers a thread at entry (the "
+                  f"producer warpgroup down to 24 and the consumers up by "
+                  f"setmaxnreg), {spill} spill bytes, {smem[lib](hd, name)} B "
+                  f"of dynamic shared memory")
+            if spill:
+                fail(f"{lib}: ptxas spills {spill} bytes in {label}")
+    serialized = [line.strip() for line in
+                  _build.PTXAS_LOG["flash_attention"].splitlines()
+                  if "wgmma.mma_async instructions are serialized" in line]
+    if serialized:
+        fail(f"flash_attention: ptxas serialized wgmma: {serialized}")
 
     bits = {torch.float64: torch.int64, torch.float32: torch.int32}
 
@@ -3082,7 +3124,7 @@ def main() -> int:
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     flops_ms = flops / BF16_FLOP_PER_S * 1e3
-    ms = device_ms(kernel, only="flash_kernel")
+    ms = device_ms(kernel, only="flash_kernel", launches=1)
     rows.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -3516,7 +3558,7 @@ def main() -> int:
     lib_label = {"flash_attention_lse": "forward recording its backward",
                  "flash_attention_bwd": "backward"}
     no_lse_ms = device_ms(lambda: FA.flash_attention(**fwd_args),
-                          only="flash_kernel")
+                          only="flash_kernel", launches=1)
     # as training calls them: the output's residual written, then read
     for name, flop_mult, nbytes, kern, plain, lib, only, calls_launch in (
             ("flash_attention_lse", 4,
@@ -3670,8 +3712,9 @@ def main() -> int:
                   for k in ("encoder", "cross")}
     del wcalls
     # The whole-output bar's reach: the cross call's plain output with the
-    # keys' tail padded with zeros to whole 64-key tiles and let through
-    # the mask (the fault the ragged keys could hide) must fail it.
+    # keys' tail padded with zeros to 1536 (whole 64- and 128-key tiles)
+    # and let through the mask (the fault the ragged keys could hide) must
+    # fail it.
     a = shape_args["cross"]
     pad = -a["k"].shape[1] % 64
     leaky = FA.flash_attention.plain(**{**a, **{
@@ -3995,6 +4038,86 @@ def main() -> int:
             r["whisper_small_grad_check_launches"] = wgrad_launches[
                 1 if r["name"].endswith("lse") else 2]
     del vmodel, vbatch
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------------
+    # Row 10 and 10 lse at the four shapes the LM paths give it, by CUDA
+    # events in one phase beside scaled_dot_product_attention (a yardstick
+    # the port never calls): seeded inputs at each shape, each call held to
+    # the plain version, lse's output bitwise row 10's, two calls the same
+    # bits
+    # ------------------------------------------------------------------
+    fgen = torch.Generator(device=cuda)
+    fgen.manual_seed(27)
+    by_shape = {}
+    for name, (b, sq, skv, h, kvh, hd, causal) in FLASH_SHAPES.items():
+        q, k, v = ((torch.randn(shape, generator=fgen, device=cuda))
+                   .to(torch.bfloat16) for shape in (
+            (b, sq, h, hd), (b, skv, kvh, hd), (b, skv, kvh, hd)))
+        kw = dict(causal=causal)
+        out = FA.flash_attention(q, k, v, **kw)
+        e = hold_flash(out, FA.flash_attention.plain(q, k, v, **kw),
+                       f"{name} shape")
+        rel = rel_l2(out, FA.flash_attention.plain(q, k, v, **kw))
+        if not rel <= FLASH_REL_L2:
+            fail(f"flash_attention ({name} shape) is {rel} from its plain "
+                 f"version in relative L2 (bar {FLASH_REL_L2})")
+        o_lse, lse, lo = FA.flash_attention_lse(q, k, v, **kw)
+        if not (torch.equal(o_lse, out) and
+                torch.equal(FA.flash_attention(q, k, v, **kw), out)):
+            fail(f"flash_attention ({name} shape): two calls, or the call "
+                 f"with the log-sum-exp, differ in their bits")
+        del o_lse, lse, lo, out
+        groups = h // kvh
+        qh, kh, vh = (t.transpose(1, 2) for t in (
+            q, k.repeat_interleave(groups, dim=2),
+            v.repeat_interleave(groups, dim=2)))
+        qg, kg, vg = (t.detach().clone().requires_grad_()
+                      for t in (qh, kh, vh))
+        pairs = (sum(min(skv, i + 1) for i in range(sq)) if causal
+                 else sq * skv)
+        flops = 4 * b * h * hd * pairs
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        flops_ms = flops / BF16_FLOP_PER_S * 1e3
+        r = by_shape[name] = {
+            "shape": [b, sq, skv, h, kvh, hd, causal],
+            "events_ms": events_ms(lambda: FA.flash_attention(q, k, v, **kw)),
+            "lse_events_ms": events_ms(
+                lambda: FA.flash_attention_lse(q, k, v, **kw)),
+            "library_events_ms": events_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qh, kh, vh, is_causal=causal)),
+            "library_grad_events_ms": events_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qg, kg, vg, is_causal=causal)),
+            "bound_ms": max(bytes_ms, flops_ms),
+            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+            "max_abs_err": e, "rel_l2": rel}
+        print(f"row 10 at the {name} shape ({b}x{h} over {kvh} KV heads, "
+              f"{sq} queries over {skv} keys, {hd}, bf16, "
+              f"{'causal' if causal else 'full'}): CUDA events over "
+              f"{TIMING_REPS} back-to-back calls {r['events_ms']:.4f} ms "
+              f"({flops / r['events_ms'] / 1e9:.1f} TFLOP/s), with the "
+              f"log-sum-exp and residual {r['lse_events_ms']:.4f}; "
+              f"scaled_dot_product_attention {r['library_events_ms']:.4f}, "
+              f"recording its backward {r['library_grad_events_ms']:.4f}; "
+              f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}; within "
+              f"2e-2 of the plain version (max abs err {e:.3g}, relative L2 "
+              f"{rel:.3e}), two calls and the lse call's output the same "
+              f"bits  [{card}]")
+        del q, k, v, qh, kh, vh, qg, kg, vg
+    for r in rows:
+        if r["name"] == "flash_attention":
+            r["events_by_shape"] = {n: {
+                k_: v_ for k_, v_ in x.items() if k_ != "lse_events_ms"}
+                for n, x in by_shape.items()}
+        elif r["name"] == "flash_attention_lse":
+            r["events_by_shape"] = {n: {
+                "shape": x["shape"], "events_ms": x["lse_events_ms"],
+                "library_events_ms": x["library_grad_events_ms"],
+                "bound_ms": x["bound_ms"], "bound_by": x["bound_by"]}
+                for n, x in by_shape.items()}
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------------

@@ -331,13 +331,14 @@ FORBIDDEN_REASSOC_NAMES = frozenset({
 
 #: The CUDA sources whose sums must run in a fixed order (paths under
 #: the package root): the left-fold path's, the bodies of the
-#: bit-critical wrappers, and row 10's backward with the helpers it
-#: includes, whose gradient is the same bits from run to run.
+#: bit-critical wrappers, and row 10's forward and backward with the
+#: helpers they include, whose outputs are the same bits from run to run.
 BIT_CRITICAL_CUDA_SOURCES = (
     "kernels/csrc/axis_pass_scatter_fwd.cu",
     "kernels/csrc/owner_fold.cu",
     "kernels/csrc/hier3.cuh",
     "kernels/csrc/assemble_members.cu",
+    "kernels/csrc/flash_attention.cu",
     "kernels/csrc/flash_attention_bwd.cu",
     "kernels/csrc/wgmma_tma.cuh",
 )

@@ -58,8 +58,10 @@ KERNELS: Dict[str, Dict[str, list]] = {
                       for t in ("f32", "f64", "bf16")},
     "fused_tail": {f"fused_tail_{t}": [_P] * 5 + [_I] + [_P] * 6
                    + [_I, _I, _P] for t in ("f32", "f64", "bf16")},
-    "flash_attention": {f"flash_attention_{t}": [_P] * 6 + [_I] * 17 + [_P]
-                        for t in ("f32", "bf16")},
+    "flash_attention": {
+        **{f"flash_attention_{t}": [_P] * 6 + [_I] * 17 + [_P]
+           for t in ("f32", "bf16")},
+        "flash_attention_smem": [_I, _I, _I]},
     "flash_attention_bwd": {
         **{f"flash_attention_bwd_{t}": [_P] * 11 + [_I] * 10 + [_P]
            for t in ("f32", "bf16")},

@@ -85,8 +85,6 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "cp_async.cuh"
-#include "hmma_bf16.cuh"
 #include "wgmma_tma.cuh"
 
 namespace {

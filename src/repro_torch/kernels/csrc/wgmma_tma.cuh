@@ -1,21 +1,23 @@
-// Hopper building blocks for row 10's bf16 backward
-// (flash_attention_bwd.cu): the warpgroup products (wgmma, bf16 in, f32
-// sums), their shared-memory descriptors for the 128-byte swizzle, the
-// mbarrier operations of a producer/consumer ring, TMA tile loads, the
-// register hand-over between warpgroups (setmaxnreg), and on the host the
-// tensor maps (cuTensorMapEncodeTiled, reached through the runtime's
-// driver entry point, so the library needs no -lcuda).
+// Hopper building blocks for row 10's bf16 kernels, the forward
+// (flash_attention.cu) and the backward (flash_attention_bwd.cu): the
+// warpgroup products (wgmma, bf16 in, f32 sums), their shared-memory
+// descriptors for the 128-byte swizzle, the mbarrier operations of a
+// producer/consumer ring, named barriers, TMA tile loads, the register
+// hand-over between warpgroups (setmaxnreg), 2^x on the special-function
+// unit, bf16 packing, and on the host the tensor maps
+// (cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so the
+// library needs no -lcuda).
 //
 // Tiles sit in shared memory as TMA's CU_TENSOR_MAP_SWIZZLE_128B writes
-// them: a tile of 64 rows x HD bf16 channels is HD / 64 blocks of 64 rows
-// x 128 bytes (8 KB each, 1024-byte aligned); the 16-byte chunk c of row r
-// of a block lies at chunk c ^ (r % 8) of that row.  Read K-major (the
-// channels the product's depth, as Q and K in S = Q K^T), a block's eight
-// rows form one 1024-byte swizzle atom (SBO 1024) and a 16-channel step
-// moves the start 32 bytes along the row; read MN-major (the rows the
-// depth, as K in dS K), a 16-row step moves the start 2048 bytes, the
-// next 8 rows lie 1024 bytes on (SBO) and the next 64 channels one block
-// (LBO 8192).
+// them: a tile of R rows (64 or 128) x HD bf16 channels is HD / 64 blocks
+// of R rows x 128 bytes (R * 128 bytes each, 1024-byte aligned); the
+// 16-byte chunk c of row r of a block lies at chunk c ^ (r % 8) of that
+// row.  Read K-major (the channels the product's depth, as Q and K in S =
+// Q K^T), a block's eight rows form one 1024-byte swizzle atom (SBO 1024)
+// and a 16-channel step moves the start 32 bytes along the row; read
+// MN-major (the rows the depth, as V in P V), a 16-row step moves the
+// start 2048 bytes, the next 8 rows lie 1024 bytes on (SBO) and the next
+// 64 channels one block (LBO R * 128).
 #pragma once
 
 #include <cuda.h>
@@ -24,6 +26,20 @@
 #include <stdint.h>
 
 #include "cp_async.cuh"
+
+// 2^x on the special-function unit (ex2.approx.ftz.f32: about 2 ulp;
+// results below 2^-126 flush to 0, and 2^-inf and 2^-1e30 are 0).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Two f32 values rounded to bf16 and packed, `lo` in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
 
 namespace wg {
 
@@ -40,20 +56,24 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
          (uint64_t((sbo >> 4) & 0x3FFF) << 32) | (uint64_t(1) << 62);
 }
 
-// A tile's 64 rows read K-major: the descriptor of its start; channels 16
-// kk .. 16 kk + 15 at k_major_step(kk) on.
+// A tile's rows read K-major: the descriptor of its start (of any 8-row
+// group); channels 16 kk .. 16 kk + 15 at k_major_step(kk, block) on,
+// `block` the bytes of one 64-channel block (64 or 128 rows x 128 bytes).
 __device__ __forceinline__ uint64_t desc_k_major(const void* tile) {
   return desc_sw128(tile, 16, 1024);
 }
 
-__host__ __device__ constexpr uint32_t k_major_step(int kk) {
-  return uint32_t(((kk >> 2) * kBlockBytes + (kk & 3) * 32) >> 4);
+__host__ __device__ constexpr uint32_t k_major_step(int kk,
+                                                    int block = kBlockBytes) {
+  return uint32_t(((kk >> 2) * block + (kk & 3) * 32) >> 4);
 }
 
-// A tile read MN-major: the descriptor of its start; rows 16 kk .. 16 kk +
-// 15, every channel, at mn_major_step(kk) on.
-__device__ __forceinline__ uint64_t desc_mn_major(const void* tile) {
-  return desc_sw128(tile, kBlockBytes, 1024);
+// A tile read MN-major: the descriptor of its start, `block` the bytes of
+// one 64-channel block; rows 16 kk .. 16 kk + 15, every channel, at
+// mn_major_step(kk) on.
+__device__ __forceinline__ uint64_t desc_mn_major(
+    const void* tile, uint32_t block = kBlockBytes) {
+  return desc_sw128(tile, block, 1024);
 }
 
 __host__ __device__ constexpr uint32_t mn_major_step(int kk) {
@@ -79,6 +99,14 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int N, int M>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[N][M]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < M; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
 // d (64 x 64, f32) += A . B^T: A (64 x 16) and B (64 x 16) read from
@@ -126,6 +154,42 @@ __device__ __forceinline__ void ss_m64n64k16_first(float (&d)[32],
         "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
         "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
       : "l"(da), "l"(db), "r"(0));
+}
+
+// d (64 x 128, f32) += A . B^T (d = A . B^T when `accumulate` is 0): A (64
+// x 16) and B (128 x 16) read from shared memory through their
+// descriptors, both K-major.
+__device__ __forceinline__ void ss_m64n128k16(float (&d)[64], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
 // d (64 x 64, f32) += A . B: A (64 x 16) from registers in the m16n8k16
@@ -191,7 +255,7 @@ __device__ __forceinline__ void rs_m64n128k16(float (&d)[64],
 }
 
 // ---------------------------------------------------------------------------
-// mbarriers, TMA, registers
+// mbarriers, named barriers, TMA, registers
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
@@ -236,6 +300,16 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(smem_addr(bar)), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// Named barrier `id` (1-15; 0 is __syncthreads) over `n` threads: sync
+// waits for all n, arrive counts this thread's warp and goes on.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 // A box of a 4-D tensor map (coordinates innermost first) into shared
@@ -301,25 +375,36 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// Rows of a contiguous (batch, rows, heads, hd) bf16 array (hd % 8 == 0,
-// the base 16-byte aligned) as boxes of 64 channels x 1 head x 64 rows x 1
-// batch, 128-byte swizzled; channels past hd and rows past `rows` read as
-// zero.  False if the driver refuses the map.
-inline bool rows_map(CUtensorMap* map, const void* base, int64_t batch,
-                     int64_t rows, int64_t heads, int64_t hd) {
+// Rows of a (batch, rows, heads, hd) bf16 array read through its strides
+// (in values: s_batch, s_row, s_head, each a multiple of 8; the channels
+// contiguous; the base 16-byte aligned) as boxes of 64 channels x 1 head x
+// box_rows rows x 1 batch, 128-byte swizzled; channels past hd and rows
+// past `rows` read as zero.  False if the map is refused.
+inline bool strided_rows_map(CUtensorMap* map, const void* base,
+                             int64_t batch, int64_t rows, int64_t heads,
+                             int64_t hd, int64_t s_batch, int64_t s_row,
+                             int64_t s_head, int box_rows) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dim[4] = {cuuint64_t(hd), cuuint64_t(heads),
                              cuuint64_t(rows), cuuint64_t(batch)};
-  const cuuint64_t stride[3] = {cuuint64_t(hd * 2), cuuint64_t(heads * hd * 2),
-                                cuuint64_t(rows * heads * hd * 2)};
-  const cuuint32_t box[4] = {64, 1, 64, 1};
+  const cuuint64_t stride[3] = {cuuint64_t(s_head * 2), cuuint64_t(s_row * 2),
+                                cuuint64_t(s_batch * 2)};
+  const cuuint32_t box[4] = {64, 1, cuuint32_t(box_rows), 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(base), dim, stride, box, step,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Rows of a contiguous (batch, rows, heads, hd) bf16 array (hd % 8 == 0)
+// as boxes of 64 rows.
+inline bool rows_map(CUtensorMap* map, const void* base, int64_t batch,
+                     int64_t rows, int64_t heads, int64_t hd) {
+  return strided_rows_map(map, base, batch, rows, heads, hd, rows * heads * hd,
+                          heads * hd, hd, 64);
 }
 
 // An f32 (lines, n) array at a pitch of `pitch` values (pitch % 4 == 0) as

@@ -6,9 +6,12 @@ model's layout, ``q (B, Sq, H, hd)`` and ``k/v (B, Skv, KV, hd)`` with
 ``H`` a multiple of ``KV``; ``flash_attention_bhsd`` takes the TPU
 kernel's, ``(BH, Sq, hd)`` with the heads already expanded, as the case
 ``H = KV = 1`` of the same kernel.  Given CUDA tensors, the wrapper
-launches ``csrc/flash_attention.cu`` (f32 or bf16, ``head_dim`` up to 128)
-once, reading each query head's KV head in place, or raises; given CPU
-tensors it runs ``flash_attention_ref``, its plain version.
+launches ``csrc/flash_attention.cu`` (``head_dim`` up to 128) once, reading
+each query head's KV head in place, or raises; given CPU tensors it runs
+``flash_attention_ref``, its plain version.  bf16 runs on the warpgroup
+tensor-core products (wgmma) with q, k and v brought in by TMA from maps
+on their own strides (``_tma_rows``: an operand TMA cannot describe is
+read from an aligned copy); f32 runs on the CUDA cores.
 ``flash_attention.launches`` counts the kernel's launches, and every call
 is recorded by ``hierarchize.record_calls``.
 
@@ -205,6 +208,25 @@ def _operand(t: torch.Tensor) -> torch.Tensor:
     return t if t.stride(-1) == 1 else t.contiguous()
 
 
+def _tma_rows(t: torch.Tensor) -> torch.Tensor:
+    """A bf16 forward operand (B, S, heads, hd) as the kernel's TMA maps
+    read it: ``t`` itself where hd is a multiple of 8, its base 16-byte
+    aligned, its channels contiguous and every other stride a positive
+    multiple of 8 values (whole 16 bytes), as the model's contiguous
+    (B, S, heads, hd) projections are; otherwise an aligned contiguous
+    copy with its channels zero-padded to a multiple of 8, returned as the
+    view of its first hd channels (the maps read the zero padding; the
+    kernel keeps the true hd for its scale and output).  The same kernel
+    runs on either.  Pure torch on any device."""
+    hd = t.shape[-1]
+    if (hd % 8 == 0 and t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(s > 0 and s % 8 == 0 for s in t.stride()[:-1])):
+        return t
+    buf = t.new_zeros((*t.shape[:-1], hd + -hd % 8))
+    buf[..., :hd] = t
+    return buf[..., :hd]
+
+
 def _device_checks(q, k, v) -> None:
     """Raise unless q, k, v are CUDA tensors the kernels take (the CPU
     takes the plain versions before this)."""
@@ -227,7 +249,8 @@ def _launch_forward(q, k, v, causal: bool, q_offset: int, with_lse: bool):
     None); out_lo is written in bf16 with the lse."""
     _device_checks(q, k, v)
     b, sq, h, hd = q.shape
-    q, k, v = _operand(q), _operand(k), _operand(v)
+    prepare = _tma_rows if q.dtype == torch.bfloat16 else _operand
+    q, k, v = prepare(q), prepare(k), prepare(v)
     out = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32,
                       device=q.device) if with_lse else None
@@ -251,8 +274,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     block_k: int = 512, q_offset: int = 0) -> torch.Tensor:
     """Drop-in for ``attention_chunked``: q (B, Sq, H, hd), k/v (B, Skv,
     KV, hd) -> (B, Sq, H, hd) in q's type.  On CUDA: one launch of
-    ``flash_attention.cu``; q, k and v are read through their strides
-    (only the last dimension must be contiguous).  When an input requires
+    ``flash_attention.cu``; q, k and v are read through their strides (f32:
+    only the last dimension must be contiguous; bf16: ``_tma_rows`` copies
+    an operand whose strides or base TMA cannot take).  When an input requires
     a gradient (and grad mode is on), the call goes through
     ``FlashAttention``: the forward with its log-sum-exp
     (``flash_attention_lse``) and the backward kernels."""

@@ -19,8 +19,8 @@ plus 2**-12 against the plain version, which also sums in f32).  The
 flash-attention kernel is held to its plain version at the reference
 kernel's bars, 2e-5 in f32 and 2e-2 in bf16 (the f32 kernel keeps scores
 and probabilities in f32 and sums in another order; the bf16 kernel runs
-on the tensor cores and rounds the probabilities to bf16 before the value
-product).
+on the warpgroup tensor-core products and rounds the probabilities to
+bf16 before the value product), in bf16 also within 1e-2 relative L2.
 """
 
 import numpy as np
@@ -820,15 +820,17 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
         F.flash_attention(q.to(cuda), k, v.to(cuda))
 
 
-def test_flash_bf16_runs_on_hmma(cuda):
-    """The bf16 entry's kernels (head_dim 64 and 128, each with and without
-    the log-sum-exp output) run both products on the bf16 tensor cores
-    (HMMA); the backward's bf16 kernels (dq, dk/dv, head_dim 64 and 128)
-    run every product on the warpgroup products (HGMMA) and hold no HMMA;
-    the f32 entries' kernels hold neither."""
-    mma = _kernels_holding("flash_attention", "HMMA", "flash_kernel_mma")
-    assert len(mma) == 4 and all(mma.values()), mma
-    f32 = _kernels_holding("flash_attention", "HMMA", "flash_kernel_f32")
+def test_flash_bf16_runs_on_hgmma(cuda):
+    """Row 10's bf16 kernels run every product on the warpgroup products
+    (HGMMA) and hold no HMMA: the forward's (head_dim 64 with two or three
+    consumer warpgroups and 128 with two, each with and without the
+    log-sum-exp output) and the backward's (dq, dk/dv, head_dim 64 and
+    128); the f32 entries' kernels hold neither."""
+    fwd = _kernels_holding("flash_attention", "HGMMA", "flash_kernel_wgmma")
+    assert len(fwd) == 6 and all(fwd.values()), fwd
+    hmma = _kernels_holding("flash_attention", "HMMA", "flash_kernel")
+    assert len(hmma) == 10 and not any(hmma.values()), hmma
+    f32 = _kernels_holding("flash_attention", "HGMMA", "flash_kernel_f32")
     assert len(f32) == 4 and not any(f32.values()), f32
     bwd = _kernels_holding("flash_attention_bwd", "HGMMA", "bwd_d")
     wgmma = {k: n for k, n in bwd.items() if "_wgmma" in k}
@@ -836,6 +838,95 @@ def test_flash_bf16_runs_on_hmma(cuda):
     assert not any(n for k, n in bwd.items() if k not in wgmma), bwd
     hmma = _kernels_holding("flash_attention_bwd", "HMMA", "bwd_d")
     assert len(hmma) == 8 and not any(hmma.values()), hmma
+
+
+def _hold_bf16(got, want):
+    """The bf16 forward against its plain version: 2e-2 element by element
+    and 1e-2 relative L2 as a whole."""
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert got.shape == want.shape
+    g, w = got.float().cpu(), want.float().cpu()
+    np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=2e-2, atol=2e-2)
+    assert float((g - w).norm() / w.norm()) <= 1e-2
+
+
+def test_flash_bf16_bits_fixed_call_to_call(cuda):
+    """Two bf16 forward calls on the same causal GQA inputs, and the call
+    with the log-sum-exp, give the same bits: each output element is
+    written once, by one block, and the schedule does not change them."""
+    q, k, v = (t.to(cuda) for t in _qkv((2, 300, 300, 15, 5, 64, True),
+                                         torch.bfloat16, seed=3))
+    first = F.flash_attention(q, k, v, causal=True)
+    second = F.flash_attention(q, k, v, causal=True)
+    out, _, _ = F.flash_attention_lse(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second) and torch.equal(first, out)
+
+
+@pytest.mark.parametrize("kind", ["strided", "unaligned", "hd 20"])
+def test_flash_bf16_copy_route(cuda, kind):
+    """Operands TMA cannot describe in place (a stride that is not whole 16
+    bytes, a base off a 16-byte boundary, head_dim 20) go through
+    ``_tma_rows``' aligned copies into the same kernel; the result is the
+    plain version's, and a strided view TMA can describe is read in place
+    with the same result."""
+    rng = np.random.default_rng(8)
+    b, s, h, kv, hd = 2, 200, 6, 2, (20 if kind == "hd 20" else 64)
+
+    def rand(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(torch.bfloat16).to(cuda)
+
+    q = rand((b, s, h, hd))
+    if kind == "strided":
+        k, v = (rand((b, s, kv, hd + 3))[..., 2:hd + 2] for _ in range(2))
+    elif kind == "unaligned":
+        k, v = (rand((b * s * kv * hd + 1,))[1:].view(b, s, kv, hd)
+                for _ in range(2))
+        assert k.data_ptr() % 16 and v.data_ptr() % 16
+    else:
+        k, v = rand((b, s, kv, hd)), rand((b, s, kv, hd))
+    assert F._tma_rows(k) is not k
+    before = F.flash_attention.launches
+    got = F.flash_attention(q, k, v, causal=True)
+    assert F.flash_attention.launches == before + 1
+    _hold_bf16(got, F.flash_attention_ref(q, k, v, causal=True))
+    if kind == "strided":             # a fused projection's view
+        qkv = rand((b, s, 3, h, hd))
+        qv, kvv, vv = qkv[:, :, 0], qkv[:, :, 1, :kv], qkv[:, :, 2, :kv]
+        assert F._tma_rows(kvv) is kvv
+        _hold_bf16(F.flash_attention(qv, kvv, vv, causal=True),
+                   F.flash_attention_ref(qv, kvv, vv, causal=True))
+
+
+@pytest.mark.parametrize("case", [(1, 448, 1500, 4, 4, 64, False),
+                                  (4, 1500, 1500, 12, 12, 64, False)],
+                         ids=["cross", "encoder"])
+def test_flash_bf16_ragged_full_keys(cuda, case):
+    """Full attention over 1500 keys, 11 whole 128-key tiles and 92 more
+    (whisper's frames): the tail read as zeros and masked.  At the encoder's
+    full shape the launch takes three consumer warpgroups (192-row query
+    tiles, the last one ragged too)."""
+    q, k, v = (t.to(cuda) for t in _qkv(case, torch.bfloat16, seed=4))
+    _hold_bf16(F.flash_attention(q, k, v, causal=False),
+               F.flash_attention_ref(q, k, v, causal=False))
+
+
+@pytest.mark.parametrize("q_offset", [0, 64, 133])
+def test_flash_bf16_hd128_gqa7_causal_offset(cuda, q_offset):
+    """head_dim 128 with 7 query heads a KV head (llava's grouping),
+    causal with the queries shifted by ``q_offset`` against more keys."""
+    b, sq, h, kv, hd = 1, 200, 14, 2, 128
+    case = (b, sq, sq + q_offset, h, kv, hd, True)
+    q, k, v = (t.to(cuda) for t in _qkv(case, torch.bfloat16, seed=5))
+    got, lse, lo = F.flash_attention_lse(q, k, v, causal=True,
+                                         q_offset=q_offset)
+    want, lse_want, _ = F.flash_attention_lse_ref(q, k, v, causal=True,
+                                                  q_offset=q_offset)
+    _hold_bf16(got, want)
+    np.testing.assert_allclose(lse.cpu().numpy(), lse_want.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+    assert lo.dtype == torch.bfloat16 and lo.shape == got.shape
 
 
 BWD_CASES = [  # b, sq, skv, h, kv, hd, causal, q_offset

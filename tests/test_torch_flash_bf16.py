@@ -1,17 +1,23 @@
 """The arithmetic of the bf16 flash-attention kernel (row 10,
-``csrc/flash_attention.cu``'s ``flash_attention_bf16``), emulated on the CPU.
+``csrc/flash_attention.cu``'s ``flash_attention_bf16``), emulated on the CPU,
+and the operands its TMA maps read (``flash_attention._tma_rows``).
 
 The kernel runs both products on the bf16 tensor cores: f32 scores of the
-bf16 q and k, scaled after the product by ``hd**-0.5 * log2(e)``, an online
-softmax in base 2 over 64-key tiles with f32 (m, l), the probabilities P
-rounded to bf16 before ``P @ V`` (the tensor cores take bf16 operands), f32
-sums, and ``acc / max(l, 1e-30)`` rounded to bf16.  The reference's flash
+bf16 q and k, an online softmax in base 2 over 128-key tiles with f32 (m,
+l): m = max(m, rowmax(s) * hd**-0.5 * log2(e)) from the raw scores, P =
+2^(s * hd**-0.5 * log2(e) - m) with the product and the difference rounded
+once (a fused multiply-add), the masked keys' raw scores -inf; the
+probabilities P rounded to bf16 before ``P @ V`` (the tensor cores take
+bf16 operands), f32 sums, and ``acc`` times ``1 / max(l, 1e-30)`` rounded
+to bf16.
+Each test also runs over 64-key tiles: the function does not depend on
+the tile, to within the same bars.  The reference's flash
 kernel keeps P in f32 (``repro/kernels/flash_attention.py:65-71``), so
 rounding P is a deviation.  These tests pin it: the emulation stays within
 the reference's bf16 bar (2e-2) of its kernel, and P in bf16 alone puts it
 outside the f32 bar (2e-5), which is why the f32 entry keeps its CUDA-core
 kernel.  Inputs are made with numpy from a seed; the reference's Pallas
-kernel runs in interpret mode.
+kernel runs in interpret mode, once per head_dim (a module fixture).
 """
 
 import math
@@ -25,12 +31,24 @@ from repro.kernels import flash_attention as rflash
 from repro_torch.kernels import flash_attention as tflash
 
 CASE = (1, 256, 4, 2)            # b, s, h, kv: GQA, 4 query heads over 2
-BLOCK_K = 64                     # the kernel's key tile
+BLOCK_K = [128, 64]              # the kernel's key tile, and a smaller one
 
 
-def _emulate(q, k, v, *, causal=True, round_p=True):
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's CPU side of this module on one intra-op thread: its
+    tensors are small, and beside the test run's other workers torch's
+    default of a thread a core spends its time waiting for threads."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def _emulate(q, k, v, *, block_k, causal=True, round_p=True):
     """The kernel's arithmetic on (B, S, H, hd) q and (B, S, KV, hd) k, v
-    given in f32: the result in f32, before the final rounding."""
+    given in f32, over key tiles of ``block_k``: the result in f32, before
+    the final rounding."""
     b, sq, h, hd = q.shape
     skv, groups = k.shape[1], h // k.shape[2]
     qh = q.permute(0, 2, 1, 3)
@@ -41,20 +59,23 @@ def _emulate(q, k, v, *, causal=True, round_p=True):
     l = torch.zeros((b, h, sq))
     acc = torch.zeros((b, h, sq, hd))
     q_pos = torch.arange(sq)[:, None]
-    for k0 in range(0, skv, BLOCK_K):
-        keys = slice(k0, min(k0 + BLOCK_K, skv))
-        s = (qh @ kh[:, :, keys].transpose(-1, -2)) * scale
+    for k0 in range(0, skv, block_k):
+        keys = slice(k0, min(k0 + block_k, skv))
+        s = qh @ kh[:, :, keys].transpose(-1, -2)            # raw, f32
         if causal:
             k_pos = torch.arange(k0, keys.stop)[None, :]
-            s = s.masked_fill(q_pos < k_pos, -1e30)
-        mx = torch.maximum(m, s.amax(dim=-1))
+            s = s.masked_fill(q_pos < k_pos, -math.inf)
+        mx = torch.maximum(m, s.amax(dim=-1) * scale)
         alpha = torch.exp2(m - mx)
-        p = torch.exp2(s - mx[..., None])
+        # fma(s, scale, -mx): the exact product, one rounding (f64 holds
+        # the product of two f32 exactly)
+        arg = (s.double() * scale.double() - mx.double()[..., None]).float()
+        p = torch.exp2(arg)
         l = l * alpha + p.sum(dim=-1)
         pv = p.bfloat16().float() if round_p else p
         acc = acc * alpha[..., None] + pv @ vh[:, :, keys]
         m = mx
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    out = acc * (1.0 / torch.clamp(l, min=1e-30))[..., None]
     return out.permute(0, 2, 1, 3)
 
 
@@ -67,37 +88,107 @@ def _inputs(hd, seed):
             for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd))]
 
 
-@pytest.mark.parametrize("hd", [64, 128])
-def test_bf16_emulation_within_the_reference_kernels_bar(hd):
-    q, k, v = _inputs(hd, seed=hd)
-    want = rflash.flash_attention(
-        *(jnp.asarray(t.numpy(), jnp.bfloat16) for t in (q, k, v)),
-        causal=True, interpret=True)
-    got = _emulate(q, k, v).bfloat16().float().numpy()
-    np.testing.assert_allclose(got, np.asarray(want, np.float32), rtol=2e-2,
-                               atol=2e-2)
+@pytest.fixture(scope="module")
+def reference_kernel():
+    """The reference's Pallas kernel (interpret mode) on ``_inputs(hd,
+    seed=hd)``, once per head_dim: {hd: (inputs, output as f32 numpy)}."""
+    cache = {}
+
+    def run(hd):
+        if hd not in cache:
+            q, k, v = _inputs(hd, seed=hd)
+            want = rflash.flash_attention(
+                *(jnp.asarray(t.numpy(), jnp.bfloat16) for t in (q, k, v)),
+                causal=True, interpret=True)
+            cache[hd] = ((q, k, v), np.asarray(want, np.float32))
+        return cache[hd]
+    return run
 
 
+@pytest.mark.parametrize("block_k", BLOCK_K)
 @pytest.mark.parametrize("hd", [64, 128])
-def test_bf16_probabilities_leave_the_f32_bar(hd):
+def test_bf16_emulation_within_the_reference_kernels_bar(reference_kernel,
+                                                         hd, block_k):
+    (q, k, v), want = reference_kernel(hd)
+    got = _emulate(q, k, v, block_k=block_k).bfloat16().float().numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("block_k", BLOCK_K)
+@pytest.mark.parametrize("hd", [64, 128])
+def test_bf16_probabilities_leave_the_f32_bar(hd, block_k):
     """On the same bf16-valued inputs, P in f32 keeps the emulation within
     the f32 bar of the plain version; P in bf16 alone takes it past it."""
     q, k, v = _inputs(hd, seed=hd + 1)
     want = tflash.flash_attention_ref(q, k, v, causal=True)
-    exact = _emulate(q, k, v, round_p=False)
+    exact = _emulate(q, k, v, block_k=block_k, round_p=False)
     np.testing.assert_allclose(exact.numpy(), want.numpy(), rtol=2e-5,
                                atol=2e-5)
-    err = float((_emulate(q, k, v) - want).abs().max())
+    err = float((_emulate(q, k, v, block_k=block_k) - want).abs().max())
     assert 2e-5 < err < 2e-2
 
 
+@pytest.mark.parametrize("block_k", BLOCK_K)
 @pytest.mark.parametrize("hd", [64, 128])
-def test_plain_version_within_the_bf16_bar_of_the_emulation(hd):
+def test_plain_version_within_the_bf16_bar_of_the_emulation(hd, block_k):
     """The card's kernel is held to the plain version at 2e-2 in bf16; the
     plain version stands that close to the kernel's arithmetic."""
     q, k, v = _inputs(hd, seed=hd + 2)
     plain = tflash.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(),
                                    causal=True)
-    got = _emulate(q, k, v).bfloat16()
+    got = _emulate(q, k, v, block_k=block_k).bfloat16()
     np.testing.assert_allclose(got.float().numpy(), plain.float().numpy(),
                                rtol=2e-2, atol=2e-2)
+
+
+def _bf16(rng, shape):
+    return torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).bfloat16()
+
+
+def test_tma_rows_passes_describable_operands_through():
+    """The model's contiguous (B, S, heads, hd) projections, and views of a
+    fused one, reach the kernel as they are: the same storage, no copy."""
+    rng = np.random.default_rng(3)
+    q = _bf16(rng, (2, 40, 6, 64))
+    qkv = _bf16(rng, (2, 40, 3, 6, 64))
+    v = qkv[:, :, 2]
+    assert not v.is_contiguous()
+    for t in (q, v, q[:, :, :2], _bf16(rng, (2, 40, 6, 8))):
+        got = tflash._tma_rows(t)
+        assert got is t and got.data_ptr() == t.data_ptr()
+
+
+@pytest.mark.parametrize("kind", ["unaligned base", "odd stride", "hd 20",
+                                  "channels strided"])
+def test_tma_rows_copies_what_tma_cannot_describe(kind):
+    """An operand whose base is not 16-byte aligned, whose strides are not
+    whole 16 bytes or whose head_dim is not a multiple of 8 becomes an
+    aligned contiguous copy, its channels zero-padded to a multiple of 8
+    and returned as the view of the true ones; the plain version's result
+    on the prepared operands is the same bits as on the originals."""
+    rng = np.random.default_rng(4)
+    b, s, h, kv, hd = 2, 40, 6, 2, 64
+    if kind == "unaligned base":
+        buf = _bf16(rng, (b * s * kv * hd + 1,))
+        k = buf[1:].view(b, s, kv, hd)
+    elif kind == "odd stride":
+        k = _bf16(rng, (b, s, kv, hd + 3))[..., 1:hd + 1]
+    elif kind == "hd 20":
+        hd = 20
+        k = _bf16(rng, (b, s, kv, hd))
+    else:
+        k = _bf16(rng, (b, s, kv, hd, 2))[..., 0]
+    q, v = _bf16(rng, (b, s, h, hd)), _bf16(rng, (b, s, kv, hd))
+    got = tflash._tma_rows(k)
+    pad = hd + -hd % 8
+    assert got.data_ptr() != k.data_ptr() and got.data_ptr() % 16 == 0
+    assert got.shape == k.shape and torch.equal(got, k)
+    assert got.stride() == (s * kv * pad, kv * pad, pad, 1)
+    whole = torch.as_strided(got, (b, s, kv, pad), got.stride())
+    assert not whole[..., hd:].any()
+    prepared = [tflash._tma_rows(t) for t in (q, k, v)]
+    for causal in (True, False):
+        want = tflash.flash_attention_ref(q, k, v, causal=causal)
+        assert torch.equal(tflash.flash_attention_ref(*prepared,
+                                                      causal=causal), want)

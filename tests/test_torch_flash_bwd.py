@@ -52,14 +52,19 @@ def _inputs(case, seed=0):
 
 @pytest.fixture(scope="module")
 def jax_grads():
-    """jax.vjp of the reference's attention_chunked, every case, once."""
+    """jax.vjp of the reference's attention_chunked, every case, once,
+    jitted whole (one compile a case, not one dispatch an op)."""
     out = {}
     for case in CASES:
-        q, k, v, do = (jnp.asarray(a) for a in _inputs(case))
         causal, q_offset = case[6], case[7]
-        o, vjp = jax.vjp(lambda q, k, v: ref_attention(
-            q, k, v, causal=causal, q_offset=q_offset, kv_chunk=8), q, k, v)
-        out[case] = (np.asarray(o), *(np.asarray(g) for g in vjp(do)))
+
+        def forward_and_vjp(q, k, v, do):
+            o, vjp = jax.vjp(lambda q, k, v: ref_attention(
+                q, k, v, causal=causal, q_offset=q_offset, kv_chunk=8),
+                q, k, v)
+            return (o, *vjp(do))
+        out[case] = tuple(np.asarray(a) for a in jax.jit(forward_and_vjp)(
+            *(jnp.asarray(a) for a in _inputs(case))))
     return out
 
 
