@@ -280,12 +280,45 @@ bf16 (random weights from a seed), each driven with row 10's count set to
   positions (2, 1024, 65536) finite, each call within 2e-2 of the plain
   version element by element and 1e-2 in relative L2.
 
-Then row 10 and row 10 lse in one phase at the four shapes the LM paths
+Then the seventh path, the moe, ssm and hybrid families in bf16 (random
+weights from a seed; each model freed before the next):
+
+* ``olmoe_1b_7b`` at full width and depth (16 layers, d 2048, 16 heads of
+  128, 64 experts top-8 of d_ff 1024, 13.8 GB), ``qwen3_moe_235b_a22b`` at
+  full width cut to 2 of its 94 layers (about 470 GB of bf16 weights in
+  all; the cut is printed), ``xlstm_1_3b`` (48 blocks, an sLSTM every 8th,
+  4 heads of 512) and ``zamba2_1_2b`` (38 Mamba2 layers, the shared
+  attention+MLP block every 6) at full width and depth: ``prefill_step``
+  (4 x 2048; qwen3 2 x 1024) with its row-10 launches counted (one a moe
+  layer, one a shared-attention site, none in the ssm family) and every
+  call held to the plain version (2e-2, and 1e-2 relative L2), the moe's
+  group-size host reads counted (one a layer), finite logits, warm
+  prefills with peak memory, a profiled prefill and decode step (device
+  ops), a parity check at 2 x 64 (the moe against its prefill through row
+  10's plain version; the ssm and hybrid token-by-token ``serve_step``
+  against the prefill; bar 3x the bf16 prefill's distance from f32) and
+  ``generate`` of 4 x (128 + 32) tokens (xlstm, zamba2: 4 x (32 + 32))
+  twice, equal;
+* ``moe_ffn_ep`` at olmoe's width, one layer, 4 x 512 tokens in f32, on a
+  (1, 4) (data, model) mesh of the card repeated: within 2e-4 of ragged at
+  ``capacity_factor`` 8.0;
+* one train step of each family at a cut depth that holds each of its
+  segment kinds (olmoe 2 layers, xlstm 8 blocks, zamba2 7 layers), 2 x
+  512 tokens: in f32 and bf16 the gradients with row 10's kernels against
+  those through its plain version (per-leaf relative L2 within
+  ``GRAD_TOL``; the moe's passes on the first pass's recorded expert
+  choices), and the bf16 gradients against the f32 gradients of the same
+  weights printed as a record, within ``GRAD_TOL["bfloat16"]`` or past
+  it; the step finite and moving the weights.
+
+Then row 10 and row 10 lse in one phase at the six shapes the LM paths
 give them (``FLASH_SHAPES``: the ``smollm_360m`` prefill, 4 x 15 query
 over 5 KV heads, 2048, head_dim 64, causal; ``whisper_small``'s encoder,
 4 x 12, 1500, full; its cross-attention, 448 queries over 1500 keys;
 ``llava_next_34b``'s prefill, 2 x 56 query over 8 KV heads, 1600,
-head_dim 128, causal), on bf16 inputs drawn from a seed: each output
+head_dim 128, causal; ``olmoe_1b_7b``'s, 4 x 16 over 16, 2048, 128,
+causal; ``qwen3_moe_235b_a22b``'s, 2 x 64 over 4, 1024, 128, causal), on
+bf16 inputs drawn from a seed: each output
 within 2e-2 and 1e-2 relative L2 of the plain version, a second call and
 the call with the log-sum-exp the same bits, and each timed by CUDA
 events behind the sleep kernel (``events_ms``) beside
@@ -454,7 +487,28 @@ FLASH_SHAPES = {  # row 10's timed shapes: b, sq, skv, h, kv, hd, causal
     "smollm_360m prefill": (4, 2048, 2048, 15, 5, 64, True),
     "whisper_small encoder": (4, 1500, 1500, 12, 12, 64, False),
     "whisper_small cross": (4, 448, 1500, 12, 12, 64, False),
-    "llava_next_34b prefill": (2, 1600, 1600, 56, 8, 128, True)}
+    "llava_next_34b prefill": (2, 1600, 1600, 56, 8, 128, True),
+    "olmoe_1b_7b prefill": (4, 2048, 2048, 16, 16, 128, True),
+    "qwen3_moe_235b_a22b prefill": (2, 1024, 1024, 64, 4, 128, True)}
+MOE_ARCH = "olmoe_1b_7b"         # moe, full width and depth, bf16
+MOE_PREFILL = (4, 2048)          # prompts x tokens
+MOE_CUT_ARCH = "qwen3_moe_235b_a22b"   # moe, full width, cut in depth:
+MOE_CUT_LAYERS = 2               # 94 layers are ~470 GB of bf16 weights
+MOE_CUT_PREFILL = (2, 1024)
+EP_SHAPE = (4, 512)              # the expert-parallel check's rows x tokens
+EP_TOL = 2e-4                    # f32, abs and rel (the reference's bar)
+SSM_ARCH = "xlstm_1_3b"          # ssm, full width and depth, bf16
+SSM_PREFILL = (4, 2048)          # the sLSTM scans the 2048 steps in turn
+SSM_PROFILE_PREFILL = (4, 256)   # its profiled prefill: about 125 device
+# ops a token (the sLSTM's steps), whose trace the profiler takes minutes
+# to read back at 2048
+HYBRID_ARCH = "zamba2_1_2b"      # hybrid, full width and depth, bf16
+HYBRID_PREFILL = (4, 2048)
+RECURRENT_SERVE = dict(requests=4, prompt=32, new_tokens=32)   # xlstm's
+# and zamba2's generate: each token a serve_step of 40-50 ms on the host
+FAMILY_TRAIN = {MOE_ARCH: 2, SSM_ARCH: 8, HYBRID_ARCH: 7}   # cut depths:
+# every segment kind (an sLSTM at 8, a shared-attention site at 7)
+FAMILY_TRAIN_SHAPE = (2, 512)    # the train step's rows x tokens
 
 KERNELS = {  # the main path's wrappers -> (CUDA source, TPU kernels)
     "assemble_grouped": (
@@ -4041,7 +4095,415 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------------
-    # Row 10 and 10 lse at the four shapes the LM paths give it, by CUDA
+    # Seventh path: the moe, ssm and hybrid families in bf16, random
+    # weights from a seed: olmoe_1b_7b, xlstm_1_3b and zamba2_1_2b at full
+    # width and depth, qwen3_moe_235b_a22b at full width cut in depth, the
+    # expert-parallel dispatch on a (1, 4) mesh of the card repeated, and
+    # one train step of each family at a cut depth that holds every kind
+    # of its segments
+    # ------------------------------------------------------------------
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.transformer import segment_plan
+
+    families_t0 = time.perf_counter()
+    mgen = torch.Generator(device=cuda)
+    mgen.manual_seed(28)
+    family_log = {}
+
+    def attention_layers(c):
+        """Row-10 calls of one prefill: a moe layer's attention, or a
+        hybrid's shared-attention site; the ssm family has none."""
+        return sum(n for kind, n in segment_plan(c)
+                   if kind in ("dense", "shared_attn"))
+
+    def hold_calls(calls, label):
+        """Every recorded row-10 call against its plain version: 2e-2 an
+        element and FLASH_REL_L2 as a whole (bf16)."""
+        e_max = r_max = 0.0
+        for _w, args in calls:
+            got = FA.flash_attention(**args)
+            want = FA.flash_attention.plain(**args)
+            e_max = max(e_max, hold_flash(got, want, label))
+            rel = rel_l2(got, want)
+            r_max = max(r_max, rel)
+            if not rel <= FLASH_REL_L2:
+                fail(f"flash_attention ({label}) is {rel} from its plain "
+                     f"version in relative L2 (bar {FLASH_REL_L2})")
+            del got, want
+        return e_max, r_max
+
+    def family_serving(arch, c, prefill, serve=None, parity=None,
+                       keep_moe=False, profile_prefill=None):
+        """``arch`` at config ``c``: one prefill with every row-10 call
+        held, warm prefills with peak memory, a profiled prefill (at
+        ``profile_prefill`` tokens if given) and decode step (device ops),
+        a parity check, ``generate`` twice; returns a log (and, with
+        ``keep_moe``, layer 0's expert weights)."""
+        t_phase = time.perf_counter()
+        t0 = time.perf_counter()
+        m = init_params(c, seed=0, device=cuda)
+        torch.cuda.synchronize()
+        log = {"init_s": time.perf_counter() - t0,
+               "weight_bytes": sum(p.numel() * p.element_size()
+                                   for p in m.parameters())}
+        b, s = prefill
+        fbatch = {"tokens": torch.randint(0, c.vocab_size, prefill,
+                                          generator=mgen, device=cuda)}
+        FA.flash_attention.launches = 0
+        MOE.moe_ffn.host_reads = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with H.record_calls() as calls:
+            lg = LM.prefill_step(m, c, fbatch)
+        torch.cuda.synchronize()
+        log["first_ms"] = (time.perf_counter() - t0) * 1e3
+        log["launches"] = FA.flash_attention.launches
+        log["host_reads_prefill"] = MOE.moe_ffn.host_reads
+        want_calls = attention_layers(c)
+        if log["launches"] != want_calls or len(calls) != want_calls:
+            fail(f"{arch} prefill_step launched flash_attention "
+                 f"{log['launches']} times ({len(calls)} calls), expected "
+                 f"{want_calls}")
+        if c.is_moe and log["host_reads_prefill"] != c.num_layers:
+            fail(f"{arch} prefill read the group sizes "
+                 f"{log['host_reads_prefill']} times, one a layer is "
+                 f"{c.num_layers}")
+        if tuple(lg.shape) != prefill + (c.vocab_padded,) or \
+                lg.dtype != torch.bfloat16 or \
+                not bool(torch.isfinite(lg).all()):
+            fail(f"{arch} prefill logits {lg.dtype}{tuple(lg.shape)} are "
+                 f"not finite bf16 of shape {prefill + (c.vocab_padded,)}")
+        del lg
+        log["err"], log["rel"] = hold_calls(calls, f"{arch} prefill")
+        log["call_shapes"] = sorted({(tuple(a["q"].shape), tuple(
+            a["k"].shape), a["causal"]) for _w, a in calls})
+        del calls
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        warm = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            LM.prefill_step(m, c, fbatch)
+            torch.cuda.synchronize()
+            warm.append((time.perf_counter() - t0) * 1e3)
+        log["prefill_ms"] = warm
+        log["peak_bytes"] = torch.cuda.max_memory_allocated() - resident
+        print(f"{arch} prefill_step {b} x {s} tokens (d {c.d_model}, "
+              f"{c.num_layers} layers, plan "
+              f"{[k for k, _ in segment_plan(c)][:4]}...): "
+              f"{log['launches']} flash_attention launches, each within 2e-2"
+              f" of the plain version (max abs err {log['err']:.3g}) and "
+              f"{FLASH_REL_L2} as a whole (relative L2 at most "
+              f"{log['rel']:.3e}) at {log['call_shapes']}; group-size host "
+              f"reads {log['host_reads_prefill']}; first call "
+              f"{log['first_ms']:.1f} ms, warm "
+              f"{', '.join(f'{t:.2f}' for t in warm)} ms "
+              f"({b * s / min(warm) * 1e3:.0f} tokens/s); peak device memory "
+              f"{log['peak_bytes']} B above the resident state, beside "
+              f"{log['weight_bytes']} B of weights drawn in "
+              f"{log['init_s']:.1f} s  [{card}]")
+        if profile_prefill is not None:
+            fbatch = {"tokens": fbatch["tokens"][:profile_prefill[0],
+                                                 :profile_prefill[1]]}
+        profiled(f"{arch} prefill_step {profile_prefill or prefill}",
+                 lambda: LM.prefill_step(m, c, fbatch))
+        del fbatch
+        if parity is not None:
+            pb, pt = parity
+            ptoks = torch.randint(0, c.vocab_size, parity, generator=mgen,
+                                  device=cuda)
+            want = LM.prefill_step(m, c, {"tokens": ptoks}).float()
+            f32_leaves = {n_: p_.detach().clone() for n_, p_ in
+                          m.named_parameters() if p_.dtype == torch.float32}
+            exact = LM.prefill_step(m.float(), c.replace(dtype="float32"),
+                                    {"tokens": ptoks}).float()
+            m = m.bfloat16()         # .float() converted in place; the
+            for n_, p_ in m.named_parameters():     # f32 leaves put back
+                if n_ in f32_leaves:
+                    p_.data = f32_leaves[n_]
+            del f32_leaves
+            if c.is_moe:   # the plain path: row 10 through its plain version
+                ATT.flash_attention = plain_attention
+                try:
+                    got = LM.prefill_step(m, c, {"tokens": ptoks}).float()
+                finally:
+                    ATT.flash_attention = FA.flash_attention
+                what = "prefill through row 10's plain version"
+            else:          # the recurrent decode against the chunked prefill
+                cache = LM.init_decode_cache(c, pb, pt, device=cuda)
+                steps = []
+                for pos in range(pt):
+                    lg, cache = LM.serve_step(m, c, cache, {
+                        "token": ptoks[:, pos:pos + 1], "pos": pos})
+                    steps.append(lg[:, 0].float())
+                got = torch.stack(steps, dim=1)
+                del cache, steps
+                what = "token-by-token serve_step"
+            log["parity"] = float((got - want).abs().max())
+            log["rounding"] = float((want - exact).abs().max())
+            agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+            if not log["parity"] <= 3 * log["rounding"]:
+                fail(f"{arch} {what} differs from prefill_step by "
+                     f"{log['parity']}, above 3x the bf16 rounding "
+                     f"{log['rounding']}")
+            print(f"{arch} parity {parity}: {what} within {log['parity']} of "
+                  f"prefill_step's logits (bar 3 x {log['rounding']}, the "
+                  f"bf16 prefill's distance from f32 of the same weights); "
+                  f"argmax agrees on {agree:.4f} of positions")
+            del want, exact, got
+        if serve is not None:
+            sc = ServeConfig(arch=arch, smoke=False,
+                             max_new_tokens=serve["new_tokens"])
+            prompts = lm_rng.integers(0, c.vocab_size, (
+                serve["requests"], serve["prompt"])).astype(np.int32)
+            outs, ms_ = [], []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs.append(generate(sc, prompts, params=m))
+                ms_.append((time.perf_counter() - t0) * 1e3)
+            toks = outs[0]["tokens"]
+            if toks.shape != (serve["requests"], serve["prompt"] + serve[
+                    "new_tokens"]) or not (toks[:, :serve["prompt"]] ==
+                                           prompts).all() \
+                    or not ((toks >= 0) & (toks < c.vocab_size)).all() \
+                    or not np.isfinite(outs[0]["logprobs"]).all():
+                fail(f"{arch} generate returned tokens {toks.shape} that do "
+                     f"not extend the prompts with in-vocabulary tokens, or "
+                     f"non-finite logprobs")
+            if not (np.array_equal(toks, outs[1]["tokens"]) and
+                    np.array_equal(outs[0]["logprobs"], outs[1]["logprobs"])):
+                fail(f"two {arch} generate runs from one seed differ")
+            n_steps = serve["prompt"] + serve["new_tokens"] - 1
+            dcache = LM.init_decode_cache(c, serve["requests"], n_steps + 1,
+                                          device=cuda)
+            dbatch = {"token": torch.from_numpy(toks[:, -1:]).to(cuda),
+                      "pos": n_steps}
+            MOE.moe_ffn.host_reads = 0
+            log["decode_ms"] = wall_clock_ms(
+                lambda: LM.serve_step(m, c, dcache, dbatch))
+            log["host_reads_decode"] = MOE.moe_ffn.host_reads / (
+                1 + TIMING_REPS // 4)
+            log["generate_ms"] = ms_
+            new = serve["requests"] * serve["new_tokens"]
+            print(f"{arch} generate: {serve['requests']} requests of "
+                  f"{serve['prompt']} prompt tokens + {serve['new_tokens']} "
+                  f"greedy new tokens in {ms_[0]:.1f}, {ms_[1]:.1f} ms "
+                  f"({n_steps} serve_steps, {ms_[1] / n_steps:.2f} ms a "
+                  f"step); {new / ms_[1] * 1e3:.1f} generated tokens/s; one "
+                  f"serve_step at position {n_steps}: {log['decode_ms']:.2f} "
+                  f"ms, {log['host_reads_decode']:.0f} group-size host reads;"
+                  f" the two runs equal  [{card}]")
+            profiled(f"{arch} serve_step (batch {serve['requests']})",
+                     lambda: LM.serve_step(m, c, dcache, dbatch))
+            del dcache
+        moe_params = None
+        if keep_moe:
+            moe_params = {k: v.detach().float() for k, v in
+                          m.blocks[0]["moe"].items()}
+        del m
+        torch.cuda.empty_cache()
+        log["phase_s"] = time.perf_counter() - t_phase
+        print(f"{arch} phase {log['phase_s']:.1f} s  [{card}]")
+        return log, moe_params
+
+    ocfg = get_config(MOE_ARCH)
+    family_log[MOE_ARCH], olmoe_moe = family_serving(
+        MOE_ARCH, ocfg, MOE_PREFILL, serve=SERVE, parity=PARITY,
+        keep_moe=True)
+
+    # The expert-parallel dispatch at olmoe's width, one layer: experts
+    # over the model axis of a (1, 4) mesh of the card repeated, in f32
+    # (the reference's boundary type), against ragged at capacity_factor
+    # 8.0 (no slot drops: a row's tokens of one expert fit its capacity)
+    t0 = time.perf_counter()
+    ep_mesh = make_mesh((1, 4), ("data", "model"), devices=[cuda] * 4)
+    eb, es = EP_SHAPE
+    ex = torch.randn((eb, es, ocfg.d_model), generator=mgen, device=cuda)
+    y_ep, _ = MOE.moe_ffn_ep(ex, olmoe_moe, num_experts=ocfg.num_experts,
+                             k=ocfg.experts_per_token, capacity_factor=8.0,
+                             mesh=ep_mesh)
+    y_rg, _ = MOE.moe_ffn(ex.reshape(eb * es, -1), olmoe_moe,
+                          num_experts=ocfg.num_experts,
+                          k=ocfg.experts_per_token)
+    y_rg = y_rg.reshape(eb, es, -1)
+    ep_err = float((y_ep - y_rg).abs().max())
+    ep_ok = bool(((y_ep - y_rg).abs() <= EP_TOL + EP_TOL * y_rg.abs()).all())
+    if not ep_ok:
+        fail(f"moe_ffn_ep on the (1, 4) mesh differs from ragged by {ep_err}"
+             f" (bar {EP_TOL} abs and rel)")
+    ep_ms = wall_clock_ms(lambda: MOE.moe_ffn_ep(
+        ex, olmoe_moe, num_experts=ocfg.num_experts,
+        k=ocfg.experts_per_token, capacity_factor=8.0, mesh=ep_mesh))
+    rg_ms = wall_clock_ms(lambda: MOE.moe_ffn(
+        ex.reshape(eb * es, -1), olmoe_moe, num_experts=ocfg.num_experts,
+        k=ocfg.experts_per_token))
+    print(f"moe_ffn_ep at {MOE_ARCH}'s width ({ocfg.num_experts} experts "
+          f"top-{ocfg.experts_per_token}, d {ocfg.d_model}, expert d_ff "
+          f"{ocfg.d_ff}), {eb} x {es} tokens, f32, on a (1, 4) (data, model) "
+          f"mesh of the card repeated: within {ep_err:.3e} of ragged at "
+          f"capacity_factor 8.0 (bar {EP_TOL} abs and rel); {ep_ms:.2f} ms "
+          f"against ragged {rg_ms:.2f} ms (host clock, warm); "
+          f"{time.perf_counter() - t0:.1f} s  [{card}]")
+    del ex, y_ep, y_rg, olmoe_moe
+    torch.cuda.empty_cache()
+
+    qfull = get_config(MOE_CUT_ARCH)
+    qcfg = qfull.replace(num_layers=MOE_CUT_LAYERS)
+    print(f"{MOE_CUT_ARCH} cut: depth {qfull.num_layers} -> "
+          f"{MOE_CUT_LAYERS} (the published {qfull.num_layers} layers are "
+          f"about {qfull.param_count() * 2 / 1e9:.0f} GB of bf16 weights, "
+          f"past the 80 GB card; {MOE_CUT_LAYERS} layers with the untied "
+          f"embeddings about {qcfg.param_count() * 2 / 1e9:.1f} GB); widths "
+          f"as published: d {qcfg.d_model}, {qcfg.num_heads} query over "
+          f"{qcfg.num_kv_heads} KV heads of {qcfg.resolved_head_dim}, "
+          f"{qcfg.num_experts} experts top-{qcfg.experts_per_token} of d_ff "
+          f"{qcfg.d_ff}, vocab {qcfg.vocab_size}")
+    family_log[MOE_CUT_ARCH], _ = family_serving(MOE_CUT_ARCH, qcfg,
+                                                 MOE_CUT_PREFILL)
+    family_log[SSM_ARCH], _ = family_serving(
+        SSM_ARCH, get_config(SSM_ARCH), SSM_PREFILL, serve=RECURRENT_SERVE,
+        parity=PARITY, profile_prefill=SSM_PROFILE_PREFILL)
+    family_log[HYBRID_ARCH], _ = family_serving(
+        HYBRID_ARCH, get_config(HYBRID_ARCH), HYBRID_PREFILL,
+        serve=RECURRENT_SERVE, parity=PARITY)
+
+    # One train step of each family at a cut depth.  As the whisper check:
+    # in f32 and in bf16 the gradients with row 10's kernels against those
+    # with row 10 through its plain version, per-leaf relative L2 under
+    # GRAD_TOL (the ssm family calls no row 10: its two passes are the same
+    # code).  Beside it, a record: the bf16 gradients against the f32
+    # gradients of the same weights, within GRAD_TOL["bfloat16"] or past
+    # it.  A moe's passes after the first take its expert choices (recorded
+    # call by call, each pass's own router probabilities at them): a
+    # near-tie that rounds the other way would move a token to another
+    # expert, a different function, not a rounding of the same one.
+    real_router = MOE.router_topk
+
+    def recording_router(log):
+        def router(x, w, num_experts, k):
+            out = real_router(x, w, num_experts, k)
+            log.append(out[1].detach().clone())
+            return out
+        return router
+
+    def replaying_router(log):
+        it = iter(log)
+
+        def router(x, w, num_experts, k):
+            probs = torch.softmax(x.float() @ w.float(), dim=-1)
+            idx = next(it)
+            weights = torch.gather(probs, 1, idx)
+            weights = weights / weights.sum(-1, keepdim=True)
+            ce = torch.nn.functional.one_hot(idx[:, 0], num_experts).float()
+            return weights, idx, num_experts * torch.sum(
+                probs.mean(0) * ce.mean(0))
+        return router
+
+    train_log = {}
+    for arch, layers in FAMILY_TRAIN.items():
+        t0 = time.perf_counter()
+        tcfg = get_config(arch).replace(num_layers=layers)
+        tbatch = SyntheticLM(DataConfig(
+            vocab_size=tcfg.vocab_size, seq_len=FAMILY_TRAIN_SHAPE[1],
+            global_batch=FAMILY_TRAIN_SHAPE[0], seed=1),
+            device=cuda).batch(0)
+        routes, grads, losses, launches = [], {}, {}, None
+        for dtype in ("bfloat16", "float32"):
+            dcfg = tcfg.replace(dtype=dtype)
+            for route in ("kernels", "plain"):
+                gparams, _ = ST.init_train_state(tcfg, seed=1, device=cuda)
+                if dtype == "float32":       # the bf16 weights, widened
+                    gparams = gparams.float()
+                FA.flash_attention_lse.launches = 0
+                FA.flash_attention_bwd.launches = 0
+                MOE.router_topk = (recording_router(routes) if not routes
+                                   else replaying_router(routes))
+                ATT.flash_attention = (FA.flash_attention
+                                       if route == "kernels"
+                                       else plain_attention)
+                try:
+                    loss, g = ST.loss_and_grads(gparams, dcfg, tbatch)
+                finally:
+                    MOE.router_topk = real_router
+                    ATT.flash_attention = FA.flash_attention
+                if (dtype, route) == ("bfloat16", "kernels"):
+                    launches = (FA.flash_attention_lse.launches,
+                                FA.flash_attention_bwd.launches)
+                grads[dtype, route], losses[dtype, route] = g, float(loss)
+                del gparams
+            gk, gp = grads[dtype, "kernels"], grads[dtype, "plain"]
+            worst = max((rel_l2(gk[n], gp[n]), n) for n in gk)
+            if not (worst[0] <= GRAD_TOL[dtype] and
+                    math.isfinite(losses[dtype, "kernels"])):
+                fail(f"{arch} (depth {layers}, {dtype}): the gradients with "
+                     f"row 10's kernels differ from those through its plain "
+                     f"version, worst per-leaf relative L2 {worst} (bar "
+                     f"{GRAD_TOL[dtype]}), losses {losses}")
+            grads[dtype, "worst"] = worst
+        gb, gf = grads["bfloat16", "kernels"], grads["float32", "kernels"]
+        vs_f32 = sorted(((rel_l2(gb[n], gf[n]), n) for n in gb),
+                        reverse=True)
+        # the step itself, bf16, with the kernels
+        bparams, bopt = ST.init_train_state(tcfg, seed=1, device=cuda)
+        before = {n: p.detach().clone() for n, p in
+                  bparams.named_parameters()}
+        _, bopt, metrics = ST.make_train_step(
+            tcfg, lambda s_: torch.tensor(1e-3))(bparams, bopt, tbatch)
+        moved = sum(not torch.equal(p.detach(), before[n])
+                    for n, p in bparams.named_parameters())
+        if int(bopt.step) != 1 or not math.isfinite(float(metrics["loss"])) \
+                or moved == 0:
+            fail(f"{arch} train step: step {int(bopt.step)}, loss "
+                 f"{float(metrics['loss'])}, {moved} leaves moved")
+        within = vs_f32[0][0] <= GRAD_TOL["bfloat16"]
+        train_log[arch] = dict(
+            worst={d: grads[d, "worst"] for d in ("float32", "bfloat16")},
+            vs_f32=vs_f32[:3], within=within, losses=losses,
+            launches=launches, leaves=len(gb), moved=moved,
+            routes=len(routes), s=time.perf_counter() - t0)
+        print(f"{arch} train step at depth {layers} "
+              f"({[k for k, _ in segment_plan(tcfg)]}), "
+              f"{FAMILY_TRAIN_SHAPE[0]} x {FAMILY_TRAIN_SHAPE[1]} tokens, "
+              f"{len(gb)} leaves: kernels against row 10's plain version, "
+              f"worst per-leaf relative L2 "
+              + ", ".join(f"{d} {grads[d, 'worst'][1]} "
+                          f"{grads[d, 'worst'][0]:.3e}"
+                          for d in ("float32", "bfloat16"))
+              + f" (bars {GRAD_TOL}); the bf16 gradients against the f32 "
+              f"gradients of the same weights (a record): "
+              + ", ".join(f"{n} {r_:.3e}" for r_, n in vs_f32[:3])
+              + f", {'within' if within else 'past'} "
+              f"{GRAD_TOL['bfloat16']}"
+              + (f" (every pass on the first pass's {len(routes)} recorded "
+                 f"expert choices)" if tcfg.is_moe else "")
+              + f"; losses (bf16, f32) {losses['bfloat16', 'kernels']:.5f}, "
+              f"{losses['float32', 'kernels']:.5f}; row 10 lse and backward "
+              f"launches {launches} (bf16 pass); the step moved {moved} "
+              f"leaves; {train_log[arch]['s']:.1f} s  [{card}]")
+        del bparams, bopt, before, grads, gb, gf, routes, tbatch
+        torch.cuda.empty_cache()
+
+    fa_row = next(r for r in rows if r["name"] == "flash_attention")
+    for arch, log in family_log.items():
+        fa_row[f"{arch}_prefill_launches"] = log["launches"]
+    for r in rows:
+        if r["name"] in ("flash_attention_lse", "flash_attention_bwd"):
+            for arch, tl in train_log.items():
+                if tl["launches"][0]:
+                    r[f"{arch}_train_check_launches"] = tl["launches"][
+                        0 if r["name"].endswith("lse") else 1]
+    print(f"the moe, ssm and hybrid phase {time.perf_counter() - families_t0:.1f}"
+          f" s: " + ", ".join(f"{a} {l['phase_s']:.1f} s"
+                              for a, l in family_log.items())
+          + ", " + ", ".join(f"{a} train {t['s']:.1f} s"
+                             for a, t in train_log.items()) + f"  [{card}]")
+
+    # ------------------------------------------------------------------
+    # Row 10 and 10 lse at the six shapes the LM paths give it, by CUDA
     # events in one phase beside scaled_dot_product_attention (a yardstick
     # the port never calls): seeded inputs at each shape, each call held to
     # the plain version, lse's output bitwise row 10's, two calls the same

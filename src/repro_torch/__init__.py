@@ -22,8 +22,10 @@ on meshes that may repeat one device), the per-grid
 transforms (``kernels.ops``) and the iterated combination technique
 (``core.iterated``), the scatter phase with adaptivity
 (``core.executor.ct_scatter``, ``core.adaptive``,
-``runtime.fault_tolerance``), and the LM stack's dense, encdec and vlm
-families: serving (``models``: ``transformer.LM``/``forward``,
+``runtime.fault_tolerance``), and the LM stack's every family (dense,
+moe with its expert-parallel dispatch on the mesh, encdec, vlm, ssm and
+hybrid, ``models.moe`` and ``models.ssm`` beside the transformer):
+serving (``models``: ``transformer.LM``/``forward``,
 ``model.prefill_step``/``serve_step``/``encode_for_decode``, the model
 API ``input_specs``/``make_batch``/``decode_cache_specs``,
 ``launch.serve.generate``; ``convert.lm_params_from_numpy`` carries the
@@ -36,8 +38,8 @@ assembly and the 2-D ingest's ordered owner fold are hand-written
 launches too.  The concurrency analysis (``analysis``: the lock registry,
 the static pass ``python -m repro_torch.analysis`` and the runtime
 sanitizer under ``REPRO_TORCH_LOCKDEP=1``) covers every lock of the port.
-Not ported yet: of the LM stack the moe, ssm, hybrid, encdec and vlm
-families and ``make_batch``/``input_specs`` (ROADMAP.md, Queue A).  Entry
+Not ported yet: the reference's XLA and TPU tooling (ROADMAP.md, Queue
+A 12) and its examples and benchmarks (A13).  Entry
 points run on the CUDA device unless the caller passes ``device="cpu"``;
 with no card and no ``device="cpu"`` they raise — there is no silent CPU
 fallback.

@@ -4,9 +4,9 @@
 LM architectures keep the reference's registry: ``get_config(arch_id)``
 returns the FULL published config, ``get_smoke_config(arch_id)`` the
 reduced same-family config of the CPU tests.  Each architecture's module
-is the reference's, copied; an architecture whose family the model code
-does not run (``models.transformer.FAMILIES``: moe, ssm and hybrid are
-not there yet) raises ``NotImplementedError`` from both getters.
+is the reference's, copied; every family is in
+``models.transformer.FAMILIES``, so every architecture resolves (a config
+of a family the reference does not know is refused with ``ValueError``).
 """
 
 from __future__ import annotations

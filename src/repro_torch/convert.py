@@ -4,8 +4,8 @@ The CT system has no weights: its state is the nodal component grids and
 the served surplus.  ``state_from_numpy`` turns the reference's
 ``{ell: np.ndarray}`` grids and a served surplus (``np.asarray(ref.surplus)``)
 into the port's tensors, so both packages compute from identical state.
-``lm_params_from_numpy`` does the same for the LM's parameters (the
-dense, encdec and vlm families) and ``train_state_from_numpy`` for its
+``lm_params_from_numpy`` does the same for the LM's parameters (every
+family) and ``train_state_from_numpy`` for its
 train state (parameters and AdamW's moments); ``lm_params_to_numpy`` and
 ``train_state_to_numpy`` carry the port's back into the reference's
 layout (each layer stack along a leading L axis), so the tests compare
@@ -13,11 +13,15 @@ leaf by leaf.
 
 ``reference_key`` names the reference's leaf that holds an ``LM``
 parameter, as the reference's checkpoint manifests spell it
-(``segments/0/attn/wq`` for ``blocks.<i>.attn.wq``, ``encoder/stack/...``
-for ``encoder.blocks.<i>...``), with the layer's index along its stacked
-axis; ``stack_by_reference_key`` groups ``{parameter name: leaf}`` into
-``{reference key: stacked leaf}`` (the port's training checkpoints are
-written so, under the reference's names).
+(``segments/0/attn/wq`` for ``blocks.<i>.attn.wq``, ``segments/<s>/...``
+for ``segments.<s>.<i>...`` of the ssm and hybrid families,
+``encoder/stack/...`` for ``encoder.blocks.<i>...``), with the layer's
+index along its stacked axis; ``stack_by_reference_key`` groups
+``{parameter name: leaf}`` into ``{reference key: stacked leaf}`` (the
+port's training checkpoints are written so, under the reference's names).
+Every family carries across: the moe layers' ``moe`` leaves, the Mamba2,
+mLSTM and sLSTM layers' and the hybrid's ``shared_attn`` (not stacked;
+the reference's ``segments`` holds ``{}`` at its sites).
 """
 
 from __future__ import annotations
@@ -30,7 +34,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import LM, Encoder, check_family
+from repro_torch.models.transformer import (LM, SEGMENTED, Encoder,
+                                            has_shared_attn, segment_plan)
 from repro_torch.optim.adamw import AdamWState
 
 __all__ = ["state_from_numpy", "lm_params_from_numpy",
@@ -83,6 +88,10 @@ def reference_key(name: str) -> Tuple[str, Optional[int]]:
     ``LM`` parameter ``name``, joined by ``/`` as its checkpoint manifests
     spell it, and the layer's index along that leaf's stacked axis (None
     for a leaf that is not stacked)."""
+    if name.startswith("segments."):
+        _, seg, layer, rest = name.split(".", 3)
+        return "/".join(("segments", seg) + tuple(rest.split("."))), \
+            int(layer)
     for prefix, ref in _STACKS:
         if name.startswith(prefix + "."):
             layer, rest = name[len(prefix) + 1:].split(".", 1)
@@ -132,9 +141,10 @@ def _flatten(tree, path=()) -> Dict[str, object]:
     return out
 
 
-def _nest(flat: Mapping[str, object]) -> Dict:
+def _nest(flat: Mapping[str, object], n_segments: int) -> Dict:
     """``{key path: leaf}`` as the reference's pytree: dicts, with the
-    ``segments`` list."""
+    ``segments`` list of ``n_segments`` (``{}`` where no leaf lies: a
+    hybrid's shared-attention site)."""
     tree: Dict = {}
     for key, a in flat.items():
         node = tree
@@ -142,17 +152,22 @@ def _nest(flat: Mapping[str, object]) -> Dict:
         for part in parents:
             node = node.setdefault(part, {})
         node[last] = a
-    if "segments" in tree:
-        tree["segments"] = [tree["segments"][str(i)]
-                            for i in range(len(tree["segments"]))]
+    segs = tree.get("segments", {})
+    tree["segments"] = [segs.get(str(i), {}) for i in range(n_segments)]
     return tree
 
 
-def _named_from_tree(tree: Mapping) -> Dict[str, object]:
+def _named_from_tree(tree: Mapping, cfg: ModelConfig) -> Dict[str, object]:
     """The reference's LM pytree (any leaves) by ``LM`` parameter name,
-    each stacked layer segment split per layer."""
+    each stacked layer segment split per layer (``blocks.<i>``, or
+    ``segments.<s>.<i>`` for the ssm and hybrid families)."""
     out = {}
     for key, a in _flatten(tree).items():
+        parts = key.split("/")
+        if parts[0] == "segments" and cfg.family in SEGMENTED:
+            head, rest = f"segments.{parts[1]}", ".".join(parts[2:])
+            out.update({f"{head}.{i}.{rest}": a[i] for i in range(len(a))})
+            continue
         for prefix, ref in _STACKS:
             head = "/".join(ref) + "/"
             if key.startswith(head):
@@ -165,19 +180,23 @@ def _named_from_tree(tree: Mapping) -> Dict[str, object]:
     return out
 
 
-def _layers(named: Mapping[str, torch.Tensor], prefix: str, n: int):
-    layers = [{} for _ in range(n)]
+def _subtree(named: Mapping[str, torch.Tensor], prefix: str) -> Dict:
+    """The parameters under ``prefix.`` as nested dicts of their leaves."""
+    tree: Dict = {}
     for name, t in named.items():
         if name.startswith(prefix + "."):
-            layer, part, leaf = name[len(prefix) + 1:].split(".")
-            layers[int(layer)].setdefault(part, {})[leaf] = t
-    return layers
+            *path, leaf = name[len(prefix) + 1:].split(".")
+            node = tree
+            for part in path:
+                node = node.setdefault(part, {})
+            node[leaf] = t
+    return tree
 
 
-def _group(named: Mapping[str, torch.Tensor], prefix: str):
-    return {n[len(prefix) + 1:]: t for n, t in named.items()
-            if n.startswith(prefix + ".") and n.count(".") == 1 +
-            prefix.count(".")}
+def _layers(named: Mapping[str, torch.Tensor], prefix: str, n: int):
+    """The ``n`` layers under ``prefix.<i>.`` as nested dicts."""
+    tree = _subtree(named, prefix)
+    return [tree.get(str(i), {}) for i in range(n)]
 
 
 def _lm_from_named(named: Mapping[str, torch.Tensor], cfg: ModelConfig) -> LM:
@@ -186,10 +205,18 @@ def _lm_from_named(named: Mapping[str, torch.Tensor], cfg: ModelConfig) -> LM:
         encoder = Encoder(cfg, named["encoder.pos"],
                           _layers(named, "encoder.blocks",
                                   cfg.encoder_layers),
-                          _group(named, "encoder.final_norm"))
-    return LM(cfg, named["embed"], _group(named, "final_norm"),
-              _layers(named, "blocks", cfg.num_layers), named.get("lm_head"),
-              encoder=encoder, dec_pos=named.get("dec_pos"))
+                          _subtree(named, "encoder.final_norm"))
+    if cfg.family in SEGMENTED:
+        layers = [layer for s, (kind, n) in enumerate(segment_plan(cfg))
+                  if kind != "shared_attn"
+                  for layer in _layers(named, f"segments.{s}", n)]
+    else:
+        layers = _layers(named, "blocks", cfg.num_layers)
+    shared = _subtree(named, "shared_attn") if has_shared_attn(cfg) \
+        else None
+    return LM(cfg, named["embed"], _subtree(named, "final_norm"), layers,
+              named.get("lm_head"), encoder=encoder,
+              dec_pos=named.get("dec_pos"), shared_attn=shared)
 
 
 # ---------------------------------------------------------------------------
@@ -203,10 +230,9 @@ def lm_params_from_numpy(params_np: Mapping, cfg: ModelConfig, *, device,
     ``device``, value for value: each array keeps its dtype unless
     ``dtype`` is given.  Each stacked layer segment (leading axis L) is
     split into one block per layer."""
-    check_family(cfg)
     device = resolve_device(device)
     return _lm_from_named({n: _tensor(a, device, dtype) for n, a in
-                           _named_from_tree(params_np).items()}, cfg)
+                           _named_from_tree(params_np, cfg).items()}, cfg)
 
 
 def train_state_from_numpy(params_np: Mapping, opt_np, cfg: ModelConfig, *,
@@ -221,7 +247,7 @@ def train_state_from_numpy(params_np: Mapping, opt_np, cfg: ModelConfig, *,
                                   dtype=dtype).requires_grad_(True)
     device = params.device
     moments = [{k: _tensor(a, device, torch.float32)
-                for k, a in _named_from_tree(tree).items()}
+                for k, a in _named_from_tree(tree, cfg).items()}
                for tree in (opt_np.m, opt_np.v)]
     step = torch.tensor(int(np.asarray(opt_np.step)), dtype=torch.int32,
                         device=device)
@@ -241,11 +267,11 @@ def lm_params_to_numpy(params: Union[LM, Mapping[str, torch.Tensor]],
     shapes (gradients, AdamW's moments), in the reference's pytree layout
     as numpy: each layer stack's tensors stacked along a leading L axis,
     bf16 widened to float32."""
-    check_family(cfg)
     named = dict(params.named_parameters()) if isinstance(
         params, LM) else dict(params)
     return _nest(stack_by_reference_key(
-        {n: _numpy(t) for n, t in named.items()}, np.stack))
+        {n: _numpy(t) for n, t in named.items()}, np.stack),
+        len(segment_plan(cfg)))
 
 
 def train_state_to_numpy(params: LM, opt: AdamWState,

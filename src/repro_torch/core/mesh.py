@@ -11,6 +11,12 @@ shards then live on that device and the collectives are copies within it,
 which is how the sharded paths run on the CPU and on a machine with one
 card.  On a machine with several cards the same code copies between them.
 
+``use_mesh(mesh)`` is the port's ambient mesh, the counterpart of the
+reference's mesh context (``repro.compat.set_mesh`` and
+``get_abstract_mesh``): code that takes its mesh from the context, as the
+expert-parallel MoE (``models.moe.moe_ffn_ep``) does, reads it with
+``current_mesh()``.
+
 ``SlabSharded`` is the port's counterpart of the reference's
 ``NamedSharding``-placed array that a ``gather=False`` slab-sharded gather
 returns: one tensor per slab, each on its mesh device, with ``concat`` to
@@ -19,6 +25,8 @@ put them together.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from collections.abc import Mapping
 from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
@@ -26,7 +34,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-__all__ = ["Mesh", "make_mesh", "mesh_axes", "SlabSharded"]
+__all__ = ["Mesh", "make_mesh", "mesh_axes", "use_mesh", "current_mesh",
+           "SlabSharded"]
 
 
 class Mesh:
@@ -123,6 +132,28 @@ def mesh_axes(mesh) -> dict:
     mapping (not a mesh) has no axes."""
     shape = getattr(mesh, "shape", None)
     return dict(shape) if isinstance(shape, Mapping) else {}
+
+
+_AMBIENT: contextvars.ContextVar = contextvars.ContextVar("mesh",
+                                                        default=None)
+
+
+@contextlib.contextmanager
+def use_mesh(mesh: Optional[Mesh]):
+    """Make ``mesh`` the ambient mesh inside the ``with`` block (``None``:
+    no mesh), as the reference's ``set_mesh`` context does; the previous
+    one comes back on exit.  The context is per thread (a context
+    variable)."""
+    token = _AMBIENT.set(mesh)
+    try:
+        yield mesh
+    finally:
+        _AMBIENT.reset(token)
+
+
+def current_mesh() -> Optional[Mesh]:
+    """The ambient mesh of ``use_mesh``, or None outside any."""
+    return _AMBIENT.get()
 
 
 @dataclass(frozen=True)

@@ -11,9 +11,10 @@ Two differences: temperature sampling and the stub audio draw from
 ``torch.Generator``s seeded with ``sc.seed`` (the same distributions as
 the reference's ``jax.random``, other draws; ``audio_embeds=`` hands in
 given frames instead), and the log-probabilities are taken in float32
-whatever the model's type.  The dense, encdec and vlm architectures run
+whatever the model's type.  Every architecture runs
 (``models.transformer.FAMILIES``; a vlm decodes its text as the reference
-does, without patches).  ``generate`` runs under
+does, without patches; an ssm or hybrid model carries its recurrent
+states in the cache).  ``generate`` runs under
 ``torch.inference_mode()``, so it records no autograd graph on a model
 that also trains.
 

@@ -1,5 +1,4 @@
-"""Training driver: the fault-tolerant loop of the LM (the dense, encdec
-and vlm families).
+"""Training driver: the fault-tolerant loop of the LM (every family).
 
 Port of ``repro.launch.train``.  It wires together the data pipeline
 (deterministic addressing: ``data.pipeline.SyntheticLM``), the train step
@@ -18,8 +17,8 @@ their stub frontends every step, as the reference's loop gives them
 (``stub_frontends``: ``audio_embeds`` or ``patch_embeds``, normal times
 0.02 in the model's type, from a ``torch.Generator`` seeded by the run's
 seed and the step; the reference folds the step into its key, so the
-draws differ).  The moe, ssm and hybrid families raise
-``NotImplementedError`` (ROADMAP.md, Queue A 11).  A checkpoint holds the
+draws differ).  The moe family's loss is ``loss_fn``'s, its aux loss
+dropped as in the reference.  A checkpoint holds the
 train state under the reference's names and layout
 (``convert.stack_by_reference_key``: ``0/segments/0/attn/wq`` a stacked
 leaf, ``1/m/...`` AdamW's first moments), so the reference's

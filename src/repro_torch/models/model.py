@@ -1,24 +1,30 @@
 """The LM's model API: input specs, seeded batches, decode caches, and the
 serving steps (prefill, and one decode step against a cache).
 
-Port of the dense, encdec and vlm parts of ``repro.models.model``.
-``input_specs`` and ``decode_cache_specs`` return, where the reference
-returns ``jax.ShapeDtypeStruct``s, tensors on the ``meta`` device (a
-shape and a dtype, no storage), name by name the reference's;
-``make_batch`` draws small real batches of those specs from a
-``torch.Generator`` (the reference's distributions, not its numbers).
+Port of ``repro.models.model``, every family.  ``input_specs`` and
+``decode_cache_specs`` return, where the reference returns
+``jax.ShapeDtypeStruct``s, tensors on the ``meta`` device (a shape and a
+dtype, no storage), name by name the reference's; ``make_batch`` draws
+small real batches of those specs from a ``torch.Generator`` (the
+reference's distributions, not its numbers).
 
-The decode cache keeps the reference's layout, ``{"segments": [{"k",
-"v"}]}`` with tensors of shape ``(L, B, S_max, KV, hd)``, and for encdec a
-``"cross"`` entry of the same form over the encoder's frames, filled once
-by ``encode_for_decode``.  Where the reference returns a new cache,
-``serve_step`` writes the token's K/V into the given one in place and
-returns it: PyTorch tensors are mutable, and a copy of the cache per
-token would double its memory traffic.  A step past the cache's end
-raises (``attention.cache_update``; the reference clamps, ROADMAP Queue
-C, C6).  The steps run under ``torch.inference_mode()``: they record no
-autograd graph, also on a model whose parameters take gradients (one that
-trains).
+The decode cache keeps the reference's layout, ``{"segments": [...]}``
+with one entry per ``segment_plan`` segment: ``{"k", "v"}`` of shape
+``(L, B, S_max, KV, hd)`` for a dense-kind segment and for each of the
+hybrid's shared-attention sites (L = 1: the weights are shared, the cache
+is per site), ``{"ssd", "conv"}`` for a Mamba2 segment (``(L, B, H, S,
+P)`` float32 and ``(L, B, K-1, C)``), ``{"ssd"}`` for an mLSTM segment
+(``(L, B*H, 1, hd, hd+1)`` float32) and ``{"c", "n", "m", "h"}`` for an
+sLSTM (``(B, H, hd)`` float32, ``m`` starting at -1e9 and ``n`` at 1e-6);
+for encdec a ``"cross"`` entry over the encoder's frames, filled once by
+``encode_for_decode``.  Where the reference returns a new cache,
+``serve_step`` writes the token's K/V and each recurrent layer's new state
+into the given one in place and returns it: PyTorch tensors are mutable,
+and a copy of the cache per token would double its memory traffic.  A
+step past the cache's end raises (``attention.cache_update``; the
+reference clamps, ROADMAP Queue C, C6).  The steps run under
+``torch.inference_mode()``: they record no autograd graph, also on a
+model whose parameters take gradients (one that trains).
 """
 
 from __future__ import annotations
@@ -30,10 +36,13 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.models.attention import (KVCache, cache_update,
                                           decode_attention)
+from repro_torch.models import ssm
 from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.models.transformer import (LM, _cross_project, _dtype,
-                                            _logits, _mlp, _norm_apply,
-                                            _project_qkv, _run_encoder,
+                                            _ffn, _logits, _mamba_block,
+                                            _mlp, _mlstm_block,
+                                            _norm_apply, _project_qkv,
+                                            _run_encoder, _slstm_block,
                                             check_family, forward,
                                             segment_plan)
 
@@ -110,13 +119,31 @@ def _kv_specs(cfg: ModelConfig, n_layers: int, batch: int, seq: int):
     return {"k": _spec(shape, _dtype(cfg)), "v": _spec(shape, _dtype(cfg))}
 
 
+def _segment_specs(cfg: ModelConfig, kind: str, n: int, batch: int,
+                   max_seq: int) -> Dict[str, torch.Tensor]:
+    f32 = torch.float32
+    if kind == "mamba":
+        di, s, nh = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads
+        return {"ssd": _spec((n, batch, nh, s, di // nh), f32),
+                "conv": _spec((n, batch, cfg.ssm_conv - 1, di + 2 * s),
+                              _dtype(cfg))}
+    h, hd = cfg.num_heads, cfg.resolved_head_dim
+    if kind == "mlstm":
+        return {"ssd": _spec((n, batch * h, 1, hd, hd + 1), f32)}
+    if kind == "slstm":
+        return {name: _spec((batch, h, hd), f32) for name in "cnmh"}
+    # dense, or a shared-attention site: its own K/V (L = 1)
+    return _kv_specs(cfg, n, batch, max_seq)
+
+
 def decode_cache_specs(cfg: ModelConfig, batch: int,
                        max_seq: int) -> Dict[str, Any]:
     """The decode cache as ``meta`` tensors (mirrors ``init_decode_cache``):
-    the self-attention K/V per segment and, for encdec, ``"cross"`` over
-    the encoder's ``encoder_seq`` frames."""
+    one entry per segment (the module docstring) and, for encdec,
+    ``"cross"`` over the encoder's ``encoder_seq`` frames."""
     cache: Dict[str, Any] = {"segments": [
-        _kv_specs(cfg, n, batch, max_seq) for _kind, n in segment_plan(cfg)]}
+        _segment_specs(cfg, kind, n, batch, max_seq)
+        for kind, n in segment_plan(cfg)]}
     if cfg.family == "encdec":
         cache["cross"] = _kv_specs(cfg, cfg.num_layers, batch,
                                    cfg.encoder_seq)
@@ -125,7 +152,9 @@ def decode_cache_specs(cfg: ModelConfig, batch: int,
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
                       device=None) -> Dict[str, Any]:
-    """Zero-initialized decode cache on ``device`` (default CUDA)."""
+    """Zero-initialized decode cache on ``device`` (default CUDA); an
+    sLSTM's stabilizer ``m`` starts at -1e9 and its normalizer ``n`` at
+    1e-6, as the reference's."""
     device = resolve_device(device)
 
     def zeros(node):
@@ -135,7 +164,12 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
             return {k: zeros(v) for k, v in node.items()}
         return [zeros(v) for v in node]
 
-    return zeros(decode_cache_specs(cfg, batch, max_seq))
+    cache = zeros(decode_cache_specs(cfg, batch, max_seq))
+    for (kind, _n), seg in zip(segment_plan(cfg), cache["segments"]):
+        if kind == "slstm":
+            seg["m"] -= 1e9
+            seg["n"] += 1e-6
+    return cache
 
 
 @torch.inference_mode()
@@ -184,8 +218,46 @@ def _decode_dense_segment(x, blocks, kc, vc, cfg: ModelConfig, pos: int):
     positions = torch.full((1, 1), pos, device=x.device)
     for layer, lp in enumerate(blocks):
         x = _self_attn_step(x, lp, kc[layer], vc[layer], cfg, pos, positions)
-        x = x + _mlp(_norm_apply(x, lp["ln2"], cfg), lp["mlp"], cfg)
+        x = x + _ffn(_norm_apply(x, lp["ln2"], cfg), lp, cfg)
     return x
+
+
+def _decode_mamba_segment(x, layers, st, cfg: ModelConfig):
+    """Decode over a Mamba2 segment; st["ssd"], st["conv"] (L, ...) take
+    each layer's new state in place."""
+    for layer, lp in enumerate(layers):
+        x, new = _mamba_block(x, lp, cfg, ssm.Mamba2State(
+            ssm.SSDState(st["ssd"][layer]), st["conv"][layer]), decode=True)
+        st["ssd"][layer].copy_(new.ssd.s)
+        st["conv"][layer].copy_(new.conv)
+    return x
+
+
+def _decode_mlstm_segment(x, layers, st, cfg: ModelConfig):
+    """Decode over an mLSTM segment; st["ssd"] (L, B*H, 1, hd, hd+1)
+    takes each layer's new state in place."""
+    for layer, lp in enumerate(layers):
+        x, new = _mlstm_block(x, lp, cfg, ssm.SSDState(st["ssd"][layer]),
+                              decode=True)
+        st["ssd"][layer].copy_(new.s)
+    return x
+
+
+def _decode_slstm(x, lp, st, cfg: ModelConfig):
+    """One token through an sLSTM; st's c, n, m, h take the new state."""
+    x, new = _slstm_block(x, lp, cfg, ssm.SLSTMState(
+        st["c"], st["n"], st["m"], st["h"]))
+    for name, t in zip("cnmh", new):
+        st[name].copy_(t)
+    return x
+
+
+def _decode_shared_attn(x, p, st, cfg: ModelConfig, pos: int):
+    """One token through the hybrid's shared block against this site's
+    K/V (1, B, S, KV, hd), written in place at ``pos``."""
+    positions = torch.full((1, 1), pos, device=x.device)
+    x = _self_attn_step(x, p, st["k"][0], st["v"][0], cfg, pos, positions)
+    return x + _mlp(_norm_apply(x, p["ln2"], cfg), p["mlp"], cfg)
 
 
 def _decode_cross_segment(x, blocks, kc, vc, cross_k, cross_v,
@@ -213,7 +285,7 @@ def serve_step(params: LM, cfg: ModelConfig, cache, batch
     ``batch["pos"]``; returns (logits (B, 1, Vp), cache), the cache
     updated in place.  An encdec cache must hold ``"cross"``
     (``encode_for_decode``)."""
-    check_family(cfg)
+    plan = segment_plan(cfg)
     pos = int(batch["pos"])
     token = torch.as_tensor(batch["token"], device=params.device).long()
     x = params.embed[token]                                # (B, 1, D)
@@ -223,7 +295,18 @@ def serve_step(params: LM, cfg: ModelConfig, cache, batch
         x = _decode_cross_segment(x, params.blocks, seg["k"], seg["v"],
                                   cache["cross"]["k"], cache["cross"]["v"],
                                   cfg, pos)
-    else:
+    elif params.segments is None:
         x = _decode_dense_segment(x, params.blocks, seg["k"], seg["v"], cfg,
                                   pos)
+    else:
+        for (kind, _n), layers, st in zip(plan, params.segments,
+                                          cache["segments"]):
+            if kind == "mamba":
+                x = _decode_mamba_segment(x, layers, st, cfg)
+            elif kind == "mlstm":
+                x = _decode_mlstm_segment(x, layers, st, cfg)
+            elif kind == "slstm":
+                x = _decode_slstm(x, layers[0], st, cfg)
+            else:                                       # shared_attn
+                x = _decode_shared_attn(x, params.shared_attn, st, cfg, pos)
     return _logits(x, params, cfg), cache

@@ -1,34 +1,48 @@
 """The decoder LM and its encoder: parameters as ``nn.Module``s and the
 forward pass.
 
-Port of the dense, encdec and vlm parts of ``repro.models.transformer``.
-``LM`` holds the embedding, the final norm, the LM head (unless tied) and
-an ``nn.ModuleList`` of decoder blocks; a ``DenseBlock`` is an
-``nn.ModuleDict`` of ``nn.ParameterDict``s with the reference's names
-(``attn``, ``ln1``, ``ln2``, ``mlp``), so ``p["attn"]["wq"]`` reads as in
-the reference.  The encdec family (``whisper_small``) decodes with
-``CrossBlock``s (a ``DenseBlock`` plus ``cross``, its cross-attention
-projections, and ``ln3``) over an ``Encoder`` (``pos``, a positional
-table over the stub audio frames, ``blocks`` of ``DenseBlock``s run with
-full attention, ``final_norm``), and adds ``dec_pos`` (32768 x d) to the
-token embeddings; the vlm family (``llava_next_34b``) prepends the stub
-patch embeddings to the text and keeps the text positions' logits.
-Weights keep the reference's ``(d_in, d_out)`` layout, so every product
-stays ``x @ w``, and ``lax.scan`` over a layer stack becomes a Python
-loop.  The parameters are made with ``requires_grad=False``: serving needs
-no graph.  Training (``repro_torch.launch.steps.init_train_state``) turns
-gradients on for its own state; ``forward`` then runs each layer, of the
+Port of ``repro.models.transformer``, every family: dense, moe, encdec,
+vlm, ssm and hybrid.  ``LM`` holds the embedding, the final norm, the LM
+head (unless tied) and the decoder's layers.  The single-segment
+families (dense, moe, encdec, vlm) keep them in ``blocks``, an
+``nn.ModuleList`` of ``DenseBlock``s: ``nn.ModuleDict``s of
+``nn.ParameterDict``s with the reference's names (``attn``, ``ln1``,
+``ln2``, and ``mlp`` or, for moe, ``moe``: the router (D, E) in f32 and
+the experts' ``wi_gate``/``wi_up`` (E, D, F) and ``wo`` (E, F, D)), so
+``p["attn"]["wq"]`` reads as in the reference.  The encdec family
+(``whisper_small``) decodes with ``CrossBlock``s (a ``DenseBlock`` plus
+``cross``, its cross-attention projections, and ``ln3``) over an
+``Encoder`` (``pos``, a positional table over the stub audio frames,
+``blocks`` of ``DenseBlock``s run with full attention, ``final_norm``),
+and adds ``dec_pos`` (32768 x d) to the token embeddings; the vlm family
+(``llava_next_34b``) prepends the stub patch embeddings to the text and
+keeps the text positions' logits.  The ssm (``xlstm_1_3b``: mLSTM
+layers with an sLSTM every ``slstm_every``-th) and hybrid
+(``zamba2_1_2b``: Mamba2 layers with one shared attention+MLP block every
+``shared_attn_every`` of them, its weights shared and its cache per site)
+families keep ``segments``, one ``nn.ModuleList`` of ``LayerParams`` per
+segment of ``segment_plan`` (empty for a shared-attention site), and the
+hybrid's ``shared_attn`` (a ``DenseBlock``).  Weights keep the
+reference's ``(d_in, d_out)`` layout, so every product stays ``x @ w``,
+and ``lax.scan`` over a layer stack becomes a Python loop.  The
+parameters are made with ``requires_grad=False``: serving needs no graph.
+Training (``repro_torch.launch.steps.init_train_state``) turns gradients
+on for its own state; ``forward`` then runs each layer of a stack, of the
 encoder as of the decoder, under the reference's rematerialisation
 (``cfg.remat``, ``cfg.remat_policy``): ``"full"`` is
 ``torch.utils.checkpoint`` (non-reentrant), ``"dots"`` selective
 checkpointing that saves the 2-D matrix products (the projections:
 ``checkpoint_dots_with_no_batch_dims``; attention's batched products are
-recomputed), ``"none"`` the plain forward.  ``loss_fn`` is the mean token
-cross-entropy of the logits.
+recomputed), ``"none"`` the plain forward; the sLSTM and shared-attention
+blocks run plain, as the reference's do.  ``loss_fn`` is the mean token
+cross-entropy of the logits (the moe's aux loss is dropped there, as in
+the reference).  A moe layer's FFN is ``models.moe``: expert-parallel
+(``moe_ffn_ep``) under an ambient mesh with a ``"model"`` axis
+(``core.mesh.use_mesh``) when ``cfg.moe_impl == "ep"``, else, or where
+that returns None, ``moe_ffn`` with the config's ``moe_impl``.
 
-The moe, ssm and hybrid families do not run yet: ``segment_plan``,
-``forward`` and the serving steps raise ``NotImplementedError`` for them
-(ROADMAP.md, Queue A 11).
+A family the reference does not know is refused (``ValueError``, as the
+reference's ``segment_plan`` raises).
 """
 
 from __future__ import annotations
@@ -42,39 +56,71 @@ from torch import nn
 from torch.utils import checkpoint as _ckpt
 
 from repro_torch import resolve_device
+from repro_torch.models import ssm
 from repro_torch.models.attention import attention_chunked
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (cross_entropy, init_dense, layernorm,
                                       rmsnorm, rope)
+from repro_torch.models.moe import moe_ffn, moe_ffn_ep
 
-__all__ = ["DenseBlock", "CrossBlock", "Encoder", "LM", "FAMILIES",
-           "segment_plan", "init_params", "forward", "runs_family",
-           "check_family", "loss_fn", "reference_rank"]
+__all__ = ["DenseBlock", "CrossBlock", "Encoder", "LayerParams", "LM",
+           "FAMILIES", "segment_plan", "init_params", "forward",
+           "runs_family", "check_family", "loss_fn", "reference_rank"]
 
 #: The families the port runs (``configs`` admits an architecture by its
-#: config's family).
-FAMILIES = ("dense", "encdec", "vlm")
+#: config's family): all of the reference's.
+FAMILIES = ("dense", "encdec", "vlm", "moe", "ssm", "hybrid")
+
+#: The families whose decoder is a list of segments of several kinds.
+SEGMENTED = ("ssm", "hybrid")
 
 #: Rows of the decoder's positional table (the reference's).
 DEC_POS_ROWS = 32768
 
 
 def runs_family(cfg: ModelConfig) -> bool:
-    return cfg.family in FAMILIES and not cfg.is_moe
+    return cfg.family in FAMILIES
 
 
 def check_family(cfg: ModelConfig) -> None:
+    """Refuse a family the reference does not know (its ``segment_plan``
+    raises ``ValueError(cfg.family)``)."""
     if not runs_family(cfg):
-        raise NotImplementedError(
-            f"{cfg.name} is of the {cfg.family} family; the port runs the "
-            f"{', '.join(FAMILIES)} families yet (ROADMAP.md, Queue A 11: "
-            f"the LM stack's other families)")
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}; the "
+                         f"families are {', '.join(FAMILIES)}")
 
 
 def segment_plan(cfg: ModelConfig) -> List[Tuple[str, int]]:
     """(kind, n_layers) segments of the decoder stack."""
     check_family(cfg)
-    return [("dense", cfg.num_layers)]
+    if cfg.family not in SEGMENTED:
+        return [("dense", cfg.num_layers)]
+    plan, i = [], 0
+    if cfg.family == "ssm":                      # xLSTM: sLSTM every k-th
+        k = cfg.slstm_every or (cfg.num_layers + 1)
+        while i < cfg.num_layers:
+            n_m = min(k - 1, cfg.num_layers - i)
+            if n_m:
+                plan.append(("mlstm", n_m))
+                i += n_m
+            if i < cfg.num_layers:
+                plan.append(("slstm", 1))
+                i += 1
+        return plan
+    k = cfg.shared_attn_every or (cfg.num_layers + 1)   # zamba2: shared
+    while i < cfg.num_layers:                            # attn every k
+        n_m = min(k, cfg.num_layers - i)
+        plan.append(("mamba", n_m))
+        i += n_m
+        if i < cfg.num_layers:
+            plan.append(("shared_attn", 1))
+    return plan
+
+
+def has_shared_attn(cfg: ModelConfig) -> bool:
+    """Whether the model holds ``shared_attn`` (the reference builds it for
+    every hybrid config with ``shared_attn_every``, used or not)."""
+    return cfg.family == "hybrid" and bool(cfg.shared_attn_every)
 
 
 # ---------------------------------------------------------------------------
@@ -89,13 +135,15 @@ def _param_dict(tensors: Mapping[str, torch.Tensor]) -> nn.ParameterDict:
 class DenseBlock(nn.ModuleDict):
     """One decoder layer's weights: ``attn`` (wq, wk, wv, wo, and bq, bk,
     bv with ``qkv_bias``, q_norm and k_norm with ``qk_norm``), ``ln1``,
-    ``ln2`` and ``mlp`` (wi_gate, wi_up, wo; or wi, bi, wo, bo for gelu)."""
+    ``ln2`` and ``mlp`` (wi_gate, wi_up, wo; or wi, bi, wo, bo for gelu)
+    or, in a moe layer, ``moe`` (router, wi_gate, wi_up, wo)."""
 
     PARTS = ("attn", "ln1", "ln2", "mlp")
 
     def __init__(self, layer: Mapping[str, Mapping[str, torch.Tensor]]):
-        super().__init__({part: _param_dict(layer[part])
-                          for part in self.PARTS})
+        parts = ["moe" if part == "mlp" and "moe" in layer else part
+                 for part in self.PARTS]
+        super().__init__({part: _param_dict(layer[part]) for part in parts})
 
 
 class CrossBlock(DenseBlock):
@@ -121,22 +169,47 @@ class Encoder(nn.Module):
         self.final_norm = _param_dict(final_norm)
 
 
+class LayerParams(nn.Module):
+    """One mamba, mLSTM or sLSTM layer's weights in the reference's
+    layout: a tensor leaf a parameter (``in_proj``, ``A_log``, ``r``, ...),
+    a mapping leaf a ``ParameterDict`` (``ln``); ``p["in_proj"]`` and
+    ``p["ln"]["scale"]`` read as in the reference."""
+
+    def __init__(self, layer: Mapping[str, object]):
+        super().__init__()
+        for name, leaf in layer.items():
+            if isinstance(leaf, Mapping):
+                setattr(self, name, _param_dict(leaf))
+            else:
+                self.register_parameter(
+                    name, nn.Parameter(leaf, requires_grad=False))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+
 class LM(nn.Module):
     """The LM's weights, in the reference's pytree layout with each layer
-    stack split into ``blocks``: the decoder's (``CrossBlock``s for the
-    encdec family) and, for encdec, ``encoder`` and ``dec_pos``.  Build
+    stack split per layer: the decoder's ``blocks`` (``CrossBlock``s for
+    the encdec family) or, for ssm and hybrid, ``segments`` (one
+    ``nn.ModuleList`` of ``LayerParams`` per ``segment_plan`` segment,
+    empty for a shared-attention site) and the hybrid's ``shared_attn``;
+    for encdec, ``encoder`` and ``dec_pos``.  ``layers`` lists every
+    decoder layer in order (a shared-attention site takes none).  Build
     one with ``init_params`` (random, seeded) or
     ``repro_torch.convert.lm_params_from_numpy`` (the reference's values);
     it runs on the device its tensors lie on."""
 
     def __init__(self, cfg: ModelConfig, embed: torch.Tensor,
                  final_norm: Mapping[str, torch.Tensor],
-                 layers: List[Mapping[str, Mapping[str, torch.Tensor]]],
+                 layers: List[Mapping[str, object]],
                  lm_head: Optional[torch.Tensor] = None, *,
                  encoder: Optional[Encoder] = None,
-                 dec_pos: Optional[torch.Tensor] = None):
+                 dec_pos: Optional[torch.Tensor] = None,
+                 shared_attn: Optional[Mapping[str, Mapping[
+                     str, torch.Tensor]]] = None):
         super().__init__()
-        check_family(cfg)
+        plan = segment_plan(cfg)
         if len(layers) != cfg.num_layers:
             raise ValueError(f"{cfg.name} has {cfg.num_layers} layers, got "
                              f"{len(layers)}")
@@ -147,13 +220,28 @@ class LM(nn.Module):
         if (encoder is not None, dec_pos is not None) != (encdec, encdec):
             raise ValueError(f"{cfg.name}: an encoder and dec_pos are needed "
                              f"exactly for the encdec family")
+        if (shared_attn is not None) != has_shared_attn(cfg):
+            raise ValueError(f"{cfg.name}: shared_attn is needed exactly for "
+                             f"a hybrid config with shared_attn_every")
         self.cfg = cfg
         self.embed = nn.Parameter(embed, requires_grad=False)
         self.final_norm = _param_dict(final_norm)
         self.lm_head = (None if lm_head is None
                         else nn.Parameter(lm_head, requires_grad=False))
-        block = CrossBlock if encdec else DenseBlock
-        self.blocks = nn.ModuleList(block(layer) for layer in layers)
+        self.blocks = self.segments = None
+        if cfg.family in SEGMENTED:
+            segments, i = [], 0
+            for kind, n in plan:
+                n = 0 if kind == "shared_attn" else n
+                segments.append(nn.ModuleList(
+                    LayerParams(layer) for layer in layers[i:i + n]))
+                i += n
+            self.segments = nn.ModuleList(segments)
+        else:
+            block = CrossBlock if encdec else DenseBlock
+            self.blocks = nn.ModuleList(block(layer) for layer in layers)
+        self.shared_attn = (None if shared_attn is None
+                            else DenseBlock(shared_attn))
         self.encoder = encoder
         self.dec_pos = (None if dec_pos is None
                         else nn.Parameter(dec_pos, requires_grad=False))
@@ -173,9 +261,11 @@ def reference_rank(name: str, p: torch.Tensor) -> int:
     """The rank of the reference's leaf that holds ``LM`` parameter
     ``name``: the reference stacks each layer stack's leaves along a
     leading L axis, so a per-layer tensor (``blocks.<i>.*``,
-    ``encoder.blocks.<i>.*``) is one rank short of its reference leaf (a
-    norm scale of shape (d,) is the reference's (L, d))."""
-    stacked = name.startswith(("blocks.", "encoder.blocks."))
+    ``segments.<s>.<i>.*``, ``encoder.blocks.<i>.*``) is one rank short
+    of its reference leaf (a norm scale of shape (d,) is the reference's
+    (L, d); an sLSTM segment is a stack of one).  The hybrid's
+    ``shared_attn`` is not stacked."""
+    stacked = name.startswith(("blocks.", "segments.", "encoder.blocks."))
     return p.ndim + 1 if stacked else p.ndim
 
 
@@ -219,13 +309,75 @@ def _norm_params(cfg: ModelConfig, device) -> dict:
     return p
 
 
+def _moe_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    e, d, f, dt = cfg.num_experts, cfg.d_model, cfg.d_ff, _dtype(cfg)
+    return {"router": init_dense(gen, (d, e), dtype=torch.float32),
+            "wi_gate": init_dense(gen, (e, d, f), scale=d ** -0.5, dtype=dt),
+            "wi_up": init_dense(gen, (e, d, f), scale=d ** -0.5, dtype=dt),
+            "wo": init_dense(gen, (e, f, d), scale=f ** -0.5, dtype=dt)}
+
+
 def _layer_params(gen: torch.Generator, cfg: ModelConfig, device,
                   cross: bool = False) -> dict:
     p = {"attn": _attn_params(gen, cfg), "ln1": _norm_params(cfg, device),
-         "ln2": _norm_params(cfg, device), "mlp": _mlp_params(gen, cfg)}
+         "ln2": _norm_params(cfg, device)}
+    if cfg.is_moe:
+        p["moe"] = _moe_params(gen, cfg)
+    else:
+        p["mlp"] = _mlp_params(gen, cfg)
     if cross:
         p.update(cross=_attn_params(gen, cfg), ln3=_norm_params(cfg, device))
     return p
+
+
+def _mamba_layer_params(gen: torch.Generator, cfg: ModelConfig,
+                        device) -> dict:
+    d, di, s, nh = cfg.d_model, cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads
+    dt, f32 = _dtype(cfg), torch.float32
+    return {"in_proj": init_dense(gen, (d, 2 * di + 2 * s + nh), dtype=dt),
+            "conv_w": init_dense(gen, (cfg.ssm_conv, di + 2 * s), scale=0.5,
+                                 dtype=dt),
+            "A_log": torch.zeros(nh, dtype=f32, device=device),
+            "D": torch.ones(nh, dtype=f32, device=device),
+            "dt_bias": torch.zeros(nh, dtype=f32, device=device),
+            "norm": torch.ones(di, dtype=dt, device=device),
+            "out_proj": init_dense(gen, (di, d), dtype=dt),
+            "ln": _norm_params(cfg, device)}
+
+
+def _mlstm_layer_params(gen: torch.Generator, cfg: ModelConfig,
+                        device) -> dict:
+    d, h, hd, dt = cfg.d_model, cfg.num_heads, cfg.resolved_head_dim, \
+        _dtype(cfg)
+    return {"wq": init_dense(gen, (d, h * hd), dtype=dt),
+            "wk": init_dense(gen, (d, h * hd), dtype=dt),
+            "wv": init_dense(gen, (d, h * hd), dtype=dt),
+            "w_gates": init_dense(gen, (d, 2 * h), dtype=dt),
+            "w_ogate": init_dense(gen, (d, h * hd), dtype=dt),
+            "wo": init_dense(gen, (h * hd, d), dtype=dt),
+            "ln": _norm_params(cfg, device)}
+
+
+def _slstm_layer_params(gen: torch.Generator, cfg: ModelConfig,
+                        device) -> dict:
+    d, h, hd, dt = cfg.d_model, cfg.num_heads, cfg.resolved_head_dim, \
+        _dtype(cfg)
+    return {"w_in": init_dense(gen, (d, h * 4 * hd), dtype=dt),
+            "r": init_dense(gen, (h, hd, 4, hd), scale=hd ** -0.5, dtype=dt),
+            "wo": init_dense(gen, (h * hd, d), dtype=dt),
+            "ln": _norm_params(cfg, device)}
+
+
+def _shared_attn_params(gen: torch.Generator, cfg: ModelConfig,
+                        device) -> dict:
+    return {"attn": _attn_params(gen, cfg), "mlp": _mlp_params(gen, cfg),
+            "ln1": _norm_params(cfg, device),
+            "ln2": _norm_params(cfg, device)}
+
+
+_LAYER_BUILDERS = {"mamba": _mamba_layer_params,
+                   "mlstm": _mlstm_layer_params,
+                   "slstm": _slstm_layer_params}
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0,
@@ -233,7 +385,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     """Random weights from a ``torch.Generator`` seeded with ``seed``, drawn
     on ``device`` (default CUDA): the reference's shapes, scales and types,
     not its numbers."""
-    check_family(cfg)
+    plan = segment_plan(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -243,8 +395,15 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
                        dtype=dt)
     lm_head = None if cfg.tie_embeddings else init_dense(
         gen, (cfg.d_model, cfg.vocab_padded), dtype=dt)
-    layers = [_layer_params(gen, cfg, device, cross=encdec)
-              for _ in range(cfg.num_layers)]
+    if cfg.family in SEGMENTED:
+        layers = [_LAYER_BUILDERS[kind](gen, cfg, device)
+                  for kind, n in plan if kind != "shared_attn"
+                  for _ in range(n)]
+    else:
+        layers = [_layer_params(gen, cfg, device, cross=encdec)
+                  for _ in range(cfg.num_layers)]
+    shared = (_shared_attn_params(gen, cfg, device)
+              if has_shared_attn(cfg) else None)
     encoder = dec_pos = None
     if encdec:
         encoder = Encoder(
@@ -256,7 +415,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
         dec_pos = init_dense(gen, (DEC_POS_ROWS, cfg.d_model), scale=0.02,
                              dtype=dt)
     return LM(cfg, embed, _norm_params(cfg, device), layers, lm_head,
-              encoder=encoder, dec_pos=dec_pos)
+              encoder=encoder, dec_pos=dec_pos, shared_attn=shared)
 
 
 # ---------------------------------------------------------------------------
@@ -302,10 +461,100 @@ def _mlp(x, p, cfg: ModelConfig):
     return h @ p["wo"] + p["bo"]
 
 
+def _moe(h, p, cfg: ModelConfig):
+    """A moe layer's FFN on (B, S, D): expert-parallel under the ambient
+    mesh when the config asks for it and the mesh allows it, else
+    ``moe_ffn`` with the config's ``moe_impl`` (the aux loss dropped)."""
+    b, s, d = h.shape
+    if cfg.moe_impl == "ep":
+        out = moe_ffn_ep(h, p, num_experts=cfg.num_experts,
+                         k=cfg.experts_per_token,
+                         capacity_factor=cfg.capacity_factor)
+        if out is not None:
+            return out[0]
+    y, _aux = moe_ffn(h.reshape(b * s, d), p, num_experts=cfg.num_experts,
+                      k=cfg.experts_per_token, impl=cfg.moe_impl,
+                      capacity_factor=cfg.capacity_factor)
+    return y.reshape(b, s, d)
+
+
+def _ffn(h, p, cfg: ModelConfig):
+    """A dense-kind layer's FFN sublayer: the experts or the MLP."""
+    return _moe(h, p["moe"], cfg) if cfg.is_moe else _mlp(h, p["mlp"], cfg)
+
+
 def _dense_block(x, p, cfg: ModelConfig, positions, causal: bool = True):
     x = x + _self_attn(_norm_apply(x, p["ln1"], cfg), p["attn"], cfg,
                        positions, causal)
+    return x + _ffn(_norm_apply(x, p["ln2"], cfg), p, cfg)
+
+
+def _shared_attn_block(x, p, cfg: ModelConfig, positions):
+    """The hybrid's shared attention+MLP block (causal)."""
+    x = x + _self_attn(_norm_apply(x, p["ln1"], cfg), p["attn"], cfg,
+                       positions, causal=True)
     return x + _mlp(_norm_apply(x, p["ln2"], cfg), p["mlp"], cfg)
+
+
+def _mlstm_block(x, p, cfg: ModelConfig,
+                 state: Optional[ssm.SSDState] = None, decode: bool = False):
+    """mLSTM: linear attention with exp gates on the SSD core.
+
+    The value vector is augmented with a constant 1-channel carrying the
+    normalizer n_t; output h = (S q) / max(|n q|, 1).  Heads fold into the
+    batch (one head a row: B_t = k_t, C_t = q_t).  ``state``: (B*H, 1, hd,
+    hd + 1) f32."""
+    b, s, _ = x.shape
+    h, hd = cfg.num_heads, cfg.resolved_head_dim
+    xin = _norm_apply(x, p["ln"], cfg)
+    q = (xin @ p["wq"]).reshape(b, s, h, hd)
+    k = (xin @ p["wk"]).reshape(b, s, h, hd) * (hd ** -0.5)
+    v = (xin @ p["wv"]).reshape(b, s, h, hd)
+    gates = (xin @ p["w_gates"]).reshape(b, s, 2, h).float()
+    i_gate = torch.exp(torch.clamp(gates[:, :, 0], -10.0, 4.0))
+    log_f = F.logsigmoid(gates[:, :, 1])
+    v_aug = torch.cat([v, torch.ones_like(v[..., :1])], dim=-1)
+
+    def fold(t, chan):       # (B, S, H, ...) -> (B*H, S, ...)
+        return t.movedim(2, 1).reshape(b * h, s, *chan)
+
+    args = (fold(v_aug, (1, hd + 1)), fold(log_f[..., None], (1,)),
+            fold(i_gate[..., None], (1,)), fold(k, (hd,)), fold(q, (hd,)))
+    st = state if state is not None else ssm.SSDState(torch.zeros(
+        (b * h, 1, hd, hd + 1), dtype=torch.float32, device=x.device))
+    y, new_st = (ssm.ssd_decode_step(*args, st) if decode else
+                 ssm.ssd_chunked(*args, chunk=cfg.ssm_chunk, initial=st))
+    y = y.reshape(b, h, s, hd + 1)
+    num, den = y[..., :hd], y[..., hd]
+    out = num / torch.clamp(torch.abs(den), min=1.0)[..., None]
+    out = out.movedim(1, 2).reshape(b, s, h * hd).to(x.dtype)
+    o_gate = torch.sigmoid(xin @ p["w_ogate"])
+    return x + (out * o_gate) @ p["wo"], new_st
+
+
+def _slstm_block(x, p, cfg: ModelConfig,
+                 state: Optional[ssm.SLSTMState] = None):
+    b, s, _ = x.shape
+    h, hd = cfg.num_heads, cfg.resolved_head_dim
+    gates = (_norm_apply(x, p["ln"], cfg) @ p["w_in"]).reshape(b, s, h, 4, hd)
+    hseq, new_state = ssm.slstm_scan(gates, p["r"], state)
+    return x + hseq.reshape(b, s, h * hd) @ p["wo"], new_state
+
+
+def _mamba_block(x, p, cfg: ModelConfig,
+                 state: Optional[ssm.Mamba2State] = None,
+                 decode: bool = False):
+    y, new_state = ssm.mamba2_block(_norm_apply(x, p["ln"], cfg), p, cfg,
+                                    state, decode)
+    return x + y, new_state
+
+
+def _mamba_layer(x, p, cfg: ModelConfig, positions):
+    return _mamba_block(x, p, cfg)[0]
+
+
+def _mlstm_layer(x, p, cfg: ModelConfig, positions):
+    return _mlstm_block(x, p, cfg)[0]
 
 
 def _encoder_block(x, p, cfg: ModelConfig, positions):
@@ -409,6 +658,17 @@ def forward(params: LM, cfg: ModelConfig, tokens, *, audio_embeds=None,
         layer = _layer_fn(cfg, _cross_block)
         for block in params.blocks:
             x = layer(x, block, cfg, positions, enc_out)
+    elif cfg.family in SEGMENTED:
+        layers = {"mamba": _layer_fn(cfg, _mamba_layer),
+                  "mlstm": _layer_fn(cfg, _mlstm_layer)}
+        for (kind, _n), seg in zip(segment_plan(cfg), params.segments):
+            if kind in layers:
+                for lp in seg:
+                    x = layers[kind](x, lp, cfg, positions)
+            elif kind == "slstm":
+                x, _ = _slstm_block(x, seg[0], cfg)
+            else:                                   # shared_attn
+                x = _shared_attn_block(x, params.shared_attn, cfg, positions)
     else:
         layer = _layer_fn(cfg)
         for block in params.blocks:

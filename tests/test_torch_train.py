@@ -385,9 +385,12 @@ def test_serving_after_training_records_no_graph(ref_state):
                                atol=1e-5)
 
 
-def test_non_dense_arch_raises_naming_a11():
-    with pytest.raises(NotImplementedError, match="Queue A 11"):
-        train(TrainConfig(arch="olmoe_1b_7b", steps=1, device="cpu"))
+def test_train_takes_a_step_of_a_moe_config():
+    res = train(TrainConfig(arch="olmoe_1b_7b", steps=1, seq_len=8,
+                            global_batch=2, device="cpu"))
+    assert res.final_step == 1 and np.isfinite(res.losses[0])
+    assert int(res.opt_state.step) == 1
+    assert "blocks.0.moe.router" in dict(res.params.named_parameters())
 
 
 def test_cli_trains_on_the_cpu(capsys, tmp_path):
