@@ -138,9 +138,18 @@ Then the second path, the per-grid (de)hierarchization of
   kernels give the plain version's NaN / +Inf / -Inf masks;
 * hierarchize-then-dehierarchize round trips at real size: a 511^3 f64
   grid (1.07 GB) with ``pole``, ``matmul`` and ``auto`` (= ``fused``), and
-  a 16383 x 8191 f64 grid (levels (14, 13), 1.07 GB) with ``pole``; every
-  recorded kernel call held against its plain version on the same input,
-  and each round trip back to its input within 1e-12 of its largest value;
+  a 16383 x 8191 f64 grid (levels (14, 13), 1.07 GB) with ``pole`` (each
+  axis passed to rows 1 and 2 in place); every recorded kernel call held
+  against its plain version on the same input, and each round trip back
+  to its input within 1e-12 of its largest value;
+* rows 1 and 2 at every shape the port gives them, each axis in place:
+  the cube's bundle and its axes 1 and 2, the plane's axes 0 and 1, a
+  gradient codec bundle (255, 9638) in f32 and a single pole of 16383
+  points; bitwise their plain versions in f64 and f32 (row 1 with
+  ``reduced_op`` both ways), one launch a call, and timed by CUDA events
+  behind the sleep kernel (``events_ms``) beside the bound, the plain
+  version and one ``torch.matmul`` with the dense operator along the axis
+  (the ``events_by_shape`` keys of rows 1 and 2);
 * ``run_iterated_heat(3, 9, rounds=2, t_steps=4)`` (the ``prod_3d``
   scheme) with ``auto`` and with ``pole``, the card against the port on
   the CPU (rtol 1e-12), with its error against the exact solution.
@@ -375,8 +384,10 @@ same sums in no fixed order, which the port never calls);
 ``wrapper_ms`` and ``plain_wrapper_ms`` are CUDA events around the Python
 calls, host dispatch included.  The inverse rows are timed per
 ``ct_scatter`` at ``prod_3d`` and per call on the 511^3 cube (``cube_*``
-keys).  The per-grid kernels are timed per call on the 511^3 f64 grid
-(axis 0 for the bundle kernels, both tail axes for the fused tail), their
+keys; ``cube_events_ms`` by CUDA events behind the sleep kernel).  The
+per-grid kernels are timed per call on the 511^3 f64 grid (axis 0 for the
+bundle kernels, both tail axes for the fused tail; rows 1 and 2 by CUDA
+events behind the sleep kernel, the others by the profiler), their
 ``library_ms`` being one ``torch.matmul`` with the dense operator (one
 ``torch.einsum`` over both tail operators for the fused tail); their
 ``launches`` are those of the iterated round (``pole`` for the pole
@@ -447,6 +458,9 @@ TIMING_REPS = 20
 PROFILE_TRIES = 3                # profiler sessions before CUDA events
 CUBE = (9, 9, 9)                 # 511^3 f64: the paper's 1 GB data set
 PLANE = (14, 13)                 # 16383 x 8191 f64, 1.07 GB
+POLE_CODEC = (255, 9638)         # f32: a 960 x 2560 gradient leaf, level 8
+POLE_LONG = 14                   # a single pole of 2**14 - 1 points
+LIBRARY_MAX_BYTES = 4 << 30      # torch.matmul's dense operator, at most
 ITERATED = dict(rounds=2, t_steps=4)
 BF16_FLOP_PER_S = 989e12         # H100 SXM bf16 tensor cores, dense
 LM_ARCH = "smollm_360m"          # the dense LM, full width, bf16
@@ -2836,6 +2850,7 @@ def main() -> int:
         r["max_abs_err"] = err[r["name"]]
         r.update(cube_ms=device_ms(lambda: replay(call, acc),
                                    only="axis_pass_inv"),
+                 cube_events_ms=events_ms(lambda: replay(call, acc)),
                  cube_plain_ms=device_ms(lambda: replay(call, acc,
                                                         plain=True)),
                  cube_library_ms=device_ms(library),
@@ -2843,7 +2858,8 @@ def main() -> int:
                                 / HBM_BYTES_PER_S * 1e3),
                  cube_launches=cube_launches)
         print(f"{r['name']}: device {r['cube_ms']:.4f} ms per call on 511^3 "
-              f"f64 ({r['cube_launches']} launches, bitwise its plain "
+              f"f64 (events {r['cube_events_ms']:.4f} ms; "
+              f"{r['cube_launches']} launches, bitwise its plain "
               f"version), bound {r['cube_bound_ms']:.4f} ms; plain "
               f"{r['cube_plain_ms']:.4f} ms; library (einsum) "
               f"{r['cube_library_ms']:.4f} ms  [{card}]")
@@ -2892,7 +2908,12 @@ def main() -> int:
         if not e <= 1e-11 * float(lib.abs().max()):   # the same function?
             fail(f"the library call differs from {name} by {e}")
         del got, lib
-        ms = device_ms(kernel, only=op)
+        # Rows 1 and 2 by CUDA events: a profiler session over their calls
+        # has recorded fewer kernels than they launched (a device time
+        # below the byte bound).
+        timer = events_ms if name in POLE_KERNELS else device_ms
+        ms = events_ms(kernel) if name in POLE_KERNELS else \
+            device_ms(kernel, only=op)
         # The function's own bound, whatever the kernel's formulation: the
         # grid read once and written once, and the 3-term update (3 flops)
         # per point and axis.  The dense operators' flops are kept apart.
@@ -2904,10 +2925,10 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": it_launches[name],
             "max_abs_err": err[name], "ms": ms,
-            "plain_ms": device_ms(plain),
+            "plain_ms": timer(plain),
             "bound_ms": max(bytes_ms, flops_ms),
             "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
-            "library_ms": device_ms(library),
+            "library_ms": timer(library),
             "wrapper_ms": wall_ms(kernel), "plain_wrapper_ms": wall_ms(plain),
             "dense_flop_ms": (None if dense_flops is None
                               else dense_flops / FLOP_PER_S * 1e3)})
@@ -2922,7 +2943,8 @@ def main() -> int:
             dense += (f", the operator's {tiles.shape[0]} nonzero tiles "
                       f"over {axes} axes {slab_flops} flop "
                       f"{slab_flops / FLOP_PER_S * 1e3:.4f} ms")
-        print(f"{name}: device {ms:.4f} ms per call on 511^3 f64 "
+        print(f"{name}: {'events' if timer is events_ms else 'device'} "
+              f"{ms:.4f} ms per call on 511^3 f64 "
               f"({counted[name]} launches), "
               f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
               f"({2 * cube.numel() * item} B at 3.35 TB/s, {flops} flop at "
@@ -2931,6 +2953,91 @@ def main() -> int:
               f"{r['wrapper_ms']:.4f} ms, plain {r['plain_wrapper_ms']:.4f} "
               f"ms; launches in the iterated round {it_launches[name]}  "
               f"[{card}]")
+
+    # Rows 1 and 2 at every shape the port gives them, each axis in place:
+    # bitwise their plain versions in f64 and f32 (row 1 with reduced_op
+    # both ways), then timed by CUDA events behind the sleep kernel beside
+    # the bound (the grid read once and written once), the plain version
+    # and one torch.matmul with the dense operator along the axis.
+    def time_pole_row(name, label, x, axis):
+        """Row 1 or 2 (``name``) on ``x`` along ``axis``: one launch, the
+        library call checked against it, the ``events_by_shape`` entry."""
+        wrapper = getattr(H, name)
+        inverse = name == "dehier_pole"
+        outer, n, inner = H._view(x.shape, axis)
+        nbytes = 2 * x.numel() * x.element_size()
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        flops_ms = 3 * x.numel() / FLOP_PER_S * 1e3
+        with H.count_launches() as counted:
+            got = wrapper(x, axis=axis)
+        if counted[name] != 1:
+            fail(f"{name} made {counted[name]} launches on {label}")
+        op_bytes = n * n * x.element_size()
+        library_ms, note = None, (f"none: the dense operator takes "
+                                  f"{op_bytes} B, past {LIBRARY_MAX_BYTES}")
+        if op_bytes <= LIBRARY_MAX_BYTES:
+            h = H._operator(n.bit_length(), inverse, x.dtype, cuda)
+            if inner == 1:
+                library = lambda: torch.matmul(x.reshape(outer, n), h.T)
+            else:
+                library = lambda: torch.matmul(h, x.reshape(outer, n, inner))
+            e = max_err(library().reshape(x.shape), got)
+            tol = 1e-10 if x.dtype == torch.float64 else 1e-4
+            if not e <= tol * float(x.abs().max()):
+                fail(f"the library call differs from {name} on {label} by "
+                     f"{e}")
+            library_ms, note = events_ms(library), "torch.matmul"
+        del got
+        entry = {
+            "shape": list(x.shape), "axis": axis,
+            "dtype": str(x.dtype).removeprefix("torch."),
+            "view": [outer, n, inner], "launches": counted[name],
+            "ms": events_ms(lambda: wrapper(x, axis=axis)),
+            "plain_ms": events_ms(lambda: wrapper.plain(x, axis=axis)),
+            "bound_ms": max(bytes_ms, flops_ms),
+            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+            "library_ms": library_ms, "library": note}
+        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+        print(f"{name} on {label} {tuple(x.shape)} {entry['dtype']}, axis "
+              f"{axis} in place (view {outer} x {n} x {inner}): events "
+              f"{entry['ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms by "
+              f"{entry['bound_by']} ({nbytes} B at 3.35 TB/s), "
+              f"{entry['bound_ms'] / entry['ms']:.0%} of it; plain "
+              f"{entry['plain_ms']:.4f} ms; library ({note}) {lib}; "
+              f"bitwise its plain version in f64 and f32"
+              + ("" if inverse else " with reduced_op both ways")
+              + f"  [{card}]")
+        return entry
+
+    plane = randn(grid_shape(PLANE))
+    pole_shapes = {
+        "cube axis 0 (bundle)": (bundle, 0),
+        "cube axis 1": (cube, 1),
+        "cube axis 2": (cube, 2),
+        "plane axis 0": (plane, 0),
+        "plane axis 1": (plane, 1),
+        "codec bundle": (randn(POLE_CODEC, torch.float32), 0),
+        f"level-{POLE_LONG} pole": (randn(((1 << POLE_LONG) - 1, 1)), 0),
+    }
+    pole_rows = {r["name"]: r for r in rows if r["name"] in POLE_KERNELS}
+    for r in pole_rows.values():
+        r["events_by_shape"] = {}
+    for label, (x, axis) in pole_shapes.items():
+        for dtype in (torch.float64, torch.float32):
+            y = x.to(dtype)
+            for reduced_op in (True, False):
+                hold("hier_pole", H.hier_pole(y, reduced_op=reduced_op,
+                                              axis=axis),
+                     H.hier_pole.plain(y, reduced_op=reduced_op, axis=axis),
+                     f"{label} {dtype}")
+            hold("dehier_pole", H.dehier_pole(y, axis=axis),
+                 H.dehier_pole.plain(y, axis=axis), f"{label} {dtype}")
+            del y
+        for name, r in pole_rows.items():
+            r["events_by_shape"][label] = time_pole_row(name, label, x, axis)
+    for name, r in pole_rows.items():
+        r["max_abs_err"] = err[name]
+    del plane, pole_shapes, x
     # Rows 3 and 4 on non-finite input: the plain version's (the dense
     # products') NaN / +Inf / -Inf masks, the finite rest at the operator
     # tolerances; a fully non-finite input of each, timed

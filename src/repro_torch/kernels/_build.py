@@ -50,9 +50,9 @@ KERNELS: Dict[str, Dict[str, list]] = {
         for t in ("f32", "f64")},
     "owner_fold": {f"owner_fold_{t}": [_P, _P, _P, _I, _I, _P, _I, _P, _P]
                    for t in ("f32", "f64")},
-    "pole_fwd": {f"pole_fwd_{t}": [_P, _P, _I, _I, _I, _I, _P]
+    "pole_fwd": {f"pole_fwd_{t}": [_P, _P, _I, _I, _I, _I, _I, _P]
                  for t in ("f32", "f64")},
-    "pole_inv": {f"pole_inv_{t}": [_P, _P, _I, _I, _I, _P]
+    "pole_inv": {f"pole_inv_{t}": [_P, _P, _I, _I, _I, _I, _P]
                  for t in ("f32", "f64")},
     "axis_operator": {f"axis_operator_{t}": [_P] * 6 + [_I] * 4 + [_P]
                       for t in ("f32", "f64", "bf16")},

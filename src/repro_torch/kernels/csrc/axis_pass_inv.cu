@@ -40,30 +40,19 @@
 //     with one barrier between levels -- L <= 9 shared-memory steps for a
 //     511-long axis instead of 511 dependent global ones;
 //   * the tile is written back with the same coalesced mapping.
-// A column longer than one block's shared memory (n * sizeof(T) > 227 KB,
-// n > 29,056 in f64) takes the per-thread branch of the same kernel: one
-// thread walks one whole column's level loop in device memory.
+// The loader, the level loop and the store are pole_tile.cuh's, shared
+// with pole_inv.cu (this pass is its tile of whole poles, at each member's
+// own level).  A column longer than one block's shared memory (n *
+// sizeof(T) > 227 KB, n > 29,056 in f64) takes the per-thread branch of the
+// same kernel: one thread walks one whole column's level loop in device
+// memory.
 
-#include <algorithm>
-
-#include "hier3.cuh"
+#include "pole_tile.cuh"
 
 constexpr int64_t kTileBytes = 64 * 1024;      // a tile of whole rows
 constexpr int64_t kRunBytes = 256;             // a node's run in a tile
 constexpr int64_t kMaxTileBytes = 232448;      // 227 KB: one block's limit
 constexpr int kTileThreads = 512;
-
-template <typename T>
-__device__ __forceinline__ void copy_async(T* smem, const T* gmem) {
-  const unsigned int s = (unsigned int)__cvta_generic_to_shared(smem);
-  if constexpr (sizeof(T) == 8) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
-                 "l"(gmem));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-                 "l"(gmem));
-  }
-}
 
 // The per-thread branch: one thread owns one whole column and walks its
 // level loop in device memory, reading the parents back from the output it
@@ -113,7 +102,6 @@ __global__ void __launch_bounds__(kTileThreads)
   }
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* tile = reinterpret_cast<T*>(smem_raw);
-  const int tid = threadIdx.x, nthreads = blockDim.x;
 
   // Which tile: member g, outer positions [o0, o0 + no), inner [j0, j0 + nj).
   const int64_t jt = (inner + nj - 1) / nj;           // tiles across inner
@@ -121,77 +109,25 @@ __global__ void __launch_bounds__(kTileThreads)
   const int64_t g = int64_t(blockIdx.x) / per_member;
   const int64_t r = int64_t(blockIdx.x) - g * per_member;
   const int64_t o0 = r / jt * no, j0 = r % jt * nj;
-  const int no_eff = (int)min(int64_t(no), outer - o0);
-  const int nj_eff = (int)min(int64_t(nj), inner - j0);
-  const int nn = (int)n;
-  const int elems = no * nn * nj;
-  const int64_t base = ((g * outer + o0) * n) * inner + j0;
+  Tile t;
+  t.base = ((g * outer + o0) * n) * inner + j0;
+  t.n = n;
+  t.inner = inner;
+  t.no = no;
+  t.rows = t.rows_eff = (int)n;
+  t.nj = nj;
+  t.no_eff = (int)min(int64_t(no), outer - o0);
+  t.nj_eff = (int)min(int64_t(nj), inner - j0);
 
-  // Load: whole outer positions are one contiguous range; an inner range
-  // is nj contiguous values per node (nj a power of two).  Slots past the
-  // stack's edge are zero-filled and never stored.
-  if (nj == inner) {
-    const int valid = no_eff * nn * nj;
-    for (int e = tid; e < elems; e += nthreads) {
-      if (e < valid) copy_async(tile + e, a + base + e);
-      else tile[e] = T(0);
-    }
-  } else {                                  // nj is a power of two here
-    const int shift = __ffs(nj) - 1;
-    for (int e = tid; e < elems; e += nthreads) {
-      const int i = e >> shift, j = e & (nj - 1);
-      if (j < nj_eff) copy_async(tile + e, a + base + int64_t(i) * inner + j);
-      else tile[e] = T(0);
-    }
-  }
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  load_tile(tile, a, t);
+  copy_async_wait();
   __syncthreads();
-
-  // The level loop, coarse to fine, across the block: work item w is node
-  // t of column c at this level, columns fastest (n is odd, so neighbouring
-  // columns of an inner = 1 tile fall in different banks).
+  // The level loop on the member's head of 2**L - 1 nodes; the rows past
+  // it (the padding) stay as loaded.
   const int level = levels[g];
-  const int head = (1 << level) - 1;
-  const int ncols = no * nj;
-  // ncols is a power of two unless whole outer positions of an inner that
-  // is not one make the tile (small stacks only).
-  const bool pow2 = (ncols & (ncols - 1)) == 0;
-  const int cshift = __ffs(ncols) - 1;
-  const T half = T(0.5);
-  for (int lam = 2; lam <= level; ++lam) {
-    const int s = 1 << (level - lam);
-    const int work = (1 << (lam - 1)) * ncols;
-    for (int w = tid; w < work; w += nthreads) {
-      const int t = pow2 ? w >> cshift : w / ncols, c = w - t * ncols;
-      const int col = no == 1 ? c
-                      : nj == 1 ? c * nn
-                                : (c / nj) * nn * nj + c % nj;
-      const int i = s - 1 + 2 * s * t;
-      const int at = col + i * nj;
-      const T l = i >= s ? tile[at - s * nj] : T(0);
-      const T rr = i + s < head ? tile[at + s * nj] : T(0);
-      tile[at] = add_rn(tile[at], mul_rn(half, add_rn(l, rr)));
-    }
-    __syncthreads();
-  }
-
-  // Store with the load's mapping.
-  if (nj == inner) {
-    const int valid = no_eff * nn * nj;
-    for (int e = tid; e < valid; e += nthreads) out[base + e] = tile[e];
-  } else {
-    const int shift = __ffs(nj) - 1;
-    for (int e = tid; e < elems; e += nthreads) {
-      const int i = e >> shift, j = e & (nj - 1);
-      if (j < nj_eff) out[base + int64_t(i) * inner + j] = tile[e];
-    }
-  }
-}
-
-static int64_t floor_pow2(int64_t v) {
-  int64_t p = 1;
-  while (p * 2 <= v) p *= 2;
-  return p;
+  inverse_levels(tile, t, level, level - 2, (1 << level) - 1,
+                 (const T*)nullptr);
+  store_tile(tile, out, t);
 }
 
 template <typename T>

@@ -5,7 +5,8 @@ its plain PyTorch version beside it.
 Port of ``repro.kernels.hierarchize``.
 
 Per-grid wrappers (``kernels.ops`` dispatches to them), each transforming
-axis 0 of an ``(N, B)`` pole bundle or the tail axes of a d-dim grid:
+axis 0 of an ``(N, B)`` pole bundle, any one axis of a d-dim grid in place
+(the pole wrappers' ``axis``) or the tail axes of a d-dim grid:
 
 * ``hier_pole``        — ``hier_pole_pallas``: the paper's fine-to-coarse
   level loop, one ``pole_fwd`` launch (bitwise the reference);
@@ -1321,12 +1322,23 @@ def _nonfinite_state(x: torch.Tensor, strips: int) -> torch.Tensor:
     return state
 
 
-def _pole_plain(x: torch.Tensor, *, reduced_op: bool = True) -> torch.Tensor:
-    return ref.hierarchize_1d_ref(x, 0, reduced_op=reduced_op)
+def _pole_axis(x: torch.Tensor, axis: int) -> Tuple[int, int]:
+    """``(axis, level)`` of a pole pass along ``axis`` of ``x`` (a negative
+    axis counts from the end)."""
+    if not -x.ndim <= axis < x.ndim:
+        raise ValueError(f"axis {axis} is out of range for a grid of shape "
+                         f"{tuple(x.shape)}")
+    axis %= x.ndim
+    return axis, ref._level_of_length(x.shape[axis])
 
 
-def _dehier_pole_plain(a: torch.Tensor) -> torch.Tensor:
-    return ref.dehierarchize_1d_ref(a, 0)
+def _pole_plain(x: torch.Tensor, *, reduced_op: bool = True,
+                axis: int = 0) -> torch.Tensor:
+    return ref.hierarchize_1d_ref(x, axis, reduced_op=reduced_op)
+
+
+def _dehier_pole_plain(a: torch.Tensor, *, axis: int = 0) -> torch.Tensor:
+    return ref.dehierarchize_1d_ref(a, axis)
 
 
 def _contract(x: torch.Tensor, axis: int, inverse: bool) -> torch.Tensor:
@@ -1352,41 +1364,46 @@ def _fused_tail_plain(x: torch.Tensor, *,
     return y.to(x.dtype)
 
 
-def hier_pole(x: torch.Tensor, *, reduced_op: bool = True) -> torch.Tensor:
-    """Hierarchize along axis 0 of an (N, B) pole bundle, N = 2**l - 1: the
-    paper's fine-to-coarse level loop.  ``reduced_op=False`` spells the
-    update ``odd - 0.5*l - 0.5*r`` (the paper's ablation).  On CUDA: one
-    ``pole_fwd`` launch, one thread per pole, into a fresh buffer; bitwise
-    the plain version."""
-    _record(hier_pole, x=x, reduced_op=reduced_op)
-    level = _bundle_level(x)
+def hier_pole(x: torch.Tensor, *, reduced_op: bool = True,
+              axis: int = 0) -> torch.Tensor:
+    """Hierarchize along ``axis`` of a grid, N = 2**l - 1 points along it
+    (by default axis 0 of an (N, B) pole bundle): the paper's fine-to-coarse
+    level loop.  ``reduced_op=False`` spells the update ``odd - 0.5*l -
+    0.5*r`` (the paper's ablation).  On CUDA: one ``pole_fwd`` launch over
+    the (outer, N, inner) view of the grid, so that any axis is passed in
+    place (a strided grid is made contiguous first), into a fresh buffer;
+    bitwise the plain version."""
+    _record(hier_pole, x=x, reduced_op=reduced_op, axis=axis)
+    axis, level = _pole_axis(x, axis)
     if level == 1:
         return x
     if x.device.type == "cpu":
-        return _pole_plain(x, reduced_op=reduced_op)
+        return _pole_plain(x, reduced_op=reduced_op, axis=axis)
     x = _check_stack(x)
     out = torch.empty_like(x)
     _raise_on(_build.kernel("pole_fwd", _DTYPE_TAG[x.dtype])(
-        x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], level,
+        x.data_ptr(), out.data_ptr(), *_view(x.shape, axis), level,
         int(reduced_op), _stream(x)), "pole_fwd")
     hier_pole.launches += 1
     return out
 
 
-def dehier_pole(a: torch.Tensor) -> torch.Tensor:
-    """Dehierarchize along axis 0 of an (N, B) pole bundle: the
-    coarse-to-fine level loop, the inverse of ``hier_pole``.  On CUDA: one
-    ``pole_inv`` launch into a fresh buffer; bitwise the plain version."""
-    _record(dehier_pole, a=a)
-    level = _bundle_level(a)
+def dehier_pole(a: torch.Tensor, *, axis: int = 0) -> torch.Tensor:
+    """Dehierarchize along ``axis`` of a grid (by default axis 0 of an (N,
+    B) pole bundle): the coarse-to-fine level loop, the inverse of
+    ``hier_pole``.  On CUDA: one ``pole_inv`` launch over the (outer, N,
+    inner) view, the axis passed in place, into a fresh buffer; bitwise the
+    plain version."""
+    _record(dehier_pole, a=a, axis=axis)
+    axis, level = _pole_axis(a, axis)
     if level == 1:
         return a
     if a.device.type == "cpu":
-        return _dehier_pole_plain(a)
+        return _dehier_pole_plain(a, axis=axis)
     a = _check_stack(a)
     out = torch.empty_like(a)
     _raise_on(_build.kernel("pole_inv", _DTYPE_TAG[a.dtype])(
-        a.data_ptr(), out.data_ptr(), a.shape[0], a.shape[1], level,
+        a.data_ptr(), out.data_ptr(), *_view(a.shape, axis), level,
         _stream(a)), "pole_inv")
     dehier_pole.launches += 1
     return out

@@ -6,7 +6,8 @@ Port of ``repro.kernels.ops``.  ``method``:
                    use only, runs on the host)
   * ``"ref"``    — torch unrolled level loop (`Ind` layout analog)
   * ``"gather"`` — one-shot linear-operator gather (torch)
-  * ``"pole"``   — the pole kernels (paper-faithful level loop per pole)
+  * ``"pole"``   — the pole kernels (paper-faithful level loop per pole),
+                   every axis passed in place
   * ``"matmul"`` — the per-axis dense operator kernel
   * ``"fused"``  — the fused tail kernel, then the axis-0 operator kernel
   * ``"auto"``   — ``"fused"`` when every axis has at most 2047 points,
@@ -33,14 +34,22 @@ __all__ = ["hierarchize", "dehierarchize"]
 
 
 def _per_axis(x: torch.Tensor, fn) -> torch.Tensor:
-    """Apply the pole-bundle transform ``fn`` along every axis in turn:
-    the axis is moved to the front and the others flattened onto columns."""
+    """Apply the 1-D transform ``fn(x, axis)`` along every axis in turn."""
     for axis in range(x.ndim):
+        x = fn(x, axis)
+    return x
+
+
+def _bundled(fn):
+    """``fn`` on an (N, B) bundle made a transform along any axis: the
+    axis is moved to the front and the others flattened onto columns (a
+    copy for every axis but the first).  Row 3's kernel takes a bundle."""
+    def along(x: torch.Tensor, axis: int) -> torch.Tensor:
         moved = torch.movedim(x, axis, 0)
         shape = moved.shape
         flat = fn(moved.reshape(shape[0], -1))
-        x = torch.movedim(flat.reshape(shape), 0, axis)
-    return x
+        return torch.movedim(flat.reshape(shape), 0, axis)
+    return along
 
 
 def _auto(x: torch.Tensor) -> str:
@@ -68,9 +77,10 @@ def hierarchize(x: torch.Tensor, method: str = "auto", *,
             x = ref.hierarchize_1d_gather(x, axis)
         return x
     if method == "pole":
-        return _per_axis(x, lambda f: hk.hier_pole(f, reduced_op=reduced_op))
+        return _per_axis(x, lambda y, axis: hk.hier_pole(
+            y, reduced_op=reduced_op, axis=axis))
     if method == "matmul":
-        return _per_axis(x, hk.apply_axis_matmul)
+        return _per_axis(x, _bundled(hk.apply_axis_matmul))
     if method == "fused":
         return hk.hierarchize_nd_fused(x)
     raise ValueError(f"unknown method {method!r}")
@@ -85,9 +95,10 @@ def dehierarchize(a: torch.Tensor, method: str = "auto") -> torch.Tensor:
     if method == "ref":
         return ref.dehierarchize_nd_ref(a)
     if method == "pole":
-        return _per_axis(a, hk.dehier_pole)
+        return _per_axis(a, lambda y, axis: hk.dehier_pole(y, axis=axis))
     if method == "matmul":
-        return _per_axis(a, lambda f: hk.apply_axis_matmul(f, inverse=True))
+        return _per_axis(a, _bundled(
+            lambda f: hk.apply_axis_matmul(f, inverse=True)))
     if method == "fused":
         return hk.dehierarchize_nd_fused(a)
     raise ValueError(f"unknown method {method!r}")

@@ -37,19 +37,27 @@ def _pole_shape(n: int, level: int) -> Tuple[int, int]:
 
 
 def hier_encode(g: torch.Tensor, level: int = 8) -> torch.Tensor:
-    """Flatten -> (2**level - 1, cols) pole bundle -> hierarchize axis 0."""
+    """Flatten -> (2**level - 1, cols) pole bundle -> hierarchize axis 0.
+
+    The bundle is the transpose of the padded (cols, 2**level - 1) buffer,
+    which is hierarchized along its last axis in place; the result is its
+    transposed view."""
     flat = g.reshape(-1).float()
     pole, cols = _pole_shape(flat.numel(), level)
-    buf = F.pad(flat, (0, pole * cols - flat.numel())).reshape(cols, pole).T
-    return hier_pole(buf)
+    buf = F.pad(flat, (0, pole * cols - flat.numel())).reshape(cols, pole)
+    return hier_pole(buf, axis=1).T
 
 
 def hier_decode(alpha: torch.Tensor, shape, dtype) -> torch.Tensor:
-    buf = dehier_pole(alpha)
+    """The inverse of ``hier_encode`` on a (2**level - 1, cols) bundle,
+    dehierarchized along the last axis of its (cols, 2**level - 1)
+    transpose (in place where that is contiguous, as ``hier_encode``'s
+    result and elementwise products of it are)."""
+    buf = dehier_pole(alpha.T, axis=1)
     n = 1
     for d in shape:
         n *= int(d)
-    return buf.T.reshape(-1)[:n].reshape(tuple(shape)).to(dtype)
+    return buf.reshape(-1)[:n].reshape(tuple(shape)).to(dtype)
 
 
 def int8_encode(g: torch.Tensor):

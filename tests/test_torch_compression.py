@@ -44,14 +44,21 @@ def test_hier_codec_exactly_invertible(seed, level):
 
 
 def test_hier_codec_runs_rows_1_and_2():
-    """Encode is one ``hier_pole`` call on the (2**level - 1, cols)
-    bundle, decode one ``dehier_pole`` call."""
+    """Encode is one ``hier_pole`` call along the last axis of the
+    contiguous (cols, 2**level - 1) buffer, the transpose of the (2**level
+    - 1, cols) bundle (its axis passed in place), decode one
+    ``dehier_pole`` call along the same axis."""
     g = torch.from_numpy(np.random.default_rng(5).standard_normal(
         1000).astype(np.float32))
     with H.record_calls() as calls:
-        back = hier_decode(hier_encode(g, 6), g.shape, torch.float32)
+        alpha = hier_encode(g, 6)
+        back = hier_decode(alpha, g.shape, torch.float32)
     assert [c[0] for c in calls] == [H.hier_pole, H.dehier_pole]
-    assert tuple(calls[0][1]["x"].shape) == (63, 16)
+    assert tuple(alpha.shape) == (63, 16)
+    for _, args in calls:
+        x = args.get("x", args.get("a"))
+        assert tuple(x.shape) == (16, 63) and x.is_contiguous()
+        assert args["axis"] == 1
     np.testing.assert_allclose(back.numpy(), g.numpy(), rtol=1e-4, atol=1e-5)
 
 

@@ -481,14 +481,69 @@ def _bundle(level, cols, seed):
         ((1 << level) - 1, cols)))
 
 
+#: Long poles (levels 13-15) with few columns: the pole kernels split them
+#: into spans over many blocks.
+LONG_POLES = [(level, cols) for level in (13, 14, 15) for cols in (1, 3, 8)]
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("level,cols", BUNDLES)
+@pytest.mark.parametrize("level,cols", BUNDLES + LONG_POLES)
 def test_pole_kernels_match_plain(cuda, dtype, level, cols):
     x = _bundle(level, cols, 11).to(dtype)
     for reduced_op in (True, False):
         got = H.hier_pole(x.to(cuda), reduced_op=reduced_op)
         assert _same(got, H.hier_pole.plain(x, reduced_op=reduced_op))
     assert _same(H.dehier_pole(x.to(cuda)), H.dehier_pole.plain(x))
+
+
+def _same_on_card(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bitwise equality of two tensors on the card, compared there."""
+    bits = {torch.float64: torch.int64, torch.float32: torch.int32}
+    a, b = a.contiguous(), b.contiguous()
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.view(bits[a.dtype]), b.view(bits[b.dtype]))
+
+
+#: Every axis of the 511^3 cube and of the 16383 x 8191 plane (1.07 GB in
+#: f64), and of small grids, passed in place.
+POLE_VIEWS = [((511, 511, 511), 0), ((511, 511, 511), 1),
+              ((511, 511, 511), 2), ((16383, 8191), 0), ((16383, 8191), 1),
+              ((15, 7, 31), 1), ((7, 3, 15), 2), ((3, 255, 5), 1)]
+
+
+@pytest.mark.parametrize("shape,axis", POLE_VIEWS, ids=str)
+def test_pole_kernels_in_place_axis(cuda, shape, axis):
+    x = torch.from_numpy(np.random.default_rng(21).standard_normal(
+        shape)).to(cuda)
+    for dtype in DTYPES:
+        y = x.to(dtype)
+        for reduced_op in (True, False):
+            with H.count_launches() as n:
+                got = H.hier_pole(y, reduced_op=reduced_op, axis=axis)
+            assert n["hier_pole"] == 1
+            assert _same_on_card(got, H.hier_pole.plain(
+                y, reduced_op=reduced_op, axis=axis))
+            del got
+        assert _same_on_card(H.dehier_pole(y, axis=axis),
+                             H.dehier_pole.plain(y, axis=axis))
+        del y
+
+
+def test_pole_kernels_take_strided_grids_and_refuse_bf16(cuda):
+    """A strided grid is made contiguous first (as before the kernels took
+    an axis in place); a type the kernels lack raises."""
+    x = torch.from_numpy(np.random.default_rng(22).standard_normal(
+        (31, 63))).to(cuda).T
+    assert not x.is_contiguous()
+    for axis in (0, 1, -1):
+        assert _same(H.hier_pole(x, axis=axis),
+                     H.hier_pole.plain(x.cpu(), axis=axis))
+        assert _same(H.dehier_pole(x, axis=axis),
+                     H.dehier_pole.plain(x.cpu(), axis=axis))
+    with pytest.raises(TypeError, match="f32 or f64|float32 or float64"):
+        H.hier_pole(x.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="out of range"):
+        H.dehier_pole(x, axis=2)
 
 
 @pytest.mark.parametrize("inverse", [False, True])
