@@ -382,7 +382,12 @@ and accumulator read once and the slot written once, its ``library_ms``
 one ``index_add_`` a slab over the concatenated ``ship_idx[s]`` (the
 same sums in no fixed order, which the port never calls);
 ``wrapper_ms`` and ``plain_wrapper_ms`` are CUDA events around the Python
-calls, host dispatch included.  The inverse rows are timed per
+calls, host dispatch included.  Rows 9, 11 and 12 are timed by CUDA events
+behind the sleep kernel (their ``ms`` and ``plain_ms``; the profiler's
+time, which can lose launches, as ``profiler_ms``), and so is an empty
+kernel of this repository (``csrc/launch_floor.cu``): its time is printed
+as the launch floor beside rows 5, 7, 9, 11 and 12 and kept in their
+``launch_floor_ms``.  The inverse rows are timed per
 ``ct_scatter`` at ``prod_3d`` and per call on the 511^3 cube (``cube_*``
 keys; ``cube_events_ms`` by CUDA events behind the sleep kernel).  The
 per-grid kernels are timed per call on the 511^3 f64 grid (axis 0 for the
@@ -422,8 +427,13 @@ printed as such).  It prints how many sessions came back empty.
 The ingest is timed warm through ``engine.update`` and
 ``CTSurrogate.update`` (median of ``ENGINE_UPDATES``) and profiled, the
 fine grid's fill reported beside the device busy time that holds it; the
-assembly's row times its recorded call against the present copy loop (its
-plain version).  It prints the card's name and power limit, the kernels'
+script fails if an ``engine.update`` makes more than ``INGEST_DEVICE_OPS``
+= 5 device ops (the fill, the assembly, the grouped forward, the scatter's
+two: the wrappers' launch counts plus the fills its profile shows) or its
+profile shows more kinds of op than that, or any host-to-device copy.  The assembly's row times its recorded
+call against the present copy loop (its plain version); its profile may
+hold nothing but ``assemble_members`` (no copy of a work table).  It
+prints the card's name and power limit, the kernels'
 ``-Xptxas -v`` report, the timings, a ``{"kernels": [...]}`` JSON line
 (fourteen rows: the ten of ``PERF.md``'s table in its order, row 10's
 forward with its log-sum-exp and its backward, then the assembly and the
@@ -455,6 +465,9 @@ FLOP_PER_S = 67e12               # H100 SXM f64 (tensor core) and f32 peak
 LONG = (2, 15)                   # long-axis stacks: (G, 32767, 1), (G, 255, 255)
 QUERY_BATCH, QUERY_BATCHES, CHECK_POINTS = 1024, 3, 16
 TIMING_REPS = 20
+#: Device ops of one warm prod_3d ``engine.update``: the fine grid's fill,
+#: the assembly, the grouped forward and the grouped scatter's two launches.
+INGEST_DEVICE_OPS = 5
 PROFILE_TRIES = 3                # profiler sessions before CUDA events
 CUBE = (9, 9, 9)                 # 511^3 f64: the paper's 1 GB data set
 PLANE = (14, 13)                 # 16383 x 8191 f64, 1.07 GB
@@ -1066,6 +1079,7 @@ def main() -> int:
         return (time.perf_counter() - t0) * 1e3 / reps
 
     sessions = {"all": 0, "empty": 0, "short": 0}
+    last_report: dict = {}
 
     def traced(fn):
         """``fn`` once under the profiler, ending in a synchronise:
@@ -1102,6 +1116,7 @@ def main() -> int:
                  if "fill" in k.lower() or "memset" in k.lower()]
         fill_us = sum(t for _, t in fills) / calls
         wall, busy = wall_us / calls, busy_us / calls
+        last_report.update(ops=len(spans) / calls, names=set(by_name))
         top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:7]
         print(f"profile {label}: wall {wall / 1e3:.4f} ms, device busy "
               f"{busy / 1e3:.4f} ms (idle share {1.0 - busy / wall:.4f}), "
@@ -2648,20 +2663,30 @@ def main() -> int:
                         for spec, operands in dense]
 
     def timed_row(name, source, replaces, kernel, plain, library, counted,
-                  nbytes, per, calls, launches_per, only):
-        ms = device_ms(kernel, only=only)
+                  nbytes, per, calls, launches_per, only, events=False):
+        """A row of the kernels line.  ``events``: ``ms`` and ``plain_ms``
+        by CUDA events behind the sleep kernel, the profiler's time (whose
+        sessions may lose launches; ``only`` still checks what ran) as
+        ``profiler_ms``."""
+        profiler_ms = device_ms(kernel, only=only)
+        ms = events_ms(kernel) if events else profiler_ms
         library_ms = None if library is None else device_ms(library)
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": counted,
             "max_abs_err": err[name], "ms": ms,
-            "plain_ms": device_ms(plain),
+            "plain_ms": events_ms(plain) if events else device_ms(plain),
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "library_ms": library_ms,
             "wrapper_ms": wall_ms(kernel), "plain_wrapper_ms": wall_ms(plain)})
         r = rows[-1]
+        if events:
+            r["profiler_ms"] = profiler_ms
         print(f"{name}: device {ms:.4f} ms per {per} ({calls} calls, "
-              f"{launches_per} launches), bound {r['bound_ms']:.6f} "
+              f"{launches_per} launches"
+              + (f"; events, the profiler {profiler_ms:.4f} ms"
+                 if events else "")
+              + f"), bound {r['bound_ms']:.6f} "
               f"ms ({nbytes} B at 3.35 TB/s); plain {r['plain_ms']:.4f} ms; "
               f"library (einsum) {library_ms} ms; with host dispatch: "
               f"kernel {r['wrapper_ms']:.4f} ms, plain "
@@ -2716,7 +2741,7 @@ def main() -> int:
                      lambda: replay(scatter_call, acc, plain=True), None,
                      launches["hier_scatter_grouped"], row9_bytes,
                      "ingest", 1, launches["hier_scatter_grouped"] // 2,
-                     "scatter_")
+                     "scatter_", events=True)
 
     def on_fresh(calls, plain=False):
         """The recorded sharded calls (``kernel_calls``) replayed on zero
@@ -2731,13 +2756,15 @@ def main() -> int:
     # single-device call, so the same bound
     slab_run, slab_plain = on_fresh(slab_calls), on_fresh(slab_calls, True)
     row9.update({
-        "slab_ms": device_ms(slab_run, only="scatter_"),
-        "slab_plain_ms": device_ms(slab_plain),
+        "slab_ms": events_ms(slab_run),
+        "slab_profiler_ms": device_ms(slab_run, only="scatter_"),
+        "slab_plain_ms": events_ms(slab_plain),
         "slab_wrapper_ms": wall_ms(slab_run),
         "slab_launches": shard_launches["1-D fused"]["hier_scatter_grouped"],
         "slab_bound_ms": row9_bytes / HBM_BYTES_PER_S * 1e3,
         "slabs": len(slab_calls)})
     print(f"hier_scatter_grouped slab-local: device {row9['slab_ms']:.4f} ms "
+          f"by events (the profiler {row9['slab_profiler_ms']:.4f} ms) "
           f"per sharded ingest ({len(slab_calls)} calls, one a slab, "
           f"{row9['slab_launches']} launches), bound "
           f"{row9['slab_bound_ms']:.6f} ms; plain "
@@ -2752,7 +2779,8 @@ def main() -> int:
     n_entries = sum(len(a["table"].entries) for _, a, _ in fold_calls)
     n_owners = sum(a["table"].owners for _, a, _ in fold_calls)
     fold_bytes = n_entries * (item + 4) + n_owners * (4 + 8 + 2 * item)
-    ms = device_ms(fold_run, only="owner_fold")
+    fold_profiler_ms = device_ms(fold_run, only="owner_fold")
+    ms = events_ms(fold_run)
     # The library call: one index_add_ a slab over the concatenated
     # ship_idx[s] (pad positions onto the dump slot), the same per-slot
     # sums in no fixed order; timed here only, the port never calls it
@@ -2785,13 +2813,15 @@ def main() -> int:
         "replaces": "src/repro/core/distributed.py:476",
         "launches": shard_launches["2-D"]["owner_fold"],
         "max_abs_err": err.get("owner_fold", 0.0), "ms": ms,
-        "plain_ms": device_ms(fold_plain),
+        "profiler_ms": fold_profiler_ms,
+        "plain_ms": events_ms(fold_plain),
         "bound_ms": fold_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": fold_library_ms,
         "wrapper_ms": wall_ms(fold_run), "plain_wrapper_ms": wall_ms(
             fold_plain)})
     r = rows[-1]
-    print(f"owner_fold: device {ms:.4f} ms per 2-D ingest "
+    print(f"owner_fold: device {ms:.4f} ms per 2-D ingest by events (the "
+          f"profiler {fold_profiler_ms:.4f} ms) "
           f"({len(fold_calls)} calls, one a slab, {r['launches']} launches, "
           f"{n_entries} of {n_values} shipped values onto {n_owners} "
           f"slots, the rest pad), bound {r['bound_ms']:.6f} ms "
@@ -2808,11 +2838,33 @@ def main() -> int:
     asm_call, = [c for c in main_calls if c[0].__name__ == "assemble_grouped"]
     asm_in = sum(p.numel() for p in asm_call[1]["parts"])
     asm_out = replay(asm_call, acc).numel()
-    timed_row("assemble_grouped", *KERNELS["assemble_grouped"],
-              lambda: replay(asm_call, acc),
-              lambda: replay(asm_call, acc, plain=True), None,
-              launches["assemble_grouped"], (asm_in + asm_out) * item,
-              "ingest", 1, 1, ("assemble_members", "Memcpy"))
+    asm_row = timed_row("assemble_grouped", *KERNELS["assemble_grouped"],
+                        lambda: replay(asm_call, acc),
+                        lambda: replay(asm_call, acc, plain=True), None,
+                        launches["assemble_grouped"], (asm_in + asm_out) * item,
+                        "ingest", 1, 1, "assemble_members", events=True)
+    # the same call with every member a strided view, read in place
+    asm_strided = strided(asm_call)
+    asm_row["strided_ms"] = events_ms(lambda: replay(asm_strided, acc))
+    asm_row["strided_wrapper_ms"] = wall_ms(lambda: replay(asm_strided, acc))
+    print(f"assemble_grouped on strided members (each read in place): "
+          f"device {asm_row['strided_ms']:.4f} ms by events, with host "
+          f"dispatch {asm_row['strided_wrapper_ms']:.4f} ms  [{card}]")
+    # The launch floor: an empty kernel of this repository, timed as rows
+    # 9, 11 and 12 are
+    floor = _build.kernel("launch_floor", "empty")
+    floor_ms = events_ms(lambda: H._raise_on(
+        floor(torch.cuda.current_stream().cuda_stream), "launch_floor"))
+    for r in rows:
+        if r["name"] in ("hier_forward_grouped:tail",
+                         "hier_forward_grouped:axis0", "hier_scatter_grouped",
+                         "assemble_grouped", "owner_fold"):
+            r["launch_floor_ms"] = floor_ms
+    print(f"launch floor: an empty kernel {floor_ms:.4f} ms a launch by "
+          f"events behind the sleep kernel; rows 5 and 7 (one shared "
+          f"launch) {ingest_fwd_ms:.4f} ms (profiler), row 9 (two "
+          f"launches) {row9['ms']:.4f}, row 11 (one) {asm_row['ms']:.4f}, "
+          f"row 12 (two) {ms:.4f} ms by events  [{card}]")
     # Rows 6 and 8 per prod_3d ct_scatter: the per-bucket inverse calls
     for name, (source, replaces) in SCATTER_KERNELS.items():
         mine = [c for c in scatter_calls if c[0].__name__ == name]
@@ -4708,6 +4760,27 @@ def main() -> int:
                       for k, v in update_ms.items()) + f"  [{card}]")
     profiled_steps("prod_3d ingest (engine.update)",
                    lambda: engine.update("bump", grids))
+    # The gate: an update's kernel launches by the wrappers' counts plus
+    # the fine grid's fills among the profiled kinds (the profiler's
+    # sessions lose ops, so it is not trusted to count them), and no copy
+    # among the kinds it saw
+    with H.count_launches() as made:
+        engine.update("bump", grids)
+    torch.cuda.synchronize()
+    made = {k: v for k, v in made.items() if v}
+    kinds = sorted(last_report["names"])
+    copies = [n for n in kinds if "memcpy" in n.lower()]
+    fills = [n for n in kinds if "fill" in n.lower()]
+    ingest_ops = sum(made.values()) + len(fills)
+    if ingest_ops > INGEST_DEVICE_OPS or len(kinds) > INGEST_DEVICE_OPS \
+            or copies:
+        fail(f"a prod_3d engine.update made {ingest_ops} device ops "
+             f"(launches {made}, {len(fills)} fill), of {len(kinds)} kinds "
+             f"{kinds}: at most {INGEST_DEVICE_OPS} and no copy expected")
+    print(f"prod_3d engine.update: {ingest_ops} device ops a call (launches "
+          f"{made} and {len(fills)} fill; at most {INGEST_DEVICE_OPS}), "
+          f"{len(kinds)} kinds in its profile, no host-to-device copy: "
+          f"{kinds}  [{card}]")
     profiled_steps("prod_3d ingest (CTSurrogate.update)",
                    lambda: srv.update(grids))
     pair = [points[1].numpy()] * 2

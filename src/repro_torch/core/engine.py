@@ -151,7 +151,7 @@ from repro_torch.core.executor import (ExecutorPlan, MergeConfig,
                                        reset_legacy_warnings, shard_plan)
 from repro_torch.core.mesh import mesh_axes
 from repro_torch.core.interpolation import interpolate_hierarchical
-from repro_torch.core.levels import SchemeLike
+from repro_torch.core.levels import SchemeLike, grid_shape
 from repro_torch.kernels.hierarchize import storage_released
 from repro_torch.runtime.durability import DurableStore, RetryPolicy
 
@@ -390,7 +390,9 @@ class _IngestExecutable:
     signature determines — the passes, the assembly's layout, the fused
     flag and, for a sharded plan, the mesh and its axes — and, per device
     it ran on, the grouped forward launch's work table
-    (``kernels.hierarchize._grouped_table``) and the assembly's layout."""
+    (``kernels.hierarchize._grouped_table``) and, on a card, the assembly's
+    device table for the plan's member shapes (``_assembly_table``; its
+    layout on the CPU)."""
 
     def __init__(self, plan, spec: ExecSpec):
         base = _base(plan, "CTEngine.register")
@@ -401,6 +403,8 @@ class _IngestExecutable:
                 "...)) to execute; n_slabs alone only shapes the plan")
         self.stacks = _pass_specs(base)[0]
         self.layout = tuple((b.shape, b.perms) for b in base.buckets)
+        self.shapes = tuple(grid_shape(ell) for b in base.buckets
+                            for ell in b.ells)
         self.fused = spec.fused is not False
         self.mesh, self.axis_name = spec.mesh, spec.axis_name
         self.member_axis = spec.member_axis \
@@ -410,13 +414,16 @@ class _IngestExecutable:
 
     def _tables(self, device: torch.device) -> None:
         from repro_torch.kernels.hierarchize import (_assembly_layout,
+                                                     _assembly_table,
                                                      _grouped_table)
         with self._lock:
             if device in self._on:
                 return
-        tables = (_assembly_layout(self.layout),
+        cuda = device.type == "cuda"
+        tables = (_assembly_table(self.layout, self.shapes, device) if cuda
+                  else _assembly_layout(self.layout),
                   _grouped_table(self.stacks, device) if self.fused
-                  and device.type == "cuda" else None)
+                  and cuda else None)
         with self._lock:
             self._on.setdefault(device, tables)
 

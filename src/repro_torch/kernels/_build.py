@@ -36,8 +36,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int64
 
 #: C entry points of each source: name -> argtypes.
 KERNELS: Dict[str, Dict[str, list]] = {
-    "assemble_members": {f"assemble_members_{t}": [_P, _I, _I, _P, _P]
-                         for t in ("f32", "f64")},
+    "assemble_members": {
+        f"assemble_members_{t}": [_P, _I, _P, _P, _I, _P, _P, _I, _P, _I,
+                                  _P, _P]
+        for t in ("f32", "f64")},
     "axis_pass_fwd": {
         f"axis_pass_fwd_{t}": [_P, _P, _I, _P, _P, _P, _I, _P]
         for t in ("f32", "f64")},
@@ -46,10 +48,12 @@ KERNELS: Dict[str, Dict[str, list]] = {
         for t in ("f32", "f64")},
     "axis_pass_scatter_fwd": {
         f"axis_pass_scatter_fwd_{t}": [_P, _I, _P, _I, _P, _P, _I, _I, _P,
-                                       _P, _P, _P, _P]
+                                       _I, _P, _P, _P, _P, _P]
         for t in ("f32", "f64")},
-    "owner_fold": {f"owner_fold_{t}": [_P, _P, _P, _I, _I, _P, _I, _P, _P]
+    "owner_fold": {f"owner_fold_{t}": [_P, _P, _P, _I, _I, _P, _I, _P, _I,
+                                       _P, _P]
                    for t in ("f32", "f64")},
+    "launch_floor": {"launch_floor_empty": [_P]},
     "pole_fwd": {f"pole_fwd_{t}": [_P, _P, _I, _I, _I, _I, _I, _P]
                  for t in ("f32", "f64")},
     "pole_inv": {f"pole_inv_{t}": [_P, _P, _I, _I, _I, _I, _P]

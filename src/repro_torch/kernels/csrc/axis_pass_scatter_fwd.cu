@@ -21,12 +21,14 @@
 //   Phase 1 (one thread an entry): the entry's last-axis update (hier3) and
 //     its product with the member's coefficient, mul_rn(c[m], alpha),
 //     written in CSR order.
-//   Phase 2 (one thread an owner; one warp an owner whose run is longer
-//     than 32): v = acc[s]; v = add_rn(v, prod[j]) down the run; acc[s] = v
-//     (fold_owner_runs in hier3.cuh).  A warp loads 32 products of its run
-//     at once and folds them in order through shuffles, so the 109-long
-//     run of the centre slot is a chain of dependent adds and not of
-//     dependent loads.
+//   Phase 2 (the staged fold, fold_owner_runs in hier3.cuh): v = acc[s];
+//     v = add_rn(v, prod[j]) down the run; acc[s] = v.  A block takes a
+//     range of consecutive short owners, loads their span of products
+//     coalesced into shared memory and folds each run from there; an owner
+//     whose run is longer than 32 keeps a warp, which loads 32 products of
+//     its run at once and folds them in order through shuffles, so the
+//     109-long run of the centre slot is a chain of dependent adds and not
+//     of dependent loads.
 //
 // The result is bitwise the left fold of per-member launches, from any
 // starting acc, in f64 and f32: every product and sum is rounded on its own
@@ -80,21 +82,26 @@ __global__ void scatter_products_kernel(const ScatterBucket* __restrict__ bk,
 }
 
 template <typename T>
-__global__ void scatter_fold_kernel(const int32_t* __restrict__ slots,
-                                    const int64_t* __restrict__ offsets,
-                                    int64_t owners, int64_t long_owners,
-                                    const T* __restrict__ prod,
-                                    T* __restrict__ acc) {
-  fold_owner_runs<T>(slots, offsets, owners, long_owners, nullptr, prod, acc);
+__global__ void __launch_bounds__(kThreads)
+    scatter_fold_kernel(const int32_t* __restrict__ slots,
+                        const int64_t* __restrict__ offsets,
+                        int64_t long_owners,
+                        const int64_t* __restrict__ bounds,
+                        const T* __restrict__ prod, T* __restrict__ acc) {
+  __shared__ T staged[kFoldSpan];
+  fold_owner_runs<T>(slots, offsets, long_owners, bounds, nullptr, prod, acc,
+                     staged);
 }
 
 template <typename T>
 static int launch(const void* buckets, int64_t nbuckets, const void* entries,
                   int64_t count, const void* slots, const void* offsets,
-                  int64_t owners, int64_t long_owners, const void* y,
-                  const void* coeffs, void* prod, void* acc, void* stream) {
+                  int64_t owners, int64_t long_owners, const void* ranges,
+                  int64_t nranges, const void* y, const void* coeffs,
+                  void* prod, void* acc, void* stream) {
   if (count <= 0 || owners <= 0) return (int)cudaGetLastError();
-  if (nbuckets <= 0 || long_owners < 0 || long_owners > owners)
+  if (nbuckets <= 0 || long_owners < 0 || long_owners > owners ||
+      nranges < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   scatter_products_kernel<T><<<blocks_for(count), kThreads, 0, st>>>(
@@ -102,12 +109,11 @@ static int launch(const void* buckets, int64_t nbuckets, const void* entries,
       (const T*)y, (const T*)coeffs, (T*)prod);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int64_t threads = long_owners * 32 + (owners - long_owners);
-  const int64_t grid = (threads + kThreads - 1) / kThreads;
+  const int64_t grid = fold_blocks(long_owners, nranges);
   if (grid > INT32_MAX) return (int)cudaErrorInvalidValue;
   scatter_fold_kernel<T><<<(unsigned int)grid, kThreads, 0, st>>>(
-      (const int32_t*)slots, (const int64_t*)offsets, owners, long_owners,
-      (const T*)prod, (T*)acc);
+      (const int32_t*)slots, (const int64_t*)offsets, long_owners,
+      (const int64_t*)ranges, (const T*)prod, (T*)acc);
   return (int)cudaGetLastError();
 }
 
@@ -115,10 +121,12 @@ static int launch(const void* buckets, int64_t nbuckets, const void* entries,
   extern "C" int axis_pass_scatter_fwd_##tag(                                \
       const void* buckets, int64_t nbuckets, const void* entries,            \
       int64_t count, const void* slots, const void* offsets, int64_t owners, \
-      int64_t long_owners, const void* y, const void* coeffs, void* prod,    \
-      void* acc, void* stream) {                                             \
+      int64_t long_owners, const void* ranges, int64_t nranges,              \
+      const void* y, const void* coeffs, void* prod, void* acc,              \
+      void* stream) {                                                        \
     return launch<T>(buckets, nbuckets, entries, count, slots, offsets,      \
-                     owners, long_owners, y, coeffs, prod, acc, stream);     \
+                     owners, long_owners, ranges, nranges, y, coeffs, prod,  \
+                     acc, stream);                                           \
   }
 
 SCATTER_ENTRY(f64, double)

@@ -68,7 +68,8 @@ the last passes and the ordered scatter-add, two ``axis_pass_scatter_fwd``
 launches, on a slot-owner table, ``scatter_table``, built once per plan).
 Their input, the flat concatenation of the bucket stacks, is assembled
 from the member grids by ``assemble_grouped`` (one ``assemble_members``
-launch; the reference leaves this transpose-and-pad to XLA, so it
+launch on a table built once per signature, the members' addresses its
+parameter; the reference leaves this transpose-and-pad to XLA, so it
 replaces no TPU kernel).  The slab-sharded ingest runs
 ``hier_scatter_grouped`` once per slab, on that slab's table (its local
 index maps, dump ``slab_size``); the 2-D ingest's slab owner adds the
@@ -91,6 +92,7 @@ launches; ``record_calls`` records every wrapper call with its arguments.
 
 from __future__ import annotations
 
+import array
 import contextlib
 import ctypes
 import dataclasses
@@ -813,6 +815,30 @@ class _ScatterBucket(ctypes.Structure):
         "start", "member", "first", "n", "inner", "lp", "rp", "lm", "rm")]
 
 
+#: ``hier3.cuh``'s staged fold: a block of short owners folds at most
+#: ``kThreads`` owners whose runs hold at most ``kFoldSpan`` values.
+_FOLD_THREADS = 256
+_FOLD_SPAN = 2048
+
+
+def _fold_ranges(offsets: np.ndarray, long_owners: int) -> np.ndarray:
+    """The staged fold's block ranges (``hier3.cuh``: ``fold_owner_runs``),
+    an (R + 1, 2) int64 array: the first owner of each block's range of
+    consecutive short owners and its run's first entry, then the owner and
+    entry counts.  A range holds at most ``_FOLD_THREADS`` owners and their
+    runs at most ``_FOLD_SPAN`` values; the long owners (runs past 32, the
+    first ``long_owners``) fold on warps of their own."""
+    owners = len(offsets) - 1
+    starts, o = [], long_owners
+    while o < owners:
+        starts.append(o)
+        fit = int(np.searchsorted(offsets, offsets[o] + _FOLD_SPAN,
+                                  side="right")) - 1
+        o = min(o + _FOLD_THREADS, fit, owners)
+    starts = np.asarray(starts + [owners], np.int64)
+    return np.stack([starts, np.asarray(offsets, np.int64)[starts]], 1)
+
+
 class OwnerTable:
     """A slot-owner table: the runs of an ordered fold into a flat buffer.
 
@@ -822,7 +848,9 @@ class OwnerTable:
     to be added; owners with longer runs come first, ``long_owners`` of
     them longer than 32.  ``dump`` is the buffer's pad slot, which no
     entry lists.  ``owner_table`` builds one; ``ScatterTable`` (row 9's
-    table) is one whose values are a grouped scatter's products."""
+    table) is one whose values are a grouped scatter's products.
+    ``fold_ranges`` (``_fold_ranges``) are the kernels' block ranges of
+    short owners, built with the table's first device tensors."""
 
     def __init__(self, entries, slots, offsets, dump):
         self.entries, self.slots, self.offsets = entries, slots, offsets
@@ -832,6 +860,7 @@ class OwnerTable:
         # alive[r]: owners whose run is longer than r (a prefix)
         self.alive = np.searchsorted(-counts, -np.arange(
             int(counts.max()) if counts.size else 0), side="left")
+        self.fold_ranges = None
         self._on: dict = {}
         self._lock = _lockdep.make_lock("owner-tables")
 
@@ -844,14 +873,18 @@ class OwnerTable:
 
     def on(self, device: torch.device) -> dict:
         """The table's tensors on ``device`` (built once per device):
-        ``entries``, ``slots``, ``offsets`` and a subclass's extras."""
+        ``entries``, ``slots``, ``offsets``, the fold's block ``ranges``
+        and a subclass's extras."""
         with self._lock:
             t = self._on.get(device)
             if t is not None:
                 return t
+            if self.fold_ranges is None:
+                self.fold_ranges = _fold_ranges(self.offsets,
+                                                self.long_owners)
         t = {k: torch.from_numpy(v).to(device) for k, v in (
             ("entries", self.entries), ("slots", self.slots),
-            ("offsets", self.offsets))}
+            ("offsets", self.offsets), ("ranges", self.fold_ranges))}
         self._device_extras(device, t)
         with self._lock:
             return self._on.setdefault(device, t)
@@ -986,7 +1019,8 @@ def _launch_scatter(y: torch.Tensor, table: ScatterTable,
     _raise_on(fn(t["buckets"].data_ptr(), len(table.stacks),
                  t["entries"].data_ptr(), len(table.entries),
                  t["slots"].data_ptr(), t["offsets"].data_ptr(),
-                 table.owners, table.long_owners, y.data_ptr(),
+                 table.owners, table.long_owners, t["ranges"].data_ptr(),
+                 len(table.fold_ranges) - 1, y.data_ptr(),
                  coeffs.data_ptr(), prod.data_ptr(), acc.data_ptr(),
                  _stream(y)), "axis_pass_scatter_fwd")
 
@@ -1052,7 +1086,8 @@ def owner_fold(values: torch.Tensor, table: OwnerTable,
     The 2-D (member x slab) ingest's slab owner folds every group's shipped
     payload with it, in global member order, so the slab is bitwise the
     single-device surplus (``core.distributed.gather_slab_scatter_2d``).
-    On CUDA: one ``owner_fold`` launch, no atomics."""
+    On CUDA: one ``owner_fold`` launch, no atomics: the staged fold of
+    ``hier3.cuh`` on the table's block ranges."""
     _record(owner_fold, values=values, table=table, acc=acc)
     _check_fold(values, table, acc)
     if values.device.type == "cpu":
@@ -1063,6 +1098,7 @@ def owner_fold(values: torch.Tensor, table: OwnerTable,
     fn = _build.kernel("owner_fold", _DTYPE_TAG[values.dtype])
     _raise_on(fn(t["entries"].data_ptr(), t["slots"].data_ptr(),
                  t["offsets"].data_ptr(), table.owners, table.long_owners,
+                 t["ranges"].data_ptr(), len(table.fold_ranges) - 1,
                  values.data_ptr(), values.numel(), acc.data_ptr(),
                  _stream(values)), "owner_fold")
     owner_fold.launches += 1
@@ -1073,41 +1109,169 @@ def owner_fold(values: torch.Tensor, table: OwnerTable,
 # Assembly: every member grid of an ingest into the flat stacks at once
 # ---------------------------------------------------------------------------
 
-#: ``assemble_members.cu``'s ``kMaxDims`` and ``AsmMember`` layout: src,
-#: dst, size, ndim, then shape, ext and stride, ``_ASM_DIMS`` each.
+#: ``assemble_members.cu``'s ``kMaxDims`` and ``kCallWords``.
 _ASM_DIMS = 10
-_ASM_COLS = 4 + 3 * _ASM_DIMS
-#: Slot elements a block of the assembly kernel walks (256 threads x 4).
-_ASM_CHUNK = 1024
+_ASM_CALL_WORDS = 500
+#: Members of one group of the table: their addresses and their flags
+#: (a quarter word each) fill one parameter block.
+_ASM_GROUP = 400
+#: Slot elements a block walks: a multiple of 512, at least 512 and at most
+#: 16384, so that a plan's blocks come to about four a multiprocessor.
+_ASM_CHUNK_STEP = 512
+_ASM_MAX_CHUNK = 16384
+_SMS = 132
+
+_ASM_AXIS = np.dtype([("slot", "<i8"), ("member", "<i8"), ("stride", "<i8"),
+                      ("mul", "<u4"), ("shift", "<u4")])
+#: ``assemble_members.cu``'s ``AsmDesc`` (664 bytes, no padding).
+_ASM_DESC = np.dtype([("offset", "<i8"), ("size", "<i8"), ("ndim", "<i4"),
+                      ("nfull", "<i4"), ("axis", _ASM_AXIS, (_ASM_DIMS,)),
+                      ("full", _ASM_AXIS, (_ASM_DIMS,))])
+
+
+def fast_divmod(d: int) -> Tuple[int, int]:
+    """``(mul, shift)`` of the assembly's 32-bit division by ``d``: for
+    ``1 <= d < 2**31`` and ``0 <= n < 2**31``, ``n // d == (n * mul) >>
+    shift``, ``mul`` under 2**32 and ``shift`` in 31..62 (``mul`` is
+    ``2**shift / d`` rounded up, ``shift = 31 + ceil(log2 d)``)."""
+    shift = 31 + (int(d) - 1).bit_length()
+    return -(-(1 << shift) // int(d)), shift
 
 
 @functools.lru_cache(maxsize=256)
 def _assembly_layout(stacks):
-    """The signature-determined part of ``assemble_grouped``'s work table:
-    one row a member with its slot's offset, volume, rank and the bucket
-    shape; the members' perms as an (M, d) array; the flat size; the
-    chunks a member's slot is split into.  Every stack has one rank d (a
-    plan's grids share the scheme's dimension)."""
+    """The members' slots, one a member in plan order: ``(offsets, perms,
+    size, shapes)``, each slot's element offset in the flat stacks, the
+    member's perm (canonical axis k <- member axis ``perm[k]``), the flat
+    size and each slot's extents (its bucket shape).  Every stack has one
+    rank d (a plan's grids share the scheme's dimension)."""
     ranks = {len(shape) for shape, _ in stacks}
     if len(ranks) > 1 or max(ranks, default=0) > _ASM_DIMS:
         raise ValueError(f"the assembly takes stacks of one rank, up to "
                          f"{_ASM_DIMS}, got ranks {sorted(ranks)}")
-    d = max(ranks, default=0)
-    rows, perms, offset = [], [], 0
+    offsets, perms, shapes, offset = [], [], [], 0
     for shape, bucket_perms in stacks:
         size = int(np.prod(shape, dtype=np.int64))
         for perm in bucket_perms:
-            row = np.zeros(_ASM_COLS, np.int64)
-            row[1:4] = offset, size, d
-            row[4:4 + d] = shape
-            rows.append(row)
+            offsets.append(offset)
             perms.append(tuple(perm))
+            shapes.append(tuple(shape))
             offset += size
-    biggest = max((int(np.prod(s, dtype=np.int64)) for s, _ in stacks),
-                  default=0)
-    chunks = max(1, min(64, -(-biggest // _ASM_CHUNK)))
-    table = np.stack(rows) if rows else np.zeros((0, _ASM_COLS), np.int64)
-    return table, np.asarray(perms, np.int64).reshape(-1, d), offset, chunks
+    return tuple(offsets), tuple(perms), offset, tuple(shapes)
+
+
+def _collapse(slot, ext, strides):
+    """The copy of one member into its slot on its fewest axes: ``(slot
+    extent, member extent, member stride)`` per axis, outermost first.
+    Extent-1 axes of the slot are dropped, and an axis is merged into the
+    one outside it where the slot is whole along it (member extent = slot
+    extent) and the member is contiguous across the two (or has extent 1
+    on the outer one), so the merged index splits as the two did."""
+    axes = []
+    for s, e, t in zip(slot, ext, strides):
+        if s == 1:
+            continue
+        if axes and e == s and (axes[-1][1] == 1 or axes[-1][2] == t * e):
+            ps, pe, _ = axes[-1]
+            axes[-1] = (ps * s, pe * e, t)
+        else:
+            axes.append((s, e, t))
+    return axes or [(1, 1, 1)]
+
+
+class AssemblyPlan:
+    """What a plan signature and its member shapes fix for
+    ``assemble_grouped``'s kernel, on the host (``_assembly_plan``).
+
+    ``desc`` holds one ``AsmDesc`` a member: its slot's offset and size,
+    its copy collapsed at its default contiguous strides (``axis``, ``ndim``
+    of them, ``_collapse``) and uncollapsed (``full``, every slot axis of
+    extent > 1, ``nfull`` of them; the strides come with the call, from the
+    member axes ``full_axes[m]``), each axis with the ``fast_divmod``
+    constants of its slot extent.  The members fall into ``groups`` of at
+    most ``_ASM_GROUP`` consecutive members, ``(first member, members,
+    first block, blocks)`` each; ``blocks`` lists each group's blocks as
+    ``(member, first slot element)``, each of ``chunk`` elements or a
+    slot's last, the heaviest first.  ``wide``: a slot or a member holds
+    2**31 elements or more (the kernel's 64-bit instantiation)."""
+
+    def __init__(self, stacks, shapes):
+        offsets, perms, size, slots = _assembly_layout(stacks)
+        if len(shapes) != len(perms):
+            raise ValueError(f"expected {len(perms)} member grids, got "
+                             f"{len(shapes)}")
+        self.size = size
+        self.members = len(perms)
+        self.desc = np.zeros(self.members, _ASM_DESC)
+        self.full_axes = []
+        sizes = []
+        wide = size >= 2 ** 31
+        for m, (offset, perm, slot, shape) in enumerate(
+                zip(offsets, perms, slots, shapes)):
+            d = len(slot)
+            if len(shape) != d:
+                raise ValueError(f"the member grids must all be {d}-dim")
+            ext = [int(shape[a]) for a in perm]
+            if any(e > s for e, s in zip(ext, slot)):
+                raise ValueError(f"member {m} of shape {tuple(shape)} does "
+                                 f"not fit its slot {slot} under perm "
+                                 f"{perm}")
+            default = np.cumprod((1,) + tuple(shape[:0:-1]))[::-1]
+            strides = [int(default[a]) for a in perm]
+            keep = [k for k in range(d) if slot[k] > 1] or [d - 1]
+            desc = self.desc[m]
+            desc["offset"] = offset
+            desc["size"] = int(np.prod(slot, dtype=np.int64))
+            for field, axes in (
+                    ("axis", _collapse(slot, ext, strides)),
+                    ("full", [(slot[k], ext[k], 0) for k in keep])):
+                desc["ndim" if field == "axis" else "nfull"] = len(axes)
+                for j, (s, e, t) in enumerate(axes):
+                    mul, shift = fast_divmod(s) if s < 2 ** 31 else (0, 0)
+                    desc[field][j] = (s, e, t, mul, shift)
+            self.full_axes.append(tuple(perm[k] for k in keep))
+            sizes.append(int(desc["size"]))
+            wide = wide or desc["size"] >= 2 ** 31 or \
+                int(np.prod(shape, dtype=np.int64)) >= 2 ** 31
+        self.wide = wide
+        share = -(-size // (4 * _SMS))          # a block's share, about
+        steps = max(1, -(-share // _ASM_CHUNK_STEP))
+        self.chunk = min(_ASM_MAX_CHUNK, steps * _ASM_CHUNK_STEP)
+        groups, blocks = [], []
+        for first in range(0, self.members, _ASM_GROUP):
+            members = range(first, min(first + _ASM_GROUP, self.members))
+            mine = [(m, a) for m in members
+                    for a in range(0, sizes[m], self.chunk)]
+            mine.sort(key=lambda b: -min(self.chunk, sizes[b[0]] - b[1]))
+            groups.append((first, len(members), len(blocks), len(mine)))
+            blocks += mine
+        self.groups = np.asarray(groups, np.int64).reshape(-1, 4)
+        self.blocks = np.asarray(blocks, np.int64).reshape(-1, 2)
+
+
+@functools.lru_cache(maxsize=64)
+def _assembly_plan(stacks, shapes) -> AssemblyPlan:
+    """``AssemblyPlan`` of ``stacks`` for member grids of ``shapes``
+    (cached: built once per signature and shapes)."""
+    return AssemblyPlan(stacks, shapes)
+
+
+class _AssemblyTable:
+    """An ``AssemblyPlan`` with its descriptors and block map on a device."""
+
+    def __init__(self, plan: AssemblyPlan, device: torch.device):
+        self.plan = plan
+        self.desc = torch.from_numpy(plan.desc.view(np.uint8)).to(device)
+        self.blocks = torch.from_numpy(plan.blocks).to(device)
+        self.groups = plan.groups.ctypes.data
+
+
+@functools.lru_cache(maxsize=64)
+def _assembly_table(stacks, shapes, device: torch.device) -> _AssemblyTable:
+    """The assembly's device table of ``stacks`` and member ``shapes`` on
+    ``device``: built once per signature, shapes and device (the engine
+    builds it when it binds a tenant, ``core.engine._IngestExecutable``)."""
+    return _AssemblyTable(_assembly_plan(stacks, shapes), device)
 
 
 def storage_released(t: torch.Tensor) -> bool:
@@ -1127,12 +1291,18 @@ def storage_released(t: torch.Tensor) -> bool:
     return t.untyped_storage().nbytes() < extent * t.element_size()
 
 
-def _check_parts(parts, stacks) -> Tuple[torch.dtype, torch.device]:
+def _scan_parts(parts, stacks):
+    """One pass over the member grids: ``(dtype, device, addresses, shapes,
+    strided)``, ``strided`` the members not at their default contiguous
+    strides.  Raises ``TypeError`` unless they share one dtype and device,
+    and ``ValueError`` for a wrong count or a part whose storage was
+    released, before anything reads it."""
     perms = _assembly_layout(stacks)[1]
     if len(parts) != len(perms):
         raise ValueError(f"expected {len(perms)} member grids, got "
                          f"{len(parts)}")
     dtype, device = parts[0].dtype, parts[0].device
+    ptrs, shapes, strided = [], [], []
     for m, part in enumerate(parts):
         if part.dtype != dtype or part.device != device:
             raise TypeError(f"the member grids must share one dtype and "
@@ -1144,11 +1314,28 @@ def _check_parts(parts, stacks) -> Tuple[torch.dtype, torch.device]:
                 f"{part.untyped_storage().nbytes()} B, fewer than its extent "
                 f"needs: its storage was released (a donated grid) and "
                 f"cannot be read")
-    return dtype, device
+        if not part.is_contiguous():
+            strided.append(m)
+        ptrs.append(part.data_ptr())
+        shapes.append(part.shape)
+    return dtype, device, ptrs, tuple(shapes), strided
+
+
+def _strided_records(plan: AssemblyPlan, parts, strided) -> Tuple[list, bool]:
+    """The per-call records of the members read through their uncollapsed
+    axes, ``(member, n, its n strides)`` in member order, and whether one of
+    them reaches 2**31 elements past its first (the 64-bit kernel)."""
+    over, wide = [], False
+    for m in strided:
+        axes, st = plan.full_axes[m], parts[m].stride()
+        over += (m, len(axes), *(st[a] for a in axes))
+        wide = wide or sum((n - 1) * t for n, t in zip(parts[m].shape, st)) \
+            >= 2 ** 31
+    return over, wide
 
 
 def _assemble_grouped_plain(parts, stacks) -> torch.Tensor:
-    dtype, device = _check_parts(parts, stacks)
+    dtype, device = _scan_parts(parts, stacks)[:2]
     size = _assembly_layout(stacks)[2]
     out = torch.zeros(size, dtype=dtype, device=device)
     spans = _stack_spans([len(p) * int(np.prod(s, dtype=np.int64))
@@ -1173,47 +1360,33 @@ def assemble_grouped(parts: Sequence[torch.Tensor], stacks) -> torch.Tensor:
     order, then member order, of one dtype and device, any strides.
     Member g of bucket b, permuted, fills the head of its (shape_b) slot of
     stack b, a ``(G_b, *shape_b)`` array; the rest of the slot is 0.  On
-    CUDA: ONE ``assemble_members`` launch on a work table of one row a
-    member, copied to the device from pinned memory at each call (the
-    caching host allocator hands that block out again only once the copy
-    has run); bitwise the plain version.  Both refuse, with a
-    ``ValueError`` before anything reads it, a part whose storage was
-    released (``storage_released``)."""
+    CUDA: ``assemble_members`` on the device table of the signature and
+    shapes (``_assembly_table``, built once), the members' addresses passed
+    as the kernel's parameter: one launch for up to 400 members read at
+    their default strides, no host-to-device copy; a strided member is read
+    in place, its strides in the same parameter.  Bitwise the plain
+    version.  Both refuse, with a ``ValueError`` before anything reads it,
+    a part whose storage was released (``storage_released``)."""
     _record(assemble_grouped, parts=parts, stacks=stacks)
-    dtype, device = _check_parts(parts, stacks)
+    dtype, device, ptrs, shapes, strided = _scan_parts(parts, stacks)
     if device.type == "cpu":
         return _assemble_grouped_plain(parts, stacks)
     if device.type != "cuda" or dtype not in _DTYPE_TAG:
         _check_stack(parts[0])          # raises, naming what it takes
-    static, perms, size, chunks = _assembly_layout(stacks)
-    d = perms.shape[1]
-    try:
-        shapes = np.array([tuple(p.shape) for p in parts],
-                          np.int64).reshape(-1, d)
-        strides = np.array([p.stride() for p in parts],
-                           np.int64).reshape(-1, d)
-    except ValueError:
-        raise ValueError(f"the member grids must all be {d}-dim") from None
-    table = torch.empty(static.shape, dtype=torch.int64, pin_memory=True)
-    rows = table.numpy()
-    rows[:] = static
-    rows[:, 0] = [p.data_ptr() for p in parts]
-    ext = rows[:, 4 + _ASM_DIMS:4 + _ASM_DIMS + d]
-    ext[:] = np.take_along_axis(shapes, perms, 1)
-    rows[:, 4 + 2 * _ASM_DIMS:4 + 2 * _ASM_DIMS + d] = np.take_along_axis(
-        strides, perms, 1)
-    over = np.flatnonzero((ext > rows[:, 4:4 + d]).any(1))
-    if over.size:
-        m = int(over[0])
-        raise ValueError(f"member {m} of shape {tuple(parts[m].shape)} does "
-                         f"not fit its slot {tuple(rows[m, 4:4 + d])} under "
-                         f"perm {tuple(perms[m])}")
-    out = torch.empty(size, dtype=dtype, device=device)
-    members = table.to(device, non_blocking=True)
+    table = _assembly_table(stacks, shapes, device)
+    plan = table.plan
+    over, wide = _strided_records(plan, parts, strided)
+    out = torch.empty(plan.size, dtype=dtype, device=device)
+    src = array.array("q", ptrs)
+    rec = array.array("q", over)
+    made = ctypes.c_int64(0)
     fn = _build.kernel("assemble_members", _DTYPE_TAG[dtype])
-    _raise_on(fn(members.data_ptr(), len(parts), chunks, out.data_ptr(),
-                 _stream(out)), "assemble_members")
-    assemble_grouped.launches += 1
+    err = fn(table.groups, len(plan.groups), src.buffer_info()[0],
+             rec.buffer_info()[0], len(rec), table.desc.data_ptr(),
+             table.blocks.data_ptr(), plan.chunk, out.data_ptr(),
+             int(wide or plan.wide), ctypes.addressof(made), _stream(out))
+    assemble_grouped.launches += made.value
+    _raise_on(err, "assemble_members")
     return out
 
 

@@ -417,6 +417,56 @@ def test_assemble_grouped_matches_plain(cuda, name, dtype):
     assert _same(got, H.assemble_grouped.plain(parts, stacks))
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name,kind,launches", [
+    ("fig7_4d", "strided", 1), ("members_462", "contiguous", 2),
+    ("regular_4_7", "reversed", 2)])
+def test_assembly_past_one_parameter_block(cuda, name, kind, launches,
+                                           dtype):
+    """The CPU emulation's shapes (``test_torch_ingest_tables.py``) on the
+    card: bitwise the plain version; a plan of 462 members is two groups of
+    the table, and 195 members all read through their strides overflow one
+    parameter block: two launches each."""
+    from test_torch_ingest_tables import PLANS, _views
+    plan = PLANS[name]()
+    parts = []
+    for p in _views(plan, np.random.default_rng(46), dtype, kind):
+        # on the card with its own strides and storage offset
+        flat = p.as_strided((p.untyped_storage().nbytes()
+                             // p.element_size(),), (1,), 0).to(cuda)
+        parts.append(flat.as_strided(p.shape, p.stride(),
+                                     p.storage_offset()))
+    if kind != "contiguous":
+        assert any(not p.is_contiguous() for p in parts)
+    stacks = tuple((b.shape, b.perms) for b in plan.buckets)
+    with H.count_launches() as n:
+        got = H.assemble_grouped(parts, stacks)
+    assert n["assemble_grouped"] == launches
+    assert _same(got, H.assemble_grouped([p.cpu() for p in parts], stacks))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_grouped_scatter_on_462_members(cuda, dtype):
+    """Row 9 (both launches, the staged fold) on the 6-D plan of 462
+    members (its 63**6 fine grid replaced by compact random maps), from a
+    random fine buffer, bitwise its plain version."""
+    from repro_torch.core.executor import _ingest_table
+    from test_torch_ingest_tables import PLANS
+    plan = PLANS["members_462"]()
+    table = _ingest_table(plan)
+    rng = np.random.default_rng(47)
+    y = torch.from_numpy(rng.standard_normal(table.scatter.size)).to(dtype)
+    sc = _grouped_scatter_table(plan, table, rng)
+    cs = torch.from_numpy(rng.choice([-3.0, -1.0, 1.0, 3.0],
+                                     sc.members)).to(dtype)
+    acc = torch.from_numpy(rng.standard_normal(sc.dump + 1)).to(dtype)
+    with H.count_launches() as n:
+        got = H.hier_scatter_grouped(y.to(cuda), sc, cs.to(cuda),
+                                     acc.to(cuda))
+    assert n["hier_scatter_grouped"] == 2
+    assert _same(got, H.hier_scatter_grouped(y, sc, cs, acc.clone()))
+
+
 def test_engine_prod_3d_tenants_share_one_executable(cuda):
     """Two prod_3d tenants of one signature: 1 miss and 1 hit, each
     surplus bitwise ``ct_transform_with_plan``'s, each ingest four
@@ -1445,6 +1495,28 @@ def test_owner_fold_matches_plain(cuda, dtype):
     got = H.owner_fold(vals.to(cuda), table, acc.to(cuda))
     assert H.owner_fold.launches == before + 1
     assert _same(got.cpu(), H.owner_fold(vals, table, acc.clone()))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_owner_fold_on_the_prod_3d_2d_tables(cuda, dtype):
+    """Row 12 on the 2-D prod_3d ingest's two slab tables (their runs, the
+    slots renumbered into a compact buffer), one launch each, bitwise its
+    plain version."""
+    from repro_torch.core import executor as E
+    from repro_torch.core.distributed import two_d_tables
+    splan = E.shard_plan(build_plan(CombinationScheme(3, 9)), 2, n_groups=2)
+    rng = np.random.default_rng(48)
+    for slab in two_d_tables(splan).folds:
+        table = H.OwnerTable(slab.entries, np.arange(slab.owners,
+                                                     dtype=np.int32),
+                             slab.offsets, slab.owners)
+        n = int(table.entries.max()) + 1
+        vals = torch.from_numpy(rng.standard_normal(n)).to(dtype)
+        acc = torch.from_numpy(rng.standard_normal(table.dump + 1)).to(dtype)
+        with H.count_launches() as c:
+            got = H.owner_fold(vals.to(cuda), table, acc.to(cuda))
+        assert c["owner_fold"] == 1
+        assert _same(got, H.owner_fold(vals, table, acc.clone()))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
